@@ -1,0 +1,119 @@
+"""Level-3 BLAS cores (port of ``repro.blas.level3``).
+
+Every kernel-shaped core resolves through :mod:`repro_torch.tune.dispatch`:
+``policy="reference"`` is plain PyTorch, ``"model"`` the hand-written GEMM
+kernel at the planned config, ``"tuned"`` the registry's config (cold
+start == model). ``syrk`` and ``trsm`` thread the same policy through
+their internal GEMMs, so a blocked factorization dispatches every
+trailing flop onto the kernels. The public, context-scoped front-end is
+:mod:`repro_torch.linalg`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.tune import dispatch as _tune
+from repro_torch.tune.policy import resolve_policy
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
+         alpha=1.0, beta=0.0, transa: bool = False, transb: bool = False,
+         policy: Optional[str] = None, registry=None) -> torch.Tensor:
+    """C <- alpha * op(A) op(B) + beta * C (BLAS GEMM core); ``transa`` /
+    ``transb`` pass transposed views, which the kernel reads in place."""
+    op_a = a.T if transa else a
+    op_b = b.T if transb else b
+    out = alpha * _tune.dispatch("gemm", op_a, op_b, policy=policy,
+                                 registry=registry)
+    if c is not None:
+        out = out + beta * c
+    return out
+
+
+def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, epilogue: str = "none",
+                  policy: Optional[str] = None, registry=None) -> torch.Tensor:
+    """C = act(A @ B + bias), resolved as the ``"gemm+epilogue"`` chain:
+    one fused launch when the chain plan says fusing wins, else the GEMM
+    kernel and an epilogue pass."""
+    return _tune.dispatch("gemm+epilogue", a, b, bias=bias,
+                          epilogue=epilogue, policy=policy, registry=registry)
+
+
+def syrk(a: torch.Tensor, c: Optional[torch.Tensor] = None, alpha=1.0,
+         beta=0.0, lower: bool = True, trans: bool = False,
+         policy: Optional[str] = None, registry=None) -> torch.Tensor:
+    """C <- alpha op(A) op(A)^T + beta C, symmetric output (the product
+    runs on the GEMM path; ``lower`` picks the authoritative triangle)."""
+    full = alpha * _tune.dispatch("syrk", a, trans=trans, policy=policy,
+                                  registry=registry)
+    if c is not None:
+        full = full + beta * c
+    return mirror_triangle(full, lower)
+
+
+def mirror_triangle(full: torch.Tensor, lower: bool) -> torch.Tensor:
+    """Keep the authoritative triangle of ``full``, mirror it across the
+    diagonal."""
+    keep = torch.ones(full.shape, dtype=torch.bool, device=full.device)
+    keep = keep.tril() if lower else keep.triu()
+    return torch.where(keep, full, full.T)
+
+
+def trsm(a: torch.Tensor, b: torch.Tensor, lower: bool = True,
+         unit_diag: bool = False, left: bool = True,
+         block: Optional[int] = None, policy: Optional[str] = None,
+         registry=None) -> torch.Tensor:
+    """Solve op(T) X = B (left=True) or X op(T) = B, T triangular, blocked.
+
+    Diagonal blocks use the row-sequential substitution (the serial
+    divider chain, plain PyTorch: it has no kernel in the reference
+    either); off-diagonal updates are GEMMs that follow the policy onto
+    the kernel. ``block=None`` resolves the width through
+    :func:`repro_torch.tune.dispatch.resolve` (64 under ``reference``).
+    The solution blocks are written into one output tensor in place.
+    """
+    if not left:
+        # X T = B  <=>  T^T X^T = B^T
+        return trsm(a.T, b.T, lower=not lower, unit_diag=unit_diag,
+                    left=True, block=block, policy=policy,
+                    registry=registry).T
+    n = a.shape[0]
+    if block is None:
+        nrhs = b.shape[1] if b.ndim == 2 else 1
+        res = _tune.resolve("trsm", (n, nrhs), a.dtype, policy=policy,
+                            registry=registry, backend=a.device.type)
+        pol, block = res.policy, res.block
+    else:
+        pol = resolve_policy(policy)
+    if n <= block:
+        return _trsm_unblocked(a, b, lower=lower, unit_diag=unit_diag)
+    blocks = list(range(0, n, block))
+    x = torch.zeros_like(b)
+    for i0 in (blocks if lower else blocks[::-1]):
+        i1 = min(i0 + block, n)
+        rhs = b[i0:i1]
+        if lower and i0 > 0:
+            rhs = rhs - gemm(a[i0:i1, :i0], x[:i0], policy=pol,
+                             registry=registry)
+        elif not lower and i1 < n:
+            rhs = rhs - gemm(a[i0:i1, i1:], x[i1:], policy=pol,
+                             registry=registry)
+        x[i0:i1] = _trsm_unblocked(a[i0:i1, i0:i1], rhs, lower=lower,
+                                   unit_diag=unit_diag)
+    return x
+
+
+def _trsm_unblocked(a: torch.Tensor, b: torch.Tensor, lower: bool,
+                    unit_diag: bool) -> torch.Tensor:
+    """Row-sequential substitution (the reference's ``lax.scan``)."""
+    n = a.shape[0]
+    diag = torch.diagonal(a)
+    strict = a - torch.diag(diag)
+    x = torch.zeros_like(b)
+    for i in (range(n) if lower else range(n - 1, -1, -1)):
+        s = b[i] - strict[i] @ x
+        x[i] = s if unit_diag else s / diag[i]
+    return x

@@ -1,0 +1,220 @@
+"""B3 and B2: the streamed kernel chains on hand-written Hopper kernels.
+
+``gemm_bias_act`` (B3, ``csrc/gemm.cu``, entry ``repro_gemm_bias_act``)
+    Replaces ``repro/kernels/fused.py::gemm_bias_act``
+    (``_gemm_epilogue_kernel``). C = act(A B + bias) in one launch: B1's
+    tiled product with the bias add and the activation applied to the
+    register accumulator, in the accumulator type, before the single
+    store, so C is written to device memory once. Bound by operations at
+    the main path's shapes, like B1; the epilogue adds n bias reads and a
+    few flops per output.
+
+``trsm_gemm`` (B2, ``csrc/trsm_gemm.cu``)
+    Replaces ``repro/kernels/fused.py::trsm_gemm`` (``_trsm_gemm_kernel``).
+    X = L11^{-1} AP, then C - BL X (``form="lu"``, getrf) or C - X^T X
+    (``form="syrk"``, potrf). The TPU kernel solved X once at grid step 0
+    and let later, ordered steps read it from VMEM; CTAs on the card run
+    in no order, so each CTA re-solves in shared memory only the X column
+    blocks its C tile needs (about nb / (2 TILE) extra flops) and the
+    first row-block writes X out once. Bound by operations; see the note
+    in ``csrc/trsm_gemm.cu``.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (:func:`gemm_bias_act_plain`, :func:`trsm_gemm_plain`)
+for CPU tensors, with no other path, and counts its calls in
+``.launches``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import obs as _obs
+from repro_torch.core.codesign import GemmPlan, plan_gemm
+from repro_torch.kernels import _build
+from repro_torch.kernels.gemm import (DTYPE_CODES, TILE, accumulator_dtype,
+                                      check_operands, gemm_plain, launch)
+
+EPILOGUES = ("none", "relu", "gelu")     # index = csrc/common.cuh code
+TRSM_GEMM_TILES = (64, 32, 16, 8, 4, 2, 1)  # csrc/trsm_gemm.cu instances
+SMEM_LIMIT = 232448                      # dynamic shared memory per block
+
+
+def apply_epilogue(x: torch.Tensor, epilogue: str,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The shared epilogue definition: bias add (broadcast over rows),
+    then the activation (relu keeps NaN; gelu is the tanh form)."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; "
+                         f"expected one of {EPILOGUES}")
+    if bias is not None:
+        x = x + bias
+    if epilogue == "relu":
+        x = torch.maximum(x, torch.zeros_like(x))
+    elif epilogue == "gelu":
+        x = F.gelu(x, approximate="tanh")
+    return x
+
+
+def fused_span(name: str, chain, **attrs):
+    """An obs span for one fused launch, carrying the chain plan's saved
+    HBM bytes."""
+    return _obs.span("fused." + name, cat="fused",
+                     hbm_bytes_saved=chain.hbm_bytes_saved,
+                     fused_hbm_bytes=chain.fused_hbm_bytes,
+                     unfused_hbm_bytes=chain.unfused_hbm_bytes, **attrs)
+
+
+# ------------------------------ gemm + epilogue ------------------------------
+
+def gemm_bias_act_plain(a: torch.Tensor, b: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None,
+                        epilogue: str = "none",
+                        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version: the epilogue on the accumulator-width product."""
+    acc = accumulator_dtype(a.dtype)
+    out = apply_epilogue(gemm_plain(a, b, acc), epilogue,
+                         None if bias is None else bias.to(acc))
+    return out.to(out_dtype or a.dtype)
+
+
+def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None,
+                  epilogue: str = "none", plan: Optional[GemmPlan] = None,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C = act(A @ B + bias) in one launch (CUDA) or its plain version
+    (CPU). ``bias`` is a length-n vector of a's dtype; ``plan`` is
+    recorded beside the kernel's CTA tile, as in B1."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; "
+                         f"expected one of {EPILOGUES}")
+    out_dtype = check_operands(a, b, out_dtype)
+    m, k = a.shape
+    n = b.shape[1]
+    if bias is not None and (bias.shape != (n,) or bias.dtype != a.dtype
+                             or bias.device != a.device):
+        raise ValueError(f"bias must be ({n},) {a.dtype} on {a.device}; got "
+                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    if plan is None:
+        plan = plan_gemm(m, n, k, dtype=a.dtype)
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=out_dtype, device=a.device)
+    gemm_bias_act.launches += 1
+    gemm_bias_act.last_launch = {"plan": plan, "tile": TILE,
+                                 "device": a.device.type}
+    if a.device.type == "cpu":
+        return gemm_bias_act_plain(a, b, bias, epilogue, out_dtype)
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    bias = None if bias is None else bias.contiguous()   # held past launch
+    launch("repro_gemm_bias_act", a, b, c,
+           None if bias is None else bias.data_ptr(),
+           EPILOGUES.index(epilogue))
+    return c
+
+
+gemm_bias_act.launches = 0
+gemm_bias_act.last_launch = None
+
+
+# -------------------------------- trsm -> gemm -------------------------------
+
+def _forward_substitution(l: torch.Tensor, ap: torch.Tensor,
+                          unit_diag: bool) -> torch.Tensor:
+    """X = L^{-1} AP, row by row (the serial divider chain)."""
+    x = torch.zeros_like(ap)
+    for r in range(l.shape[0]):
+        s = ap[r] - l[r, :r] @ x[:r]
+        x[r] = s if unit_diag else s / l[r, r]
+    return x
+
+
+def trsm_gemm_plain(l11: torch.Tensor, a_panel: torch.Tensor,
+                    b_left: Optional[torch.Tensor], c: torch.Tensor,
+                    form: str = "lu",
+                    unit_diag: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: the solve and the update at the accumulator width."""
+    acc = accumulator_dtype(c.dtype)
+    x = _forward_substitution(l11.to(acc), a_panel.to(acc), unit_diag)
+    upd = (x.T if form == "syrk" else b_left.to(acc)) @ x
+    return x.to(c.dtype), (c.to(acc) - upd).to(c.dtype)
+
+
+def trsm_gemm_tile(dtype: torch.dtype, nb: int, form: str) -> Tuple[int, bool]:
+    """(TILE, L11 in shared memory?) for one launch: the widest tile whose
+    X blocks fit the shared memory, then L11 beside them if it still fits
+    (else the kernel reads L11 from device memory)."""
+    lib = _build.library("trsm_gemm")
+    code, syrk = DTYPE_CODES[dtype], int(form == "syrk")
+    for tile in TRSM_GEMM_TILES:
+        if lib.repro_trsm_gemm_smem_bytes(code, nb, tile, syrk, 0) <= SMEM_LIMIT:
+            l_smem = lib.repro_trsm_gemm_smem_bytes(code, nb, tile, syrk, 1) \
+                <= SMEM_LIMIT
+            return tile, l_smem
+    raise ValueError(f"trsm_gemm: panel width nb={nb} leaves no room for "
+                     f"X blocks of {TRSM_GEMM_TILES[-1]} columns in "
+                     f"{SMEM_LIMIT} bytes of shared memory ({dtype})")
+
+
+def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
+              b_left: Optional[torch.Tensor], c: torch.Tensor,
+              form: str = "lu", unit_diag: bool = False,
+              row_block: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused X = L11^{-1} AP then C -= (B X | X^T X): one launch (CUDA) or
+    the plain version (CPU).
+
+    l11 : (nb, nb) lower triangle; a_panel : (nb, n); b_left : (m, nb)
+    for ``form="lu"``, ``None`` (and m == n) for ``form="syrk"``; c :
+    (m, n). Any strides. ``row_block`` (the chain plan's block) is
+    recorded; the kernel picks its own tile (:func:`trsm_gemm_tile`).
+    Returns (x (nb, n), c_out (m, n)), both new contiguous tensors.
+    """
+    if form not in ("lu", "syrk"):
+        raise ValueError(f"unknown trsm+gemm form {form!r}; "
+                         f"expected 'lu' or 'syrk'")
+    nb, n, m = l11.shape[0], a_panel.shape[1], c.shape[0]
+    operands = [l11, a_panel, c] + ([] if b_left is None else [b_left])
+    if l11.shape != (nb, nb) or a_panel.shape[0] != nb or c.shape[1] != n:
+        raise ValueError(f"trsm_gemm shapes: l11 {tuple(l11.shape)}, "
+                         f"a_panel {tuple(a_panel.shape)}, c {tuple(c.shape)}")
+    if form == "syrk" and (b_left is not None or m != n):
+        raise ValueError("form='syrk' takes b_left=None and a square c")
+    if form == "lu" and (b_left is None or b_left.shape != (m, nb)):
+        raise ValueError(f"form='lu' needs b_left of shape {(m, nb)}")
+    if any(t.dtype != c.dtype or t.device != c.device for t in operands) \
+            or c.dtype not in DTYPE_CODES:
+        raise ValueError("trsm_gemm operands must share one device and one "
+                         f"of {tuple(DTYPE_CODES)}")
+    if c.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"trsm_gemm runs on cuda or cpu, not {c.device}")
+    if n == 0:
+        return (torch.empty((nb, 0), dtype=c.dtype, device=c.device),
+                torch.empty((m, 0), dtype=c.dtype, device=c.device))
+    trsm_gemm.launches += 1
+    trsm_gemm.last_launch = {"row_block": row_block, "form": form,
+                             "device": c.device.type}
+    if c.device.type == "cpu":
+        return trsm_gemm_plain(l11, a_panel, b_left, c, form, unit_diag)
+    tile, l_smem = trsm_gemm_tile(c.dtype, nb, form)
+    trsm_gemm.last_launch.update(tile=tile, l_in_smem=l_smem)
+    x = torch.empty((nb, n), dtype=c.dtype, device=c.device)
+    c_out = torch.empty((m, n), dtype=c.dtype, device=c.device)
+    bl = c if b_left is None else b_left                 # unread when syrk
+    lib = _build.library("trsm_gemm")
+    with torch.cuda.device(c.device):
+        err = lib.repro_trsm_gemm(
+            DTYPE_CODES[c.dtype], int(form == "syrk"), int(unit_diag),
+            l11.data_ptr(), l11.stride(0), l11.stride(1),
+            a_panel.data_ptr(), a_panel.stride(0), a_panel.stride(1),
+            bl.data_ptr(), bl.stride(0), bl.stride(1),
+            c.data_ptr(), c.stride(0), c.stride(1),
+            x.data_ptr(), c_out.data_ptr(), nb, m, n, tile, int(l_smem),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "repro_trsm_gemm")
+    return x, c_out
+
+
+trsm_gemm.launches = 0
+trsm_gemm.last_launch = None
