@@ -6,23 +6,33 @@ Run from the root of a checkout on a machine with a CUDA card::
     python3 chip_smoke.py
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` (one nvcc
-per source, in parallel) and drives the port's main path - dense BLAS-3
-and blocked LAPACK through ``repro_torch.linalg`` - at n = 8192. Phases,
-each printing one JSON line with its wall time:
+per source, in parallel) and drives the port's two paths: dense BLAS-3 and
+blocked LAPACK through ``repro_torch.linalg`` at n = 8192, and the model
+zoo serving hymba-1.5b at full width. Phases, each printing one JSON line
+with its wall time:
 
 1. ``probe``: the card, its power limit, capability 9.0, TF32 off, the
    kernel build.
 2. ``kernels``: each CUDA kernel against its plain PyTorch version on the
    card, at ragged shapes and at the main path's shapes, each with its
-   stated tolerance.
+   stated tolerance (B5 and B6 elementwise and normwise, scaled by each
+   value and the output's rms).
 3. ``main``: ``gemm`` (8192^3 f32 and bf16, 4096^3 f64), ``gemm_bias_act``
    (8192^3, gelu), ``cholesky`` / ``lu`` / ``solve`` at 8192 f32 and
    ``cholesky`` at 4096 f64 under ``policy="model"``, then a cold-start
    ``policy="tuned"`` leg that must equal the model results bitwise. The
    kernels' launch counts are zeroed just before and read just after;
    each kernel must have launched. Residuals are checked.
-4. ``times``: each kernel at the main path's shapes against its plain
-   version, a library call and its roofline bound.
+4. ``model``: hymba-1.5b (32 layers, d_model 1600) built on the card from
+   seed 0, one untimed prefill of 2 x 4096 tokens (set-up), then a warm
+   ``model_zoo.prefill`` of 2 x 4096 other tokens with the launch counts
+   zeroed just before and read just after (B5 and B6 must launch once per
+   layer), then ``serve_batch`` of 4 requests (its prefill counted the
+   same way), one profiled prefill and decode step (device-busy time and
+   the top kernels), then a reduced hybrid model's ``forward`` on the card
+   against its CPU (plain) route.
+5. ``times``: each kernel at its path's shapes against its plain version,
+   a library call and its roofline bound.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -54,13 +64,34 @@ TOL = {torch.float32: (2e-4, "f32 sums in another order (both IEEE FFMA, "
        torch.bfloat16: (5e-2, "f32 accumulation rounded once to bf16 "
                               "(2^-8 relative); the bf16 rtol of "
                               "tests/conftest.py")}
+# B5 and B6 outputs, elementwise |kernel_i - plain_i| <= rtol * |plain_i|
+# + atol * rms(plain) and normwise |kernel - plain| <= norm * |plain|:
+# (rtol, atol, norm, reason). A typical value, not the largest, sets the
+# scale, so a dropped or misplaced key block fails on any row it touches.
+CLOSE_TOL = {
+    torch.float32: (2e-4, 2e-4, 2e-4, "f32 sums in another order; the f32 "
+                                      "rtol of tests/conftest.py"),
+    torch.bfloat16: (2 ** -7, 1e-2, 1e-2,
+                     "both sides round one f32 value to bf16 once, so they "
+                     "differ by at most one bf16 step (<= 2^-7 |plain|); "
+                     "atol covers f32 reordering near zero")}
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PREFILL = (2, 4096)            # batch x tokens of the model phase's prefill
+# the model phase's hybrid agreement check: max|dlogits| / max|logits|
+MODEL_TOL = (2e-4, "f32 on both sides; the card's kernels sum in another "
+                   "order than the CPU oracles (the f32 rtol of "
+                   "tests/conftest.py)")
 REPLACES = {
     "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:51"),
     "gemm_bias_act": ("src/repro_torch/csrc/gemm.cu",
                       "src/repro/kernels/fused.py:96"),
     "trsm_gemm": ("src/repro_torch/csrc/trsm_gemm.cu",
                   "src/repro/kernels/fused.py:201"),
+    "dotp": ("src/repro_torch/csrc/dotp.cu", "src/repro/kernels/dotp.py:45"),
+    "attention": ("src/repro_torch/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:82"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:65"),
 }
 
 
@@ -91,12 +122,14 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, want):
+def compare(name, got, want, scale=None, tol=None):
     """Normwise agreement of a kernel with its plain version; raises past
-    the dtype's tolerance."""
+    the dtype's tolerance. ``scale`` defaults to max(max|want|, 1) and
+    ``tol`` to ``TOL[want.dtype]`` (a (value, reason) pair)."""
     err = (got.double() - want.double()).abs().max().item()
-    scale = max(want.double().abs().max().item(), 1.0)
-    tol, reason = TOL[want.dtype]
+    if scale is None:
+        scale = max(want.double().abs().max().item(), 1.0)
+    tol, reason = tol or TOL[want.dtype]
     ok = bool(torch.isfinite(got).all()) and err <= tol * scale
     emit(check=name, max_abs_err=err, scale=scale, tol=tol, reason=reason,
          ok=ok)
@@ -106,12 +139,44 @@ def compare(name, got, want):
     return err
 
 
+def compare_close(name, got, want):
+    """Elementwise and normwise agreement of B5 / B6 with its plain
+    version, scaled by each value and the output's rms; raises past
+    ``CLOSE_TOL[want.dtype]``."""
+    rtol, atol, norm_tol, reason = CLOSE_TOL[want.dtype]
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    rms = w.square().mean().sqrt().item()
+    limit = rtol * w.abs() + atol * rms
+    worst = (diff / limit.clamp_min(1e-300)).max().item()
+    norm_err = diff.norm().item() / max(w.norm().item(), 1e-300)
+    err = diff.max().item()
+    ok = bool(torch.isfinite(got).all()) and worst <= 1.0 \
+        and norm_err <= norm_tol
+    emit(check=name, max_abs_err=err, rms=rms, max_abs_over_rms=err / rms
+         if rms else None, worst_over_limit=worst, norm_err=norm_err,
+         rtol=rtol, atol_rms=atol, norm_tol=norm_tol, reason=reason, ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: max |kernel - plain| / limit = "
+                             f"{worst}, normwise {norm_err} > {norm_tol}")
+    return err
+
+
 def lower(gen, nb, dtype, unit):
     """A well-conditioned lower-triangular panel (bounded substitution)."""
     l = torch.randn(nb, nb, generator=gen, device="cuda").tril(-1) / nb
     d = torch.ones(nb, device="cuda") if unit else \
         1 + torch.rand(nb, generator=gen, device="cuda")
     return (l + torch.diag(d)).to(dtype)
+
+
+def bound(flops, nbytes, dtype):
+    """(least ms, what bounds it): the larger of the operations at the
+    dtype's peak and the bytes at the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
 
 
 def phase_probe(build):
@@ -314,12 +379,6 @@ def phase_times(gen, launches):
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    def bound(flops, nbytes, dtype):
-        t_ops = flops / PEAK_FLOPS[dtype]
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        return max(t_ops, t_bytes) * 1e3, \
-            "operations" if t_ops >= t_bytes else "bytes"
-
     rows = []
     a, b, bias = rnd(N, N), rnd(N, N), rnd(N)
     f32 = 4
@@ -371,6 +430,330 @@ def phase_times(gen, launches):
     return rows
 
 
+# (b, hq, hkv, sq, sk, d, causal, window, q_offset, kv_len) checked against
+# the plain version: GQA 8/2 and 25/5; causal, full, windows 40 and 1024;
+# decode (q_offset = Sk - 1); a kv_len mask; ragged Sq / Sk
+ATTN_CHECKS = [
+    (2, 8, 2, 96, 96, 64, True, None, 0, None),
+    (2, 8, 2, 96, 96, 64, False, None, 0, None),
+    (2, 8, 2, 200, 200, 64, True, 40, 0, None),
+    (1, 25, 5, 1500, 1500, 64, True, 1024, 0, None),
+    (2, 25, 5, 1, 777, 64, True, None, 776, None),
+    (1, 8, 2, 1, 300, 64, False, None, 0, 170),
+    (1, 25, 5, 131, 1029, 64, True, 1024, 898, None),
+]
+# (b, h, L, p, n, chunk) for the SSD scan: ragged L, chunks 16 / 64 / 256
+SSD_CHECKS = [(2, 3, 100, 64, 16, 16), (2, 3, 300, 64, 16, 64),
+              (1, 4, 1000, 64, 16, 256), (1, 2, 257, 64, 128, 256)]
+
+
+def attention_inputs(gen, b, hq, hkv, sq, sk, d, dtype):
+    """q, k, v as the model hands them over: (B, S, H, D) storage read
+    through (B, H, S, D) views."""
+    def view(s_, h_):
+        return torch.randn(b, s_, h_, d, generator=gen, device="cuda") \
+            .to(dtype).movedim(2, 1)
+    return view(sq, hq), view(sk, hkv), view(sk, hkv)
+
+
+def ssd_inputs(gen, b, h, L, p, n, dtype):
+    """x, a_log, B, C in the kernel layout (B, H, L, .) as views of the
+    model layout (B, L, H, .); a_log <= 0 in f32, as the model makes it."""
+    def rnd(*shape):
+        return 0.5 * torch.randn(*shape, generator=gen, device="cuda")
+    x, bm, cm = (rnd(b, L, h, e).to(dtype) for e in (p, n, n))
+    a = -0.3 * torch.randn(b, L, h, generator=gen, device="cuda").abs()
+    return tuple(t.movedim(2, 1) for t in (x, a, bm, cm))
+
+
+def phase_model_kernels(gen):
+    """B4, B5 and B6 against their plain versions on the card, at ragged
+    shapes and at the hymba prefill's own shapes."""
+    from repro_torch.kernels import dotp as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    dot_tol = (1e-5, "f32 partial sums in another order; relative to "
+                     "sum |x_i y_i|, the condition of the sum")
+    for n, dtype in ((1, torch.float32), (131, torch.float32),
+                     (10 ** 6 + 7, torch.float32),
+                     (10 ** 6 + 7, torch.bfloat16), (2 ** 26, torch.float32)):
+        x = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        y = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        mag = (x.float() * y.float()).abs().sum().item()
+        compare(f"dotp {dtype} n={n}", dk.dotp(x, y), dk.dotp_plain(x, y),
+                scale=max(mag, 1.0), tol=dot_tol)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, hq, hkv, sq, sk_, d, causal, window, off, kv_len in \
+                ATTN_CHECKS:
+            q, k, v = attention_inputs(gen, b, hq, hkv, sq, sk_, d, dtype)
+            kw = dict(causal=causal, window=window, q_offset=off,
+                      kv_len=kv_len)
+            compare_close(f"attention {dtype} q{tuple(q.shape)} "
+                          f"k{tuple(k.shape)} {kw}",
+                          fa.attention(q, k, v, **kw),
+                          fa.attention_plain(q, k, v, **kw))
+    pb, ps = PREFILL
+    q, k, v = attention_inputs(gen, pb, 25, 5, ps, ps, 64, torch.bfloat16)
+    for window in (None, 1024):     # the prefill's global / windowed layers
+        compare_close(f"attention prefill bf16 q{tuple(q.shape)} "
+                      f"window={window}", fa.attention(q, k, v, window=window),
+                      fa.attention_plain(q, k, v, window=window))
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, L, p, n, chunk in SSD_CHECKS:
+            args = ssd_inputs(gen, b, h, L, p, n, dtype)
+            compare_close(f"ssd_scan {dtype} x{tuple(args[0].shape)} n={n} "
+                          f"chunk={chunk}", sk.ssd_scan(*args, chunk=chunk),
+                          sk.ssd_scan_plain(*args, chunk=chunk))
+    args = ssd_inputs(gen, pb, 50, ps, 64, 16, torch.bfloat16)
+    compare_close(f"ssd_scan prefill bf16 x{tuple(args[0].shape)} n=16 "
+                  f"chunk=256", sk.ssd_scan(*args, chunk=256),
+                  sk.ssd_scan_plain(*args, chunk=256))
+    emit(phase="kernels (model)", last_attention=str(fa.attention.last_launch),
+         last_ssd_scan=str(sk.ssd_scan.last_launch),
+         last_dotp=dk.dotp.last_launch)
+
+
+def zero_launches():
+    from repro_torch.kernels import dotp as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.kernels import ssd_scan as sk
+    wrappers = {"gemm": gk.gemm, "gemm_bias_act": fk.gemm_bias_act,
+                "trsm_gemm": fk.trsm_gemm, "dotp": dk.dotp,
+                "attention": fa.attention, "ssd_scan": sk.ssd_scan}
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def model_agreement():
+    """A reduced hybrid (3 layers, d_model 256, 4 heads, vocab 512, f32,
+    window 1024) on the card against the same weights on the CPU's plain
+    routes, at 2 x 2560 tokens."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models import model_zoo
+
+    cfg = dataclasses.replace(reduce_config(
+        registry.get_config("hymba-1.5b"), layers=3, d_model=256, vocab=512,
+        heads=4), dtype="float32")
+    cpu = model_zoo.init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = model_zoo.init(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(2, 2560)))
+    counts = zero_launches()
+    got = model_zoo.forward(card, {"tokens": toks.cuda()}, cfg)[0]
+    launches = {k: w.launches for k, w in counts.items()}
+    want = model_zoo.forward(cpu, {"tokens": toks}, cfg)[0]
+    err = (got.cpu().double() - want.double()).abs().max().item()
+    rel = err / want.double().abs().max().item()
+    tol, reason = MODEL_TOL
+    ok = rel <= tol and bool(torch.isfinite(got).all())
+    emit(check="hybrid 3x256 forward 2x2560: cuda vs cpu (plain routes), "
+               "max|dlogits|/max|logits|", value=rel, max_abs_err=err,
+         tol=tol, reason=reason, launches=launches, ok=ok)
+    assert ok and launches["attention"] == launches["ssd_scan"] == 3, \
+        (rel, launches)
+
+
+def profile_call(fn, top=10):
+    """One run of ``fn`` under ``torch.profiler``: wall ms (profiler on),
+    device-busy ms summed over the kernels it launched, their count, and
+    the ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()        # device-side events
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                    for e in kernels[:top]]}
+
+
+def phase_model(gen):
+    """hymba-1.5b at full width on the card: prefill 2 x 4096 with the
+    launch counts zeroed just before, then serve 4 requests."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import Request, serve_batch
+    from repro_torch.models import model_zoo
+
+    cfg = registry.get_config("hymba-1.5b")
+    model, secs = sync_time(lambda: model_zoo.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda"))
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == model_zoo.param_count(cfg)
+    emit(call="model_zoo.init hymba-1.5b", wall_s=secs, params=n_params,
+         config_param_count=cfg.param_count(), n_layers=cfg.n_layers,
+         d_model=cfg.d_model, compute_dtype=cfg.dtype,
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()))
+    # one untimed prefill at the same shape on other tokens first, so the
+    # counted one is warm (allocator growth and cuBLAS heuristics are
+    # set-up, reported apart)
+    warm = torch.randint(0, cfg.vocab, PREFILL, generator=gen, device="cuda")
+    _, secs = sync_time(lambda: model_zoo.prefill(model, {"tokens": warm},
+                                                  cfg))
+    emit(call=f"model_zoo.prefill hymba-1.5b {PREFILL[0]}x{PREFILL[1]} "
+              f"(cold, set-up; not counted)", wall_s=secs)
+    del warm, _
+    tokens = torch.randint(0, cfg.vocab, PREFILL, generator=gen,
+                           device="cuda")
+    counts = zero_launches()
+    (logits, _, _), secs = sync_time(
+        lambda: model_zoo.prefill(model, {"tokens": tokens}, cfg))
+    launches = {k: w.launches for k, w in counts.items()}
+    assert launches["attention"] == cfg.n_layers, launches
+    assert launches["ssd_scan"] == cfg.n_layers, launches
+    assert logits.shape == (*PREFILL, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    emit(call=f"model_zoo.prefill hymba-1.5b {PREFILL[0]}x{PREFILL[1]} "
+              f"(warm, counted)", wall_s=secs, tokens_per_s=PREFILL[0] * PREFILL[1] / secs,
+         launches=launches, logits=[list(logits.shape), str(logits.dtype)],
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del logits
+
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(
+        32, 129))).astype(np.int32), 32) for _ in range(4)]
+    counts = zero_launches()
+    (outs, stats), secs = sync_time(
+        lambda: serve_batch(model, cfg, reqs, max_len=256))
+    serve_launches = {k: w.launches for k, w in counts.items()}
+    assert serve_launches["attention"] == serve_launches["ssd_scan"] \
+        == cfg.n_layers, serve_launches
+    lengths = []
+    for r, o in zip(reqs, outs):
+        new = o[len(r.prompt):]
+        assert len(new) == r.max_new and all(0 <= t < cfg.vocab for t in new)
+        lengths.append({"prompt": len(r.prompt), "new": len(new)})
+    emit(call="serve_batch hymba-1.5b 4 requests greedy max_len=256",
+         wall_s=secs, decode_tokens_per_s=stats["decode_tokens_per_s"],
+         steps=stats["steps"], requests=lengths, launches=serve_launches)
+    # where the time goes: one profiled prefill and one decode step (not
+    # part of the counted runs above)
+    emit(profile=f"model_zoo.prefill {PREFILL[0]}x{PREFILL[1]}",
+         **profile_call(lambda: model_zoo.prefill(
+             model, {"tokens": tokens}, cfg)))
+    caches = model_zoo.init_caches(model, cfg, 4, 256)
+    emit(profile="model_zoo.decode_step batch 4", **profile_call(
+        lambda: model_zoo.decode_step(model, tokens[:1, :1].repeat(4, 1),
+                                      cfg, caches, 0)))
+    del model, caches
+    torch.cuda.empty_cache()
+    model_agreement()
+    return launches
+
+
+def attention_work(b, hq, hkv, sq, sk, d, itemsize, causal=True, window=None,
+                   q_offset=0):
+    """(flops, bytes) the masks leave: 4 D per live (query, key) pair for
+    the two products; q, k, v read and o written once."""
+    pos = torch.arange(sq, dtype=torch.float64) + q_offset
+    hi = torch.clamp(pos + 1, max=sk) if causal else torch.full_like(pos, sk)
+    lo = torch.clamp(pos - window + 1, min=0) if window is not None \
+        else torch.zeros_like(pos)
+    pairs = torch.clamp(hi - lo, min=0).sum().item()
+    return (4.0 * d * pairs * b * hq,
+            (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * itemsize)
+
+
+def ssd_work(b, h, L, p, n, chunk, itemsize):
+    """(flops, bytes) of the chunked scan: the t >= s within-chunk products
+    (C B^T and its product with x), the state's term in y and the state
+    update; x, B, C read and y written once in their dtype, a_log in f32."""
+    flops = 0.0
+    for l0 in range(0, L, chunk):
+        c = min(chunk, L - l0)
+        flops += c * (c + 1) * (n + p) + 4.0 * c * n * p
+    return flops * b * h, b * L * h * (2 * p + 2 * n) * itemsize + b * L * h * 4
+
+
+def model_rows(gen, launches):
+    """Times of B4-B6 at their paths' shapes: dotp at n = 2^26 f32 (the
+    kernels phase; the model path launches no dotp), attention and the SSD
+    scan at the hymba prefill's shapes (bf16)."""
+    from repro_torch.kernels import dotp as dk
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    rows = []
+    n = 2 ** 26
+    x = torch.randn(n, generator=gen, device="cuda")
+    y = torch.randn(n, generator=gen, device="cuda")
+    b_ms, b_by = bound(2.0 * n, 2 * n * 4, torch.float32)
+    rows.append(dict(
+        name="dotp", shape=f"n={n} float32", ms=cuda_ms(lambda: dk.dotp(x, y)),
+        plain_ms=cuda_ms(lambda: dk.dotp_plain(x, y)),
+        library_ms=cuda_ms(lambda: torch.dot(x, y)), bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=abs(dk.dotp(x, y).item()
+                                       - dk.dotp_plain(x, y).item()),
+        launches_note="the model path launches no dotp; its launches come "
+                      "from the kernels phase"))
+    del x, y
+    b, s = PREFILL
+    q, k, v = attention_inputs(gen, b, 25, 5, s, s, 64, torch.bfloat16)
+    band = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    band &= ~torch.ones_like(band).tril(-1024)
+    for window, tag in ((1024, "windowed"), (None, "global")):
+        flops, nbytes = attention_work(b, 25, 5, s, s, 64, 2, window=window)
+        b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
+        lib = (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)) if window is None \
+            else (lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True))
+        got = fa.attention(q, k, v, window=window)
+        rows.append(dict(
+            name="attention", shape=f"q{tuple(q.shape)} k/v{tuple(k.shape)} "
+            f"bfloat16 causal {tag} (window={window})",
+            ms=cuda_ms(lambda: fa.attention(q, k, v, window=window)),
+            plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v,
+                                                        window=window)),
+            library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=(got.float() - fa.attention_plain(
+                q, k, v, window=window).float()).abs().max().item(),
+            library_max_abs_err=(got.float() - lib().float()).abs().max()
+            .item()))
+    del q, k, v, band
+    args = ssd_inputs(gen, b, 50, s, 64, 16, torch.bfloat16)
+    flops, nbytes = ssd_work(b, 50, s, 64, 16, 256, 2)
+    b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
+    rows.append(dict(
+        name="ssd_scan", shape=f"x{tuple(args[0].shape)} n=16 chunk=256 "
+        f"bfloat16", ms=cuda_ms(lambda: sk.ssd_scan(*args, chunk=256)),
+        plain_ms=cuda_ms(lambda: sk.ssd_scan_plain(*args, chunk=256)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=(sk.ssd_scan(*args, chunk=256).float()
+                     - sk.ssd_scan_plain(*args, chunk=256).float()).abs()
+        .max().item()))
+    for row in rows:
+        source, replaces = REPLACES[row["name"]]
+        row.update(route="cuda", source=source, replaces=replaces,
+                   launches=launches[row["name"]])
+    emit(phase="times (model)", rows=rows,
+         peaks="bf16 rows priced at the bf16 tensor peak (989 TFLOP/s), "
+               "f32 at the FP32 peak (67 TFLOP/s); HBM 3.35 TB/s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -386,12 +769,20 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels(gen)
     small_agreement()
+    phase_model_kernels(gen)
     emit(phase_done="kernels", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     launches = phase_main(gen, _build.BUILD_DIR)
     emit(phase_done="main", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    model_launches = phase_model(gen)
+    emit(phase_done="model", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     rows = phase_times(gen, launches)
+    # the kernels line holds one attention row: the windowed layers' call
+    # (29 of 32 layers); the global layers' row is in the times line
+    rows += [r for r in model_rows(gen, model_launches)
+             if "global" not in r["shape"]]
     emit(phase_done="times", wall_s=time.perf_counter() - t0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -13,8 +13,9 @@ the dispatcher resolves the same plans on both sides.
 The CUDA kernels take their CTA tiles from their own sources, not from
 these plans: a plan sized for the TPU's VMEM cannot be a CTA tile. The
 kernel wrappers record the plan they were handed beside the tile they
-launched with. ``plan_pdgemm``, ``plan_attention`` and ``plan_ssd`` come
-with the distributed and model slices.
+launched with. The model kernels' planners (:func:`plan_attention`,
+:func:`plan_ssd`) are ported with the serving slice; ``plan_pdgemm``
+comes with the distributed slice.
 """
 from __future__ import annotations
 
@@ -413,3 +414,78 @@ def plan_fused_chain(kind: str, m: int, n: int, k: int,
                           int(solve_bytes + unfused_gemm_b),
                           int(solve_bytes + fused_gemm_b),
                           unfused_t, fused_t)
+
+
+# ------------------------------- model kernels ------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """Flash-attention tiling: KV blocks stream through on-chip memory; the
+    online softmax running (m, l, o) triple is the dependent accumulator
+    chain."""
+
+    block_q: int
+    block_k: int
+    grid_kv: int
+    vmem_bytes: int
+
+
+def plan_attention(seq_q: int, seq_k: int, head_dim: int,
+                   dtype_bytes: int = 2,
+                   vmem_budget: Optional[int] = None,
+                   machine: Optional[MachineSpec] = None) -> AttentionPlan:
+    """KV/Q block sizes for the streaming-softmax kernel: a larger
+    ``block_k`` amortizes the per-block rescale (the serial hazard) at the
+    cost of scratch; ``block_q`` adds independent rows."""
+    mach = _machine(machine)
+    vmem_budget = mach.memory.vmem_bytes if vmem_budget is None else vmem_budget
+    lane, sublane = mach.pe.lane, mach.pe.sublane
+    hd = _round_up(head_dim, lane)
+    block_q = min(_round_up(min(seq_q, 512), sublane),
+                  _round_up(seq_q, sublane))
+
+    def footprint(block_k):
+        # q, k, v blocks (double-buffered k/v) + scores + fp32 o/m/l
+        return (block_q * hd * dtype_bytes
+                + 2 * 2 * block_k * hd * dtype_bytes
+                + block_q * block_k * 4 + block_q * (hd + 2) * 4)
+
+    block_k = 1024
+    while block_k > 128 and footprint(block_k) > vmem_budget:
+        block_k //= 2
+    block_k = min(block_k, _round_up(seq_k, lane))
+    return AttentionPlan(block_q, block_k, -(-seq_k // block_k),
+                         footprint(block_k))
+
+
+@dataclasses.dataclass(frozen=True)
+class SSDPlan:
+    """Mamba-2 SSD chunking: the cross-chunk state recurrence is the serial
+    hazard chain; the chunk trades recurrence steps against the quadratic
+    within-chunk term."""
+
+    chunk: int
+    n_chunks: int
+    vmem_bytes: int
+
+
+def plan_ssd(seq: int, heads: int, head_dim: int, state: int,
+             dtype_bytes: int = 2, vmem_budget: Optional[int] = None,
+             machine: Optional[MachineSpec] = None) -> SSDPlan:
+    """Chunk length for the SSD scan: the largest of 256/128/64 whose
+    footprint fits the scratch budget, clamped to the sequence."""
+    mach = _machine(machine)
+    vmem_budget = mach.memory.vmem_bytes if vmem_budget is None else vmem_budget
+    sublane = mach.pe.sublane
+
+    def footprint(c):
+        return (c * head_dim * dtype_bytes * 3 + c * c * 4
+                + head_dim * state * 4 + c * state * dtype_bytes * 2)
+
+    best_c = 256
+    for c in (256, 128, 64):
+        if footprint(c) <= vmem_budget and c <= max(seq, 64):
+            best_c = c
+            break
+    best_c = min(best_c, max(_round_up(seq, sublane), sublane))
+    return SSDPlan(best_c, -(-seq // best_c), footprint(best_c))

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels: nvcc into shared libraries, ctypes to bind.
 
-Each source under ``repro_torch/csrc/`` (``gemm.cu``, ``trsm_gemm.cu``)
-compiles on its own, at first use, with
+Each source under ``repro_torch/csrc/`` (``gemm.cu``, ``trsm_gemm.cu``,
+``dotp.cu``, ``flash_attention.cu``, ``ssd_scan.cu``) compiles on its own, at first use, with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -31,11 +31,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 ROOT = os.path.dirname(os.path.dirname(_PKG))        # checkout root (src/..)
 BUILD_DIR = os.path.join(ROOT, "build", "repro_torch")
-SOURCES = ("gemm", "trsm_gemm")
+SOURCES = ("gemm", "trsm_gemm", "dotp", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
     "gemm": {
@@ -47,6 +47,20 @@ SIGNATURES = {
         "repro_trsm_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, LL, P,
                              LL, LL, P, P, I, I, I, I, I, P], I),
         "repro_trsm_gemm_smem_bytes": ([I, I, I, I, I], LL),
+    },
+    "dotp": {
+        "repro_dotp": ([I, P, LL, P, LL, LL, P, P, P], I),
+    },
+    "flash_attention": {
+        "repro_attention": ([I, P, LL, LL, LL, LL, P, LL, LL, LL, LL,
+                             P, LL, LL, LL, LL, P, LL, LL, LL, LL,
+                             I, I, I, I, I, I, F, I, LL, LL, I, P], I),
+    },
+    "ssd_scan": {
+        "repro_ssd_scan": ([I, P, LL, LL, LL, LL, P, LL, LL, LL,
+                            P, LL, LL, LL, LL, P, LL, LL, LL, LL,
+                            P, LL, LL, LL, LL, I, I, I, I, I, I, P], I),
+        "repro_ssd_scan_smem_bytes": ([I, I, I], LL),
     },
 }
 

@@ -1,0 +1,128 @@
+"""B5: streaming-softmax attention on a hand-written Hopper kernel
+(``csrc/flash_attention.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::attention``
+(``_attn_kernel``). One CTA owns one (batch, query head, 64-row query
+block) and loops over the KV blocks inside the block, in place of the
+TPU's sequential KV grid axis; the f32 running (m, l, acc) stay on chip.
+KV blocks that the causal, window and ``kv_len`` masks cover for the whole
+query block are skipped. Layout as the reference: q (B, Hq, Sq, D), k/v
+(B, Hkv, Sk, D), GQA through ``h // (Hq / Hkv)``; operands are read
+through their strides, so the model's moveaxis views need no copy.
+
+A row with no unmasked key gets 0 (as :func:`ref.attention`), where the
+Pallas kernel returns the mean of its first KV block's values; no row of
+the model paths is fully masked.
+
+:func:`attention` launches the kernel for CUDA tensors and runs
+:func:`attention_plain` for CPU tensors; there is no other path.
+``attention.launches`` counts kernel launches on the card and
+``attention.last_launch`` records the
+:class:`~repro_torch.core.codesign.AttentionPlan` it was handed beside the
+CTA tile it launched with.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.codesign import AttentionPlan, plan_attention
+from repro_torch.kernels import _build, ref
+
+BLOCK_Q = 64           # query rows per CTA (csrc/flash_attention.cu::BQ)
+MAX_HEAD_DIM = 256
+# dtype codes of csrc/common.cuh (repro::DType) the kernel takes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def block_k(head_dim: int) -> int:
+    """Keys per staged KV block (csrc/flash_attention.cu::Tile::BK)."""
+    return 32 if head_dim > 128 else 64
+
+
+def _kv_len(sk: int, kv_len: Optional[int]) -> int:
+    return sk if kv_len is None else max(0, min(int(kv_len), sk))
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0, window: Optional[int] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version: :func:`ref.attention` over the first
+    ``kv_len`` keys."""
+    n = _kv_len(k.shape[2], kv_len)
+    if 0 in q.shape or n == 0:
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    return ref.attention(q, k[:, :, :n], v[:, :, :n], causal=causal,
+                         scale=scale, q_offset=q_offset, window=window)
+
+
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Validate attention operands (shapes, devices, GQA grouping)."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"attention needs q (B, Hq, Sq, D) and k, v "
+                         f"(B, Hkv, Sk, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"attention batch/head-dim mismatch: q "
+                         f"{tuple(q.shape)} vs k {tuple(k.shape)}")
+    if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"query heads {q.shape[1]} are not a multiple of "
+                         f"kv heads {k.shape[1]}")
+    if not q.device == k.device == v.device or \
+            q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention runs on cuda (kernel) or cpu (plain "
+                         f"version); got {q.device}, {k.device}, {v.device}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, scale: Optional[float] = None,
+              q_offset: int = 0, window: Optional[int] = None,
+              kv_len: Optional[int] = None,
+              plan: Optional[AttentionPlan] = None) -> torch.Tensor:
+    """Flash attention: the CUDA kernel for CUDA tensors,
+    :func:`attention_plain` for CPU tensors. Returns q-shaped in q's dtype.
+    ``plan`` (default: :func:`plan_attention`) is recorded, not tiled by:
+    the kernel's CTA tile is (:data:`BLOCK_Q`, :func:`block_k`)."""
+    check_operands(q, k, v)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, scale=scale,
+                               q_offset=q_offset, window=window,
+                               kv_len=kv_len)
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in DTYPE_CODES:
+        raise ValueError(f"attention on the card takes q, k, v of one of "
+                         f"{tuple(DTYPE_CODES)}; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if -(-sq // BLOCK_Q) > 2 ** 31 - 1 or hq > 65535 or b > 65535:
+        raise ValueError(f"attention grid too large for {tuple(q.shape)}")
+    n = _kv_len(sk, kv_len)
+    if 0 in q.shape or n == 0:
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    if plan is None:
+        plan = plan_attention(sq, sk, d)   # the reference's call
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        err = lib.repro_attention(
+            DTYPE_CODES[q.dtype], q.data_ptr(), *q.stride(),
+            k.data_ptr(), *k.stride(), v.data_ptr(), *v.stride(),
+            o.data_ptr(), *o.stride(), b, hq, hkv, sq, sk, d, float(scale),
+            int(bool(causal)), int(q_offset),
+            -1 if window is None else int(window), n,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "repro_attention")
+    attention.launches += 1
+    attention.last_launch = {"plan": plan, "tile": (BLOCK_Q, block_k(d)),
+                             "grid": (-(-sq // BLOCK_Q), hq, b)}
+    return o
+
+
+attention.launches = 0
+attention.last_launch = None

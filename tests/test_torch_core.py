@@ -118,6 +118,19 @@ def test_plans_match_reference_grid(machine):
     for n in (1, 5, 1000, 10 ** 6):
         assert tcd.optimal_accumulators(n, machine=machine) == \
             jcd.optimal_accumulators(n, machine=machine)
+    for sq, sk, hd in ((1, 1, 1), (1, 160, 64), (96, 96, 64),
+                       (4096, 4096, 64), (700, 9000, 256)):
+        for db in (2, 4):
+            assert _plan_dict(tcd.plan_attention(sq, sk, hd, db,
+                                                 machine=machine)) == \
+                _plan_dict(jcd.plan_attention(sq, sk, hd, db,
+                                              machine=machine))
+    for L, h, p, n in ((1, 1, 1, 1), (100, 3, 16, 8), (4096, 50, 64, 16),
+                       (4096, 24, 64, 128), (40, 2, 64, 4096)):
+        for db in (2, 4):
+            assert _plan_dict(tcd.plan_ssd(L, h, p, n, db,
+                                           machine=machine)) == \
+                _plan_dict(jcd.plan_ssd(L, h, p, n, db, machine=machine))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])

@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import dotp as dk
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused as fk
 from repro_torch.kernels import gemm as gk
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as sk
 
 # tests/conftest.py's dtype tolerances (rtol, atol), repeated here so the
 # file needs no jax
@@ -21,6 +25,24 @@ TOL = {"float32": (2e-4, 1e-4), "float64": (1e-12, 1e-12),
 GEMM_SHAPES = [(1, 1, 1), (7, 129, 33), (70, 33, 129), (200, 300, 517)]
 # (nb, n, m): ragged panels, and one too wide for 64-column X blocks
 TRSM_GEMM_SHAPES = [(8, 8, 8), (13, 130, 70), (100, 300, 260), (2000, 40, 30)]
+DOTP_SIZES = [1, 131, 1000, 10 ** 6 + 7]
+# (b, hq, hkv, sq, sk, d, causal, window, q_offset, kv_len): GQA 8/2 and
+# 25/5, causal / full / windowed, decode, kv_len, ragged Sq/Sk/D, D = 256
+ATTN_CASES = [
+    (2, 8, 2, 96, 96, 64, True, None, 0, None),
+    (2, 8, 2, 96, 96, 64, False, None, 0, None),
+    (2, 8, 2, 96, 96, 64, True, 40, 0, None),
+    (1, 25, 5, 130, 130, 64, True, 40, 0, None),
+    (2, 8, 2, 1, 160, 64, True, None, 159, None),
+    (1, 2, 2, 1, 128, 32, False, None, 0, 70),
+    (1, 4, 2, 37, 201, 40, True, 50, 164, None),
+    (1, 2, 1, 70, 70, 128, True, None, 0, None),
+    (1, 2, 2, 65, 65, 256, True, 30, 0, None),
+]
+# (b, h, L, p, n, chunk): ragged L, chunks 16 / 64 / 256, mamba2's N = 128
+SSD_CASES = [(2, 3, 64, 16, 8, 16), (2, 3, 100, 16, 8, 32),
+             (1, 2, 300, 64, 16, 256), (1, 2, 257, 40, 16, 64),
+             (1, 2, 130, 64, 128, 256), (1, 1, 5, 16, 4, 64)]
 
 
 @pytest.fixture
@@ -72,4 +94,70 @@ def test_trsm_gemm_kernel_matches_plain(card, dtype):
                 xp, cp = fk.trsm_gemm_plain(*args, form=form, unit_diag=unit)
                 _close(x, xp, dtype, 4.0)
                 _close(c, cp, dtype, 8.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_dotp_kernel_matches_plain(card, dtype):
+    rng = np.random.default_rng(0)
+    for n in DOTP_SIZES:
+        x = torch.from_numpy(rng.normal(size=2 * n)).to(card,
+                                                        getattr(torch, dtype))
+        y = torch.from_numpy(rng.normal(size=n)).to(card,
+                                                    getattr(torch, dtype))
+        for xv in (x[:n], x[::2]):             # contiguous and strided
+            got, want = dk.dotp(xv, y), dk.dotp_plain(xv, y)
+            # f32 sums in another order: relative to sum |x_i y_i|
+            mag = (xv.float() * y.float()).abs().sum().item()
+            assert got.dtype == torch.float32 and got.shape == ()
+            assert abs(got.item() - want.item()) <= 1e-5 * mag + 1e-6, n
+    assert dk.dotp(x[:0], y[:0]).item() == 0.0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_matches_plain(card, dtype):
+    rng = np.random.default_rng(0)
+    tdt = getattr(torch, dtype)
+    for b, hq, hkv, sq, sk, d, causal, window, off, kv_len in ATTN_CASES:
+        # the model's layout (B, S, H, D) read through moveaxis views
+        q = torch.from_numpy(rng.normal(size=(b, sq, hq, d))).to(
+            card, tdt).movedim(2, 1)
+        k, v = (torch.from_numpy(rng.normal(size=(b, sk, hkv, d))).to(
+            card, tdt).movedim(2, 1) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=off, kv_len=kv_len)
+        before = fa.attention.launches
+        got = fa.attention(q, k, v, **kw)
+        assert fa.attention.launches == before + 1
+        _close(got, fa.attention_plain(q, k, v, **kw), dtype, 4.0)
+        _close(ops.attention(q, k, v, **kw), got, dtype, 1.0)
+    empty = torch.zeros((1, 2, 0, 64), device=card, dtype=tdt)
+    assert fa.attention(empty, empty, empty).shape == empty.shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(card, dtype):
+    rng = np.random.default_rng(0)
+    tdt = getattr(torch, dtype)
+    for b, h, L, p, n, chunk in SSD_CASES:
+        dev = lambda *s, f=0.5: torch.from_numpy(
+            f * rng.normal(size=s)).to(card, tdt)
+        x, B, C = dev(b, L, h, p), dev(b, L, h, n), dev(b, L, h, n)
+        a = -torch.from_numpy(0.3 * np.abs(rng.normal(size=(b, L, h)))).to(
+            card, torch.float32)
+        args = (x.movedim(2, 1), a.movedim(2, 1), B.movedim(2, 1),
+                C.movedim(2, 1))
+        before = sk.ssd_scan.launches
+        got = sk.ssd_scan(*args, chunk=chunk)
+        assert sk.ssd_scan.launches == before + 1
+        assert sk.ssd_scan.last_launch["chunk"] == min(chunk, max(L, 8))
+        _close(got, sk.ssd_scan_plain(*args, chunk=chunk), dtype, 4.0)
+        _close(ops.ssd(x, a, B, C, chunk=chunk).movedim(2, 1), got, dtype,
+               1.0)
+    zero = torch.zeros((1, 2, 0, 16), device=card, dtype=tdt)
+    assert sk.ssd_scan(zero, zero[..., 0], zero, zero).shape == zero.shape
     torch.cuda.synchronize()
