@@ -210,10 +210,16 @@ def phase_kernels(gen):
 
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
         tag = str(dtype).removeprefix("torch.")
-        for m, n, k in ((1000, 777, 513), (N, N, N)):
+        # ragged against every tile with 16-byte aligned rows (the tiled
+        # variant), ragged with unaligned rows ("simt"), the main path's
+        for m, n, k in ((1000, 776, 520), (1000, 777, 513), (N, N, N)):
             a, b = rnd(m, k, dtype=dtype), rnd(k, n, dtype=dtype)
-            compare(f"gemm {tag} {m}x{n}x{k}", gk.gemm(a, b),
-                    gk.gemm_plain(a, b))
+            outs = gk.OUT_DTYPES[dtype] if m != N else (dtype,)
+            for out in outs:
+                compare(f"gemm {tag}->{str(out)[6:]} {m}x{n}x{k} "
+                        f"[{gk.gemm_variant(a, b)}]",
+                        gk.gemm(a, b, out_dtype=out),
+                        gk.gemm_plain(a, b, out))
             if m == N:
                 if dtype == torch.float32:          # the main path's B3 call
                     bias = rnd(n)
@@ -221,14 +227,33 @@ def phase_kernels(gen):
                             fk.gemm_bias_act(a, b, bias, "gelu"),
                             fk.gemm_bias_act_plain(a, b, bias, "gelu"))
                 continue
-            compare(f"gemm {tag} transposed views", gk.gemm(b.T, a.T),
-                    gk.gemm_plain(b.T, a.T))
+            # B3 with every epilogue, with and without bias, on both ragged
+            # shapes: the tiled variant and "simt"
             bias = rnd(n, dtype=dtype)
-            for epi in fk.EPILOGUES:
-                for bb in (None, bias):
-                    compare(f"gemm_bias_act {tag} {epi} bias={bb is not None}",
-                            fk.gemm_bias_act(a, b, bb, epi),
-                            fk.gemm_bias_act_plain(a, b, bb, epi))
+            for out in gk.OUT_DTYPES[dtype]:
+                for epi in fk.EPILOGUES:
+                    for bb in (None, bias):
+                        compare(f"gemm_bias_act {tag}->{str(out)[6:]} "
+                                f"{m}x{n}x{k} {epi} bias={bb is not None} "
+                                f"[{gk.gemm_variant(a, b)}]",
+                                fk.gemm_bias_act(a, b, bb, epi, out_dtype=out),
+                                fk.gemm_bias_act_plain(a, b, bb, epi, out))
+            if n != 776:
+                continue
+            # transposed views and unaligned windows ("simt"), an aligned
+            # window (the tiled variant), a skinny TRSM-like update ("simt")
+            big = rnd(1100, 1024, dtype=dtype)
+            for name, x, y in (
+                    ("transposed views", b.T, a.T),
+                    ("unaligned window", big[1:1001, 3:516],
+                     big[7:520, 5:782]),
+                    ("aligned window", big[40:1040, 64:577],
+                     big[:513, 128:905]),
+                    ("skinny 128x8192x1", rnd(128, N, dtype=dtype),
+                     rnd(N, 1, dtype=dtype))):
+                compare(f"gemm {tag} {name} [{gk.gemm_variant(x, y)}]",
+                        gk.gemm(x, y), gk.gemm_plain(x, y))
+            del big
         for nb, n in ((100, 1000), (128, N - 128)):
             for form in ("lu", "syrk"):
                 for unit in (False, True):
@@ -308,7 +333,9 @@ def phase_main(gen, build_dir):
     cold = os.path.join(build_dir, "cold-start-registry.json")
     assert not os.path.exists(cold)
     results = {}
-    gk.gemm.launches = fk.gemm_bias_act.launches = fk.trsm_gemm.launches = 0
+    gk.reset_launches(gk.gemm)
+    gk.reset_launches(fk.gemm_bias_act)
+    fk.trsm_gemm.launches = 0
     t_main = time.perf_counter()
     with linalg.use(policy="model", device="cuda"):
         for tag, a, b in (("gemm f32 8192^3", a32, b32),
@@ -337,6 +364,9 @@ def phase_main(gen, build_dir):
                 "gemm_bias_act": fk.gemm_bias_act.launches,
                 "trsm_gemm": fk.trsm_gemm.launches}
     assert all(v > 0 for v in launches.values()), launches
+    variants = {f"{name}_variants": dict(w.variant_launches)
+                for name, w in (("gemm", gk.gemm),
+                                ("gemm_bias_act", fk.gemm_bias_act))}
 
     # correctness of what came out (not part of the main path's counts)
     for tag, a, b in (("gemm f32 8192^3", a32, b32),
@@ -366,9 +396,9 @@ def phase_main(gen, build_dir):
         bool(torch.isfinite(t).all()) for t in (l32, l64, packed, x))
     assert torch.equal(tuned_gemm, results["gemm f32 8192^3"])
     assert torch.equal(tuned_chol, l32)
-    emit(phase="main", wall_s=main_s, launches=launches,
+    emit(phase="main", wall_s=main_s, launches=launches, **variants,
          cold_start_tuned_equals_model=True)
-    return launches
+    return {**launches, **variants}
 
 
 def phase_times(gen, launches):
@@ -380,17 +410,41 @@ def phase_times(gen, launches):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     rows = []
-    a, b, bias = rnd(N, N), rnd(N, N), rnd(N)
-    f32 = 4
-    gemm_flops, gemm_bytes = 2.0 * N ** 3, 3 * N * N * f32
-    b_ms, b_by = bound(gemm_flops, gemm_bytes, torch.float32)
+    # B1 at each of the main path's dtypes: bf16 priced at the bf16 tensor
+    # peak, f32 at the FP32 peak, f64 at the FP64 (tensor) peak
+    for dtype, n in ((torch.float32, N), (torch.bfloat16, N),
+                     (torch.float64, N64)):
+        a, b = rnd(n, n).to(dtype), rnd(n, n).to(dtype)
+        b_ms, b_by = bound(2.0 * n ** 3, 3 * n * n * a.element_size(), dtype)
+        got = gk.gemm(a, b)
+        rows.append(dict(
+            name="gemm", shape=f"{n}x{n}x{n} {str(dtype)[6:]}",
+            ms=cuda_ms(lambda: gk.gemm(a, b)),
+            plain_ms=cuda_ms(lambda: gk.gemm_plain(a, b)),
+            library_ms=cuda_ms(lambda: torch.matmul(a, b)), bound_ms=b_ms,
+            bound_by=b_by, variant=gk.gemm.last_launch["variant"],
+            tile=gk.gemm.last_launch["tile"],
+            max_abs_err=(got.double() - gk.gemm_plain(a, b).double())
+            .abs().max().item(),
+            equals_library_bitwise=bool(torch.equal(got, torch.matmul(a, b)))))
+        del a, b, got
+    # the solve's blocked-TRSM updates, 128 x k x 1 (k up to N - 128), on the
+    # skinny "simt" tile
+    a, b = rnd(128, N - 128), rnd(N - 128, 1)
+    b_ms, b_by = bound(2.0 * 128 * (N - 128),
+                       (128 * (N - 128) + (N - 128) + 128) * 4, torch.float32)
+    got = gk.gemm(a, b)
     rows.append(dict(
-        name="gemm", shape=f"{N}x{N}x{N} float32",
+        name="gemm", shape=f"128x1x{N - 128} float32 (TRSM update)",
         ms=cuda_ms(lambda: gk.gemm(a, b)),
         plain_ms=cuda_ms(lambda: gk.gemm_plain(a, b)),
         library_ms=cuda_ms(lambda: torch.matmul(a, b)), bound_ms=b_ms,
-        bound_by=b_by, max_abs_err=(gk.gemm(a, b) - gk.gemm_plain(a, b))
-        .abs().max().item()))
+        bound_by=b_by, variant=gk.gemm.last_launch["variant"],
+        tile=gk.gemm.last_launch["tile"],
+        max_abs_err=(got - gk.gemm_plain(a, b)).abs().max().item()))
+    a, b, bias = rnd(N, N), rnd(N, N), rnd(N)
+    f32 = 4
+    gemm_flops, gemm_bytes = 2.0 * N ** 3, 3 * N * N * f32
     # bias add + tanh-gelu priced as 9 operations per output
     b_ms, b_by = bound(gemm_flops + 9.0 * N * N, gemm_bytes + N * f32,
                        torch.float32)
@@ -403,7 +457,8 @@ def phase_times(gen, launches):
         bound_ms=b_ms, bound_by=b_by,
         max_abs_err=(fk.gemm_bias_act(a, b, bias, "gelu")
                      - fk.gemm_bias_act_plain(a, b, bias, "gelu"))
-        .abs().max().item()))
+        .abs().max().item(), variant=fk.gemm_bias_act.last_launch["variant"],
+        tile=fk.gemm_bias_act.last_launch["tile"]))
     # the first trailing update of the 8192 Cholesky: nb x nb panel, an
     # n x n trailing block (syrk form)
     nb = plan_factorization(N, "potrf", dtype=torch.float32).block
@@ -426,6 +481,9 @@ def phase_times(gen, launches):
         source, replaces = REPLACES[row["name"]]
         row.update(route="cuda", source=source, replaces=replaces,
                    launches=launches[row["name"]])
+        if "variant" in row:
+            row["variant_launches"] = launches[row["name"] + "_variants"][
+                row["variant"]]
     emit(phase="times", rows=rows)
     return rows
 
@@ -483,21 +541,28 @@ def phase_model_kernels(gen):
         mag = (x.float() * y.float()).abs().sum().item()
         compare(f"dotp {dtype} n={n}", dk.dotp(x, y), dk.dotp_plain(x, y),
                 scale=max(mag, 1.0), tol=dot_tol)
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, hq, hkv, sq, sk_, d, causal, window, off, kv_len in \
+    # f32 runs the FFMA variant, bf16 the tensor-core one (D <= 128), bf16
+    # at D = 256 the FFMA one again
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64),
+                     (torch.bfloat16, 128), (torch.bfloat16, 256)):
+        for b, hq, hkv, sq, sk_, _, causal, window, off, kv_len in \
                 ATTN_CHECKS:
             q, k, v = attention_inputs(gen, b, hq, hkv, sq, sk_, d, dtype)
             kw = dict(causal=causal, window=window, q_offset=off,
                       kv_len=kv_len)
+            variant = fa.attention_variant(q, k, v)
+            assert variant == ("wgmma" if dtype == torch.bfloat16 and d <= 128
+                               else "ffma"), (dtype, d, variant)
             compare_close(f"attention {dtype} q{tuple(q.shape)} "
-                          f"k{tuple(k.shape)} {kw}",
+                          f"k{tuple(k.shape)} {kw} [{variant}]",
                           fa.attention(q, k, v, **kw),
                           fa.attention_plain(q, k, v, **kw))
     pb, ps = PREFILL
     q, k, v = attention_inputs(gen, pb, 25, 5, ps, ps, 64, torch.bfloat16)
     for window in (None, 1024):     # the prefill's global / windowed layers
         compare_close(f"attention prefill bf16 q{tuple(q.shape)} "
-                      f"window={window}", fa.attention(q, k, v, window=window),
+                      f"window={window} [{fa.attention_variant(q, k, v)}]",
+                      fa.attention(q, k, v, window=window),
                       fa.attention_plain(q, k, v, window=window))
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, L, p, n, chunk in SSD_CHECKS:
@@ -525,6 +590,9 @@ def zero_launches():
                 "attention": fa.attention, "ssd_scan": sk.ssd_scan}
     for w in wrappers.values():
         w.launches = 0
+    gk.reset_launches(gk.gemm)
+    gk.reset_launches(fk.gemm_bias_act)
+    fa.reset_launches()
     return wrappers
 
 
@@ -621,10 +689,13 @@ def phase_model(gen):
     (logits, _, _), secs = sync_time(
         lambda: model_zoo.prefill(model, {"tokens": tokens}, cfg))
     launches = {k: w.launches for k, w in counts.items()}
+    attention_variants = dict(counts["attention"].variant_launches)
     assert launches["attention"] == cfg.n_layers, launches
+    assert attention_variants["wgmma"] == cfg.n_layers, attention_variants
     assert launches["ssd_scan"] == cfg.n_layers, launches
     assert logits.shape == (*PREFILL, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
+    launches["attention_variants"] = attention_variants
     emit(call=f"model_zoo.prefill hymba-1.5b {PREFILL[0]}x{PREFILL[1]} "
               f"(warm, counted)", wall_s=secs, tokens_per_s=PREFILL[0] * PREFILL[1] / secs,
          launches=launches, logits=[list(logits.shape), str(logits.dtype)],
@@ -731,8 +802,26 @@ def model_rows(gen, launches):
             max_abs_err=(got.float() - fa.attention_plain(
                 q, k, v, window=window).float()).abs().max().item(),
             library_max_abs_err=(got.float() - lib().float()).abs().max()
-            .item()))
-    del q, k, v, band
+            .item(), variant=fa.attention.last_launch["variant"],
+            tile=fa.attention.last_launch["tile"]))
+    # the FFMA variant at the windowed layers' shape, in f32
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    flops, nbytes = attention_work(b, 25, 5, s, s, 64, 4, window=1024)
+    b_ms, b_by = bound(flops, nbytes, torch.float32)
+    got = fa.attention(qf, kf, vf, window=1024)
+    rows.append(dict(
+        name="attention", shape=f"q{tuple(q.shape)} k/v{tuple(k.shape)} "
+        f"float32 causal windowed (window=1024)",
+        ms=cuda_ms(lambda: fa.attention(qf, kf, vf, window=1024)),
+        plain_ms=cuda_ms(lambda: fa.attention_plain(qf, kf, vf,
+                                                    window=1024)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qf, kf, vf, attn_mask=band, enable_gqa=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=(got - fa.attention_plain(qf, kf, vf, window=1024))
+        .abs().max().item(), variant=fa.attention.last_launch["variant"],
+        tile=fa.attention.last_launch["tile"]))
+    del q, k, v, band, qf, kf, vf, got
     args = ssd_inputs(gen, b, 50, s, 64, 16, torch.bfloat16)
     flops, nbytes = ssd_work(b, 50, s, 64, 16, 256, 2)
     b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
@@ -748,6 +837,9 @@ def model_rows(gen, launches):
         source, replaces = REPLACES[row["name"]]
         row.update(route="cuda", source=source, replaces=replaces,
                    launches=launches[row["name"]])
+        if "variant" in row:
+            row["variant_launches"] = launches["attention_variants"][
+                row["variant"]]
     emit(phase="times (model)", rows=rows,
          peaks="bf16 rows priced at the bf16 tensor peak (989 TFLOP/s), "
                "f32 at the FP32 peak (67 TFLOP/s); HBM 3.35 TB/s")
@@ -778,12 +870,15 @@ def main() -> int:
     model_launches = phase_model(gen)
     emit(phase_done="model", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    rows = phase_times(gen, launches)
-    # the kernels line holds one attention row: the windowed layers' call
-    # (29 of 32 layers); the global layers' row is in the times line
-    rows += [r for r in model_rows(gen, model_launches)
-             if "global" not in r["shape"]]
+    rows = phase_times(gen, launches) + model_rows(gen, model_launches)
     emit(phase_done="times", wall_s=time.perf_counter() - t0)
+    # the kernels line holds one row per kernel, the first of its name:
+    # gemm at 8192^3 f32, attention on the windowed layers (29 of 32); the
+    # other dtypes' and the global layers' rows are in the times lines
+    first = {}
+    for r in rows:
+        first.setdefault(r["name"], r)
+    rows = list(first.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -30,6 +30,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// two neighbouring outputs in one store (p aligned to the pair)
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // IEEE fused multiply-add at the accumulator width (never TF32)
 __device__ __forceinline__ float fma_acc(float a, float b, float c) {
   return __fmaf_rn(a, b, c);

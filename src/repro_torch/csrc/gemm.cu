@@ -4,37 +4,82 @@
 // Replaces the Pallas TPU kernels repro/kernels/gemm.py::gemm
 // (_gemm_kernel) and repro/kernels/fused.py::gemm_bias_act
 // (_gemm_epilogue_kernel). On the TPU the K axis is a sequential grid
-// dimension carrying a VMEM accumulator; here each CTA owns one 64x64
-// output tile and loops over K inside the block, so CTAs are independent
-// and run in any order.
+// dimension carrying a VMEM accumulator; here each CTA owns one output tile
+// and loops over K inside the block, so CTAs are independent and run in any
+// order (no split-K, no atomics: every output is one fixed-order sum, so a
+// result depends only on the inputs and the variant).
 //
-// Bound: at the main path's shapes (8192^3) the product is bound by
-// operations (2mnk flops against (mk+kn+mn) elements moved). float32 runs
-// on IEEE FFMA, never TF32 (the reference tolerance, rtol 2e-4, rules TF32
-// out), so its ceiling is the 67 TFLOP/s non-tensor FP32 rate; float64
-// also runs FFMA. This first kernel keeps a simple shared-memory tiling
-// (64x64x16 tiles, a 4x4 register micro-tile per thread) that cuts the
-// device-memory traffic by the tile edge; wgmma/TMA pipelines for bf16
-// are later work.
+// Bound: at the main path's shapes (8192^3, 4096^3) the product is bound by
+// operations (2mnk flops against (mk+kn+mn) elements moved). Four variants,
+// which the wrapper (kernels/gemm.py::gemm_variant) picks from dtype, shape
+// and layout alone, one main loop each, all sharing the epilogue:
 //
-// Operands are read through (row, column) strides, so transposed and
-// sliced views need no copy; ragged edges are masked in-kernel (the TPU
-// kernel padded to its VMEM-sized plan blocks instead). The bias (length
-// n, contiguous) and the activation are applied to the register
-// accumulator, in the accumulator type, before the single store.
+// - "wgmma" (bf16 -> bf16 / f32): the tensor cores. A 128x256 CTA tile,
+//   64-deep k stages in a 4-stage ring filled by TMA (128-byte swizzle) and
+//   tracked by mbarriers; one producer warp issues the loads, two consumer
+//   warpgroups each run wgmma m64n256k16 on 64 rows (A K-major, the
+//   row-major B MN-major through the transpose bit), f32 accumulators in
+//   registers. Needs unit column strides and 16-byte aligned row strides
+//   and bases (TMA); ragged edges read TMA's zero fill.
+// - "ffma" (f32): IEEE FFMA, never TF32 (the reference tolerance, rtol
+//   2e-4, rules TF32 out), so its ceiling is the 67 TFLOP/s FP32 rate. A
+//   128x128x16 CTA tile in a 3-stage cp.async ring, 256 threads with an
+//   8x8 register micro-tile fed by 16-byte shared-memory reads. Each output is
+//   one FMA chain in k order, as in "simt".
+// - "dmma" (f64): the FP64 tensor cores through mma.sync m16n8k8 (IEEE
+//   FP64 FMA; only the order of the sums differs from an FFMA chain). A
+//   128x128 CTA tile, 32-deep k stages in a 3-stage TMA ring, a producer
+//   warpgroup and eight consumer warps with a 64x32 tile each.
+// - "simt" (any dtype, any strides): the first port's 64x64x16 tile with a
+//   4x4 micro-tile and synchronous loads. It takes the skinny products
+//   (min(m, n) <= 16, e.g. the blocked TRSM's 128 x k x 1 updates, where a
+//   128-wide tile would leave all but one SM idle) and the layouts the
+//   others cannot read (transposed or misaligned views).
+//
+// The bias (length n, contiguous) and the activation are applied to the
+// register accumulator, in the accumulator type, before the single store.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
 
+// variant codes shared with repro_torch/kernels/gemm.py::VARIANTS
+enum Variant : int { kSimt = 0, kWgmma = 1, kFfma = 2, kDmma = 3 };
+
+// bias + activation on one accumulator value, then the narrowing store
+template <typename T, typename Acc, typename TO>
+__device__ __forceinline__ void finish(TO* p, Acc v, const T* bias, int col,
+                                       int epilogue) {
+  if (bias != nullptr) v += to_acc(bias[col]);
+  store(p, activate(v, epilogue));
+}
+
+// grouped tile order: GROUP_M row tiles share each column sweep, so the
+// CTAs in flight reuse A and B tiles in L2
+__device__ __forceinline__ void tile_of(int id, int tiles_m, int tiles_n,
+                                        int& tm, int& tn) {
+  constexpr int GROUP_M = 16;
+  const int per_group = GROUP_M * tiles_n;
+  const int first = (id / per_group) * GROUP_M;
+  const int rows = min(tiles_m - first, GROUP_M);
+  tm = first + (id % per_group) % rows;
+  tn = (id % per_group) / rows;
+}
+
+// ------------------------------- "simt" --------------------------------------
+
+namespace simt {
 constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
+}
 
 template <typename T, typename Acc, typename TO>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const T* __restrict__ a, long long sa0, long long sa1,
-            const T* __restrict__ b, long long sb0, long long sb1,
-            const T* __restrict__ bias, int epilogue,
-            TO* __restrict__ c, long long sc0, int m, int n, int k) {
+__global__ void __launch_bounds__(simt::THREADS)
+gemm_simt_kernel(const T* __restrict__ a, long long sa0, long long sa1,
+                 const T* __restrict__ b, long long sb0, long long sb1,
+                 const T* __restrict__ bias, int epilogue,
+                 TO* __restrict__ c, long long sc0, int m, int n, int k) {
+  using namespace simt;
   __shared__ Acc As[BK][BM + 1];
   __shared__ Acc Bs[BK][BN + 1];
   const int tid = threadIdx.x;
@@ -87,66 +132,564 @@ gemm_kernel(const T* __restrict__ a, long long sa0, long long sa1,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int cc = col0 + tx + 16 * j;
-      if (cc >= n) continue;
-      Acc v = acc[i][j];
-      if (bias != nullptr) v += to_acc(bias[cc]);
-      store(&c[r * sc0 + cc], activate(v, epilogue));
+      if (cc < n) finish(&c[r * sc0 + cc], acc[i][j], bias, cc, epilogue);
     }
   }
 }
 
+// ------------------------------- "wgmma" -------------------------------------
+
+namespace wg {
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2;                       // warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS * 128 + 32;      // + one producer warp
+constexpr int A_BYTES = BM * BK * 2;               // [128 m][64 k], K-major
+constexpr int B_CHUNK = BK * 64 * 2;               // one [64 k][64 n] box
+constexpr int B_BYTES = (BN / 64) * B_CHUNK;       // MN-major, 4 chunks
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+}  // namespace wg
+
+template <typename TO>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const __nv_bfloat16* __restrict__ bias, int epilogue,
+                  TO* __restrict__ c, long long sc0, int m, int n, int k) {
+  using namespace wg;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  int tm, tn;
+  tile_of(blockIdx.x, (m + BM - 1) / BM, (n + BN - 1) / BN, tm, tn);
+  const int ktiles = (k + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 4);   // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int group = threadIdx.x / 128;
+
+  if (group == CONSUMERS) {                  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      for (int t = 0; t < ktiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        uint8_t* sa = smem + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_2d(sa, &map_a, &full[s], t * BK, tm * BM);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(sa + A_BYTES + j * B_CHUNK, &map_b, &full[s],
+                      tn * BN + 64 * j, t * BK);
+      }
+    }
+    return;
+  }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int t = 0; t < ktiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    const uint8_t* sa = smem + s * STAGE_BYTES + group * 64 * 128;
+    const uint8_t* sb = smem + s * STAGE_BYTES + A_BYTES;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n256k16_ss<0, 1>(acc, desc_sw128(sa + 32 * kk, 16, 1024),
+                                desc_sw128(sb + 2048 * kk, B_CHUNK, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[s]);
+  }
+
+  // accumulator fragment: register i of lane l in warp w holds row
+  // 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4) + i % 2
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int row0 = tm * BM + group * 64 + warp * 16 + lane / 4;
+  const bool pairs = sc0 % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = tn * BN + 8 * j + 2 * (lane % 4);
+    if (col >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= m) continue;
+      TO* p = c + row * sc0 + col;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (bias != nullptr) {
+        v0 += to_acc(bias[col]);
+        if (col + 1 < n) v1 += to_acc(bias[col + 1]);
+      }
+      v0 = activate(v0, epilogue);
+      v1 = activate(v1, epilogue);
+      if (pairs && col + 1 < n) {
+        store_pair(p, v0, v1);
+      } else {
+        store(p, v0);
+        if (col + 1 < n) store(p + 1, v1);
+      }
+    }
+  }
+}
+
+// ------------------------------- "ffma" --------------------------------------
+
+namespace ff {
+constexpr int BM = 128, BN = 128, BK = 16, STAGES = 3, THREADS = 256;
+struct Stage {
+  float a[BM][BK + 4];   // the pad keeps the rows 16-byte aligned for cp.async
+  float b[BK][BN];
+};
+constexpr int SMEM = STAGES * sizeof(Stage);
+}  // namespace ff
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// bytes of a 16-byte chunk (four floats) that lie inside [0, limit) from
+// element `idx` on
+__device__ __forceinline__ int chunk_bytes(int idx, int limit) {
+  const int left = (limit - idx) * 4;
+  return left <= 0 ? 0 : (left >= 16 ? 16 : left);
+}
+
+// one BM x BK tile of A and one BK x BN tile of B (both row-major, rows
+// 16-byte aligned) into a stage; cells past the matrix read as zero
+__device__ __forceinline__ void load_stage(ff::Stage& st, const float* a,
+                                           long long sa0, const float* b,
+                                           long long sb0, int row0, int col0,
+                                           int k0, int m, int n, int k) {
+  using namespace ff;
+  constexpr int A_CHUNKS = BM * BK / 4, B_CHUNKS = BK * BN / 4;
+  static_assert(A_CHUNKS % THREADS == 0 && B_CHUNKS % THREADS == 0, "");
+#pragma unroll
+  for (int s = 0; s < A_CHUNKS / THREADS; ++s) {
+    const int i = threadIdx.x + s * THREADS;
+    const int r = i / (BK / 4), cc = (i % (BK / 4)) * 4;
+    const int gr = row0 + r, gk = k0 + cc;
+    const int bytes = gr < m ? chunk_bytes(gk, k) : 0;
+    cp_async16(&st.a[r][cc], bytes ? a + gr * sa0 + gk : a, bytes);
+  }
+#pragma unroll
+  for (int s = 0; s < B_CHUNKS / THREADS; ++s) {
+    const int i = threadIdx.x + s * THREADS;
+    const int r = i / (BN / 4), cc = (i % (BN / 4)) * 4;
+    const int gk = k0 + r, gc = col0 + cc;
+    const int bytes = gk < k ? chunk_bytes(gc, n) : 0;
+    cp_async16(&st.b[r][cc], bytes ? b + gk * sb0 + gc : b, bytes);
+  }
+}
+
+// thread (ty, tx) owns rows {4 ty + i, 64 + 4 ty + i} and columns
+// {4 tx + j, 64 + 4 tx + j}, i, j < 4: one FFMA chain per output, in k order
+__device__ __forceinline__ void ffma_stage(const ff::Stage& st,
+                                           float (&acc)[8][8]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int k4 = 0; k4 < ff::BK; k4 += 4) {
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      av[i] = *reinterpret_cast<const float4*>(
+          &st.a[(i / 4) * 64 + 4 * ty + i % 4][k4]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 = *reinterpret_cast<const float4*>(&st.b[k4 + kk][4 * tx]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&st.b[k4 + kk][64 + 4 * tx]);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float ai = kk == 0 ? av[i].x
+                         : kk == 1 ? av[i].y
+                         : kk == 2 ? av[i].z
+                                   : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(ai, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// the main loop keeps STAGES - 1 stages in flight while the block multiplies
+// the oldest; one barrier per stage both publishes the stage just waited for
+// and frees the one multiplied last, which the next load refills
+__global__ void __launch_bounds__(ff::THREADS, 1)
+gemm_ffma_kernel(const float* __restrict__ a, long long sa0,
+                 const float* __restrict__ b, long long sb0,
+                 const float* __restrict__ bias, int epilogue,
+                 float* __restrict__ c, long long sc0, int m, int n, int k) {
+  using namespace ff;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  Stage* st = reinterpret_cast<Stage*>(smem_raw);
+  int tm, tn;
+  tile_of(blockIdx.x, (m + BM - 1) / BM, (n + BN - 1) / BN, tm, tn);
+  const int row0 = tm * BM, col0 = tn * BN;
+  const int ktiles = (k + BK - 1) / BK;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ktiles)
+      load_stage(st[t], a, sa0, b, sb0, row0, col0, t * BK, m, n, k);
+    cp_async_commit();                  // empty groups keep the count even
+  }
+  for (int t = 0; t < ktiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = t + STAGES - 1;
+    if (next < ktiles)
+      load_stage(st[next % STAGES], a, sa0, b, sb0, row0, col0, next * BK, m,
+                 n, k);
+    cp_async_commit();
+    ffma_stage(st[t % STAGES], acc);
+  }
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + (i / 4) * 64 + 4 * ty + i % 4;
+    if (r >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cc = col0 + (j / 4) * 64 + 4 * tx + j % 4;
+      if (cc < n) finish(&c[r * sc0 + cc], acc[i][j], bias, cc, epilogue);
+    }
+  }
+}
+
+// ------------------------------- "dmma" --------------------------------------
+//
+// f64 on the FP64 tensor cores. A 128x128 CTA tile, 32-deep k stages in a
+// 3-stage ring filled by TMA and tracked by full / empty mbarriers: one
+// producer warpgroup (one warp, 8 lanes issuing loads) and eight consumer
+// warps, each multiplying a 64x32 block with mma.sync m16n8k8; setmaxnreg
+// gives the consumers the registers the 64 f64 accumulators need. TMA
+// writes each operand as boxes four doubles wide (A: [k / 4][128 m][4 k],
+// B: [n / 4][32 k][4 n]), so the 32 bytes a lane group reads for one
+// fragment row are contiguous and a half-warp's 16 reads cover 128 distinct
+// bytes: no bank conflicts and no padding, which TMA cannot write.
+
+namespace dm {
+constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
+constexpr int CONSUMERS = 8;                       // warps
+// + one producer warpgroup: setmaxnreg moves registers between the
+// warpgroups of a CTA, so the consumers' 232 come from the four producer
+// warps dropping from the 168 a 384-thread launch gets to 40
+constexpr int THREADS = CONSUMERS * 32 + 128;
+constexpr int A_BOX = BM * 4 * 8, B_BOX = BK * 4 * 8;   // bytes per box
+constexpr int A_BYTES = (BK / 4) * A_BOX, B_BYTES = (BN / 4) * B_BOX;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+}  // namespace dm
+
+// warp w owns the 64 x 32 block at rows 64 (w / 4), columns 32 (w % 4), as
+// 4 x 4 mma.sync m16n8k8 tiles. With g = lane / 4, t = lane % 4: A register r
+// holds row g + 8 (r % 2), column t + 4 (r / 2) of its 16 x 8 slice; B
+// register r holds row t + 4 r, column g; C register r holds row g + 8 (r / 2),
+// column 2 t + r % 2. (m8n8k4 runs at half this shape's rate on the H100:
+// src/repro_torch/tools/f64_mma_rate.cu.)
+__device__ __forceinline__ void dmma_stage(const uint8_t* sa, const uint8_t* sb,
+                                           double (&acc)[4][4][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = (warp / 4) * 64 + g;
+  // column c0 + 8 j sits in B box c0 / 4 + 2 j at offset g % 4
+  const uint8_t* bcol = sb + ((warp % 4) * 8 + g / 4) * dm::B_BOX + (g % 4) * 8;
+#pragma unroll
+  for (int k8 = 0; k8 < dm::BK; k8 += 8) {
+    double bv[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bv[j][r] = *reinterpret_cast<const double*>(
+            bcol + 2 * j * dm::B_BOX + (k8 + t + 4 * r) * 32);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      double av[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        av[r] = *reinterpret_cast<const double*>(
+            sa + (k8 / 4 + r / 2) * dm::A_BOX +
+            (r0 + 16 * i + 8 * (r % 2)) * 32 + t * 8);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+d"(acc[i][j][0]), "+d"(acc[i][j][1]), "+d"(acc[i][j][2]),
+              "+d"(acc[i][j][3])
+            : "d"(av[0]), "d"(av[1]), "d"(av[2]), "d"(av[3]),
+              "d"(bv[j][0]), "d"(bv[j][1]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(dm::THREADS, 1)
+gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const double* __restrict__ bias, int epilogue,
+                 double* __restrict__ c, long long sc0, int m, int n, int k) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + dm::STAGES * dm::STAGE_BYTES);
+  uint64_t* empty = full + dm::STAGES;
+  int tm, tn;
+  tile_of(blockIdx.x, (m + dm::BM - 1) / dm::BM, (n + dm::BN - 1) / dm::BN, tm,
+          tn);
+  const int ktiles = (k + dm::BK - 1) / dm::BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < dm::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], dm::CONSUMERS);   // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= dm::CONSUMERS) {               // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (warp > dm::CONSUMERS) return;        // one warp issues the loads
+    for (int t = 0; t < ktiles; ++t) {
+      const int s = t % dm::STAGES;
+      mbar_wait(&empty[s], ((t / dm::STAGES) & 1) ^ 1);
+      uint8_t* sa = smem + s * dm::STAGE_BYTES;
+      uint8_t* sb = sa + dm::A_BYTES;
+      if (lane == 0) mbar_expect_tx(&full[s], dm::STAGE_BYTES);
+      __syncwarp();
+      if (lane < dm::BK / 4) {               // lane q: A box q, B boxes 4q..
+        tma_load_2d(sa + lane * dm::A_BOX, &map_a, &full[s],
+                    t * dm::BK + 4 * lane, tm * dm::BM);
+#pragma unroll
+        for (int q = 4 * lane; q < 4 * lane + 4; ++q)
+          tma_load_2d(sb + q * dm::B_BOX, &map_b, &full[s],
+                      tn * dm::BN + 4 * q, t * dm::BK);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    double acc[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0;
+    for (int t = 0; t < ktiles; ++t) {
+      const int s = t % dm::STAGES;
+      mbar_wait(&full[s], (t / dm::STAGES) & 1);
+      const uint8_t* sa = smem + s * dm::STAGE_BYTES;
+      dmma_stage(sa, sa + dm::A_BYTES, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    const int r0 = tm * dm::BM + (warp / 4) * 64 + lane / 4;
+    const int c0 = tn * dm::BN + (warp % 4) * 32 + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * i + 8 * h;
+        if (r >= m) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = c0 + 8 * j + e;
+            if (cc < n)
+              finish(&c[r * sc0 + cc], acc[i][j][2 * h + e], bias, cc,
+                     epilogue);
+          }
+      }
+  }
+}
+
+int launch_dmma(const void* a, long long sa0, const void* b, long long sb0,
+                const void* bias, int epilogue, void* c, long long sc0, int m,
+                int n, int k, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  const cuuint64_t dims_a[2] = {cuuint64_t(k), cuuint64_t(m)};
+  const cuuint64_t dims_b[2] = {cuuint64_t(n), cuuint64_t(k)};
+  const cuuint64_t stride_a[1] = {cuuint64_t(sa0) * 8};
+  const cuuint64_t stride_b[1] = {cuuint64_t(sb0) * 8};
+  const cuuint32_t box_a[2] = {4, dm::BM}, box_b[2] = {4, dm::BK};
+  int err = hopper::make_map(&map_a, a, 2, dims_a, stride_a, box_a,
+                             CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+                             CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == 0)
+    err = hopper::make_map(&map_b, b, 2, dims_b, stride_b, box_b,
+                           CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_dmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dm::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = static_cast<long long>((m + dm::BM - 1) / dm::BM) *
+                          ((n + dm::BN - 1) / dm::BN);
+  gemm_dmma_kernel<<<static_cast<unsigned>(tiles), dm::THREADS, dm::SMEM,
+                     stream>>>(map_a, map_b, static_cast<const double*>(bias),
+                               epilogue, static_cast<double*>(c), sc0, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -------------------------------- dispatch -----------------------------------
+
+bool aligned16(const void* p, long long stride, int elem) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride * elem) % 16 == 0;
+}
+
 template <typename T, typename Acc, typename TO>
-int launch(const void* a, long long sa0, long long sa1, const void* b,
-           long long sb0, long long sb1, const void* bias, int epilogue,
-           void* c, long long sc0, int m, int n, int k, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_kernel<T, Acc, TO><<<grid, THREADS, 0, stream>>>(
+int launch_simt(const void* a, long long sa0, long long sa1, const void* b,
+                long long sb0, long long sb1, const void* bias, int epilogue,
+                void* c, long long sc0, int m, int n, int k,
+                cudaStream_t stream) {
+  const dim3 grid((n + simt::BN - 1) / simt::BN, (m + simt::BM - 1) / simt::BM);
+  gemm_simt_kernel<T, Acc, TO><<<grid, simt::THREADS, 0, stream>>>(
       static_cast<const T*>(a), sa0, sa1, static_cast<const T*>(b), sb0, sb1,
       static_cast<const T*>(bias), epilogue, static_cast<TO*>(c), sc0, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(int dtype, int out_dtype, const void* a, long long sa0,
-             long long sa1, const void* b, long long sb0, long long sb1,
-             const void* bias, int epilogue, void* c, long long sc0, int m,
-             int n, int k, void* stream) {
+template <typename TO>
+int launch_wgmma(const void* a, long long sa0, const void* b, long long sb0,
+                 const void* bias, int epilogue, void* c, long long sc0, int m,
+                 int n, int k, cudaStream_t stream) {
+  using namespace wg;
+  CUtensorMap map_a, map_b;
+  const cuuint64_t dims_a[2] = {cuuint64_t(k), cuuint64_t(m)};
+  const cuuint64_t dims_b[2] = {cuuint64_t(n), cuuint64_t(k)};
+  const cuuint64_t stride_a[1] = {cuuint64_t(sa0) * 2};
+  const cuuint64_t stride_b[1] = {cuuint64_t(sb0) * 2};
+  const cuuint32_t box_a[2] = {BK, BM}, box_b[2] = {64, BK};
+  int err = hopper::make_map(&map_a, a, 2, dims_a, stride_a, box_a);
+  if (err == 0) err = hopper::make_map(&map_b, b, 2, dims_b, stride_b, box_b);
+  if (err != 0) return err;
+  auto kernel = gemm_wgmma_kernel<TO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles =
+      static_cast<long long>((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  kernel<<<static_cast<unsigned>(tiles), THREADS, SMEM, stream>>>(
+      map_a, map_b, static_cast<const __nv_bfloat16*>(bias), epilogue,
+      static_cast<TO*>(c), sc0, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_ffma(const void* a, long long sa0, const void* b, long long sb0,
+                const void* bias, int epilogue, void* c, long long sc0, int m,
+                int n, int k, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ff::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles = static_cast<long long>((m + ff::BM - 1) / ff::BM) *
+                          ((n + ff::BN - 1) / ff::BN);
+  gemm_ffma_kernel<<<static_cast<unsigned>(tiles), ff::THREADS, ff::SMEM,
+                     stream>>>(static_cast<const float*>(a), sa0,
+                               static_cast<const float*>(b), sb0,
+                               static_cast<const float*>(bias), epilogue,
+                               static_cast<float*>(c), sc0, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launches `variant`; cudaErrorInvalidValue when the variant does not take
+// these dtypes or this layout (the wrapper never asks for that: it picks
+// the variant from the same facts, kernels/gemm.py::gemm_variant)
+int dispatch(int variant, int dtype, int out_dtype, const void* a,
+             long long sa0, long long sa1, const void* b, long long sb0,
+             long long sb1, const void* bias, int epilogue, void* c,
+             long long sc0, int m, int n, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && out_dtype == kF32)
-    return launch<float, float, float>(a, sa0, sa1, b, sb0, sb1, bias,
-                                       epilogue, c, sc0, m, n, k, s);
-  if (dtype == kF64 && out_dtype == kF64)
-    return launch<double, double, double>(a, sa0, sa1, b, sb0, sb1, bias,
-                                          epilogue, c, sc0, m, n, k, s);
-  if (dtype == kBF16 && out_dtype == kBF16)
-    return launch<__nv_bfloat16, float, __nv_bfloat16>(
-        a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, s);
-  if (dtype == kBF16 && out_dtype == kF32)
-    return launch<__nv_bfloat16, float, float>(a, sa0, sa1, b, sb0, sb1, bias,
-                                               epilogue, c, sc0, m, n, k, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (variant == kSimt) {
+    if (dtype == kF32 && out_dtype == kF32)
+      return launch_simt<float, float, float>(a, sa0, sa1, b, sb0, sb1, bias,
+                                              epilogue, c, sc0, m, n, k, s);
+    if (dtype == kF64 && out_dtype == kF64)
+      return launch_simt<double, double, double>(
+          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, s);
+    if (dtype == kBF16 && out_dtype == kBF16)
+      return launch_simt<__nv_bfloat16, float, __nv_bfloat16>(
+          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, s);
+    if (dtype == kBF16 && out_dtype == kF32)
+      return launch_simt<__nv_bfloat16, float, float>(
+          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, s);
+    return bad;
+  }
+  const int elem = dtype == kF64 ? 8 : dtype == kF32 ? 4 : 2;
+  if (sa1 != 1 || sb1 != 1 || !aligned16(a, sa0, elem) ||
+      !aligned16(b, sb0, elem))
+    return bad;
+  if (variant == kWgmma && dtype == kBF16 && out_dtype == kBF16)
+    return launch_wgmma<__nv_bfloat16>(a, sa0, b, sb0, bias, epilogue, c, sc0,
+                                       m, n, k, s);
+  if (variant == kWgmma && dtype == kBF16 && out_dtype == kF32)
+    return launch_wgmma<float>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n,
+                               k, s);
+  if (variant == kFfma && dtype == kF32 && out_dtype == kF32)
+    return launch_ffma(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k, s);
+  if (variant == kDmma && dtype == kF64 && out_dtype == kF64)
+    return launch_dmma(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k, s);
+  return bad;
 }
 
 }  // namespace
 }  // namespace repro
 
-// C[m, n] (row stride sc0, unit column stride) = A[m, k] @ B[k, n].
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int repro_gemm(int dtype, int out_dtype, const void* a,
+// C[m, n] (row stride sc0, unit column stride) = A[m, k] @ B[k, n] on
+// `variant` (repro::Variant). Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int repro_gemm(int variant, int dtype, int out_dtype, const void* a,
                           long long sa0, long long sa1, const void* b,
                           long long sb0, long long sb1, void* c,
                           long long sc0, int m, int n, int k, void* stream) {
-  return repro::dispatch(dtype, out_dtype, a, sa0, sa1, b, sb0, sb1, nullptr,
-                         repro::kNone, c, sc0, m, n, k, stream);
+  return repro::dispatch(variant, dtype, out_dtype, a, sa0, sa1, b, sb0, sb1,
+                         nullptr, repro::kNone, c, sc0, m, n, k, stream);
 }
 
 // C = act(A @ B + bias); bias may be null (no bias), epilogue is a
 // repro::Epilogue code.
-extern "C" int repro_gemm_bias_act(int dtype, int out_dtype, const void* a,
-                                   long long sa0, long long sa1,
-                                   const void* b, long long sb0,
-                                   long long sb1, const void* bias,
-                                   int epilogue, void* c, long long sc0,
-                                   int m, int n, int k, void* stream) {
-  return repro::dispatch(dtype, out_dtype, a, sa0, sa1, b, sb0, sb1, bias,
-                         epilogue, c, sc0, m, n, k, stream);
+extern "C" int repro_gemm_bias_act(int variant, int dtype, int out_dtype,
+                                   const void* a, long long sa0,
+                                   long long sa1, const void* b,
+                                   long long sb0, long long sb1,
+                                   const void* bias, int epilogue, void* c,
+                                   long long sc0, int m, int n, int k,
+                                   void* stream) {
+  return repro::dispatch(variant, dtype, out_dtype, a, sa0, sa1, b, sb0, sb1,
+                         bias, epilogue, c, sc0, m, n, k, stream);
 }

@@ -39,9 +39,9 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
     "gemm": {
-        "repro_gemm": ([I, I, P, LL, LL, P, LL, LL, P, LL, I, I, I, P], I),
+        "repro_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, I, I, I, P], I),
         "repro_gemm_bias_act": (
-            [I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I, P], I),
+            [I, I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I, P], I),
     },
     "trsm_gemm": {
         "repro_trsm_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, LL, P,
@@ -52,7 +52,7 @@ SIGNATURES = {
         "repro_dotp": ([I, P, LL, P, LL, LL, P, P, P], I),
     },
     "flash_attention": {
-        "repro_attention": ([I, P, LL, LL, LL, LL, P, LL, LL, LL, LL,
+        "repro_attention": ([I, I, P, LL, LL, LL, LL, P, LL, LL, LL, LL,
                              P, LL, LL, LL, LL, P, LL, LL, LL, LL,
                              I, I, I, I, I, I, F, I, LL, LL, I, P], I),
     },

@@ -2,9 +2,20 @@
 (``csrc/flash_attention.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::attention``
-(``_attn_kernel``). One CTA owns one (batch, query head, 64-row query
-block) and loops over the KV blocks inside the block, in place of the
-TPU's sequential KV grid axis; the f32 running (m, l, acc) stay on chip.
+(``_attn_kernel``). One CTA owns one (batch, query head, query block) and
+loops over the KV blocks inside the block, in place of the TPU's
+sequential KV grid axis; the f32 running (m, l, acc) stay on chip. The
+source has two variants (:data:`VARIANTS`), picked by
+:func:`attention_variant` from dtype, head dim and layout alone:
+
+- ``"wgmma"``: bf16 with a head dim of at most 128 (a multiple of 8) whose
+  q / k / v TMA can read (unit dim stride, 16-byte aligned base and
+  strides): 128 query rows per CTA on the tensor cores (wgmma), K / V fed
+  through a TMA ring, masks and online softmax in registers, P split into
+  bf16 hi + lo parts for two P V products. The model paths' moveaxis views
+  take it.
+- ``"ffma"``: everything else (f32, head dims up to 256, other strides):
+  64 query rows per CTA, QK^T and PV on FP32 FFMA.
 KV blocks that the causal, window and ``kv_len`` masks cover for the whole
 query block are skipped. Layout as the reference: q (B, Hq, Sq, D), k/v
 (B, Hkv, Sk, D), GQA through ``h // (Hq / Hkv)``; operands are read
@@ -16,10 +27,10 @@ the model paths is fully masked.
 
 :func:`attention` launches the kernel for CUDA tensors and runs
 :func:`attention_plain` for CPU tensors; there is no other path.
-``attention.launches`` counts kernel launches on the card and
-``attention.last_launch`` records the
-:class:`~repro_torch.core.codesign.AttentionPlan` it was handed beside the
-CTA tile it launched with.
+``attention.launches`` counts kernel launches on the card (and
+``attention.variant_launches`` per variant); ``attention.last_launch``
+records the :class:`~repro_torch.core.codesign.AttentionPlan` it was
+handed beside the variant, CTA tile and grid it launched with.
 """
 from __future__ import annotations
 
@@ -30,15 +41,42 @@ import torch
 from repro_torch.core.codesign import AttentionPlan, plan_attention
 from repro_torch.kernels import _build, ref
 
-BLOCK_Q = 64           # query rows per CTA (csrc/flash_attention.cu::BQ)
-MAX_HEAD_DIM = 256
+VARIANTS = ("ffma", "wgmma")       # index = the csrc variant code
+MAX_HEAD_DIM = 256                 # "ffma"
+MAX_TC_HEAD_DIM = 128              # "wgmma" (a multiple of 8)
 # dtype codes of csrc/common.cuh (repro::DType) the kernel takes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 
 
-def block_k(head_dim: int) -> int:
-    """Keys per staged KV block (csrc/flash_attention.cu::Tile::BK)."""
-    return 32 if head_dim > 128 else 64
+def tile(variant: str, head_dim: int) -> tuple:
+    """(query rows per CTA, keys per staged KV block) of a variant
+    (csrc/flash_attention.cu: tc::BQ / tc::BKV, and BQ / Tile::BK)."""
+    if variant == "wgmma":
+        return 128, 128
+    return 64, 32 if head_dim > 128 else 64
+
+
+def tma_readable(t: torch.Tensor) -> bool:
+    """Can a TMA tensor map read this (B, H, S, D) bf16 operand: unit dim
+    stride, base and every stride of an axis longer than 1 multiples of 16
+    bytes?"""
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(size == 1 or (st > 0 and st * t.element_size() % 16 == 0)
+                    for size, st in zip(t.shape[:3], t.stride()[:3])))
+
+
+def attention_variant(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> str:
+    """The csrc/flash_attention.cu variant for these operands, from dtype,
+    head dim and layout alone: ``"wgmma"`` for bf16 with a head dim of at
+    most :data:`MAX_TC_HEAD_DIM` (a multiple of 8) and operands TMA can
+    read, else ``"ffma"``."""
+    d = q.shape[3]
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and 0 < d <= MAX_TC_HEAD_DIM and d % 8 == 0
+            and all(tma_readable(t) for t in (q, k, v))):
+        return "wgmma"
+    return "ffma"
 
 
 def _kv_len(sk: int, kv_len: Optional[int]) -> int:
@@ -84,7 +122,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention: the CUDA kernel for CUDA tensors,
     :func:`attention_plain` for CPU tensors. Returns q-shaped in q's dtype.
     ``plan`` (default: :func:`plan_attention`) is recorded, not tiled by:
-    the kernel's CTA tile is (:data:`BLOCK_Q`, :func:`block_k`)."""
+    the CTA tile is that of :func:`attention_variant` (:func:`tile`)."""
     check_operands(q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, scale=scale,
@@ -99,7 +137,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"attention kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM}, got {d}")
-    if -(-sq // BLOCK_Q) > 2 ** 31 - 1 or hq > 65535 or b > 65535:
+    variant = attention_variant(q, k, v)
+    bq = tile(variant, d)[0]
+    if (-(-sq // bq) * (hq * b if variant == "wgmma" else 1) > 2 ** 31 - 1
+            or hq > 65535 or b > 65535):
         raise ValueError(f"attention grid too large for {tuple(q.shape)}")
     n = _kv_len(sk, kv_len)
     if 0 in q.shape or n == 0:
@@ -111,7 +152,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.repro_attention(
-            DTYPE_CODES[q.dtype], q.data_ptr(), *q.stride(),
+            VARIANTS.index(variant), DTYPE_CODES[q.dtype],
+            q.data_ptr(), *q.stride(),
             k.data_ptr(), *k.stride(), v.data_ptr(), *v.stride(),
             o.data_ptr(), *o.stride(), b, hq, hkv, sq, sk, d, float(scale),
             int(bool(causal)), int(q_offset),
@@ -119,10 +161,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "repro_attention")
     attention.launches += 1
-    attention.last_launch = {"plan": plan, "tile": (BLOCK_Q, block_k(d)),
-                             "grid": (-(-sq // BLOCK_Q), hq, b)}
+    attention.variant_launches[variant] += 1
+    attention.last_launch = {
+        "plan": plan, "variant": variant, "tile": tile(variant, d),
+        "grid": ((-(-sq // bq) * hq * b,) if variant == "wgmma"
+                 else (-(-sq // bq), hq, b))}
     return o
 
 
-attention.launches = 0
+def reset_launches() -> None:
+    """Zero :func:`attention`'s launch counts (all variants)."""
+    attention.launches = 0
+    attention.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launches()
 attention.last_launch = None

@@ -5,9 +5,11 @@
     (``_gemm_epilogue_kernel``). C = act(A B + bias) in one launch: B1's
     tiled product with the bias add and the activation applied to the
     register accumulator, in the accumulator type, before the single
-    store, so C is written to device memory once. Bound by operations at
-    the main path's shapes, like B1; the epilogue adds n bias reads and a
-    few flops per output.
+    store, so C is written to device memory once. It runs on B1's main
+    loop, in the variant :func:`~repro_torch.kernels.gemm.gemm_variant`
+    picks (bf16 on the tensor cores, f32 on FFMA, f64 on DMMA). Bound by
+    operations at the main path's shapes, like B1; the epilogue adds n bias
+    reads and a few flops per output.
 
 ``trsm_gemm`` (B2, ``csrc/trsm_gemm.cu``)
     Replaces ``repro/kernels/fused.py::trsm_gemm`` (``_trsm_gemm_kernel``).
@@ -21,8 +23,9 @@
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`gemm_bias_act_plain`, :func:`trsm_gemm_plain`)
-for CPU tensors, with no other path, and counts its calls in
-``.launches``.
+for CPU tensors, with no other path. ``.launches`` counts kernel launches
+on the card (the CPU route counts nothing); ``.last_launch`` records each
+call on either route.
 """
 from __future__ import annotations
 
@@ -34,8 +37,10 @@ import torch.nn.functional as F
 from repro_torch import obs as _obs
 from repro_torch.core.codesign import GemmPlan, plan_gemm
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import (DTYPE_CODES, TILE, accumulator_dtype,
-                                      check_operands, gemm_plain, launch)
+from repro_torch.kernels.gemm import (DTYPE_CODES, accumulator_dtype,
+                                      check_operands, gemm_plain,
+                                      gemm_variant, launch, record_call,
+                                      reset_launches)
 
 EPILOGUES = ("none", "relu", "gelu")     # index = csrc/common.cuh code
 TRSM_GEMM_TILES = (64, 32, 16, 8, 4, 2, 1)  # csrc/trsm_gemm.cu instances
@@ -86,7 +91,7 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = act(A @ B + bias) in one launch (CUDA) or its plain version
     (CPU). ``bias`` is a length-n vector of a's dtype; ``plan`` is
-    recorded beside the kernel's CTA tile, as in B1."""
+    recorded beside the variant and its CTA tile, as in B1."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; "
                          f"expected one of {EPILOGUES}")
@@ -101,20 +106,19 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
         plan = plan_gemm(m, n, k, dtype=a.dtype)
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=out_dtype, device=a.device)
-    gemm_bias_act.launches += 1
-    gemm_bias_act.last_launch = {"plan": plan, "tile": TILE,
-                                 "device": a.device.type}
+    variant = gemm_variant(a, b)
+    record_call(gemm_bias_act, plan, variant, a.device)
     if a.device.type == "cpu":
         return gemm_bias_act_plain(a, b, bias, epilogue, out_dtype)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     bias = None if bias is None else bias.contiguous()   # held past launch
-    launch("repro_gemm_bias_act", a, b, c,
+    launch(gemm_bias_act, "repro_gemm_bias_act", variant, a, b, c,
            None if bias is None else bias.data_ptr(),
            EPILOGUES.index(epilogue))
     return c
 
 
-gemm_bias_act.launches = 0
+reset_launches(gemm_bias_act)
 gemm_bias_act.last_launch = None
 
 
@@ -192,7 +196,6 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     if n == 0:
         return (torch.empty((nb, 0), dtype=c.dtype, device=c.device),
                 torch.empty((m, 0), dtype=c.dtype, device=c.device))
-    trsm_gemm.launches += 1
     trsm_gemm.last_launch = {"row_block": row_block, "form": form,
                              "device": c.device.type}
     if c.device.type == "cpu":
@@ -213,6 +216,7 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
             x.data_ptr(), c_out.data_ptr(), nb, m, n, tile, int(l_smem),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "repro_trsm_gemm")
+    trsm_gemm.launches += 1
     return x, c_out
 
 

@@ -3,18 +3,28 @@
 Replaces the Pallas TPU kernel ``repro/kernels/gemm.py::gemm``
 (``_gemm_kernel``). What bounds it on the H100, and what the design does
 about it, is in the note at the top of ``csrc/gemm.cu``: at the main
-path's shapes it is bound by operations; float32 runs IEEE FFMA (never
-TF32); each CTA owns a 64x64 output tile and loops over K inside the
-block, in place of the TPU's sequential K grid axis; ragged edges are
-masked in-kernel and operands are read through their strides, so the
-blocked drivers' transposed and sliced views need no copy.
+path's shapes it is bound by operations. Each CTA owns one output tile and
+loops over K inside the block, in place of the TPU's sequential K grid
+axis. The source has four variants (:data:`VARIANTS`), and
+:func:`gemm_variant` picks one from dtype, shape and layout alone:
+
+- ``"wgmma"``: bf16 on the tensor cores (TMA ring, wgmma), 128x256 tiles;
+- ``"ffma"``: f32 on IEEE FFMA (never TF32), 128x128 tiles, cp.async ring;
+- ``"dmma"``: f64 on the FP64 tensor cores (mma.sync m16n8k8), 128x128
+  tiles, TMA ring, warp-specialised;
+- ``"simt"``: any dtype and any strides, 64x64 tiles: the skinny products
+  (``min(m, n) <= SKINNY``, the blocked TRSM's 128 x k x 1 updates) and the
+  layouts the others cannot read (a column stride other than 1, a row
+  stride or base address off 16 bytes: the drivers' transposed views).
 
 :func:`gemm` launches the kernel for CUDA tensors and runs
 :func:`gemm_plain` (the same function in plain PyTorch) for CPU tensors;
-there is no other path. ``gemm.launches`` counts its calls (kernel
-launches on the card) and ``gemm.last_launch`` records the
-:class:`~repro_torch.core.codesign.GemmPlan` it was handed beside the CTA
-tile it launched with.
+there is no other path, and a variant that refuses its operands raises.
+``gemm.launches`` counts kernel launches on the card (the CPU route
+counts nothing), ``gemm.variant_launches`` the same per variant, and
+``gemm.last_launch`` records, on both routes, the
+:class:`~repro_torch.core.codesign.GemmPlan` it was handed beside the
+variant and the CTA tile the layout picks.
 """
 from __future__ import annotations
 
@@ -25,15 +35,22 @@ import torch
 from repro_torch.core.codesign import GemmPlan, plan_gemm
 from repro_torch.kernels import _build
 
-# the CTA tile csrc/gemm.cu launches with: (BM, BN, BK)
-TILE = (64, 64, 16)
+# csrc/gemm.cu's variants (index = repro::Variant code) and their CTA
+# tiles (BM, BN, BK)
+VARIANTS = ("simt", "wgmma", "ffma", "dmma")
+TILES = {"simt": (64, 64, 16), "wgmma": (128, 256, 64),
+         "ffma": (128, 128, 16), "dmma": (128, 128, 32)}
+# the tiled variant of each dtype
+TILED = {torch.bfloat16: "wgmma", torch.float32: "ffma",
+         torch.float64: "dmma"}
+SKINNY = 16      # min(m, n) at or below which the 64-wide simt tile runs
 # dtype codes of csrc/common.cuh (repro::DType)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # output dtypes the kernel stores for each operand dtype
 OUT_DTYPES = {torch.float32: (torch.float32,),
               torch.float64: (torch.float64,),
               torch.bfloat16: (torch.bfloat16, torch.float32)}
-_MAX_ROW_BLOCKS = 65535                 # gridDim.y limit
+_MAX_ROW_BLOCKS = 65535                 # gridDim.y limit of "simt"
 
 
 def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -67,34 +84,74 @@ def check_operands(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.dtype:
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gemm runs on cuda (kernel) or cpu (plain "
                          f"version), not {a.device}")
-    if -(-a.shape[0] // TILE[0]) > _MAX_ROW_BLOCKS:
-        raise ValueError(f"gemm takes at most {_MAX_ROW_BLOCKS * TILE[0]} "
-                         f"rows, got {a.shape[0]}")
     return out_dtype
 
 
-def launch(entry: str, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-           *epilogue_args) -> None:
-    """Launch one csrc/gemm.cu entry point writing into ``c`` (contiguous)
-    on the current stream of a's device; raises on a refused launch."""
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Can TMA / 16-byte cp.async read ``t`` row by row: unit column
+    stride, row stride and base address multiples of 16 bytes?"""
+    return (t.stride(1) == 1 and t.stride(0) * t.element_size() % 16 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def gemm_variant(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The csrc/gemm.cu variant for A @ B, from dtype, shape and layout
+    alone: the dtype's tiled variant (:data:`TILED`) when both operands are
+    :func:`rows_aligned` and the product is neither skinny nor empty in k,
+    else ``"simt"``."""
     m, k = a.shape
     n = b.shape[1]
+    if k == 0 or min(m, n) <= SKINNY or not (rows_aligned(a)
+                                             and rows_aligned(b)):
+        return "simt"
+    return TILED[a.dtype]
+
+
+def record_call(wrapper, plan, variant: str, device: torch.device) -> None:
+    """Record the plan, variant and CTA tile of one call of ``wrapper``
+    (either route); counts nothing."""
+    wrapper.last_launch = {"plan": plan, "variant": variant,
+                           "tile": TILES[variant], "device": device.type}
+
+
+def reset_launches(wrapper) -> None:
+    """Zero a GEMM wrapper's launch counts (total and per variant)."""
+    wrapper.launches = 0
+    wrapper.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def launch(wrapper, entry: str, variant: str, a: torch.Tensor,
+           b: torch.Tensor, c: torch.Tensor, *epilogue_args) -> None:
+    """Launch one csrc/gemm.cu entry point of ``wrapper`` on ``variant``
+    writing into ``c`` (contiguous) on the current stream of a's device;
+    raises on a refused launch, and counts the launch in ``wrapper``
+    (total and per variant) once it has gone through."""
+    m, k = a.shape
+    n = b.shape[1]
+    if variant == "simt" and -(-m // TILES["simt"][0]) > _MAX_ROW_BLOCKS:
+        raise ValueError(f"gemm takes at most "
+                         f"{_MAX_ROW_BLOCKS * TILES['simt'][0]} rows on the "
+                         f"simt variant, got {m}")
     lib = _build.library("gemm")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
-            DTYPE_CODES[a.dtype], DTYPE_CODES[c.dtype],
+            VARIANTS.index(variant), DTYPE_CODES[a.dtype],
+            DTYPE_CODES[c.dtype],
             a.data_ptr(), a.stride(0), a.stride(1),
             b.data_ptr(), b.stride(0), b.stride(1), *epilogue_args,
             c.data_ptr(), c.stride(0), m, n, k, stream)
     _build.check(err, entry)
+    wrapper.launches += 1
+    wrapper.variant_launches[variant] += 1
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = A @ B: the CUDA kernel for CUDA tensors, :func:`gemm_plain` for
     CPU tensors. ``plan`` (default: :func:`plan_gemm` at a's dtype) is
-    recorded, not tiled by: the kernel's CTA tile is :data:`TILE`."""
+    recorded, not tiled by: the CTA tile is that of :func:`gemm_variant`
+    (:data:`TILES`)."""
     out_dtype = check_operands(a, b, out_dtype)
     m, k = a.shape
     n = b.shape[1]
@@ -102,14 +159,14 @@ def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,
         plan = plan_gemm(m, n, k, dtype=a.dtype)
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=out_dtype, device=a.device)
-    gemm.launches += 1
-    gemm.last_launch = {"plan": plan, "tile": TILE, "device": a.device.type}
+    variant = gemm_variant(a, b)
+    record_call(gemm, plan, variant, a.device)
     if a.device.type == "cpu":
         return gemm_plain(a, b, out_dtype)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    launch("repro_gemm", a, b, c)
+    launch(gemm, "repro_gemm", variant, a, b, c)
     return c
 
 
-gemm.launches = 0
+reset_launches(gemm)
 gemm.last_launch = None

@@ -22,6 +22,10 @@ from repro_torch.kernels import ssd_scan as sk
 # file needs no jax
 TOL = {"float32": (2e-4, 1e-4), "float64": (1e-12, 1e-12),
        "bfloat16": (5e-2, 5e-2)}
+# chip_smoke.py's CLOSE_TOL for B5 (rtol, atol in units of the plain
+# output's rms, normwise limit): bf16 sides each round one f32 value once,
+# so they differ by at most one bf16 step; f32 sums in another order
+CLOSE_TOL = {"float32": (2e-4, 2e-4, 2e-4), "bfloat16": (2 ** -7, 1e-2, 1e-2)}
 GEMM_SHAPES = [(1, 1, 1), (7, 129, 33), (70, 33, 129), (200, 300, 517)]
 # (nb, n, m): ragged panels, and one too wide for 64-column X blocks
 TRSM_GEMM_SHAPES = [(8, 8, 8), (13, 130, 70), (100, 300, 260), (2000, 40, 30)]
@@ -59,6 +63,23 @@ def _close(got, want, dtype, scale):
                                rtol=rtol * scale, atol=atol * scale)
 
 
+def _close_scaled(got, want, dtype):
+    """chip_smoke.py's compare_close: |got - want| <= rtol |want| +
+    atol rms(want) elementwise and ||got - want|| <= norm_tol ||want||,
+    so a wrong or misplaced KV tile cannot hide under an absolute limit
+    larger than the output's values."""
+    rtol, atol, norm_tol = CLOSE_TOL[dtype]
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    limit = rtol * w.abs() + atol * w.square().mean().sqrt()
+    assert torch.isfinite(g).all()
+    worst = (diff / limit.clamp_min(1e-300)).max().item()
+    assert worst <= 1.0, f"elementwise {worst:.3g} of its limit"
+    norm_err = (diff.norm() / w.norm().clamp_min(1e-300)).item()
+    assert norm_err <= norm_tol, f"normwise {norm_err:.3g} > {norm_tol}"
+    return worst, norm_err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 def test_gemm_kernels_match_plain(card, dtype):
@@ -72,6 +93,62 @@ def test_gemm_kernels_match_plain(card, dtype):
         for epi in fk.EPILOGUES:
             _close(fk.gemm_bias_act(a, b, bias, epi),
                    fk.gemm_bias_act_plain(a, b, bias, epi), dtype, 4.0)
+    torch.cuda.synchronize()
+
+
+# (m, n, k) at which each tiled variant runs: edges that cut the tiles in
+# m, n and k (n and k multiples of 8, so contiguous rows stay 16-byte
+# aligned), one tile, several tiles and a partial last k stage
+TILED_SHAPES = [(17, 40, 8), (200, 296, 520), (1000, 776, 520)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out,variant", [
+    ("bfloat16", "bfloat16", "wgmma"), ("bfloat16", "float32", "wgmma"),
+    ("float32", "float32", "ffma"), ("float64", "float64", "dmma")])
+def test_gemm_tiled_variants_match_plain(card, dtype, out, variant):
+    """Each tiled variant (and B3 on it) against the plain version at
+    ragged shapes and on a sliced, 16-byte aligned view."""
+    rng = np.random.default_rng(1)
+    tdt, odt = getattr(torch, dtype), getattr(torch, out)
+    dev = lambda *s: torch.from_numpy(rng.normal(size=s)).to(card, tdt)
+    for m, n, k in TILED_SHAPES:
+        a, b, bias = dev(m, k), dev(k, n), dev(n)
+        assert gk.gemm_variant(a, b) == variant
+        before = gk.gemm.variant_launches[variant]
+        got = gk.gemm(a, b, out_dtype=odt)
+        assert gk.gemm.variant_launches[variant] == before + 1
+        assert gk.gemm.last_launch["variant"] == variant
+        assert gk.gemm.last_launch["tile"] == gk.TILES[variant]
+        _close(got, gk.gemm_plain(a, b, odt), out, 4.0)
+        for epi in fk.EPILOGUES:
+            _close(fk.gemm_bias_act(a, b, bias, epi, out_dtype=odt),
+                   fk.gemm_bias_act_plain(a, b, bias, epi, odt), out, 4.0)
+            assert fk.gemm_bias_act.last_launch["variant"] == variant
+    # a window of a larger matrix: row stride 1024, base 16-byte aligned
+    big = dev(400, 1024)
+    a, b = big[40:240, 64:64 + 320], big[:320, 128:128 + 200]
+    assert gk.gemm_variant(a, b) == variant
+    _close(gk.gemm(a, b, out_dtype=odt), gk.gemm_plain(a, b, odt), out, 4.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_gemm_simt_layouts_match_plain(card, dtype):
+    """The layouts the tiled variants do not read (transposed, misaligned,
+    skinny) run on "simt" and agree with the plain version."""
+    rng = np.random.default_rng(2)
+    tdt = getattr(torch, dtype)
+    dev = lambda *s: torch.from_numpy(rng.normal(size=s)).to(card, tdt)
+    a, b = dev(200, 300), dev(300, 150)
+    big = dev(320, 330)
+    cases = [(b.T, a.T), (big[1:201, 3:303], big[5:305, 7:157]),
+             (dev(128, 8192), dev(8192, 1)), (dev(5, 64), dev(64, 96))]
+    for x, y in cases:
+        assert gk.gemm_variant(x, y) == "simt", (x.shape, x.stride())
+        _close(gk.gemm(x, y), gk.gemm_plain(x, y), dtype, 4.0)
+        assert gk.gemm.last_launch["tile"] == gk.TILES["simt"]
     torch.cuda.synchronize()
 
 
@@ -90,7 +167,9 @@ def test_trsm_gemm_kernel_matches_plain(card, dtype):
                     None if form == "syrk" else dev(rng.normal(size=(mm, nb))),
                     dev(rng.normal(size=(mm, n))))
             for unit in (False, True):
+                before = fk.trsm_gemm.launches
                 x, c = fk.trsm_gemm(*args, form=form, unit_diag=unit)
+                assert fk.trsm_gemm.launches == before + 1
                 xp, cp = fk.trsm_gemm_plain(*args, form=form, unit_diag=unit)
                 _close(x, xp, dtype, 4.0)
                 _close(c, cp, dtype, 8.0)
@@ -135,6 +214,43 @@ def test_attention_kernel_matches_plain(card, dtype):
         _close(ops.attention(q, k, v, **kw), got, dtype, 1.0)
     empty = torch.zeros((1, 2, 0, 64), device=card, dtype=tdt)
     assert fa.attention(empty, empty, empty).shape == empty.shape
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 128),
+                                     ("bfloat16", 40), ("float32", 64),
+                                     ("bfloat16", 256)])
+def test_attention_variants_match_plain(card, dtype, d):
+    """bf16 at head dims up to 128 runs the tensor-core variant, f32 and
+    D = 256 the FFMA one; each agrees with the plain version on the
+    model's moveaxis views and on contiguous operands, elementwise and
+    normwise at chip_smoke.py's CLOSE_TOL."""
+    rng = np.random.default_rng(3)
+    tdt = getattr(torch, dtype)
+    want = "wgmma" if dtype == "bfloat16" and d <= 128 else "ffma"
+    readings = []
+    for b, hq, hkv, sq, sk, causal, window, off, kv_len in [
+            (2, 8, 2, 300, 300, True, None, 0, None),
+            (1, 25, 5, 700, 700, True, 256, 0, None),
+            (1, 4, 2, 1, 333, True, None, 332, None),
+            (1, 4, 2, 130, 260, False, None, 0, 200),
+            (1, 4, 4, 150, 400, True, 64, 250, None)]:
+        q = torch.from_numpy(rng.normal(size=(b, sq, hq, d))).to(
+            card, tdt).movedim(2, 1)
+        k, v = (torch.from_numpy(rng.normal(size=(b, sk, hkv, d))).to(
+            card, tdt).movedim(2, 1) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=off, kv_len=kv_len)
+        for args in ((q, k, v), tuple(t.contiguous() for t in (q, k, v))):
+            assert fa.attention_variant(*args) == want
+            got = fa.attention(*args, **kw)
+            assert fa.attention.last_launch["variant"] == want
+            plain = fa.attention_plain(*args, **kw)
+            _close(got, plain, dtype, 4.0)
+            readings.append(_close_scaled(got, plain, dtype))
+    worst, norm_err = map(max, zip(*readings))     # shown under pytest -s
+    print(f"\nattention {dtype} D={d} [{want}]: elementwise <= {worst:.4g} "
+          f"of its limit, normwise <= {norm_err:.3g}")
     torch.cuda.synchronize()
 
 

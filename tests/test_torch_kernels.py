@@ -74,15 +74,19 @@ def test_gemm_matches_pallas(rng, dtype):
 
 def test_gemm_records_plan_and_counts(rng):
     """Port of test_gemm_kernel_uses_plan: the wrapper records the plan it
-    was handed beside its CTA tile, and counts the call."""
+    was handed beside its CTA tile; the CPU route launches nothing, so the
+    launch count stays put."""
     plan = tcd.plan_gemm(256, 256, 256, dtype_bytes=4)
     ja, ta = _both(rng.normal(size=(256, 256)).astype(np.float32), "float32")
     jb, tb = _both(rng.normal(size=(256, 256)).astype(np.float32), "float32")
     before = tgk.gemm.launches
     got = tgk.gemm(ta, tb, plan=plan)
-    assert tgk.gemm.launches == before + 1
+    assert tgk.gemm.launches == before
     assert tgk.gemm.last_launch["plan"] is plan
-    assert tgk.gemm.last_launch["tile"] == tgk.TILE
+    assert tgk.gemm.last_launch["device"] == "cpu"
+    variant = tgk.gemm.last_launch["variant"]
+    assert variant == tgk.gemm_variant(ta, tb) == "ffma"
+    assert tgk.gemm.last_launch["tile"] == tgk.TILES[variant]
     want = jgemm(ja, jb, plan=jcd.plan_gemm(256, 256, 256, dtype_bytes=4),
                  interpret=True)
     _close(got, want, scale=4.0)
@@ -224,3 +228,62 @@ def test_float64_legs_against_x64_jax():
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
     assert "x64 legs OK" in r.stdout
+
+
+# (rows, cols, row stride, column stride, storage offset) of operand views
+_ALIGNED = (64, 96, 96, 1, 0)
+
+
+def _view(dtype, rows, cols, s0, s1, off):
+    base = torch.zeros(off + rows * s0 + cols * s1 + 8, dtype=dtype)
+    return base.as_strided((rows, cols), (s0, s1), off)
+
+
+@pytest.mark.parametrize("dtype,variant", [
+    (torch.bfloat16, "wgmma"), (torch.float32, "ffma"),
+    (torch.float64, "dmma")])
+@pytest.mark.parametrize("a_layout,b_layout,tiled", [
+    (_ALIGNED, (96, 80, 80, 1, 0), True),            # row-major
+    (_ALIGNED, (96, 80, 128, 1, 64), True),          # aligned window
+    ((64, 96, 1, 64, 0), (96, 80, 80, 1, 0), False),  # transposed A
+    (_ALIGNED, (96, 80, 1, 96, 0), False),           # transposed B
+    (_ALIGNED, (96, 80, 81, 1, 0), False),           # row stride off 16 B
+    (_ALIGNED, (96, 80, 96, 1, 3), False),           # base off 16 B
+    (_ALIGNED, (96, 16, 16, 1, 0), False),           # skinny n
+    ((16, 96, 96, 1, 0), (96, 80, 80, 1, 0), False),  # skinny m
+    ((64, 0, 8, 1, 0), (0, 80, 80, 1, 0), False),    # empty k
+])
+def test_gemm_variant_choice(dtype, variant, a_layout, b_layout, tiled):
+    """gemm_variant is a pure function of dtype, shape and layout: the
+    dtype's tiled variant for 16-byte aligned row-major operands, "simt"
+    for transposed, misaligned, skinny or empty-k ones. The wrapper
+    records the choice and its tile, the CPU result is the plain one, and
+    the CPU route counts no launch of any variant."""
+    a, b = _view(dtype, *a_layout), _view(dtype, *b_layout)
+    want = variant if tiled else "simt"
+    assert tgk.gemm_variant(a, b) == want
+    before = (tgk.gemm.launches, dict(tgk.gemm.variant_launches),
+              tfk.gemm_bias_act.launches,
+              dict(tfk.gemm_bias_act.variant_launches))
+    got = tgk.gemm(a, b)
+    assert tgk.gemm.last_launch["variant"] == want
+    assert tgk.gemm.last_launch["tile"] == tgk.TILES[want]
+    assert tgk.gemm.last_launch["device"] == "cpu"
+    assert torch.equal(got, tgk.gemm_plain(a, b))
+    bias = torch.zeros(b.shape[1], dtype=dtype)
+    tfk.gemm_bias_act(a, b, bias, "relu")
+    assert tfk.gemm_bias_act.last_launch["variant"] == want
+    assert tfk.gemm_bias_act.last_launch["tile"] == tgk.TILES[want]
+    assert (tgk.gemm.launches, tgk.gemm.variant_launches,
+            tfk.gemm_bias_act.launches,
+            tfk.gemm_bias_act.variant_launches) == before
+
+
+def test_gemm_variant_table():
+    """Every dtype the kernel takes has a tiled variant with a tile, and
+    the variant codes match csrc/gemm.cu's Variant enum order."""
+    assert tgk.VARIANTS == ("simt", "wgmma", "ffma", "dmma")
+    assert set(tgk.TILED) == set(tgk.DTYPE_CODES)
+    assert set(tgk.TILES) == set(tgk.VARIANTS)
+    assert tgk.TILES["wgmma"] == (128, 256, 64)
+

@@ -202,10 +202,13 @@ def test_solve_matches_reference(data, registry, policy):
 
 
 def test_launch_counters_move_under_model_on_cpu(data, registry):
-    """Each kernel's own count and the shared ``kernel.launch`` counter move
-    under ``model`` exactly as the reference's ``kernel.launch`` does; the
-    reference policy launches nothing."""
+    """The shared ``kernel.launch`` counter moves under ``model`` exactly as
+    the reference's ``kernel.launch`` does, and every kernel wrapper is
+    reached (its ``last_launch`` records a CPU call) while its own launch
+    count stays put: the CPU route launches nothing. The reference policy
+    reaches no wrapper."""
     d = data
+    wrappers = (tgk.gemm, tfk.gemm_bias_act, tfk.trsm_gemm)
 
     def run(lin, **ctx):
         with lin.use(policy="model", registry=registry, **ctx):
@@ -214,22 +217,27 @@ def test_launch_counters_move_under_model_on_cpu(data, registry):
             lin.cholesky(d["spd"], block=BLOCK, fuse=True)
             lin.lu(d["gen"], block=BLOCK, fuse=False)
 
-    counts = lambda: (tgk.gemm.launches, tfk.gemm_bias_act.launches,
-                      tfk.trsm_gemm.launches)
+    counts = lambda: tuple(w.launches for w in wrappers)
+    for w in wrappers:
+        w.last_launch = None
     before, t0, j0 = counts(), tobs.counters_snapshot(), \
         jobs.counters_snapshot()
     run(tl, device="cpu")
     run(jl)
-    after = counts()
-    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert counts() == before
+    assert all(w.last_launch is not None and w.last_launch["device"] == "cpu"
+               for w in wrappers), [w.last_launch for w in wrappers]
     t_launch = tobs.counters_delta(t0).get("kernel.launch", 0)
+    assert t_launch > 0
     assert t_launch == jobs.counters_delta(j0)["kernel.launch"]
-    assert t_launch == sum(after) - sum(before)
+    for w in wrappers:
+        w.last_launch = None
     t1 = tobs.counters_snapshot()
     with tl.use(policy="reference", device="cpu"):
         tl.cholesky(d["spd"], block=BLOCK, fuse=True)
         tl.gemm(d["a"], d["b"])
-    assert counts() == after
+    assert counts() == before
+    assert all(w.last_launch is None for w in wrappers)
     assert "kernel.launch" not in tobs.counters_delta(t1)
 
 

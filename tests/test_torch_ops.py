@@ -234,3 +234,57 @@ def test_foreign_device_raises():
         tfa.attention(m, m, m)
     with pytest.raises(ValueError):
         tdk.dotp(torch.empty(4, device="meta"), torch.empty(4, device="meta"))
+
+
+# (shape of the (B, S, H, D) storage, dtype) of q, k, v handed over as
+# moveaxis views, as the model does
+def _model_views(d, dtype, b=2, s=40, hq=25, hkv=5):
+    q = torch.zeros(b, s, hq, d, dtype=dtype).movedim(2, 1)
+    k = torch.zeros(b, s, hkv, d, dtype=dtype).movedim(2, 1)
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 8, "wgmma"),
+    (torch.bfloat16, 36, "ffma"), (torch.bfloat16, 256, "ffma"),
+    (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma")])
+def test_attention_variant_choice(dtype, d, want):
+    """attention_variant is a pure function of dtype, head dim and layout:
+    the model's moveaxis views and contiguous operands in bf16 with
+    D <= 128 (a multiple of 8) take the tensor-core variant, f32 and other
+    head dims the FFMA one."""
+    views = _model_views(d, dtype)
+    assert tfa.attention_variant(*views) == want
+    assert tfa.attention_variant(*(t.contiguous() for t in views)) == want
+    assert tfa.tile(want, d) == ((128, 128) if want == "wgmma"
+                                 else (64, 32 if d > 128 else 64))
+
+
+@pytest.mark.parametrize("make", [
+    lambda q: q[..., ::2],                                 # dim stride 2
+    lambda q: torch.zeros(q.numel() + 1, dtype=q.dtype)[1:]
+    .view(q.shape),                                        # base off 16 B
+    lambda q: torch.zeros(2, 25, 40, 65, dtype=q.dtype)[..., :64],  # rows
+])
+def test_attention_variant_layouts(make):
+    """A q, k or v that TMA cannot read sends bf16 to the FFMA variant."""
+    q, k, v = _model_views(128, torch.bfloat16)
+    bad = make(q.contiguous())
+    assert not tfa.tma_readable(bad)
+    d = bad.shape[3]
+    k, v = k[..., :d], v[..., :d]
+    assert tfa.attention_variant(bad, k, v) == "ffma"
+    # a fresh copy of the same values is readable again
+    assert tfa.attention_variant(*(t.clone(memory_format=torch.contiguous_format)
+                                   for t in (bad, k, v))) == "wgmma"
+
+
+def test_attention_variant_counts_reset():
+    """The per-variant launch counts start at zero for every variant and
+    reset_launches zeroes them (the CPU route launches nothing)."""
+    tfa.reset_launches()
+    q, k, v = _model_views(64, torch.bfloat16)
+    tfa.attention(q, k, v)
+    assert tfa.attention.launches == 0
+    assert tfa.attention.variant_launches == {"ffma": 0, "wgmma": 0}
