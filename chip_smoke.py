@@ -22,7 +22,10 @@ with its wall time:
    ``cholesky`` at 4096 f64 under ``policy="model"``, then a cold-start
    ``policy="tuned"`` leg that must equal the model results bitwise. The
    kernels' launch counts are zeroed just before and read just after;
-   each kernel must have launched. Residuals are checked.
+   each kernel must have launched (B2 once per trailing update, 283; the
+   solve's 126 TRSM updates all on B1's "gemv"). Residuals are checked.
+   Then one device-only profile each of cholesky, lu and solve at 8192
+   (device-busy and idle share, B2's and B1's ms).
 4. ``model``: hymba-1.5b (32 layers, d_model 1600) built on the card from
    seed 0, one untimed prefill of 2 x 4096 tokens (set-up), then a warm
    ``model_zoo.prefill`` of 2 x 4096 other tokens with the launch counts
@@ -32,7 +35,11 @@ with its wall time:
    the top kernels), then a reduced hybrid model's ``forward`` on the card
    against its CPU (plain) route.
 5. ``times``: each kernel at its path's shapes against its plain version,
-   a library call and its roofline bound.
+   a library call and its roofline bound: B2 at five trailing updates the
+   drivers launch beside the two-call ``solve_triangular`` + ``addmm``,
+   B1's "gemv" at the TRSM update in three dtypes (CUDA-graph replay: its
+   wrapper's host time exceeds the kernels'), B4 against ``torch.dot`` in
+   20 alternating turns.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -41,6 +48,7 @@ it exits non-zero before printing any result.
 """
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -120,6 +128,31 @@ def cuda_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device milliseconds per call of ``fn``, free of host time: ``reps``
+    calls captured in one CUDA graph, its replay timed by CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay) / reps
+
+
+def kernel_ms(fn, match, reps=10):
+    """Device milliseconds per launch of the kernels whose name holds
+    ``match``, over ``reps`` calls of ``fn`` under ``torch.profiler``
+    (their summed device time over the launches it recorded)."""
+    got = profile_call(lambda: [fn() for _ in range(reps)], cpu=False,
+                       match=(match,))["matched"][match]
+    assert got["launches"] > 0, f"the profiler saw no {match} kernel"
+    return got["device_ms"] / got["launches"]
 
 
 def compare(name, got, want, scale=None, tol=None):
@@ -270,7 +303,15 @@ def phase_kernels(gen):
                     name = f"trsm_gemm {tag} nb={nb} n={n} {form} unit={unit}"
                     compare(name + " X", x, xp)
                     compare(name + " C", c, cp)
-    # a panel too wide for 64-column X blocks: narrow tile, L11 from
+        # m = 0 ("lu"): X alone
+        args = (lower(gen, 128, dtype, True), rnd(1000, 128, dtype=dtype).T,
+                rnd(0, 128, dtype=dtype), rnd(0, 1000, dtype=dtype))
+        x, c = fk.trsm_gemm(*args, form="lu", unit_diag=True)
+        xp, _ = fk.trsm_gemm_plain(*args, form="lu", unit_diag=True)
+        assert c.shape == (0, 1000)
+        compare(f"trsm_gemm {tag} nb=128 n=1000 m=0 lu unit=True X", x, xp)
+        gemv_checks(gen, dtype)
+    # a panel too wide for 32-column X blocks: narrow blocks, L11 from
     # device memory
     args = (lower(gen, 2000, torch.float64, False),
             rnd(2000, 40, dtype=torch.float64), None,
@@ -281,6 +322,42 @@ def phase_kernels(gen):
             f"{fk.trsm_gemm.last_launch} X", x, xp)
     compare("trsm_gemm float64 nb=2000 n=40 syrk C", c, cp)
     emit(phase="kernels", tile_of_last_trsm_gemm=fk.trsm_gemm.last_launch)
+
+
+def gemv_checks(gen, dtype):
+    """B1's "gemv" variant (and B3 on it) against the plain version: k =
+    1, 7 and the solve's 8064, n = 1, 3, 16, 16-byte aligned rows (a window
+    of the factor, as the blocked TRSM passes it) and unaligned ones,
+    strided B; every epilogue and out dtype at the solve's shape."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import gemm as gk
+
+    tag = str(dtype).removeprefix("torch.")
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    for k in (1, 7, N - 128):
+        big = rnd(129, k + 8)
+        for rows, a in (("aligned", big[1:, 8:]),
+                        ("unaligned", big[:37, 1:k + 1])):
+            for n in (1, 3, 16):
+                b = rnd(k, 2 * n)[:, ::2]
+                assert gk.gemm_variant(a, b) == "gemv", (a.stride(), n)
+                for out in gk.OUT_DTYPES[dtype]:
+                    compare(f"gemm {tag}->{str(out)[6:]} {a.shape[0]}x{n}x{k}"
+                            f" {rows} rows, strided B [gemv]",
+                            gk.gemm(a, b, out_dtype=out),
+                            gk.gemm_plain(a, b, out))
+                if k != N - 128 or n != 3:
+                    continue
+                bias = rnd(n)
+                for out in gk.OUT_DTYPES[dtype]:
+                    for epi in fk.EPILOGUES:
+                        for bb in (None, bias):
+                            compare(f"gemm_bias_act {tag}->{str(out)[6:]} "
+                                    f"{a.shape[0]}x{n}x{k} {rows} rows {epi} "
+                                    f"bias={bb is not None} [gemv]",
+                                    fk.gemm_bias_act(a, b, bb, epi,
+                                                     out_dtype=out),
+                                    fk.gemm_bias_act_plain(a, b, bb, epi, out))
 
 
 def small_agreement():
@@ -367,6 +444,11 @@ def phase_main(gen, build_dir):
     variants = {f"{name}_variants": dict(w.variant_launches)
                 for name, w in (("gemm", gk.gemm),
                                 ("gemm_bias_act", fk.gemm_bias_act))}
+    # one B2 launch per trailing update (63 + 63 + 63 + 31 + the tuned
+    # Cholesky's 63); the solve's 126 TRSM updates all on "gemv"
+    assert launches["trsm_gemm"] == 283, launches
+    assert variants["gemm_variants"]["gemv"] == 126, variants
+    assert variants["gemm_variants"]["simt"] == 0, variants
 
     # correctness of what came out (not part of the main path's counts)
     for tag, a, b in (("gemm f32 8192^3", a32, b32),
@@ -398,7 +480,62 @@ def phase_main(gen, build_dir):
     assert torch.equal(tuned_chol, l32)
     emit(phase="main", wall_s=main_s, launches=launches, **variants,
          cold_start_tuned_equals_model=True)
+    # where the factorizations' time goes (not part of the counted run):
+    # device-busy against wall time, B2's and B1's share
+    with linalg.use(policy="model", device="cuda"):
+        for tag, fn in (("cholesky f32 8192", lambda: linalg.cholesky(s32)),
+                        ("lu f32 8192", lambda: linalg.lu(g32)),
+                        ("solve f32 8192", lambda: linalg.solve(g32, rhs))):
+            emit(profile=tag, **profile_call(
+                fn, cpu=False, match=("trsm_gemm", "gemm_simt", "gemm_gemv")))
     return {**launches, **variants}
+
+
+def trsm_gemm_row(gen, nb, n, form, dtype):
+    """B2 at one trailing update (m = n, the operands as the drivers pass
+    them: AP a transposed view), beside its plain version, its ops bound
+    and a two-call library yardstick (``solve_triangular`` then
+    ``addmm``: no single PyTorch call computes the fused function)."""
+    from repro_torch.kernels import fused as fk
+
+    unit = form == "lu"
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    l11, ap, c = lower(gen, nb, dtype, unit), rnd(n, nb).T, rnd(n, n)
+    bl = rnd(n, nb) if form == "lu" else None
+    args = (l11, ap, bl, c)
+    item = c.element_size()
+    flops = nb * nb * n + 2.0 * n * n * nb
+    nbytes = (nb * nb + 2 * nb * n + 2 * n * n
+              + (n * nb if form == "lu" else 0)) * item
+    b_ms, b_by = bound(flops, nbytes, dtype)
+
+    def pair():
+        x = torch.linalg.solve_triangular(l11, ap, upper=False,
+                                          unitriangular=unit)
+        return x, torch.addmm(c, x.T if bl is None else bl, x, alpha=-1)
+
+    x, co = fk.trsm_gemm(*args, form=form, unit_diag=unit)
+    launch = dict(fk.trsm_gemm.last_launch)
+    # the solve phase alone: the same panel with no rows to update
+    solve = (l11, ap, bl[:0] if bl is not None else c[:0, :nb], c[:0])
+    xp, cp = fk.trsm_gemm_plain(*args, form=form, unit_diag=unit)
+    return dict(
+        name="trsm_gemm", shape=f"nb={nb} n={n} m={n} {str(dtype)[6:]} "
+        f"{form} unit={unit}",
+        ms=cuda_ms(lambda: fk.trsm_gemm(*args, form=form, unit_diag=unit)),
+        plain_ms=cuda_ms(lambda: fk.trsm_gemm_plain(*args, form=form,
+                                                    unit_diag=unit)),
+        kernel_ms=kernel_ms(lambda: fk.trsm_gemm(*args, form=form,
+                                                 unit_diag=unit), "trsm_gemm"),
+        solve_only_kernel_ms=kernel_ms(lambda: fk.trsm_gemm(
+            *solve, form="lu", unit_diag=unit), "trsm_gemm"),
+        library_ms=None, library_pair_ms=cuda_ms(pair),
+        library_pair="torch.linalg.solve_triangular then torch.addmm "
+                     "(a two-call yardstick)",
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max((x.double() - xp.double()).abs().max().item(),
+                        (co.double() - cp.double()).abs().max().item()),
+        launch={k: v for k, v in launch.items() if k != "row_block"})
 
 
 def phase_times(gen, launches):
@@ -428,20 +565,32 @@ def phase_times(gen, launches):
             .abs().max().item(),
             equals_library_bitwise=bool(torch.equal(got, torch.matmul(a, b)))))
         del a, b, got
-    # the solve's blocked-TRSM updates, 128 x k x 1 (k up to N - 128), on the
-    # skinny "simt" tile
-    a, b = rnd(128, N - 128), rnd(N - 128, 1)
-    b_ms, b_by = bound(2.0 * 128 * (N - 128),
-                       (128 * (N - 128) + (N - 128) + 128) * 4, torch.float32)
-    got = gk.gemm(a, b)
-    rows.append(dict(
-        name="gemm", shape=f"128x1x{N - 128} float32 (TRSM update)",
-        ms=cuda_ms(lambda: gk.gemm(a, b)),
-        plain_ms=cuda_ms(lambda: gk.gemm_plain(a, b)),
-        library_ms=cuda_ms(lambda: torch.matmul(a, b)), bound_ms=b_ms,
-        bound_by=b_by, variant=gk.gemm.last_launch["variant"],
-        tile=gk.gemm.last_launch["tile"],
-        max_abs_err=(got - gk.gemm_plain(a, b)).abs().max().item()))
+    # the solve's blocked-TRSM updates, 128 x k x 1 (k up to N - 128, a
+    # window of the factor), on "gemv": its wrapper's host time per call
+    # exceeds the kernels' device time, so ms and library_ms are timed as
+    # CUDA-graph replays (back-to-back CUDA-event times beside them)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        a = rnd(N, N).to(dtype)[128:256, :N - 128]
+        b = rnd(N - 128, 1).to(dtype)
+        item = a.element_size()
+        b_ms, b_by = bound(2.0 * 128 * (N - 128),
+                           (128 * (N - 128) + (N - 128) + 128) * item, dtype)
+        got = gk.gemm(a, b)
+        rows.append(dict(
+            name="gemm", shape=f"128x1x{N - 128} {str(dtype)[6:]} "
+            f"(TRSM update)", ms=graph_ms(lambda: gk.gemm(a, b)),
+            plain_ms=cuda_ms(lambda: gk.gemm_plain(a, b)),
+            library_ms=graph_ms(lambda: torch.matmul(a, b)),
+            ms_back_to_back=cuda_ms(lambda: gk.gemm(a, b)),
+            library_ms_back_to_back=cuda_ms(lambda: torch.matmul(a, b)),
+            timing="ms, library_ms: 20 calls in one CUDA graph, replayed",
+            bound_ms=b_ms, bound_by=b_by,
+            variant=gk.gemm.last_launch["variant"],
+            tile=gk.gemm.last_launch["tile"],
+            split=gk.gemm.last_launch.get("split"),
+            max_abs_err=(got.double() - gk.gemm_plain(a, b).double())
+            .abs().max().item()))
+        del a, b, got
     a, b, bias = rnd(N, N), rnd(N, N), rnd(N)
     f32 = 4
     gemm_flops, gemm_bytes = 2.0 * N ** 3, 3 * N * N * f32
@@ -459,24 +608,17 @@ def phase_times(gen, launches):
                      - fk.gemm_bias_act_plain(a, b, bias, "gelu"))
         .abs().max().item(), variant=fk.gemm_bias_act.last_launch["variant"],
         tile=fk.gemm_bias_act.last_launch["tile"]))
-    # the first trailing update of the 8192 Cholesky: nb x nb panel, an
-    # n x n trailing block (syrk form)
+    # B2 at the trailing updates the drivers launch: the first of the 8192
+    # Cholesky (syrk, n' = 8064), two later ones (4096, 1024), the first of
+    # the 8192 LU (lu, m = n' = 8064, unit diagonal) and the first of the
+    # 4096 f64 Cholesky (n' = 3968); the first row is the kernels line's
     nb = plan_factorization(N, "potrf", dtype=torch.float32).block
-    n = N - nb
-    args = (lower(gen, nb, torch.float32, False), rnd(n, nb).T, None,
-            rnd(n, n))
-    b_ms, b_by = bound(nb * nb * n + 2.0 * n * n * nb,
-                       (nb * nb + 2 * nb * n + 2 * n * n) * f32,
-                       torch.float32)
-    x, c = fk.trsm_gemm(*args, form="syrk")
-    xp, cp = fk.trsm_gemm_plain(*args, form="syrk")
-    rows.append(dict(
-        name="trsm_gemm", shape=f"nb={nb} n={n} float32 syrk",
-        ms=cuda_ms(lambda: fk.trsm_gemm(*args, form="syrk")),
-        plain_ms=cuda_ms(lambda: fk.trsm_gemm_plain(*args, form="syrk")),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=max((x - xp).abs().max().item(),
-                        (c - cp).abs().max().item())))
+    for form, n, dtype in (("syrk", N - nb, torch.float32),
+                           ("syrk", 4096, torch.float32),
+                           ("syrk", 1024, torch.float32),
+                           ("lu", N - nb, torch.float32),
+                           ("syrk", N64 - nb, torch.float64)):
+        rows.append(trsm_gemm_row(gen, nb, n, form, dtype))
     for row in rows:
         source, replaces = REPLACES[row["name"]]
         row.update(route="cuda", source=source, replaces=replaces,
@@ -630,16 +772,18 @@ def model_agreement():
         (rel, launches)
 
 
-def profile_call(fn, top=10):
+def profile_call(fn, top=10, match=(), cpu=True):
     """One run of ``fn`` under ``torch.profiler``: wall ms (profiler on),
-    device-busy ms summed over the kernels it launched, their count, and
-    the ``top`` kernels by device time."""
+    device-busy ms summed over the kernels it launched, their count, the
+    ``top`` kernels by device time, and for each substring in ``match``
+    the device ms and launches of the kernels whose name holds it.
+    ``cpu=False`` traces the device alone (far fewer events to sort)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if cpu else [])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -653,7 +797,11 @@ def profile_call(fn, top=10):
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "kernel_launches": sum(e.count for e in kernels),
             "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                    for e in kernels[:top]]}
+                    for e in kernels[:top]],
+            "matched": {m: {"device_ms": sum(
+                e.self_device_time_total for e in kernels if m in e.key)
+                / 1e3, "launches": sum(e.count for e in kernels
+                                       if m in e.key)} for m in match}}
 
 
 def phase_model(gen):
@@ -779,6 +927,19 @@ def model_rows(gen, launches):
                                        - dk.dotp_plain(x, y).item()),
         launches_note="the model path launches no dotp; its launches come "
                       "from the kernels phase"))
+    # B4 against torch.dot in turns (kernel, library, library, kernel, ...),
+    # 20 repetitions each, so the gap is read against the spread
+    times = {"dotp": [], "torch.dot": []}
+    fns = {"dotp": lambda: dk.dotp(x, y), "torch.dot": lambda: torch.dot(x, y)}
+    for i in range(20):
+        for name in (("dotp", "torch.dot") if i % 2 == 0
+                     else ("torch.dot", "dotp")):
+            times[name].append(cuda_ms(fns[name]))
+    emit(interleaved="dotp vs torch.dot, n=2^26 f32, 20 alternating "
+                     "repetitions of cuda_ms (5 launches each)",
+         **{name: {"median_ms": statistics.median(t),
+                   "min_ms": min(t), "max_ms": max(t), "ms": t}
+            for name, t in times.items()})
     del x, y
     b, s = PREFILL
     q, k, v = attention_inputs(gen, b, 25, 5, s, s, 64, torch.bfloat16)

@@ -10,9 +10,10 @@
 // result depends only on the inputs and the variant).
 //
 // Bound: at the main path's shapes (8192^3, 4096^3) the product is bound by
-// operations (2mnk flops against (mk+kn+mn) elements moved). Four variants,
-// which the wrapper (kernels/gemm.py::gemm_variant) picks from dtype, shape
-// and layout alone, one main loop each, all sharing the epilogue:
+// operations (2mnk flops against (mk+kn+mn) elements moved); the skinny
+// products (n <= 16) by the bytes of A. Five variants, which the wrapper
+// (kernels/gemm.py::gemm_variant) picks from dtype, shape and layout alone,
+// one main loop each, all sharing the epilogue:
 //
 // - "wgmma" (bf16 -> bf16 / f32): the tensor cores. A 128x256 CTA tile,
 //   64-deep k stages in a 4-stage ring filled by TMA (128-byte swizzle) and
@@ -30,21 +31,27 @@
 //   FP64 FMA; only the order of the sums differs from an FFMA chain). A
 //   128x128 CTA tile, 32-deep k stages in a 3-stage TMA ring, a producer
 //   warpgroup and eight consumer warps with a 64x32 tile each.
+// - "gemv" (any dtype; n <= 16, m > 16, A with a unit column stride): the
+//   blocked TRSM's 128 x k x nrhs updates and linalg.gemv. K is split over
+//   the CTAs so that all SMs stream A, and the partials are summed in a
+//   fixed order by a second pass (below).
 // - "simt" (any dtype, any strides): the first port's 64x64x16 tile with a
-//   4x4 micro-tile and synchronous loads. It takes the skinny products
-//   (min(m, n) <= 16, e.g. the blocked TRSM's 128 x k x 1 updates, where a
-//   128-wide tile would leave all but one SM idle) and the layouts the
-//   others cannot read (transposed or misaligned views).
+//   4x4 micro-tile and synchronous loads. It takes the products with m <= 16
+//   or a transposed skinny A, and the layouts the tiled variants cannot read
+//   (transposed or misaligned views).
 //
 // The bias (length n, contiguous) and the activation are applied to the
 // register accumulator, in the accumulator type, before the single store.
+#include <cstring>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace repro {
 namespace {
 
-// variant codes shared with repro_torch/kernels/gemm.py::VARIANTS
+// variant codes shared with repro_torch/kernels/gemm.py::VARIANTS ("gemv",
+// the fifth, has its own entry point, repro_gemv)
 enum Variant : int { kSimt = 0, kWgmma = 1, kFfma = 2, kDmma = 3 };
 
 // bias + activation on one accumulator value, then the narrowing store
@@ -566,10 +573,199 @@ int launch_dmma(const void* a, long long sa0, const void* b, long long sb0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------- "gemv" --------------------------------------
+//
+// n <= 16 outputs per row (the blocked TRSM's 128 x k x nrhs updates,
+// linalg.gemv): bound by the bytes of A. The grid is (K segments) x (row
+// groups of 16), sized by the wrapper (kernels/gemm.py::gemv_split) so that
+// every SM streams A. Each warp owns two rows of its CTA's group; a lane
+// reads VEC consecutive k of each row per step (16-byte loads when A's base
+// and row stride are 16-byte aligned, scalar loads otherwise) against B's
+// segment, staged in shared memory at the accumulator width from any
+// strides. A fixed xor-shuffle tree sums the warp. One segment writes C
+// directly; several write partials that gemv_final sums in segment order.
+// No atomics: every output is one fixed-order sum.
+
+namespace gv {
+constexpr int THREADS = 256, WARPS = THREADS / 32, ROWS = 2;   // per warp
+constexpr int BM = WARPS * ROWS;        // rows per CTA
+constexpr int KC = 256;                 // k per staged chunk of B
+}  // namespace gv
+
+// V consecutive values of A at p (16-byte aligned when V > 1) as Acc
+template <int V, typename T, typename Acc>
+__device__ __forceinline__ void load_row(const T* p, Acc (&out)[V]) {
+  if constexpr (V == 1) {
+    out[0] = to_acc(__ldg(p));
+  } else {
+    static_assert(V * sizeof(T) == 16, "one 16-byte load");
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+    T t[V];
+    memcpy(t, &w, 16);
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[v] = to_acc(t[v]);
+  }
+}
+
+template <typename T, typename Acc, typename TO, int NB, int V>
+__global__ void __launch_bounds__(gv::THREADS)
+gemm_gemv_kernel(const T* __restrict__ a, long long sa0,
+                 const T* __restrict__ b, long long sb0, long long sb1,
+                 const T* __restrict__ bias, int epilogue,
+                 TO* __restrict__ c, long long sc0,
+                 Acc* __restrict__ partials, int m, int n, int k, int ks) {
+  using namespace gv;
+  __shared__ __align__(16) Acc bs[NB][KC];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.y * BM + warp * ROWS;
+  const int kbeg = blockIdx.x * ks, kend = min(k, kbeg + ks);
+  Acc acc[ROWS][NB];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) acc[r][j] = Acc(0);
+  // B's rows contiguous (n > 1, row-major): neighbouring threads take
+  // neighbouring columns; else neighbouring k
+  const bool by_col = sb1 == 1 && sb0 != 1;
+  for (int kc0 = kbeg; kc0 < kend; kc0 += KC) {
+    __syncthreads();                         // the previous chunk is read
+    for (int i = threadIdx.x; i < NB * KC; i += THREADS) {
+      const int j = by_col ? i % NB : i / KC, kk = by_col ? i / NB : i % KC;
+      const int gk = kc0 + kk;
+      bs[j][kk] = (j < n && gk < kend) ? to_acc(b[gk * sb0 + j * sb1]) : Acc(0);
+    }
+    __syncthreads();
+    for (int kk = lane * V; kk < KC && kc0 + kk < kend; kk += 32 * V) {
+      const int gk = kc0 + kk;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int row = row0 + r;
+        if (row >= m) continue;
+        const T* p = a + row * sa0 + gk;
+        Acc av[V];
+        if (gk + V <= kend) {
+          load_row<V>(p, av);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            av[v] = gk + v < kend ? to_acc(p[v]) : Acc(0);
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            acc[r][j] = fma_acc(av[v], bs[j][kk + v], acc[r][j]);
+      }
+    }
+  }
+  // the xor tree leaves the same sum on every lane; lane j stores column j
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int row = row0 + r;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      Acc v = acc[r][j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(~0u, v, off);
+      if (lane != j || j >= n || row >= m) continue;
+      if (gridDim.x == 1)
+        finish(&c[row * sc0 + j], v, bias, j, epilogue);
+      else
+        partials[(static_cast<long long>(blockIdx.x) * m + row) * n + j] = v;
+    }
+  }
+}
+
+// C[row, j] = epilogue(sum over segments, in order, of the partials)
+template <typename T, typename Acc, typename TO>
+__global__ void __launch_bounds__(gv::THREADS)
+gemm_gemv_final(const Acc* __restrict__ partials, int segs,
+                const T* __restrict__ bias, int epilogue, TO* __restrict__ c,
+                long long sc0, int m, int n) {
+  const int i = blockIdx.x * gv::THREADS + threadIdx.x;
+  if (i >= m * n) return;
+  const int row = i / n, j = i % n;
+  Acc s = Acc(0);
+  for (int seg = 0; seg < segs; ++seg)
+    s += partials[(static_cast<long long>(seg) * m + row) * n + j];
+  finish(&c[row * sc0 + j], s, bias, j, epilogue);
+}
+
+template <typename T, typename Acc, typename TO, int NB>
+int launch_gemv_nb(bool vec, const void* a, long long sa0, const void* b,
+                   long long sb0, long long sb1, const void* bias,
+                   int epilogue, void* c, long long sc0, void* partials,
+                   int m, int n, int k, int ks, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const int segs = (k + ks - 1) / ks;
+  const dim3 grid(segs, (m + gv::BM - 1) / gv::BM);
+  auto kernel = vec ? gemm_gemv_kernel<T, Acc, TO, NB, V>
+                    : gemm_gemv_kernel<T, Acc, TO, NB, 1>;
+  kernel<<<grid, gv::THREADS, 0, stream>>>(
+      static_cast<const T*>(a), sa0, static_cast<const T*>(b), sb0, sb1,
+      static_cast<const T*>(bias), epilogue, static_cast<TO*>(c), sc0,
+      static_cast<Acc*>(partials), m, n, k, ks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || segs == 1) return static_cast<int>(err);
+  gemm_gemv_final<T, Acc, TO>
+      <<<(m * n + gv::THREADS - 1) / gv::THREADS, gv::THREADS, 0, stream>>>(
+          static_cast<const Acc*>(partials), segs,
+          static_cast<const T*>(bias), epilogue, static_cast<TO*>(c), sc0, m,
+          n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename Acc, typename TO>
+int launch_gemv(bool vec, const void* a, long long sa0, const void* b,
+                long long sb0, long long sb1, const void* bias, int epilogue,
+                void* c, long long sc0, void* partials, int m, int n, int k,
+                int ks, cudaStream_t s) {
+  if (n <= 1)
+    return launch_gemv_nb<T, Acc, TO, 1>(vec, a, sa0, b, sb0, sb1, bias,
+                                         epilogue, c, sc0, partials, m, n, k,
+                                         ks, s);
+  if (n <= 4)
+    return launch_gemv_nb<T, Acc, TO, 4>(vec, a, sa0, b, sb0, sb1, bias,
+                                         epilogue, c, sc0, partials, m, n, k,
+                                         ks, s);
+  return launch_gemv_nb<T, Acc, TO, 16>(vec, a, sa0, b, sb0, sb1, bias,
+                                        epilogue, c, sc0, partials, m, n, k,
+                                        ks, s);
+}
+
 // -------------------------------- dispatch -----------------------------------
 
 bool aligned16(const void* p, long long stride, int elem) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride * elem) % 16 == 0;
+}
+
+int gemv(int dtype, int out_dtype, const void* a, long long sa0,
+         const void* b, long long sb0, long long sb1, const void* bias,
+         int epilogue, void* c, long long sc0, void* partials, int m, int n,
+         int k, int ks, cudaStream_t s) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > 16 || k < 1 || ks < 1 || ks % gv::KC != 0 ||
+      ((k + ks - 1) / ks > 1 && partials == nullptr))
+    return bad;
+  const int elem = dtype == kF64 ? 8 : dtype == kF32 ? 4 : 2;
+  const bool vec = aligned16(a, sa0, elem);
+  if (dtype == kF32 && out_dtype == kF32)
+    return launch_gemv<float, float, float>(vec, a, sa0, b, sb0, sb1, bias,
+                                            epilogue, c, sc0, partials, m, n,
+                                            k, ks, s);
+  if (dtype == kF64 && out_dtype == kF64)
+    return launch_gemv<double, double, double>(vec, a, sa0, b, sb0, sb1, bias,
+                                               epilogue, c, sc0, partials, m,
+                                               n, k, ks, s);
+  if (dtype == kBF16 && out_dtype == kBF16)
+    return launch_gemv<__nv_bfloat16, float, __nv_bfloat16>(
+        vec, a, sa0, b, sb0, sb1, bias, epilogue, c, sc0, partials, m, n, k,
+        ks, s);
+  if (dtype == kBF16 && out_dtype == kF32)
+    return launch_gemv<__nv_bfloat16, float, float>(
+        vec, a, sa0, b, sb0, sb1, bias, epilogue, c, sc0, partials, m, n, k,
+        ks, s);
+  return bad;
 }
 
 template <typename T, typename Acc, typename TO>
@@ -679,6 +875,20 @@ extern "C" int repro_gemm(int variant, int dtype, int out_dtype, const void* a,
                           long long sc0, int m, int n, int k, void* stream) {
   return repro::dispatch(variant, dtype, out_dtype, a, sa0, sa1, b, sb0, sb1,
                          nullptr, repro::kNone, c, sc0, m, n, k, stream);
+}
+
+// C = act(A @ B + bias) on the "gemv" variant (n <= 16, A with a unit
+// column stride). ks is the K segment (a multiple of 256); when k > ks,
+// partials holds ceil(k / ks) * m * n accumulator-width values. Returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int repro_gemv(int dtype, int out_dtype, const void* a,
+                          long long sa0, const void* b, long long sb0,
+                          long long sb1, const void* bias, int epilogue,
+                          void* partials, int ks, void* c, long long sc0,
+                          int m, int n, int k, void* stream) {
+  return repro::gemv(dtype, out_dtype, a, sa0, b, sb0, sb1, bias, epilogue, c,
+                     sc0, partials, m, n, k, ks,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // C = act(A @ B + bias); bias may be null (no bias), epilogue is a

@@ -4,254 +4,570 @@
 // Replaces the Pallas TPU kernel repro/kernels/fused.py::trsm_gemm
 // (_trsm_gemm_kernel). That kernel leans on ordered grid steps: step 0
 // solves all of X into VMEM scratch and every later step reads it. CTAs on
-// the card run in no order and share nothing, so here every CTA of the 2-D
-// grid over C's TILE x TILE tiles re-solves, by forward substitution in
-// shared memory at the accumulator width, only the X column blocks its tile
-// needs: X[:, j-block] for "lu", and also X[:, i-block] for "syrk". X never
-// round-trips device memory between the two stages; the CTAs of the first
-// row-block write it out once, as the kernel's first output.
+// the card run in no order, so here one cooperative launch keeps the order
+// the TPU had, with a grid barrier in place of the grid step:
 //
-// Bound: operations (the trailing update is 2 m n nb flops against
-// (m n + ...) elements moved). The re-solve adds about nb / (2 TILE) of the
-// update's flops (syrk: twice that off the diagonal) and one barrier per
-// row of L11: that is what this simple design pays for having no grid
-// order. A cluster/DSMEM or persistent design is later work.
+// Phase 1, the solve. The CTAs (all co-resident: the wrapper sizes the grid
+// from the occupancy query) stride over X's column blocks of WIDTH columns
+// and solve each block exactly once, in shared memory at the accumulator
+// width: a blocked forward substitution, DB rows at a time, where a
+// left-looking update of the DB rows from the rows already solved (all
+// threads, one output each) is followed by the DB x DB diagonal block (one
+// thread per column, in registers): two barriers per DB rows, none per row.
+// L11's lower triangle sits in shared memory when it fits (copied once per
+// CTA by cp.async), else it is read through the cache.
+// Each block is written out once: the output X (storage dtype) and X at the
+// accumulator width into a workspace xw, [nbp][ldx] with zero padding, so
+// bf16 updates from the unrounded X as the TPU kernel does. For "lu" the
+// CTAs then copy BL transposed into a second workspace blt, [nbp][ldm], at
+// the accumulator width (tile transposes through shared memory, read along
+// BL's unit-stride axis).
 //
-// Shared memory: the X blocks (nb x TILE each, accumulator width) plus,
-// for "lu", a KC x TILE chunk of BL; L11 is staged in shared memory when
-// it fits beside them (l_smem) and otherwise read through the cache from
-// device memory, so every panel width the drivers pass runs. The wrapper
-// picks TILE (64, 32, ..., 1) as the largest whose X blocks fit, with the
-// same byte formula as smem_bytes() below. Narrow tiles (down to one
-// column) are slow and exist so that very wide panels still run.
+// One grid.sync().
+//
+// Phase 2, the update. The CTAs stride over C's 128 x 128 tiles: acc =
+// A^T B over K = nbp with A = xw ("syrk") or blt ("lu") and B = xw, both
+// [k][m]-major and padded, so a cp.async ring of 16-deep stages reads them
+// with no bounds. f32 and bf16 run B1's "ffma" micro-tile (IEEE FFMA, never
+// TF32: 256 threads, 8 x 8 outputs each); f64 runs B1's "dmma" shape
+// (mma.sync m16n8k8, eight warps of 64 x 32). C is read once in the
+// epilogue (prefetched into L2 when the tile starts), and C - acc is stored
+// once into the contiguous c_out.
+//
+// Bound: operations (2 m n nb flops of update against (m n + ...)
+// elements moved; the solve adds nb^2 n / 2). Each X column block is solved
+// once per launch; there are no float atomics and no split-K, so every
+// output is one fixed-order sum and a result depends only on the inputs.
+// All blocks run at once (a cooperative launch): a grid larger than what
+// fits is refused by the runtime and the wrapper raises.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int THREADS = 256, KC = 16;
+namespace cg = cooperative_groups;
 
+constexpr int THREADS = 256;
+constexpr int DB = 16;                       // rows per diagonal block
+constexpr int TT = 32;                       // side of a BL transpose tile
+constexpr int BM = 128, BN = 128, BK = 16, STAGES = 3;   // the update tile
+constexpr int PAD = 128;                     // ldx, ldm: multiples of this
+
+// leading dimension of an update stage row: f64 pads 4 doubles, so that the
+// 16 lanes of a half-warp's 64-bit fragment read (k rows t, columns g; four
+// of each) fall on 16 distinct bank pairs
 template <typename Acc>
-__host__ __device__ size_t smem_bytes(int nb, int tile, int syrk, int l_smem) {
-  const size_t x = static_cast<size_t>(nb) * tile;
-  const size_t second = syrk ? x : static_cast<size_t>(KC) * tile;
-  const size_t l = l_smem ? static_cast<size_t>(nb) * nb : 0;
-  return (x + second + l) * sizeof(Acc);
+__host__ __device__ constexpr int stage_ld() {
+  return sizeof(Acc) == 8 ? BM + 4 : BM;
 }
 
-template <typename T, typename Acc, int TILE>
-__global__ void __launch_bounds__(THREADS)
-trsm_gemm_kernel(int syrk, int unit_diag, int l_smem,
-                 const T* __restrict__ l, long long sl0, long long sl1,
-                 const T* __restrict__ ap, long long sap0, long long sap1,
-                 const T* __restrict__ bl, long long sbl0, long long sbl1,
-                 const T* __restrict__ c, long long sc0, long long sc1,
-                 T* __restrict__ x, T* __restrict__ cout, int nb, int m,
-                 int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Acc* xj = reinterpret_cast<Acc*>(smem_raw);
-  Acc* second = xj + static_cast<size_t>(nb) * TILE;  // X_i (syrk) | BL chunk
-  Acc* ls = second + (syrk ? static_cast<size_t>(nb) * TILE : KC * TILE);
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
+// dynamic shared memory of one launch: max(phase 1, phase 2)
+template <typename Acc>
+__host__ __device__ size_t smem_bytes(int nb, int width, int l_smem) {
+  const size_t nbp = (nb + BK - 1) / BK * BK;
+  size_t xs = nbp * (width + 1);
+  if (xs < static_cast<size_t>(TT) * (TT + 1)) xs = TT * (TT + 1);
+  const size_t solve =
+      (xs + (l_smem ? static_cast<size_t>(nb) * nb : 0)) * sizeof(Acc);
+  const size_t update =
+      static_cast<size_t>(STAGES) * 2 * BK * stage_ld<Acc>() * sizeof(Acc);
+  return solve > update ? solve : update;
+}
 
-  if (l_smem)
-    for (int idx = tid; idx < nb * nb; idx += THREADS)
-      ls[idx] = to_acc(l[(idx / nb) * sl0 + (idx % nb) * sl1]);
+struct Params {
+  const void* l;
+  long long sl0, sl1;
+  const void* ap;
+  long long sap0, sap1;
+  const void* bl;
+  long long sbl0, sbl1;
+  const void* c;
+  long long sc0, sc1;
+  void* x;          // nb x n, storage dtype, contiguous
+  void* cout;       // m x n, storage dtype, contiguous
+  void* xw;         // nbp x ldx, accumulator dtype
+  void* blt;        // nbp x ldm, accumulator dtype ("lu")
+  int nb, nbp, m, n, ldx, ldm, width, l_smem, syrk, unit_diag;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+// one 4- or 8-byte element (any alignment of its size) into shared memory
+template <int BYTES>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------ phase 1 --------------------------------------
+
+// X[:, c0 : c0 + W] = L11^{-1} AP[:, c0 : c0 + W] in xs ([nbp][W + 1]), then
+// written to x and xw; L11 from shared memory (ls, LS) or through the cache
+template <typename T, typename Acc, bool LS>
+__device__ void solve_block(const Params& p, const Acc* ls, Acc* xs, int c0) {
+  const T* l = static_cast<const T*>(p.l);
+  const T* ap = static_cast<const T*>(p.ap);
+  const int tid = threadIdx.x, w = p.width, ld = w + 1, nb = p.nb;
   auto lval = [&](int r, int q) -> Acc {
-    return l_smem ? ls[r * nb + q] : to_acc(l[r * sl0 + q * sl1]);
+    if constexpr (LS) return ls[r * nb + q];
+    else return to_acc(__ldg(&l[r * p.sl0 + q * p.sl1]));
   };
-
-  // X[:, c0:c0+TILE] = L11^{-1} AP[:, c0:c0+TILE] into xs (nb x TILE):
-  // row r is final once rows < r are eliminated; divide it, then
-  // eliminate it from the rows below (padding columns solve to zero)
-  auto solve = [&](Acc* xs, int c0) {
-    for (int idx = tid; idx < nb * TILE; idx += THREADS) {
-      const int gc = c0 + idx % TILE;
-      xs[idx] = gc < n ? to_acc(ap[(idx / TILE) * sap0 + gc * sap1]) : Acc(0);
+  // AP's block, read along its unit-stride axis; padding reads as zero
+  const bool by_row = p.sap0 == 1;
+  constexpr int U = 16;
+  for (int i0 = tid; i0 < p.nbp * w; i0 += U * THREADS) {
+    Acc v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * THREADS;
+      const int r = by_row ? i % p.nbp : i / w, cc = by_row ? i / p.nbp : i % w;
+      const int gc = c0 + cc;
+      v[u] = (i < p.nbp * w && r < nb && gc < p.n)
+                 ? to_acc(__ldg(&ap[r * p.sap0 + gc * p.sap1]))
+                 : Acc(0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * THREADS;
+      const int r = by_row ? i % p.nbp : i / w, cc = by_row ? i / p.nbp : i % w;
+      if (i < p.nbp * w) xs[r * ld + cc] = v[u];
+    }
+  }
+  __syncthreads();
+  for (int r0 = 0; r0 < nb; r0 += DB) {
+    if (r0 > 0) {
+      // rows r0 .. r0 + DB - 1 -= L[rows, :r0] X[:r0]; four partial sums
+      for (int o = tid; o < DB * w; o += THREADS) {
+        const int r = r0 + o / w, cc = o % w;
+        if (r >= nb) continue;
+        Acc s[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+        int q = 0;
+#pragma unroll 4
+        for (; q + 4 <= r0; q += 4)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            s[u] = fma_acc(lval(r, q + u), xs[(q + u) * ld + cc], s[u]);
+        for (; q < r0; ++q) s[0] = fma_acc(lval(r, q), xs[q * ld + cc], s[0]);
+        xs[r * ld + cc] -= (s[0] + s[1]) + (s[2] + s[3]);
+      }
+      __syncthreads();
+    }
+    // the diagonal block, one column per thread, in registers
+    if (tid < w) {
+      Acc v[DB];
+#pragma unroll
+      for (int i = 0; i < DB; ++i) v[i] = xs[(r0 + i) * ld + tid];
+#pragma unroll
+      for (int i = 0; i < DB; ++i) {
+        if (r0 + i >= nb) break;
+        if (!p.unit_diag) v[i] = v[i] / lval(r0 + i, r0 + i);
+#pragma unroll
+        for (int q = i + 1; q < DB; ++q)
+          if (r0 + q < nb) v[q] = fma_acc(-lval(r0 + q, r0 + i), v[i], v[q]);
+      }
+#pragma unroll
+      for (int i = 0; i < DB; ++i) xs[(r0 + i) * ld + tid] = v[i];
     }
     __syncthreads();
-    for (int r = 0; r < nb; ++r) {
-      if (!unit_diag) {
-        if (tid < TILE) xs[r * TILE + tid] /= lval(r, r);
-        __syncthreads();
-      }
-      const int rem = (nb - r - 1) * TILE;
-      for (int idx = tid; idx < rem; idx += THREADS) {
-        const int q = r + 1 + idx / TILE, cc = idx % TILE;
-        xs[q * TILE + cc] = fma_acc(-lval(q, r), xs[r * TILE + cc],
-                                    xs[q * TILE + cc]);
-      }
-      __syncthreads();
-    }
-  };
-
-  solve(xj, col0);
-  Acc* xi = xj;
-  if (syrk && row0 != col0) {
-    xi = second;
-    solve(xi, row0);
   }
-
-  if (blockIdx.y == 0)
-    for (int idx = tid; idx < nb * TILE; idx += THREADS) {
-      const int gc = col0 + idx % TILE;
-      if (gc < n) store(&x[static_cast<long long>(idx / TILE) * n + gc], xj[idx]);
-    }
-
-  // the update tile: thread (ty, tx) owns rows ty + 16 i, cols tx + 16 j
-  constexpr int R = TILE >= 16 ? TILE / 16 : 1;
-  const int tx = tid % 16, ty = tid / 16;
-  const bool active = TILE >= 16 || (tx < TILE && ty < TILE);
-  Acc acc[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = Acc(0);
-
-  if (syrk) {
-    // C_ij -= X[:, i-block]^T X[:, j-block]
-    if (active)
-      for (int kk = 0; kk < nb; ++kk) {
-        Acc av[R], bv[R];
-#pragma unroll
-        for (int i = 0; i < R; ++i) av[i] = xi[kk * TILE + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < R; ++j) bv[j] = xj[kk * TILE + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < R; ++j) acc[i][j] = fma_acc(av[i], bv[j], acc[i][j]);
-      }
-  } else {
-    // C_ij -= BL[i-block, :] X[:, j-block], BL staged KC columns at a time
-    Acc* bc = second;
-    for (int k0 = 0; k0 < nb; k0 += KC) {
-      for (int idx = tid; idx < KC * TILE; idx += THREADS) {
-        const int r = sbl0 == 1 ? idx % TILE : idx / KC;
-        const int kk = sbl0 == 1 ? idx / TILE : idx % KC;
-        const int gr = row0 + r, gk = k0 + kk;
-        bc[kk * TILE + r] =
-            (gr < m && gk < nb) ? to_acc(bl[gr * sbl0 + gk * sbl1]) : Acc(0);
-      }
-      __syncthreads();
-      const int kend = nb - k0 < KC ? nb - k0 : KC;
-      if (active)
-        for (int kk = 0; kk < kend; ++kk) {
-          Acc av[R], bv[R];
-#pragma unroll
-          for (int i = 0; i < R; ++i) av[i] = bc[kk * TILE + ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < R; ++j) bv[j] = xj[(k0 + kk) * TILE + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < R; ++j) acc[i][j] = fma_acc(av[i], bv[j], acc[i][j]);
-        }
-      __syncthreads();
-    }
+  T* x = static_cast<T*>(p.x);
+  Acc* xw = static_cast<Acc*>(p.xw);
+  for (int i = tid; i < p.nbp * w; i += THREADS) {
+    const int r = i / w, cc = i % w, gc = c0 + cc;
+    const bool live = r < nb && gc < p.n;
+    const Acc v = live ? xs[r * ld + cc] : Acc(0);
+    xw[static_cast<long long>(r) * p.ldx + gc] = v;
+    if (live) store(&x[static_cast<long long>(r) * p.n + gc], v);
   }
+  __syncthreads();                         // xs is reused by the next task
+}
 
-  if (!active) return;
+// blt[k0 : k0 + TT, r0 : r0 + TT] = BL[r0 : r0 + TT, k0 : k0 + TT]^T, zero
+// past BL
+template <typename T, typename Acc>
+__device__ void transpose_tile(const Params& p, Acc* tile, int k0, int r0) {
+  const T* bl = static_cast<const T*>(p.bl);
+  Acc* blt = static_cast<Acc*>(p.blt);
+  const bool by_row = p.sbl0 == 1;         // BL column-major: walk rows
+  constexpr int U = TT * TT / THREADS;
+  Acc v[U];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= m) continue;
+  for (int u = 0; u < U; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int rr = by_row ? i % TT : i / TT, kk = by_row ? i / TT : i % TT;
+    const int r = r0 + rr, k = k0 + kk;
+    v[u] = (r < p.m && k < p.nb) ? to_acc(__ldg(&bl[r * p.sbl0 + k * p.sbl1]))
+                                 : Acc(0);
+  }
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int cc = col0 + tx + 16 * j;
-      if (cc >= n) continue;
-      store(&cout[static_cast<long long>(r) * n + cc],
-            to_acc(c[r * sc0 + cc * sc1]) - acc[i][j]);
+  for (int u = 0; u < U; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    const int rr = by_row ? i % TT : i / TT, kk = by_row ? i / TT : i % TT;
+    tile[kk * (TT + 1) + rr] = v[u];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < TT * TT; i += THREADS) {
+    const int rr = i % TT, kk = i / TT;
+    const int r = r0 + rr, k = k0 + kk;
+    if (k < p.nbp && r < p.ldm)
+      blt[static_cast<long long>(k) * p.ldm + r] = tile[kk * (TT + 1) + rr];
+  }
+  __syncthreads();
+}
+
+// ------------------------------ phase 2 --------------------------------------
+
+// one BK-deep stage of A (lda) and B (ldb) from row k0: BK x BM each
+template <typename Acc>
+__device__ __forceinline__ void load_stage(Acc* sa, Acc* sb, const Acc* a,
+                                           int lda, const Acc* b, int ldb,
+                                           int k0, int row0, int col0) {
+  constexpr int LD = stage_ld<Acc>(), PER = 16 / sizeof(Acc);
+  constexpr int CHUNKS = BK * BM / PER;    // 16-byte chunks per operand
+#pragma unroll
+  for (int s = 0; s < CHUNKS / THREADS; ++s) {
+    const int i = threadIdx.x + s * THREADS;
+    const int kk = i / (BM / PER), cc = (i % (BM / PER)) * PER;
+    cp_async16(sa + kk * LD + cc, a + static_cast<long long>(k0 + kk) * lda + row0 + cc);
+    cp_async16(sb + kk * LD + cc, b + static_cast<long long>(k0 + kk) * ldb + col0 + cc);
+  }
+}
+
+// f32: thread (ty, tx) owns rows {4 ty + i, 64 + 4 ty + i} and columns
+// {4 tx + j, 64 + 4 tx + j}, i, j < 4; one FFMA chain per output in k order
+__device__ __forceinline__ void mac_stage(const float* sa, const float* sb,
+                                          float (&acc)[8][8]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(sa + kk * BM + 4 * ty);
+    const float4 a1 = *reinterpret_cast<const float4*>(sa + kk * BM + 64 + 4 * ty);
+    const float4 b0 = *reinterpret_cast<const float4*>(sb + kk * BM + 4 * tx);
+    const float4 b1 = *reinterpret_cast<const float4*>(sb + kk * BM + 64 + 4 * tx);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// f64: warp w owns the 64 x 32 block at rows 64 (w / 4), columns 32 (w % 4)
+// as 4 x 4 mma.sync m16n8k8 tiles. With g = lane / 4, t = lane % 4: A
+// register r holds row g + 8 (r % 2), k t + 4 (r / 2); B register r holds
+// k t + 4 r, column g; C register r holds row g + 8 (r / 2), column
+// 2 t + r % 2 (the layout csrc/gemm.cu's "dmma" uses).
+__device__ __forceinline__ void mac_stage(const double* sa, const double* sb,
+                                          double (&acc)[4][4][4]) {
+  constexpr int LD = stage_ld<double>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+#pragma unroll
+  for (int k8 = 0; k8 < BK; k8 += 8) {
+    double bv[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bv[j][r] = sb[(k8 + t + 4 * r) * LD + wn + 8 * j + g];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      double av[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        av[r] = sa[(k8 + t + 4 * (r / 2)) * LD + wm + 16 * i + g + 8 * (r % 2)];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+d"(acc[i][j][0]), "+d"(acc[i][j][1]), "+d"(acc[i][j][2]),
+              "+d"(acc[i][j][3])
+            : "d"(av[0]), "d"(av[1]), "d"(av[2]), "d"(av[3]),
+              "d"(bv[j][0]), "d"(bv[j][1]));
     }
   }
 }
 
-template <typename T, typename Acc, int TILE>
-int launch(int syrk, int unit_diag, int l_smem, const void* l, long long sl0,
-           long long sl1, const void* ap, long long sap0, long long sap1,
-           const void* bl, long long sbl0, long long sbl1, const void* c,
-           long long sc0, long long sc1, void* x, void* cout, int nb, int m,
-           int n, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<Acc>(nb, TILE, syrk, l_smem);
-  auto kernel = trsm_gemm_kernel<T, Acc, TILE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // at least one row-block, so the X output is written even when m == 0
-  const int row_blocks = m > 0 ? (m + TILE - 1) / TILE : 1;
-  const dim3 grid((n + TILE - 1) / TILE, row_blocks);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      syrk, unit_diag, l_smem, static_cast<const T*>(l), sl0, sl1,
-      static_cast<const T*>(ap), sap0, sap1, static_cast<const T*>(bl), sbl0,
-      sbl1, static_cast<const T*>(c), sc0, sc1, static_cast<T*>(x),
-      static_cast<T*>(cout), nb, m, n);
-  return static_cast<int>(cudaGetLastError());
+// C's tile into L2 ahead of its epilogue (unit column stride only), so that
+// its reads from device memory overlap the tile's products
+template <typename T>
+__device__ __forceinline__ void prefetch_c(const Params& p, int row0,
+                                           int col0) {
+  if (p.sc1 != 1) return;
+  constexpr int PER_LINE = 128 / sizeof(T), LINES = BN / PER_LINE;
+  const T* c = static_cast<const T*>(p.c);
+  for (int i = threadIdx.x; i < BM * LINES; i += THREADS) {
+    const int r = row0 + i / LINES, cc = col0 + (i % LINES) * PER_LINE;
+    if (r < p.m && cc < p.n)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + r * p.sc0 + cc));
+  }
+}
+
+// the epilogue in two passes, acc = C - acc then the stores, so that all of
+// a thread's C loads are in flight together
+template <typename T, typename Acc>
+__device__ __forceinline__ void c_minus(const Params& p, int r, int cc,
+                                        Acc& acc) {
+  if (r < p.m && cc < p.n)
+    acc = to_acc(__ldg(&static_cast<const T*>(p.c)[r * p.sc0 + cc * p.sc1])) -
+          acc;
+}
+template <typename T, typename Acc>
+__device__ __forceinline__ void store_out(const Params& p, int r, int cc,
+                                          Acc acc) {
+  if (r < p.m && cc < p.n)
+    store(&static_cast<T*>(p.cout)[static_cast<long long>(r) * p.n + cc], acc);
+}
+
+// acc += A^T B over K = nbp for the tile at (row0, col0), A and B
+// [k][m]-major, through a STAGES-deep cp.async ring: one barrier per stage
+// both publishes the stage just waited for and frees the one multiplied
+// last, which the next load refills
+template <typename Acc, typename Frag>
+__device__ __forceinline__ void update_loop(const Params& p, Acc* smem,
+                                            int row0, int col0, Frag& acc) {
+  constexpr int STAGE = BK * stage_ld<Acc>();
+  const Acc* a = static_cast<const Acc*>(p.syrk ? p.xw : p.blt);
+  const Acc* b = static_cast<const Acc*>(p.xw);
+  const int lda = p.syrk ? p.ldx : p.ldm, ktiles = p.nbp / BK;
+  Acc* sa = smem;                          // STAGES x [BK][LD]
+  Acc* sb = smem + STAGES * STAGE;
+  __syncthreads();                         // the previous tile's reads are done
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ktiles)
+      load_stage(sa + t * STAGE, sb + t * STAGE, a, lda, b, p.ldx, t * BK, row0,
+                 col0);
+    cp_async_commit();                     // empty groups keep the count even
+  }
+  for (int t = 0; t < ktiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = t + STAGES - 1;
+    if (next < ktiles)
+      load_stage(sa + (next % STAGES) * STAGE, sb + (next % STAGES) * STAGE, a,
+                 lda, b, p.ldx, next * BK, row0, col0);
+    cp_async_commit();
+    mac_stage(sa + (t % STAGES) * STAGE, sb + (t % STAGES) * STAGE, acc);
+  }
+  cp_async_wait<0>();
+}
+
+// c_out[tile] = C[tile] - acc
+template <typename T>
+__device__ void update_tile(const Params& p, float* smem, int row0, int col0) {
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  prefetch_c<T>(p, row0, col0);
+  update_loop(p, smem, row0, col0, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  auto row = [&](int i) { return row0 + (i / 4) * 64 + 4 * ty + i % 4; };
+  auto col = [&](int j) { return col0 + (j / 4) * 64 + 4 * tx + j % 4; };
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c_minus<T>(p, row(i), col(j), acc[i][j]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) store_out<T>(p, row(i), col(j), acc[i][j]);
+}
+
+template <typename T>
+__device__ void update_tile(const Params& p, double* smem, int row0,
+                            int col0) {
+  double acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0;
+  prefetch_c<T>(p, row0, col0);
+  update_loop(p, smem, row0, col0, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = row0 + (warp / 4) * 64 + lane / 4;
+  const int c0 = col0 + (warp % 4) * 32 + 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        c_minus<T>(p, r0 + 16 * i + 8 * (q / 2), c0 + 8 * j + q % 2,
+                   acc[i][j][q]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        store_out<T>(p, r0 + 16 * i + 8 * (q / 2), c0 + 8 * j + q % 2,
+                     acc[i][j][q]);
+}
+
+// ------------------------------ the kernel -----------------------------------
+
+template <typename T, typename Acc>
+__global__ void __launch_bounds__(THREADS, sizeof(Acc) == 4 ? 2 : 1)
+trsm_gemm_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Acc* smem = reinterpret_cast<Acc*>(smem_raw);
+  const int solves = p.ldx / p.width;
+  const int tk = (p.nbp + TT - 1) / TT, tr = p.syrk ? 0 : p.ldm / TT;
+
+  // phase 1: L11 into shared memory (when it fits and this CTA solves),
+  // then the column blocks, then BL's transpose tiles
+  const Acc* ls = nullptr;
+  Acc* xs = smem;
+  if (p.l_smem) {
+    Acc* lsm = smem;
+    xs = smem + static_cast<size_t>(p.nb) * p.nb;
+    if (blockIdx.x < solves) {           // its lower triangle, all in flight
+      const T* l = static_cast<const T*>(p.l);
+      if constexpr (sizeof(T) == sizeof(Acc)) {
+        for (int i = threadIdx.x; i < p.nb * p.nb; i += THREADS) {
+          const int r = i / p.nb, q = i % p.nb;
+          if (q <= r) cp_async_elem<sizeof(T)>(&lsm[i], &l[r * p.sl0 + q * p.sl1]);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+      } else {                             // bf16: eight loads in flight
+        constexpr int U = 8;
+        const int count = p.nb * p.nb;
+        for (int i0 = threadIdx.x; i0 < count; i0 += U * THREADS) {
+          Acc v[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int i = i0 + u * THREADS, r = i / p.nb, q = i % p.nb;
+            v[u] = i < count && q <= r ? to_acc(__ldg(&l[r * p.sl0 + q * p.sl1]))
+                                       : Acc(0);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (i0 + u * THREADS < count) lsm[i0 + u * THREADS] = v[u];
+        }
+      }
+      __syncthreads();
+    }
+    ls = lsm;
+  }
+  for (int task = blockIdx.x; task < solves + tk * tr; task += gridDim.x) {
+    if (task < solves && p.l_smem) {
+      solve_block<T, Acc, true>(p, ls, xs, task * p.width);
+    } else if (task < solves) {
+      solve_block<T, Acc, false>(p, ls, xs, task * p.width);
+    } else {
+      const int id = task - solves;
+      transpose_tile<T, Acc>(p, xs, (id / tr) * TT, (id % tr) * TT);
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // phase 2: C's tiles, row-major
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = p.m > 0 ? ((p.m + BM - 1) / BM) * tiles_n : 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+    update_tile<T>(p, smem, (tile / tiles_n) * BM, (tile % tiles_n) * BN);
 }
 
 template <typename T, typename Acc>
-int by_tile(int tile, int syrk, int unit_diag, int l_smem, const void* l,
-            long long sl0, long long sl1, const void* ap, long long sap0,
-            long long sap1, const void* bl, long long sbl0, long long sbl1,
-            const void* c, long long sc0, long long sc1, void* x, void* cout,
-            int nb, int m, int n, cudaStream_t s) {
-#define REPRO_TILE_CASE(TL)                                                   \
-  case TL:                                                                    \
-    return launch<T, Acc, TL>(syrk, unit_diag, l_smem, l, sl0, sl1, ap, sap0, \
-                              sap1, bl, sbl0, sbl1, c, sc0, sc1, x, cout, nb,  \
-                              m, n, s);
-  switch (tile) {
-    REPRO_TILE_CASE(64)
-    REPRO_TILE_CASE(32)
-    REPRO_TILE_CASE(16)
-    REPRO_TILE_CASE(8)
-    REPRO_TILE_CASE(4)
-    REPRO_TILE_CASE(2)
-    REPRO_TILE_CASE(1)
-  }
-#undef REPRO_TILE_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
+  auto kernel = trsm_gemm_kernel<T, Acc>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {const_cast<Params*>(&p)};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(kernel), dim3(grid), dim3(THREADS), args,
+      static_cast<size_t>(smem), stream));
+}
+
+template <typename T, typename Acc>
+int co_resident(int smem) {
+  auto kernel = trsm_gemm_kernel<T, Acc>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
 }
 
 }  // namespace
 }  // namespace repro
 
-// Shared-memory bytes the kernel asks for at (dtype, nb, tile, syrk,
-// l_smem); the wrapper checks its tile choice against this.
-extern "C" long long repro_trsm_gemm_smem_bytes(int dtype, int nb, int tile,
-                                                int syrk, int l_smem) {
-  return dtype == repro::kF64
-             ? static_cast<long long>(repro::smem_bytes<double>(nb, tile, syrk, l_smem))
-             : static_cast<long long>(repro::smem_bytes<float>(nb, tile, syrk, l_smem));
+// CTAs of one launch that fit on the current device at once with `smem`
+// bytes of dynamic shared memory (blocks per SM x SMs), or minus the
+// cudaError_t of the query.
+extern "C" int repro_trsm_gemm_co_resident(int dtype, int smem) {
+  switch (dtype) {
+    case repro::kF32: return repro::co_resident<float, float>(smem);
+    case repro::kF64: return repro::co_resident<double, double>(smem);
+    case repro::kBF16: return repro::co_resident<__nv_bfloat16, float>(smem);
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // X (nb x n, contiguous) and C' (m x n, contiguous) from L11 (nb x nb),
 // AP (nb x n), BL (m x nb, ignored when syrk) and C (m x n), all strided.
-// Returns the cudaError_t of the launch (0 on success).
+// xw (nbp x ldx) and, for "lu", blt (nbp x ldm) are accumulator-width
+// workspaces: nbp = nb rounded up to 16, ldx = n and ldm = m rounded up to
+// 128. width (a power of two up to 32), l_smem, smem and grid come from
+// kernels/fused.py::trsm_gemm_plan and trsm_gemm_grid; a plan that does not
+// fit its smem is refused. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int repro_trsm_gemm(int dtype, int syrk, int unit_diag,
                                const void* l, long long sl0, long long sl1,
                                const void* ap, long long sap0, long long sap1,
                                const void* bl, long long sbl0, long long sbl1,
                                const void* c, long long sc0, long long sc1,
-                               void* x, void* cout, int nb, int m, int n,
-                               int tile, int l_smem, void* stream) {
+                               void* x, void* cout, void* xw, void* blt,
+                               int nb, int m, int n, int width, int l_smem,
+                               int smem, int grid, void* stream) {
+  using namespace repro;
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const size_t need = dtype == kF64 ? smem_bytes<double>(nb, width, l_smem)
+                                    : smem_bytes<float>(nb, width, l_smem);
+  if (width < 1 || width > 32 || (width & (width - 1)) != 0 || grid < 1 ||
+      need > static_cast<size_t>(smem) || (!syrk && m > 0 && blt == nullptr))
+    return bad;
+  Params p{l, sl0, sl1, ap, sap0, sap1, bl, sbl0, sbl1, c, sc0, sc1, x,
+           cout, xw, blt, nb, (nb + BK - 1) / BK * BK, m, n,
+           (n + PAD - 1) / PAD * PAD, (m + PAD - 1) / PAD * PAD, width,
+           l_smem, syrk, unit_diag};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case repro::kF32:
-      return repro::by_tile<float, float>(tile, syrk, unit_diag, l_smem, l,
-                                          sl0, sl1, ap, sap0, sap1, bl, sbl0,
-                                          sbl1, c, sc0, sc1, x, cout, nb, m, n,
-                                          s);
-    case repro::kF64:
-      return repro::by_tile<double, double>(tile, syrk, unit_diag, l_smem, l,
-                                            sl0, sl1, ap, sap0, sap1, bl, sbl0,
-                                            sbl1, c, sc0, sc1, x, cout, nb, m,
-                                            n, s);
-    case repro::kBF16:
-      return repro::by_tile<__nv_bfloat16, float>(
-          tile, syrk, unit_diag, l_smem, l, sl0, sl1, ap, sap0, sap1, bl, sbl0,
-          sbl1, c, sc0, sc1, x, cout, nb, m, n, s);
+    case kF32: return launch<float, float>(p, grid, smem, s);
+    case kF64: return launch<double, double>(p, grid, smem, s);
+    case kBF16: return launch<__nv_bfloat16, float>(p, grid, smem, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bad;
 }

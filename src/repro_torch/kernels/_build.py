@@ -42,11 +42,13 @@ SIGNATURES = {
         "repro_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, I, I, I, P], I),
         "repro_gemm_bias_act": (
             [I, I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I, P], I),
+        "repro_gemv": ([I, I, P, LL, P, LL, LL, P, I, P, I, P, LL, I, I, I,
+                        P], I),
     },
     "trsm_gemm": {
         "repro_trsm_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, LL, P,
-                             LL, LL, P, P, I, I, I, I, I, P], I),
-        "repro_trsm_gemm_smem_bytes": ([I, I, I, I, I], LL),
+                             LL, LL, P, P, P, P, I, I, I, I, I, I, I, P], I),
+        "repro_trsm_gemm_co_resident": ([I, I], I),
     },
     "dotp": {
         "repro_dotp": ([I, P, LL, P, LL, LL, P, P, P], I),

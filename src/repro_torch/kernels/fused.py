@@ -15,11 +15,15 @@
     Replaces ``repro/kernels/fused.py::trsm_gemm`` (``_trsm_gemm_kernel``).
     X = L11^{-1} AP, then C - BL X (``form="lu"``, getrf) or C - X^T X
     (``form="syrk"``, potrf). The TPU kernel solved X once at grid step 0
-    and let later, ordered steps read it from VMEM; CTAs on the card run
-    in no order, so each CTA re-solves in shared memory only the X column
-    blocks its C tile needs (about nb / (2 TILE) extra flops) and the
-    first row-block writes X out once. Bound by operations; see the note
-    in ``csrc/trsm_gemm.cu``.
+    and let later, ordered steps read it from VMEM. Here one cooperative
+    launch (every CTA co-resident) does the same in two phases around a
+    grid barrier: the CTAs solve X's column blocks, each exactly once
+    (blocked substitution in shared memory, :func:`trsm_gemm_plan` picks
+    the block width), and write X at the accumulator width into a padded
+    workspace (with BL transposed beside it for ``"lu"``); then they walk
+    C's 128 x 128 tiles with B1's ``ffma`` micro-tile (f32, bf16) or
+    ``dmma`` mma.sync shape (f64) over K = nb. Bound by operations; see the
+    note in ``csrc/trsm_gemm.cu``.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`gemm_bias_act_plain`, :func:`trsm_gemm_plain`)
@@ -29,7 +33,7 @@ call on either route.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,8 +47,12 @@ from repro_torch.kernels.gemm import (DTYPE_CODES, accumulator_dtype,
                                       reset_launches)
 
 EPILOGUES = ("none", "relu", "gelu")     # index = csrc/common.cuh code
-TRSM_GEMM_TILES = (64, 32, 16, 8, 4, 2, 1)  # csrc/trsm_gemm.cu instances
 SMEM_LIMIT = 232448                      # dynamic shared memory per block
+# csrc/trsm_gemm.cu's shapes: solve widths (X columns per block), the
+# update tile (BM, BN, BK) and its stages, the padding of the workspaces
+TRSM_GEMM_WIDTHS = (32, 16, 8, 4, 2, 1)
+TRSM_GEMM_TILE = (128, 128, 16)
+_TRSM_STAGES, _TRSM_PAD, _TRSM_TT = 3, 128, 32
 
 
 def apply_epilogue(x: torch.Tensor, epilogue: str,
@@ -145,20 +153,74 @@ def trsm_gemm_plain(l11: torch.Tensor, a_panel: torch.Tensor,
     return x.to(c.dtype), (c.to(acc) - upd).to(c.dtype)
 
 
-def trsm_gemm_tile(dtype: torch.dtype, nb: int, form: str) -> Tuple[int, bool]:
-    """(TILE, L11 in shared memory?) for one launch: the widest tile whose
-    X blocks fit the shared memory, then L11 beside them if it still fits
-    (else the kernel reads L11 from device memory)."""
-    lib = _build.library("trsm_gemm")
-    code, syrk = DTYPE_CODES[dtype], int(form == "syrk")
-    for tile in TRSM_GEMM_TILES:
-        if lib.repro_trsm_gemm_smem_bytes(code, nb, tile, syrk, 0) <= SMEM_LIMIT:
-            l_smem = lib.repro_trsm_gemm_smem_bytes(code, nb, tile, syrk, 1) \
-                <= SMEM_LIMIT
-            return tile, l_smem
+class TrsmGemmPlan(NamedTuple):
+    """One B2 launch's shapes (a pure function of dtype, nb and form)."""
+    width: int             # X columns per solve task
+    l_in_smem: bool        # L11 staged in shared memory (else via the cache)
+    nb_padded: int         # K of the update: nb rounded up to BK
+    smem_bytes: int        # dynamic shared memory of the launch
+    update: str            # the update's main loop: "ffma" | "dmma"
+    a_operand: str         # the update's A: "X^T" (syrk) | "BL" (lu)
+
+
+def _trsm_smem(acc_bytes: int, nb: int, width: int, l_smem: bool) -> int:
+    """csrc/trsm_gemm.cu::smem_bytes: max(solve, update) bytes."""
+    bm, _, bk = TRSM_GEMM_TILE
+    nbp = -(-nb // bk) * bk
+    xs = max(nbp * (width + 1), _TRSM_TT * (_TRSM_TT + 1))
+    solve = (xs + (nb * nb if l_smem else 0)) * acc_bytes
+    stage_ld = bm + 4 if acc_bytes == 8 else bm
+    return max(solve, _TRSM_STAGES * 2 * bk * stage_ld * acc_bytes)
+
+
+def trsm_gemm_plan(dtype: torch.dtype, nb: int, form: str) -> TrsmGemmPlan:
+    """The widest solve width (:data:`TRSM_GEMM_WIDTHS`) whose X block
+    fits the shared memory, then L11 beside it if it still fits (else the
+    kernel reads L11 through the cache)."""
+    acc_bytes = accumulator_dtype(dtype).itemsize
+    for width in TRSM_GEMM_WIDTHS:
+        if _trsm_smem(acc_bytes, nb, width, False) <= SMEM_LIMIT:
+            l_smem = _trsm_smem(acc_bytes, nb, width, True) <= SMEM_LIMIT
+            bk = TRSM_GEMM_TILE[2]
+            return TrsmGemmPlan(
+                width, l_smem, -(-nb // bk) * bk,
+                _trsm_smem(acc_bytes, nb, width, l_smem),
+                "dmma" if dtype == torch.float64 else "ffma",
+                "X^T" if form == "syrk" else "BL")
     raise ValueError(f"trsm_gemm: panel width nb={nb} leaves no room for "
-                     f"X blocks of {TRSM_GEMM_TILES[-1]} columns in "
-                     f"{SMEM_LIMIT} bytes of shared memory ({dtype})")
+                     f"a one-column X block in {SMEM_LIMIT} bytes of "
+                     f"shared memory ({dtype})")
+
+
+def trsm_gemm_grid(co_resident: int, plan: TrsmGemmPlan, m: int, n: int,
+                   form: str) -> int:
+    """CTAs of the cooperative launch: as many as fit on the card at once
+    (``co_resident``), but no more than the larger phase has tasks (solve
+    blocks plus BL transpose tiles, or C tiles)."""
+    pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
+    solve = pad(n) // plan.width
+    if form == "lu":
+        solve += -(-plan.nb_padded // _TRSM_TT) * (pad(m) // _TRSM_TT)
+    bm, bn, _ = TRSM_GEMM_TILE
+    update = -(-m // bm) * -(-n // bn)
+    return max(1, min(co_resident, max(solve, update)))
+
+
+_co_resident = {}
+
+
+def _trsm_co_resident(lib, device: torch.device, dtype: torch.dtype,
+                      smem: int) -> int:
+    """CTAs of B2 that fit on ``device`` at once (the occupancy query),
+    cached per (device, dtype, smem); raises if the query failed."""
+    key = (device.index, dtype, smem)
+    if key not in _co_resident:
+        got = lib.repro_trsm_gemm_co_resident(DTYPE_CODES[dtype], smem)
+        if got < 1:
+            raise RuntimeError(f"trsm_gemm: occupancy query gave {got} "
+                               f"(smem {smem} bytes, {dtype})")
+        _co_resident[key] = got
+    return _co_resident[key]
 
 
 def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
@@ -172,7 +234,8 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     l11 : (nb, nb) lower triangle; a_panel : (nb, n); b_left : (m, nb)
     for ``form="lu"``, ``None`` (and m == n) for ``form="syrk"``; c :
     (m, n). Any strides. ``row_block`` (the chain plan's block) is
-    recorded; the kernel picks its own tile (:func:`trsm_gemm_tile`).
+    recorded beside the launch's :func:`trsm_gemm_plan` (either route) and
+    its grid (the card).
     Returns (x (nb, n), c_out (m, n)), both new contiguous tensors.
     """
     if form not in ("lu", "syrk"):
@@ -196,24 +259,34 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     if n == 0:
         return (torch.empty((nb, 0), dtype=c.dtype, device=c.device),
                 torch.empty((m, 0), dtype=c.dtype, device=c.device))
+    plan = trsm_gemm_plan(c.dtype, nb, form)
     trsm_gemm.last_launch = {"row_block": row_block, "form": form,
-                             "device": c.device.type}
+                             "device": c.device.type, "plan": plan}
     if c.device.type == "cpu":
         return trsm_gemm_plain(l11, a_panel, b_left, c, form, unit_diag)
-    tile, l_smem = trsm_gemm_tile(c.dtype, nb, form)
-    trsm_gemm.last_launch.update(tile=tile, l_in_smem=l_smem)
-    x = torch.empty((nb, n), dtype=c.dtype, device=c.device)
-    c_out = torch.empty((m, n), dtype=c.dtype, device=c.device)
-    bl = c if b_left is None else b_left                 # unread when syrk
     lib = _build.library("trsm_gemm")
     with torch.cuda.device(c.device):
+        grid = trsm_gemm_grid(_trsm_co_resident(lib, c.device, c.dtype,
+                                                plan.smem_bytes),
+                              plan, m, n, form)
+        trsm_gemm.last_launch["grid"] = grid
+        acc = accumulator_dtype(c.dtype)
+        pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
+        x = torch.empty((nb, n), dtype=c.dtype, device=c.device)
+        c_out = torch.empty((m, n), dtype=c.dtype, device=c.device)
+        xw = torch.empty((plan.nb_padded, pad(n)), dtype=acc, device=c.device)
+        blt = torch.empty((plan.nb_padded, pad(m)), dtype=acc,
+                          device=c.device) if form == "lu" and m else None
+        bl = c if b_left is None else b_left             # unread when syrk
         err = lib.repro_trsm_gemm(
             DTYPE_CODES[c.dtype], int(form == "syrk"), int(unit_diag),
             l11.data_ptr(), l11.stride(0), l11.stride(1),
             a_panel.data_ptr(), a_panel.stride(0), a_panel.stride(1),
             bl.data_ptr(), bl.stride(0), bl.stride(1),
             c.data_ptr(), c.stride(0), c.stride(1),
-            x.data_ptr(), c_out.data_ptr(), nb, m, n, tile, int(l_smem),
+            x.data_ptr(), c_out.data_ptr(), xw.data_ptr(),
+            None if blt is None else blt.data_ptr(), nb, m, n, plan.width,
+            int(plan.l_in_smem), plan.smem_bytes, grid,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "repro_trsm_gemm")
     trsm_gemm.launches += 1

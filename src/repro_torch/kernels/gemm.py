@@ -5,17 +5,21 @@ Replaces the Pallas TPU kernel ``repro/kernels/gemm.py::gemm``
 about it, is in the note at the top of ``csrc/gemm.cu``: at the main
 path's shapes it is bound by operations. Each CTA owns one output tile and
 loops over K inside the block, in place of the TPU's sequential K grid
-axis. The source has four variants (:data:`VARIANTS`), and
+axis. The source has five variants (:data:`VARIANTS`), and
 :func:`gemm_variant` picks one from dtype, shape and layout alone:
 
 - ``"wgmma"``: bf16 on the tensor cores (TMA ring, wgmma), 128x256 tiles;
 - ``"ffma"``: f32 on IEEE FFMA (never TF32), 128x128 tiles, cp.async ring;
 - ``"dmma"``: f64 on the FP64 tensor cores (mma.sync m16n8k8), 128x128
   tiles, TMA ring, warp-specialised;
-- ``"simt"``: any dtype and any strides, 64x64 tiles: the skinny products
-  (``min(m, n) <= SKINNY``, the blocked TRSM's 128 x k x 1 updates) and the
-  layouts the others cannot read (a column stride other than 1, a row
-  stride or base address off 16 bytes: the drivers' transposed views).
+- ``"gemv"``: any dtype, ``n <= SKINNY < m`` with A's column stride 1 (the
+  blocked TRSM's 128 x k x nrhs updates, ``linalg.gemv``): bound by the
+  bytes of A, K split over the CTAs (:func:`gemv_split`) and the partials
+  summed in a fixed order by a second pass;
+- ``"simt"``: any dtype and any strides, 64x64 tiles: the products with
+  ``m <= SKINNY`` or a skinny n on a transposed A, and the layouts the tiled
+  variants cannot read (a column stride other than 1, a row stride or base
+  address off 16 bytes: the drivers' transposed views).
 
 :func:`gemm` launches the kernel for CUDA tensors and runs
 :func:`gemm_plain` (the same function in plain PyTorch) for CPU tensors;
@@ -35,15 +39,17 @@ import torch
 from repro_torch.core.codesign import GemmPlan, plan_gemm
 from repro_torch.kernels import _build
 
-# csrc/gemm.cu's variants (index = repro::Variant code) and their CTA
-# tiles (BM, BN, BK)
-VARIANTS = ("simt", "wgmma", "ffma", "dmma")
+# csrc/gemm.cu's variants (index = repro::Variant code; "gemv" has its
+# own entry point) and their CTA tiles (BM, BN, BK)
+VARIANTS = ("simt", "wgmma", "ffma", "dmma", "gemv")
 TILES = {"simt": (64, 64, 16), "wgmma": (128, 256, 64),
-         "ffma": (128, 128, 16), "dmma": (128, 128, 32)}
+         "ffma": (128, 128, 16), "dmma": (128, 128, 32),
+         "gemv": (16, 16, 256)}     # rows per CTA, largest n, k per chunk
 # the tiled variant of each dtype
 TILED = {torch.bfloat16: "wgmma", torch.float32: "ffma",
          torch.float64: "dmma"}
-SKINNY = 16      # min(m, n) at or below which the 64-wide simt tile runs
+SKINNY = 16      # n at or below which "gemv" runs, m at or below "simt"
+GEMV_CTAS_PER_SM = 4     # the K split aims at this many CTAs per SM
 # dtype codes of csrc/common.cuh (repro::DType)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # output dtypes the kernel stores for each operand dtype
@@ -96,15 +102,32 @@ def rows_aligned(t: torch.Tensor) -> bool:
 
 def gemm_variant(a: torch.Tensor, b: torch.Tensor) -> str:
     """The csrc/gemm.cu variant for A @ B, from dtype, shape and layout
-    alone: the dtype's tiled variant (:data:`TILED`) when both operands are
-    :func:`rows_aligned` and the product is neither skinny nor empty in k,
+    alone: ``"gemv"`` for ``n <= SKINNY < m`` with A's column stride 1;
+    else the dtype's tiled variant (:data:`TILED`) when both operands are
+    :func:`rows_aligned` and the product is neither skinny nor empty in k;
     else ``"simt"``."""
     m, k = a.shape
     n = b.shape[1]
-    if k == 0 or min(m, n) <= SKINNY or not (rows_aligned(a)
-                                             and rows_aligned(b)):
+    if k == 0 or m <= SKINNY:
+        return "simt"
+    if n <= SKINNY:
+        return "gemv" if a.stride(1) == 1 else "simt"
+    if not (rows_aligned(a) and rows_aligned(b)):
         return "simt"
     return TILED[a.dtype]
+
+
+def gemv_split(m: int, k: int, sms: int) -> tuple:
+    """(segments, k per segment) of the ``"gemv"`` grid: K cut into
+    segments of whole 256-deep chunks so that (segments) x (row groups of
+    16) comes near :data:`GEMV_CTAS_PER_SM` CTAs on each of ``sms`` SMs,
+    one segment when the row groups alone fill the card."""
+    bm, _, kc = TILES["gemv"]
+    chunks = -(-k // kc)
+    groups = -(-m // bm)
+    segs = min(chunks, max(1, -(-GEMV_CTAS_PER_SM * sms // groups)))
+    ks = -(-chunks // segs) * kc
+    return -(-k // ks), ks
 
 
 def record_call(wrapper, plan, variant: str, device: torch.device) -> None:
@@ -121,10 +144,13 @@ def reset_launches(wrapper) -> None:
 
 
 def launch(wrapper, entry: str, variant: str, a: torch.Tensor,
-           b: torch.Tensor, c: torch.Tensor, *epilogue_args) -> None:
+           b: torch.Tensor, c: torch.Tensor, bias: Optional[int] = None,
+           epilogue: int = 0) -> None:
     """Launch one csrc/gemm.cu entry point of ``wrapper`` on ``variant``
-    writing into ``c`` (contiguous) on the current stream of a's device;
-    raises on a refused launch, and counts the launch in ``wrapper``
+    writing into ``c`` (contiguous) on the current stream of a's device
+    (``bias`` a pointer or None, ``epilogue`` an EPILOGUES code, both for
+    ``repro_gemm_bias_act``); ``"gemv"`` goes to ``repro_gemv`` with its K
+    split. Raises on a refused launch, and counts the launch in ``wrapper``
     (total and per variant) once it has gone through."""
     m, k = a.shape
     n = b.shape[1]
@@ -135,12 +161,28 @@ def launch(wrapper, entry: str, variant: str, a: torch.Tensor,
     lib = _build.library("gemm")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            VARIANTS.index(variant), DTYPE_CODES[a.dtype],
-            DTYPE_CODES[c.dtype],
-            a.data_ptr(), a.stride(0), a.stride(1),
-            b.data_ptr(), b.stride(0), b.stride(1), *epilogue_args,
-            c.data_ptr(), c.stride(0), m, n, k, stream)
+        if variant == "gemv":
+            segs, ks = gemv_split(m, k, torch.cuda.get_device_properties(
+                a.device).multi_processor_count)
+            partials = torch.empty((segs, m, n) if segs > 1 else (0,),
+                                   dtype=accumulator_dtype(a.dtype),
+                                   device=a.device)
+            wrapper.last_launch["split"] = (segs, ks)
+            err = lib.repro_gemv(
+                DTYPE_CODES[a.dtype], DTYPE_CODES[c.dtype],
+                a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+                b.stride(1), bias, epilogue,
+                partials.data_ptr() if segs > 1 else None, ks,
+                c.data_ptr(), c.stride(0), m, n, k, stream)
+            entry = "repro_gemv"
+        else:
+            err = getattr(lib, entry)(
+                VARIANTS.index(variant), DTYPE_CODES[a.dtype],
+                DTYPE_CODES[c.dtype],
+                a.data_ptr(), a.stride(0), a.stride(1),
+                b.data_ptr(), b.stride(0), b.stride(1),
+                *(() if entry == "repro_gemm" else (bias, epilogue)),
+                c.data_ptr(), c.stride(0), m, n, k, stream)
     _build.check(err, entry)
     wrapper.launches += 1
     wrapper.variant_launches[variant] += 1

@@ -27,8 +27,14 @@ TOL = {"float32": (2e-4, 1e-4), "float64": (1e-12, 1e-12),
 # so they differ by at most one bf16 step; f32 sums in another order
 CLOSE_TOL = {"float32": (2e-4, 2e-4, 2e-4), "bfloat16": (2 ** -7, 1e-2, 1e-2)}
 GEMM_SHAPES = [(1, 1, 1), (7, 129, 33), (70, 33, 129), (200, 300, 517)]
-# (nb, n, m): ragged panels, and one too wide for 64-column X blocks
-TRSM_GEMM_SHAPES = [(8, 8, 8), (13, 130, 70), (100, 300, 260), (2000, 40, 30)]
+# (nb, n, m; m is lu's, syrk takes m = n): ragged panels, the drivers' nb
+# at a ragged n and with m = 0 (X only), one too wide for 32-column X
+# blocks with L11 from device memory
+TRSM_GEMM_SHAPES = [(8, 8, 8), (13, 130, 70), (100, 300, 260),
+                    (128, 1000, 963), (128, 200, 0), (2000, 40, 30)]
+# (m, k) of the "gemv" checks: the 8192 solve's largest TRSM update, rows
+# that are not 16-byte aligned (k = 7, k = 1), a ragged row count
+GEMV_SHAPES = [(128, 8064), (37, 7), (128, 1), (300, 1000)]
 DOTP_SIZES = [1, 131, 1000, 10 ** 6 + 7]
 # (b, hq, hkv, sq, sk, d, causal, window, q_offset, kv_len): GQA 8/2 and
 # 25/5, causal / full / windowed, decode, kv_len, ragged Sq/Sk/D, D = 256
@@ -144,11 +150,47 @@ def test_gemm_simt_layouts_match_plain(card, dtype):
     a, b = dev(200, 300), dev(300, 150)
     big = dev(320, 330)
     cases = [(b.T, a.T), (big[1:201, 3:303], big[5:305, 7:157]),
-             (dev(128, 8192), dev(8192, 1)), (dev(5, 64), dev(64, 96))]
+             (dev(8192, 128).T, dev(8192, 1)), (dev(5, 64), dev(64, 96))]
     for x, y in cases:
         assert gk.gemm_variant(x, y) == "simt", (x.shape, x.stride())
         _close(gk.gemm(x, y), gk.gemm_plain(x, y), dtype, 4.0)
         assert gk.gemm.last_launch["tile"] == gk.TILES["simt"]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("bfloat16", "float32"), ("float64", "float64")])
+def test_gemm_gemv_matches_plain(card, dtype, out):
+    """The "gemv" variant (and B3 on it) against the plain version at
+    n = 1, 3, 16: aligned rows (a window of a larger matrix, as the blocked
+    TRSM passes it), unaligned rows, strided B, every epilogue with and
+    without bias; one launch per call."""
+    rng = np.random.default_rng(4)
+    tdt, odt = getattr(torch, dtype), getattr(torch, out)
+    dev = lambda *s: torch.from_numpy(rng.normal(size=s)).to(card, tdt)
+    for m, k in GEMV_SHAPES:
+        big = dev(m + 1, k + 8)
+        for a in (big[1:, 8:], big[:m, 1:k + 1]):     # aligned (k + 8 = 8j),
+            for n in (1, 3, 16):                      # unaligned base
+                bbig = dev(k, 2 * n)
+                for b in (bbig[:, :n], bbig[:, ::2], dev(n, k).T):
+                    assert gk.gemm_variant(a, b) == "gemv"
+                    before = gk.gemm.variant_launches["gemv"]
+                    got = gk.gemm(a, b, out_dtype=odt)
+                    assert gk.gemm.variant_launches["gemv"] == before + 1
+                    assert gk.gemm.last_launch["tile"] == gk.TILES["gemv"]
+                    _close(got, gk.gemm_plain(a, b, odt), out, 4.0)
+                bias = dev(n)
+                for epi in fk.EPILOGUES:
+                    for bb in (None, bias):
+                        before = fk.gemm_bias_act.launches
+                        got = fk.gemm_bias_act(a, b, bb, epi, out_dtype=odt)
+                        assert fk.gemm_bias_act.launches == before + 1
+                        assert fk.gemm_bias_act.last_launch["variant"] == "gemv"
+                        _close(got, fk.gemm_bias_act_plain(a, b, bb, epi, odt),
+                               out, 4.0)
     torch.cuda.synchronize()
 
 
@@ -170,9 +212,39 @@ def test_trsm_gemm_kernel_matches_plain(card, dtype):
                 before = fk.trsm_gemm.launches
                 x, c = fk.trsm_gemm(*args, form=form, unit_diag=unit)
                 assert fk.trsm_gemm.launches == before + 1
+                assert fk.trsm_gemm.last_launch["plan"] == \
+                    fk.trsm_gemm_plan(tdt, nb, form)
+                assert x.shape == (nb, n) and c.shape == (mm, n)
                 xp, cp = fk.trsm_gemm_plain(*args, form=form, unit_diag=unit)
                 _close(x, xp, dtype, 4.0)
                 _close(c, cp, dtype, 8.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_trsm_gemm_reads_driver_windows(card, dtype):
+    """B2 on the views potrf and getrf pass (windows of one matrix, AP
+    transposed for potrf), read in place, against the plain version on
+    contiguous copies; one launch per call."""
+    rng = np.random.default_rng(5)
+    nb, n = 128, 300
+    a = torch.from_numpy(rng.normal(size=(nb + n, nb + n))).to(
+        card, getattr(torch, dtype))
+    a[:nb, :nb] = torch.from_numpy(np.tril(rng.normal(size=(nb, nb)), -1) / nb
+                                   + np.diag(1 + rng.uniform(size=nb))).to(a)
+    for form, views in (
+            ("syrk", (a[:nb, :nb], a[nb:, :nb].T, None, a[nb:, nb:])),
+            ("lu", (a[:nb, :nb], a[:nb, nb:], a[nb:, :nb], a[nb:, nb:]))):
+        unit = form == "lu"
+        before = fk.trsm_gemm.launches
+        x, c = fk.trsm_gemm(*views, form=form, unit_diag=unit)
+        assert fk.trsm_gemm.launches == before + 1
+        xp, cp = fk.trsm_gemm_plain(*(None if v is None else v.contiguous()
+                                      for v in views), form=form,
+                                    unit_diag=unit)
+        _close(x, xp, dtype, 4.0)
+        _close(c, cp, dtype, 8.0)
     torch.cuda.synchronize()
 
 

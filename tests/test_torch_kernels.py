@@ -239,28 +239,50 @@ def _view(dtype, rows, cols, s0, s1, off):
     return base.as_strided((rows, cols), (s0, s1), off)
 
 
+_VARIANT_CASES = [
+    (_ALIGNED, (96, 80, 80, 1, 0), "tiled"),            # row-major
+    (_ALIGNED, (96, 80, 128, 1, 64), "tiled"),          # aligned window
+    ((64, 96, 1, 64, 0), (96, 80, 80, 1, 0), "simt"),   # transposed A
+    (_ALIGNED, (96, 80, 1, 96, 0), "simt"),             # transposed B
+    (_ALIGNED, (96, 80, 81, 1, 0), "simt"),             # row stride off 16 B
+    (_ALIGNED, (96, 80, 96, 1, 3), "simt"),             # base off 16 B
+    (_ALIGNED, (96, 16, 16, 1, 0), "gemv"),             # skinny n
+    ((16, 96, 96, 1, 0), (96, 80, 80, 1, 0), "simt"),   # skinny m
+    ((64, 0, 8, 1, 0), (0, 80, 80, 1, 0), "simt"),      # empty k
+    # the blocked TRSM's update a[i0:i1, :i0] @ x[:i0] (a window of the
+    # factor, one right-hand side; three)
+    ((128, 384, 512, 1, 384 * 512), (384, 1, 1, 1, 0), "gemv"),
+    ((128, 384, 512, 1, 384 * 512), (384, 3, 3, 1, 0), "gemv"),
+    ((64, 96, 1, 64, 0), (96, 1, 1, 1, 0), "simt"),     # skinny n, A^T
+    ((64, 7, 7, 1, 1), (7, 3, 1, 7, 0), "gemv"),        # unaligned rows
+    ((16, 96, 96, 1, 0), (96, 1, 1, 1, 0), "simt"),     # skinny m and n
+]
+
+
+def _case_id(i, case):
+    """a_layout{i}-b_layout{i}-{expect}; the first nine cases keep the ids
+    they had when the expectation was a tiled / not-tiled flag."""
+    if i < 9:
+        return f"a_layout{i}-b_layout{i}-{case[2] == 'tiled'}"
+    return f"a_layout{i}-b_layout{i}-{case[2]}"
+
+
 @pytest.mark.parametrize("dtype,variant", [
     (torch.bfloat16, "wgmma"), (torch.float32, "ffma"),
     (torch.float64, "dmma")])
-@pytest.mark.parametrize("a_layout,b_layout,tiled", [
-    (_ALIGNED, (96, 80, 80, 1, 0), True),            # row-major
-    (_ALIGNED, (96, 80, 128, 1, 64), True),          # aligned window
-    ((64, 96, 1, 64, 0), (96, 80, 80, 1, 0), False),  # transposed A
-    (_ALIGNED, (96, 80, 1, 96, 0), False),           # transposed B
-    (_ALIGNED, (96, 80, 81, 1, 0), False),           # row stride off 16 B
-    (_ALIGNED, (96, 80, 96, 1, 3), False),           # base off 16 B
-    (_ALIGNED, (96, 16, 16, 1, 0), False),           # skinny n
-    ((16, 96, 96, 1, 0), (96, 80, 80, 1, 0), False),  # skinny m
-    ((64, 0, 8, 1, 0), (0, 80, 80, 1, 0), False),    # empty k
-])
-def test_gemm_variant_choice(dtype, variant, a_layout, b_layout, tiled):
-    """gemm_variant is a pure function of dtype, shape and layout: the
-    dtype's tiled variant for 16-byte aligned row-major operands, "simt"
-    for transposed, misaligned, skinny or empty-k ones. The wrapper
-    records the choice and its tile, the CPU result is the plain one, and
-    the CPU route counts no launch of any variant."""
+@pytest.mark.parametrize("a_layout,b_layout,expect", _VARIANT_CASES,
+                         ids=[_case_id(i, c) for i, c in
+                              enumerate(_VARIANT_CASES)])
+def test_gemm_variant_choice(dtype, variant, a_layout, b_layout, expect):
+    """gemm_variant is a pure function of dtype, shape and layout:
+    "gemv" for n <= SKINNY < m with A's column stride 1 (aligned or not:
+    the kernel picks its loads), the dtype's tiled variant for 16-byte
+    aligned row-major operands, "simt" for transposed, misaligned, skinny-m
+    or empty-k ones. The wrapper records the choice and its tile, the CPU
+    result is the plain one, and the CPU route counts no launch of any
+    variant."""
     a, b = _view(dtype, *a_layout), _view(dtype, *b_layout)
-    want = variant if tiled else "simt"
+    want = variant if expect == "tiled" else expect
     assert tgk.gemm_variant(a, b) == want
     before = (tgk.gemm.launches, dict(tgk.gemm.variant_launches),
               tfk.gemm_bias_act.launches,
@@ -281,9 +303,74 @@ def test_gemm_variant_choice(dtype, variant, a_layout, b_layout, tiled):
 
 def test_gemm_variant_table():
     """Every dtype the kernel takes has a tiled variant with a tile, and
-    the variant codes match csrc/gemm.cu's Variant enum order."""
-    assert tgk.VARIANTS == ("simt", "wgmma", "ffma", "dmma")
+    the variant codes match csrc/gemm.cu's Variant enum order ("gemv",
+    the fifth, has its own entry point)."""
+    assert tgk.VARIANTS == ("simt", "wgmma", "ffma", "dmma", "gemv")
     assert set(tgk.TILED) == set(tgk.DTYPE_CODES)
     assert set(tgk.TILES) == set(tgk.VARIANTS)
     assert tgk.TILES["wgmma"] == (128, 256, 64)
+    assert tgk.TILES["gemv"][1] == tgk.SKINNY
 
+
+@pytest.mark.parametrize("m,k,sms,want", [
+    (128, 8064, 132, (32, 256)),      # the 8192 solve's first TRSM update
+    (128, 128, 132, (1, 256)),        # its last: one chunk, one segment
+    (128, 7, 132, (1, 256)),
+    (8192, 8192, 132, (2, 4096)),     # linalg.gemv at 8192
+    (20000, 8192, 132, (1, 8192)),    # the row groups alone fill the card
+    (37, 100000, 132, (131, 768)),
+    (1000, 3000, 8, (1, 3072)),
+])
+def test_gemv_split(m, k, sms, want):
+    """gemv_split is a pure function: whole 256-deep chunks per segment,
+    segments x row groups near GEMV_CTAS_PER_SM per SM, the segments
+    covering k exactly once."""
+    segs, ks = tgk.gemv_split(m, k, sms)
+    assert (segs, ks) == want
+    bm, _, kc = tgk.TILES["gemv"]
+    assert ks % kc == 0 and (segs - 1) * ks < k <= segs * ks
+    if segs > 1:
+        assert segs * -(-m // bm) <= tgk.GEMV_CTAS_PER_SM * sms + -(-m // bm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("nb", [100, 128, 2000])
+@pytest.mark.parametrize("form", ["syrk", "lu"])
+def test_trsm_gemm_plan(dtype, nb, form):
+    """B2's phase widths are a pure function of (dtype, nb, form): the
+    widest solve block that fits the shared memory, L11 beside it when it
+    still fits, K padded to the update's depth, the update on FFMA (f32,
+    bf16) or mma.sync (f64); and the grid never exceeds the co-resident
+    CTAs nor the larger phase's tasks."""
+    plan = tfk.trsm_gemm_plan(dtype, nb, form)
+    assert plan == tfk.trsm_gemm_plan(dtype, nb, form)
+    acc = 8 if dtype == torch.float64 else 4
+    want_width = {(100, 4): 32, (128, 4): 32, (2000, 4): 16,
+                  (100, 8): 32, (128, 8): 32, (2000, 8): 8}[(nb, acc)]
+    assert plan.width == want_width
+    assert plan.l_in_smem == (nb != 2000)
+    assert plan.nb_padded == {100: 112, 128: 128, 2000: 2000}[nb]
+    assert plan.nb_padded % tfk.TRSM_GEMM_TILE[2] == 0
+    assert plan.smem_bytes <= tfk.SMEM_LIMIT
+    if plan.width < tfk.TRSM_GEMM_WIDTHS[0]:       # the next width is over
+        wider = tfk.TRSM_GEMM_WIDTHS[tfk.TRSM_GEMM_WIDTHS.index(plan.width)
+                                     - 1]
+        assert (plan.nb_padded * (wider + 1)) * acc > tfk.SMEM_LIMIT
+    assert plan.update == ("dmma" if dtype == torch.float64 else "ffma")
+    assert plan.a_operand == ("X^T" if form == "syrk" else "BL")
+    n = 8064 if nb == 128 else 40
+    m = n if form == "syrk" else n - 37
+    grid = tfk.trsm_gemm_grid(264, plan, m, n, form)
+    solve = -(-n // 128) * 128 // plan.width
+    assert 1 <= grid <= 264
+    assert grid == min(264, max(solve + (0 if form == "syrk" else
+                                         -(-plan.nb_padded // 32)
+                                         * (-(-m // 128) * 128 // 32)),
+                                -(-m // 128) * -(-n // 128)))
+    assert tfk.trsm_gemm_grid(264, plan, 0, n, form) >= 1     # m == 0
+
+
+def test_trsm_gemm_plan_refuses_huge_panels():
+    with pytest.raises(ValueError, match="panel width"):
+        tfk.trsm_gemm_plan(torch.float64, 20000, "syrk")

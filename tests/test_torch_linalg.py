@@ -201,6 +201,31 @@ def test_solve_matches_reference(data, registry, policy):
     _close(x1, np.asarray(want)[:, 0], 256.0)
 
 
+@pytest.mark.parametrize("n,block", [(200, 48), (261, 100)])
+def test_ragged_solve_and_cholesky_match_reference(n, block, registry):
+    """solve and cholesky at sizes the panel widths do not divide (the
+    TRSM's planned block is 128), under the kernel policy: the blocked
+    TRSM's updates (block x k x nrhs, a window of the factor) take B1's
+    "gemv" variant and every trailing update B2, both on their plain
+    routes here."""
+    rng = np.random.default_rng(n)
+    g = rng.normal(size=(n, n))
+    spd = (g @ g.T + n * np.eye(n)).astype(np.float32)
+    gen = (g + 2 * np.eye(n)).astype(np.float32)
+    rhs = rng.normal(size=(n, 3)).astype(np.float32)
+    with tl.use(policy="model", device="cpu"):
+        x = tl.solve(gen, rhs, block=block)
+        assert tgk.gemm.last_launch["variant"] == "gemv"
+        l = tl.cholesky(spd, block=block)
+        assert tfk.trsm_gemm.last_launch["plan"] == tfk.trsm_gemm_plan(
+            torch.float32, block, "syrk")
+    with jl.use(policy="model", registry=registry):
+        jx = jl.solve(gen, rhs, block=block)
+        jchol = jl.cholesky(spd, block=block)
+    _close(x, jx, 256.0, "solve")
+    _close(l, jchol, 64.0, "cholesky")
+
+
 def test_launch_counters_move_under_model_on_cpu(data, registry):
     """The shared ``kernel.launch`` counter moves under ``model`` exactly as
     the reference's ``kernel.launch`` does, and every kernel wrapper is
