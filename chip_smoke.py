@@ -16,7 +16,9 @@ with its wall time:
 2. ``kernels``: each CUDA kernel against its plain PyTorch version on the
    card, at ragged shapes and at the main path's shapes, each with its
    stated tolerance (B5 and B6 elementwise and normwise, scaled by each
-   value and the output's rms).
+   value and the output's rms); B6's three passes' f32 scratch against
+   ``ssd_scan_passes``, B4 on contiguous, offset-by-one and strided
+   views, and two calls of each bitwise equal.
 3. ``main``: ``gemm`` (8192^3 f32 and bf16, 4096^3 f64), ``gemm_bias_act``
    (8192^3, gelu), ``cholesky`` / ``lu`` / ``solve`` at 8192 f32 and
    ``cholesky`` at 4096 f64 under ``policy="model"``, then a cold-start
@@ -31,15 +33,16 @@ with its wall time:
    ``model_zoo.prefill`` of 2 x 4096 other tokens with the launch counts
    zeroed just before and read just after (B5 and B6 must launch once per
    layer), then ``serve_batch`` of 4 requests (its prefill counted the
-   same way), one profiled prefill and decode step (device-busy time and
-   the top kernels), then a reduced hybrid model's ``forward`` on the card
-   against its CPU (plain) route.
+   same way), one profiled prefill (device-busy time, the top kernels and
+   B6's three ``ssd_`` kernels summed) and decode step, then a reduced
+   hybrid model's ``forward`` on the card against its CPU (plain) route.
 5. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B2 at five trailing updates the
    drivers launch beside the two-call ``solve_triangular`` + ``addmm``,
    B1's "gemv" at the TRSM update in three dtypes (CUDA-graph replay: its
    wrapper's host time exceeds the kernels'), B4 against ``torch.dot`` in
-   20 alternating turns.
+   20 alternating turns, B6 at the prefill shape by CUDA-graph replay (its
+   three launches per call) and by the profiler's device ms per call.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -145,13 +148,25 @@ def graph_ms(fn, reps=20):
     return cuda_ms(graph.replay) / reps
 
 
+def profiled(fn, match, complete, tries=5):
+    """``profile_call(fn, cpu=False, match=match, pad=32)["matched"]`` once
+    ``complete(name, launches)`` holds for each name in ``match``: the
+    card's CUPTI trace sometimes loses a short run's kernels, so a run
+    that lost them is traced again, ``tries`` times at most, then
+    raises."""
+    for _ in range(tries):
+        got = profile_call(fn, cpu=False, match=match, pad=32)["matched"]
+        if all(complete(m, got[m]["launches"]) for m in match):
+            return got
+    raise AssertionError(f"the profiler saw {got} in {tries} traces")
+
+
 def kernel_ms(fn, match, reps=10):
     """Device milliseconds per launch of the kernels whose name holds
     ``match``, over ``reps`` calls of ``fn`` under ``torch.profiler``
     (their summed device time over the launches it recorded)."""
-    got = profile_call(lambda: [fn() for _ in range(reps)], cpu=False,
-                       match=(match,))["matched"][match]
-    assert got["launches"] > 0, f"the profiler saw no {match} kernel"
+    got = profiled(lambda: [fn() for _ in range(reps)], (match,),
+                   lambda m, count: count > 0)[match]
     return got["device_ms"] / got["launches"]
 
 
@@ -678,11 +693,25 @@ def phase_model_kernels(gen):
     for n, dtype in ((1, torch.float32), (131, torch.float32),
                      (10 ** 6 + 7, torch.float32),
                      (10 ** 6 + 7, torch.bfloat16), (2 ** 26, torch.float32)):
-        x = torch.randn(n, generator=gen, device="cuda").to(dtype)
-        y = torch.randn(n, generator=gen, device="cuda").to(dtype)
-        mag = (x.float() * y.float()).abs().sum().item()
-        compare(f"dotp {dtype} n={n}", dk.dotp(x, y), dk.dotp_plain(x, y),
-                scale=max(mag, 1.0), tol=dot_tol)
+        x = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        y = torch.randn(2 * n + 1, generator=gen, device="cuda").to(dtype)
+        # contiguous (16-byte loads), offset by one element (unaligned:
+        # scalar loads), strided (scalar loads)
+        views = [("contiguous", x[:n], y[:n]), ("offset by one", x[1:],
+                                                y[1:n + 1])]
+        if n < 2 ** 26:
+            views.append(("stride 2", x[:n], y[::2][:n]))
+        for tag, xv, yv in views:
+            got = dk.dotp(xv, yv)
+            vec = dk.dotp.last_launch["vector_loads"]
+            assert vec == (tag == "contiguous"), (tag, vec)
+            mag = (xv.float() * yv.float()).abs().sum().item()
+            compare(f"dotp {dtype} n={n} {tag} "
+                    f"[{dk.dotp.last_launch['blocks']} CTAs, vector={vec}]",
+                    got, dk.dotp_plain(xv, yv), scale=max(mag, 1.0),
+                    tol=dot_tol)
+            assert torch.equal(got, dk.dotp(xv, yv)), "dotp not repeatable"
+        del x, y, views
     # f32 runs the FFMA variant, bf16 the tensor-core one (D <= 128), bf16
     # at D = 256 the FFMA one again
     for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64),
@@ -708,17 +737,41 @@ def phase_model_kernels(gen):
                       fa.attention_plain(q, k, v, window=window))
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, L, p, n, chunk in SSD_CHECKS:
-            args = ssd_inputs(gen, b, h, L, p, n, dtype)
-            compare_close(f"ssd_scan {dtype} x{tuple(args[0].shape)} n={n} "
-                          f"chunk={chunk}", sk.ssd_scan(*args, chunk=chunk),
-                          sk.ssd_scan_plain(*args, chunk=chunk))
-    args = ssd_inputs(gen, pb, 50, ps, 64, 16, torch.bfloat16)
-    compare_close(f"ssd_scan prefill bf16 x{tuple(args[0].shape)} n=16 "
-                  f"chunk=256", sk.ssd_scan(*args, chunk=256),
-                  sk.ssd_scan_plain(*args, chunk=256))
+            ssd_check(sk, ssd_inputs(gen, b, h, L, p, n, dtype), chunk)
+    launch = ssd_check(sk, ssd_inputs(gen, pb, 50, ps, 64, 16,
+                                      torch.bfloat16), 256, "prefill ")
+    assert launch.ctas[0] >= 1600, launch
     emit(phase="kernels (model)", last_attention=str(fa.attention.last_launch),
          last_ssd_scan=str(sk.ssd_scan.last_launch),
          last_dotp=dk.dotp.last_launch)
+
+
+def ssd_check(sk, args, chunk, tag=""):
+    """B6 against its plain version (y, elementwise and normwise), its
+    three passes' scratch against :func:`ssd_scan_passes` (f32), two
+    calls bitwise equal, and the plan's shared memory equal to the C
+    side's; returns the launch plan."""
+    from repro_torch.kernels import _build
+
+    x = args[0]
+    name = (f"ssd_scan {tag}{x.dtype} x{tuple(x.shape)} n={args[2].shape[-1]}"
+            f" chunk={chunk}")
+    y, scratch = sk.ssd_scan_kernel(*args, chunk=chunk)
+    launch = sk.ssd_scan.last_launch["launch"]
+    compare_close(name, y, sk.ssd_scan_plain(*args, chunk=chunk))
+    _, want = sk.ssd_scan_passes(*args, chunk=chunk)
+    for key in ("cum", "states", "decay", "carried"):
+        compare_close(f"{name} pass {key}", scratch[key], want[key])
+    again, _ = sk.ssd_scan_kernel(*args, chunk=chunk)
+    assert torch.equal(y, again), f"{name}: two calls differ"
+    lib = _build.library("ssd_scan")
+    code = sk.DTYPE_CODES[x.dtype]
+    p, n = x.shape[-1], args[2].shape[-1]
+    c_side = tuple(lib.repro_ssd_scan_smem_bytes(code, p, n, launch.chunk, k)
+                   for k in (1, 2, 3))
+    assert c_side == launch.smem_bytes, (c_side, launch)
+    emit(check=f"{name}: two calls bitwise equal, plan {launch}", ok=True)
+    return launch
 
 
 def zero_launches():
@@ -772,18 +825,26 @@ def model_agreement():
         (rel, launches)
 
 
-def profile_call(fn, top=10, match=(), cpu=True):
+def profile_call(fn, top=10, match=(), cpu=True, pad=0):
     """One run of ``fn`` under ``torch.profiler``: wall ms (profiler on),
     device-busy ms summed over the kernels it launched, their count, the
     ``top`` kernels by device time, and for each substring in ``match``
     the device ms and launches of the kernels whose name holds it.
-    ``cpu=False`` traces the device alone (far fewer events to sort)."""
+    ``cpu=False`` traces the device alone (far fewer events to sort).
+    ``pad`` tiny kernels run and are waited for inside the trace before
+    ``fn``: the first kernel records of a trace on the card can be lost
+    or skewed, and these take their place (they are counted in the busy
+    time and launches, and match nothing of the kernels here)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    filler = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]
                  + ([ProfilerActivity.CPU] if cpu else [])) as prof:
+        for _ in range(pad):
+            filler.add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -871,7 +932,7 @@ def phase_model(gen):
     # part of the counted runs above)
     emit(profile=f"model_zoo.prefill {PREFILL[0]}x{PREFILL[1]}",
          **profile_call(lambda: model_zoo.prefill(
-             model, {"tokens": tokens}, cfg)))
+             model, {"tokens": tokens}, cfg), match=("ssd_",)))
     caches = model_zoo.init_caches(model, cfg, 4, 256)
     emit(profile="model_zoo.decode_step batch 4", **profile_call(
         lambda: model_zoo.decode_step(model, tokens[:1, :1].repeat(4, 1),
@@ -925,6 +986,11 @@ def model_rows(gen, launches):
         library_ms=cuda_ms(lambda: torch.dot(x, y)), bound_ms=b_ms,
         bound_by=b_by, max_abs_err=abs(dk.dotp(x, y).item()
                                        - dk.dotp_plain(x, y).item()),
+        ms_graph=graph_ms(lambda: dk.dotp(x, y)),
+        library_ms_graph=graph_ms(lambda: torch.dot(x, y)),
+        timing="ms, library_ms: 5 calls back to back (host time shows); "
+               "*_graph: 20 calls in one CUDA graph, replayed",
+        launch=dk.dotp.last_launch,
         launches_note="the model path launches no dotp; its launches come "
                       "from the kernels phase"))
     # B4 against torch.dot in turns (kernel, library, library, kernel, ...),
@@ -983,17 +1049,39 @@ def model_rows(gen, launches):
         .abs().max().item(), variant=fa.attention.last_launch["variant"],
         tile=fa.attention.last_launch["tile"]))
     del q, k, v, band, qf, kf, vf, got
+    # B6 issues three launches per call, so its ms is a CUDA-graph replay
+    # (host time between the launches shows back to back); the profiler's
+    # device ms of the three kernels per call beside it. The card's trace
+    # may drop some of a short run's kernels, so each pass's time per call
+    # is its device ms over the launches the trace holds, and a call's is
+    # the sum of its three passes'.
     args = ssd_inputs(gen, b, 50, s, 64, 16, torch.bfloat16)
     flops, nbytes = ssd_work(b, 50, s, 64, 16, 256, 2)
     b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
+    reps = 10
+    passes = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+    matched = profiled(lambda: [sk.ssd_scan(*args, chunk=256)
+                                for _ in range(reps)], passes,
+                       lambda m, count: 0 < count <= reps)
+    per_pass = {k: matched[k]["device_ms"] / matched[k]["launches"]
+                for k in passes}
     rows.append(dict(
         name="ssd_scan", shape=f"x{tuple(args[0].shape)} n=16 chunk=256 "
-        f"bfloat16", ms=cuda_ms(lambda: sk.ssd_scan(*args, chunk=256)),
+        f"bfloat16", ms=graph_ms(lambda: sk.ssd_scan(*args, chunk=256)),
+        ms_back_to_back=cuda_ms(lambda: sk.ssd_scan(*args, chunk=256)),
+        device_ms_per_call=sum(per_pass.values()),
+        pass_device_ms_per_call=per_pass,
+        pass_launches_traced={k: matched[k]["launches"] for k in passes},
+        timing="ms: 20 calls in one CUDA graph, replayed; device_ms_per_call:"
+               " torch.profiler over 10 calls, the sum over the three ssd_ "
+               "kernels of each one's device ms per traced launch",
         plain_ms=cuda_ms(lambda: sk.ssd_scan_plain(*args, chunk=256)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         max_abs_err=(sk.ssd_scan(*args, chunk=256).float()
                      - sk.ssd_scan_plain(*args, chunk=256).float()).abs()
-        .max().item()))
+        .max().item(), grids=sk.ssd_scan.last_launch["grids"],
+        smem_bytes=sk.ssd_scan.last_launch["smem_bytes"],
+        scratch_bytes=sk.ssd_scan.last_launch["scratch_bytes"]))
     for row in rows:
         source, replaces = REPLACES[row["name"]]
         row.update(route="cuda", source=source, replaces=replaces,

@@ -51,7 +51,8 @@ SIGNATURES = {
         "repro_trsm_gemm_co_resident": ([I, I], I),
     },
     "dotp": {
-        "repro_dotp": ([I, P, LL, P, LL, LL, P, P, P], I),
+        "repro_dotp": ([I, I, P, LL, P, LL, LL, I, P, P, P, P], I),
+        "repro_dotp_blocks_per_sm": ([I, I], I),
     },
     "flash_attention": {
         "repro_attention": ([I, I, P, LL, LL, LL, LL, P, LL, LL, LL, LL,
@@ -59,10 +60,11 @@ SIGNATURES = {
                              I, I, I, I, I, I, F, I, LL, LL, I, P], I),
     },
     "ssd_scan": {
-        "repro_ssd_scan": ([I, P, LL, LL, LL, LL, P, LL, LL, LL,
-                            P, LL, LL, LL, LL, P, LL, LL, LL, LL,
-                            P, LL, LL, LL, LL, I, I, I, I, I, I, P], I),
-        "repro_ssd_scan_smem_bytes": ([I, I, I], LL),
+        "repro_ssd_scan": ([I, P, LL, LL, LL, LL, I, P, LL, LL, LL,
+                            P, LL, LL, LL, LL, I, P, LL, LL, LL, LL, I,
+                            P, LL, LL, LL, LL, I, I, I, I, I, I, I,
+                            P, P, P, P, P], I),
+        "repro_ssd_scan_smem_bytes": ([I, I, I, I, I], LL),
     },
 }
 

@@ -45,9 +45,16 @@ def load_tree(module: torch.nn.Module, tree: Mapping, path: str = "",
     return n
 
 
-def from_jax_params(params: Mapping, cfg: ModelConfig, device="cpu") -> LM:
-    """The port's model of ``cfg`` on ``device`` holding ``params``' values;
-    raises if a leaf is missing, extra or of another shape."""
+def from_jax_params(params: Mapping, cfg: ModelConfig, device="cuda") -> LM:
+    """The port's model of ``cfg`` on ``device`` (the card unless the
+    caller asks for the CPU, as :func:`model_zoo.init`) holding
+    ``params``' values; raises if a leaf is missing, extra or of another
+    shape."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch.models.convert.from_jax_params "
+                           "builds on 'cuda' by default and no CUDA device "
+                           "is available; ask for the CPU with device='cpu'")
     model = LM(cfg, device=device)
     loaded = 0
     for key, value in params.items():

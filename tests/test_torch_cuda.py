@@ -255,14 +255,19 @@ def test_dotp_kernel_matches_plain(card, dtype):
     for n in DOTP_SIZES:
         x = torch.from_numpy(rng.normal(size=2 * n)).to(card,
                                                         getattr(torch, dtype))
-        y = torch.from_numpy(rng.normal(size=n)).to(card,
-                                                    getattr(torch, dtype))
-        for xv in (x[:n], x[::2]):             # contiguous and strided
-            got, want = dk.dotp(xv, y), dk.dotp_plain(xv, y)
+        y = torch.from_numpy(rng.normal(size=n + 1)).to(card,
+                                                        getattr(torch, dtype))
+        # contiguous (16-byte loads), strided and offset by one element
+        # (unaligned): both scalar loads
+        for xv, yv, vec in ((x[:n], y[:n], True), (x[::2], y[:n], False),
+                            (x[1:n + 1], y[1:], False)):
+            got, want = dk.dotp(xv, yv), dk.dotp_plain(xv, yv)
+            assert dk.dotp.last_launch["vector_loads"] == vec
             # f32 sums in another order: relative to sum |x_i y_i|
-            mag = (xv.float() * y.float()).abs().sum().item()
+            mag = (xv.float() * yv.float()).abs().sum().item()
             assert got.dtype == torch.float32 and got.shape == ()
             assert abs(got.item() - want.item()) <= 1e-5 * mag + 1e-6, n
+            assert torch.equal(got, dk.dotp(xv, yv))      # no float atomics
     assert dk.dotp(x[:0], y[:0]).item() == 0.0
     torch.cuda.synchronize()
 
@@ -346,6 +351,13 @@ def test_ssd_kernel_matches_plain(card, dtype):
         _close(got, sk.ssd_scan_plain(*args, chunk=chunk), dtype, 4.0)
         _close(ops.ssd(x, a, B, C, chunk=chunk).movedim(2, 1), got, dtype,
                1.0)
+        # the three passes' scratch against the plain passes (f32), and
+        # two calls bitwise equal (no atomics, a fixed order of every sum)
+        y, scratch = sk.ssd_scan_kernel(*args, chunk=chunk)
+        assert torch.equal(y, got)
+        _, want = sk.ssd_scan_passes(*args, chunk=chunk)
+        for key in ("cum", "states", "decay", "carried"):
+            _close_scaled(scratch[key], want[key], "float32")
     zero = torch.zeros((1, 2, 0, 16), device=card, dtype=tdt)
     assert sk.ssd_scan(zero, zero[..., 0], zero, zero).shape == zero.shape
     torch.cuda.synchronize()

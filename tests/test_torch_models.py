@@ -107,7 +107,8 @@ def test_param_count_and_init_match_reference(family):
     assert tzoo.param_count(tc) == jzoo.param_count(jc)
     model = tzoo.init(tc, torch.Generator().manual_seed(0), device="cpu")
     # the same tree of shapes as the reference's pytree
-    convert.from_jax_params(_np(jzoo.init(jax.random.PRNGKey(0), jc)), tc)
+    convert.from_jax_params(_np(jzoo.init(jax.random.PRNGKey(0), jc)), tc,
+                            device="cpu")
     assert sum(p.numel() for p in model.parameters()) == \
         tzoo.param_count(tc)
     assert not any(p.requires_grad for p in model.parameters())
@@ -143,15 +144,24 @@ def test_init_on_the_card_without_one_raises():
         tzoo.init(_configs("hybrid")[1])
 
 
+def test_from_jax_params_on_the_card_without_one_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    jc, tc = _configs("dense")
+    params = _np(jzoo.init(jax.random.PRNGKey(0), jc))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.from_jax_params(params, tc)
+
+
 def test_from_jax_params_rejects_a_wrong_tree():
     jc, tc = _configs("dense")
     params = _np(jzoo.init(jax.random.PRNGKey(0), jc))
     bad = dict(params, final_norm={"scale": np.ones(3, np.float32)})
     with pytest.raises(ValueError, match="final_norm"):
-        convert.from_jax_params(bad, tc)
+        convert.from_jax_params(bad, tc, device="cpu")
     with pytest.raises(ValueError, match="loaded"):
         convert.from_jax_params({k: v for k, v in params.items()
-                                 if k != "head"}, tc)
+                                 if k != "head"}, tc, device="cpu")
 
 
 # ---------------------------------- layers ----------------------------------
@@ -257,7 +267,7 @@ def test_hybrid_module_matches_reference(rng, is_global):
 def test_lm_forward_prefill_decode_match_reference(rng, family):
     jc, tc = _configs(family)
     params = jzoo.init(jax.random.PRNGKey(1), jc)
-    model = convert.from_jax_params(_np(params), tc)
+    model = convert.from_jax_params(_np(params), tc, device="cpu")
     toks = rng.integers(0, jc.vocab, size=(2, 40)).astype(np.int32)
     jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
     jl, _ = jzoo.forward(params, jb, jc)
@@ -306,7 +316,7 @@ def _requests(cls, rng, vocab):
 def test_serve_batch_matches_reference_tokens():
     jc, tc = _configs("hybrid")
     params = jzoo.init(jax.random.PRNGKey(0), jc)
-    model = convert.from_jax_params(_np(params), tc)
+    model = convert.from_jax_params(_np(params), tc, device="cpu")
     jouts, jstats = jserve.serve_batch(
         params, jc, _requests(jserve.Request, np.random.default_rng(0),
                               jc.vocab), max_len=32)
