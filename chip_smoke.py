@@ -6,29 +6,45 @@ Run from the root of a checkout on a machine with a CUDA card::
     python3 chip_smoke.py
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` (one nvcc
-per source, in parallel) and drives the port's two paths: dense BLAS-3 and
-blocked LAPACK through ``repro_torch.linalg`` at n = 8192, and the model
-zoo serving hymba-1.5b at full width. Phases, each printing one JSON line
-with its wall time:
+per source, in parallel) and drives the port's three paths: dense BLAS-3
+and blocked LAPACK through ``repro_torch.linalg`` at n = 8192, the tuning
+loop (sweep, registry, tuned dispatch, calibration), and the model zoo
+serving hymba-1.5b at full width. Phases, each printing JSON lines with
+its wall time:
 
 1. ``probe``: the card, its power limit, capability 9.0, TF32 off, the
    kernel build.
 2. ``kernels``: each CUDA kernel against its plain PyTorch version on the
    card, at ragged shapes and at the main path's shapes, each with its
    stated tolerance (B5 and B6 elementwise and normwise, scaled by each
-   value and the output's rms); B6's three passes' f32 scratch against
-   ``ssd_scan_passes``, B4 on contiguous, offset-by-one and strided
-   views, and two calls of each bitwise equal.
-3. ``main``: ``gemm`` (8192^3 f32 and bf16, 4096^3 f64), ``gemm_bias_act``
-   (8192^3, gelu), ``cholesky`` / ``lu`` / ``solve`` at 8192 f32 and
-   ``cholesky`` at 4096 f64 under ``policy="model"``, then a cold-start
-   ``policy="tuned"`` leg that must equal the model results bitwise. The
-   kernels' launch counts are zeroed just before and read just after;
-   each kernel must have launched (B2 once per trailing update, 283; the
-   solve's 126 TRSM updates all on B1's "gemv"). Residuals are checked.
-   Then one device-only profile each of cholesky, lu and solve at 8192
-   (device-busy and idle share, B2's and B1's ms).
-4. ``model``: hymba-1.5b (32 layers, d_model 1600) built on the card from
+   value and the output's rms); every compiled CTA tile of B1's tiled
+   variants and B3, handed over in an ``h100`` plan, at an aligned shape,
+   a ragged one and the tune phase's 4096^3; the FPU-chain probe bitwise,
+   per op class, at the calibration's chain length; B6's three
+   passes' f32 scratch against ``ssd_scan_passes``, B4 on contiguous,
+   offset-by-one and strided views, and two calls of each bitwise equal.
+3. ``main``: under the card's machine (``h100``; the phase prints it and
+   the plans it resolves: panel widths, GEMM tiles, the TRSM block, fused
+   or not per trailing update) ``gemm`` (8192^3 f32 and bf16, 4096^3
+   f64), ``gemm_bias_act`` (8192^3, gelu), ``cholesky`` / ``lu`` /
+   ``solve`` at 8192 f32 and ``cholesky`` at 4096 f64 under
+   ``policy="model"``, then a cold-start ``policy="tuned"`` leg that must
+   equal the model results bitwise. Every trailing update must fuse onto
+   B2. The kernels' launch counts are zeroed just before and read just
+   after; each kernel must have launched, B2 once per trailing update and
+   B1's "gemv" once per TRSM update, both counts derived from the plans. Residuals are checked. Then one
+   device-only profile each of cholesky, lu and solve at 8192 under
+   ``h100`` and again under ``linalg.use(machine="tpu-like")``, the two
+   pricings side by side (device-busy ms, wall s).
+4. ``tune``: with the launch counts zeroed, ``tune_gemm`` at 4096^3 in
+   f32, bf16 and f64 into a temporary registry (each candidate's tile,
+   median, spread, modeled seconds and residual), a ``linalg.gemm`` under
+   ``policy="tuned"`` that must hit the registry and launch the winner's
+   tile, ``tune_fused_gemm`` at 4096^3, and ``arch.calibrate`` on the card
+   at its default sizes (``calibrated-cuda`` beside ``h100``'s datasheet
+   numbers, the cycles
+   per dependent op of each class from the chain kernel).
+5. ``model``: hymba-1.5b (32 layers, d_model 1600) built on the card from
    seed 0, one untimed prefill of 2 x 4096 tokens (set-up), then a warm
    ``model_zoo.prefill`` of 2 x 4096 other tokens with the launch counts
    zeroed just before and read just after (B5 and B6 must launch once per
@@ -36,11 +52,12 @@ with its wall time:
    same way), one profiled prefill (device-busy time, the top kernels and
    B6's three ``ssd_`` kernels summed) and decode step, then a reduced
    hybrid model's ``forward`` on the card against its CPU (plain) route.
-5. ``times``: each kernel at its path's shapes against its plain version,
-   a library call and its roofline bound: B2 at five trailing updates the
-   drivers launch beside the two-call ``solve_triangular`` + ``addmm``,
-   B1's "gemv" at the TRSM update in three dtypes (CUDA-graph replay: its
-   wrapper's host time exceeds the kernels'), B4 against ``torch.dot`` in
+6. ``times``: each kernel at its path's shapes against its plain version,
+   a library call and its roofline bound: B1 at every compiled tile, B2
+   at five trailing updates the drivers launch beside the two-call
+   ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
+   three dtypes (CUDA-graph replay: its wrapper's host time exceeds the
+   kernels'), the FPU-chain probe per class, B4 against ``torch.dot`` in
    20 alternating turns, B6 at the prefill shape by CUDA-graph replay (its
    three launches per call) and by the profiler's device ms per call.
 
@@ -103,7 +120,12 @@ REPLACES = {
                   "src/repro/kernels/flash_attention.py:82"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:65"),
+    # not a TPU kernel: the card's counterpart of the reference's jitted
+    # dependent chains (repro/arch/calibrate.py, run_microbenchmarks)
+    "fpu_chain": ("src/repro_torch/csrc/fpu_chain.cu",
+                  "src/repro/arch/calibrate.py:131"),
 }
+TUNE_N = 4096                  # the tune phase's sweep shape (n^3)
 
 
 def emit(**row):
@@ -336,7 +358,83 @@ def phase_kernels(gen):
     compare(f"trsm_gemm float64 nb=2000 n=40 syrk "
             f"{fk.trsm_gemm.last_launch} X", x, xp)
     compare("trsm_gemm float64 nb=2000 n=40 syrk C", c, cp)
+    tile_checks(gen)
+    chain_checks(gen)
     emit(phase="kernels", tile_of_last_trsm_gemm=fk.trsm_gemm.last_launch)
+
+
+def tile_checks(gen):
+    """Every compiled CTA tile of B1's tiled variants, handed over in an
+    ``h100`` plan, and B3 (gelu + bias) on it, against the plain versions
+    at an aligned shape, a ragged one (rows still 16-byte aligned) and the
+    tune phase's sweep shape (``TUNE_N``^3, where ``tune_gemm`` launches
+    every tile and ``tune_fused_gemm`` runs B3); each call must launch that
+    tile (``tile_source == "plan"``)."""
+    from repro_torch.core import codesign as cd
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import gemm as gk
+
+    rnd = lambda *s, dtype: torch.randn(*s, generator=gen,
+                                        device="cuda").to(dtype)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        variant, tag = gk.TILED[dtype], str(dtype).removeprefix("torch.")
+        for m, n, k in ((1024, 1024, 1024), (1000, 776, 520),
+                        (TUNE_N,) * 3):
+            a, b = rnd(m, k, dtype=dtype), rnd(k, n, dtype=dtype)
+            bias = rnd(n, dtype=dtype)
+            for tile in gk.TILE_SETS[variant]:
+                plan = cd.plan_from_blocks(m, n, k, *tile, dtype=dtype,
+                                           machine="h100")
+                name = f"{m}x{n}x{k} [{variant} {'x'.join(map(str, tile))}]"
+                for out in gk.OUT_DTYPES[dtype]:
+                    got = gk.gemm(a, b, plan=plan, out_dtype=out)
+                    launch = gk.gemm.last_launch
+                    assert (launch["variant"], launch["tile"],
+                            launch["tile_source"]) == (variant, tile,
+                                                       "plan"), launch
+                    compare(f"gemm {tag}->{str(out)[6:]} {name}", got,
+                            gk.gemm_plain(a, b, out))
+                    got = fk.gemm_bias_act(a, b, bias, "gelu", plan=plan,
+                                           out_dtype=out)
+                    assert fk.gemm_bias_act.last_launch["tile"] == tile
+                    compare(f"gemm_bias_act {tag}->{str(out)[6:]} {name} "
+                            f"gelu bias=True", got,
+                            fk.gemm_bias_act_plain(a, b, bias, "gelu", out))
+
+
+def chain_iters():
+    """The steps of the calibration's chains on the card (the tune phase's
+    ``arch.calibrate``), at which the chain checks and rows run."""
+    import importlib
+    return importlib.import_module(
+        "repro_torch.arch.calibrate").SUITE_SIZES["cuda"]["chain_iters"]
+
+
+def chain_input(gen):
+    """8 float32 lanes: the calibration's start value 2.0 in lane 0, the
+    others random in [1.5, 2.5)."""
+    from repro_torch.kernels import fpu_chain as fc
+
+    v0 = 1.5 + torch.rand(fc.LANES, generator=gen, device="cuda")
+    v0[0] = 2.0
+    return v0
+
+
+def chain_checks(gen):
+    """The FPU-chain probe of each op class against its plain loop on the
+    card, bitwise (IEEE float32 mul, add, div and sqrt round alike), at the
+    calibration's chain length."""
+    from repro_torch.kernels import fpu_chain as fc
+
+    v0, it = chain_input(gen), chain_iters()
+    for op in fc.OP_CLASSES:
+        got, cycles = fc.fpu_chain(op, v0, it)
+        want = fc.fpu_chain_plain(op, v0, it)
+        ok = torch.equal(got, want)
+        emit(check=f"fpu_chain {op} {it} steps bitwise",
+             cycles_per_op=int(cycles) / it,
+             max_abs_err=(got - want).abs().max().item(), ok=ok)
+        assert ok, f"fpu_chain {op}: kernel and plain loop differ"
 
 
 def gemv_checks(gen, dtype):
@@ -402,6 +500,67 @@ def rel(x):
     return x.double().norm().item()
 
 
+def factorization_plan(tag, kind, n, dtype, form):
+    """The panel width and the trailing updates a blocked factorization
+    resolves under the ambient machine of the card (as the driver walks
+    its panels): each update's n' and whether the chain planner fuses it
+    onto B2."""
+    from repro_torch.lapack.cholesky import default_block
+    from repro_torch.tune import dispatch as td
+
+    block = default_block(n, kind, dtype, "cuda")
+    updates = []
+    for j0 in range(0, n, block):
+        nb = min(block, n - j0)
+        if j0 + nb < n:
+            r = n - j0 - nb
+            updates.append((r, td.resolve("trsm+gemm", (r, r, nb), dtype,
+                                          policy="model", backend="cuda",
+                                          form=form).fused))
+    return {"call": tag, "block": block, "updates": len(updates),
+            "fused": sum(f for _, f in updates),
+            "staged_at": [r for r, f in updates if not f]}
+
+
+def main_plans():
+    """The plans the main path resolves on the card under its machine:
+    GEMM tiles, the fused B3 decision, the factorizations' panel widths
+    and fused trailing updates, the solve's TRSM block; and the launch
+    counts they imply (B2 once per fused update, "gemv" once per TRSM
+    off-diagonal update of the solve's two triangular solves)."""
+    from repro_torch import arch
+    from repro_torch.tune import dispatch as td
+
+    def tile(op, shape, dtype, **kw):
+        p = td.resolve(op, shape, dtype, policy="model", backend="cuda",
+                       **kw).gemm_plan
+        return [p.bm, p.bn, p.bk]
+
+    gba = td.resolve("gemm+epilogue", (N, N, N), torch.float32,
+                     policy="model", backend="cuda", epilogue="gelu")
+    facts = [factorization_plan(*f) for f in (
+        ("cholesky f32", "potrf", N, torch.float32, "syrk"),
+        ("lu f32", "getrf", N, torch.float32, "lu"),
+        ("solve f32 (its lu)", "getrf", N, torch.float32, "lu"),
+        ("cholesky f64", "potrf", N64, torch.float64, "syrk"),
+        ("tuned cholesky f32 (cold start)", "potrf", N, torch.float32,
+         "syrk"))]
+    trsm_block = td.resolve("trsm", (N, 1), torch.float32, policy="model",
+                            backend="cuda").block
+    return {"machine": arch.current_machine("cuda").name,
+            "gemm_tiles": {"f32 8192^3": tile("gemm", (N, N, N),
+                                              torch.float32),
+                           "bf16 8192^3": tile("gemm", (N, N, N),
+                                               torch.bfloat16),
+                           "f64 4096^3": tile("gemm", (N64, N64, N64),
+                                              torch.float64)},
+            "gemm_bias_act": {"fused": gba.fused, "tile": [
+                gba.gemm_plan.bm, gba.gemm_plan.bn, gba.gemm_plan.bk]},
+            "factorizations": facts, "trsm_block": trsm_block,
+            "expect_trsm_gemm": sum(f["fused"] for f in facts),
+            "expect_gemv": 2 * (-(-N // trsm_block) - 1)}
+
+
 def phase_main(gen, build_dir):
     from repro_torch import linalg
     from repro_torch.kernels import fused as fk
@@ -424,6 +583,17 @@ def phase_main(gen, build_dir):
     g32, rhs = rnd(N, N), rnd(N)
     cold = os.path.join(build_dir, "cold-start-registry.json")
     assert not os.path.exists(cold)
+    plans = main_plans()
+    assert plans["machine"] == "h100", plans["machine"]
+    emit(phase="main plans", **plans)
+    # every trailing update of the drivers must stay on B2 under h100: a
+    # planner that moved some onto the staged pair would lower the B2
+    # count derived below with it
+    staged = {f["call"]: f["staged_at"] for f in plans["factorizations"]
+              if f["staged_at"]}
+    assert not staged, f"h100 stages trailing updates off B2: {staged}"
+    assert plans["expect_trsm_gemm"] == sum(
+        f["updates"] for f in plans["factorizations"]), plans
     results = {}
     gk.reset_launches(gk.gemm)
     gk.reset_launches(fk.gemm_bias_act)
@@ -459,10 +629,13 @@ def phase_main(gen, build_dir):
     variants = {f"{name}_variants": dict(w.variant_launches)
                 for name, w in (("gemm", gk.gemm),
                                 ("gemm_bias_act", fk.gemm_bias_act))}
-    # one B2 launch per trailing update (63 + 63 + 63 + 31 + the tuned
-    # Cholesky's 63); the solve's 126 TRSM updates all on "gemv"
-    assert launches["trsm_gemm"] == 283, launches
-    assert variants["gemm_variants"]["gemv"] == 126, variants
+    # one B2 launch per fused trailing update, one "gemv" per TRSM update
+    # of the solve, as the plans say (h100 at n = 8192: 63 + 63 + 63 + 31
+    # + the tuned Cholesky's 63 = 283, and 126)
+    assert launches["trsm_gemm"] == plans["expect_trsm_gemm"], (launches,
+                                                                plans)
+    assert variants["gemm_variants"]["gemv"] == plans["expect_gemv"], \
+        (variants, plans)
     assert variants["gemm_variants"]["simt"] == 0, variants
 
     # correctness of what came out (not part of the main path's counts)
@@ -496,14 +669,115 @@ def phase_main(gen, build_dir):
     emit(phase="main", wall_s=main_s, launches=launches, **variants,
          cold_start_tuned_equals_model=True)
     # where the factorizations' time goes (not part of the counted run):
-    # device-busy against wall time, B2's and B1's share
-    with linalg.use(policy="model", device="cuda"):
-        for tag, fn in (("cholesky f32 8192", lambda: linalg.cholesky(s32)),
-                        ("lu f32 8192", lambda: linalg.lu(g32)),
-                        ("solve f32 8192", lambda: linalg.solve(g32, rhs))):
-            emit(profile=tag, **profile_call(
-                fn, cpu=False, match=("trsm_gemm", "gemm_simt", "gemm_gemv")))
-    return {**launches, **variants}
+    # device-busy against wall time, B2's and B1's share; under the card's
+    # machine, then the same calls priced for the TPU, side by side
+    pricing = {}
+    for machine in ("h100", "tpu-like"):
+        with linalg.use(policy="model", device="cuda", machine=machine):
+            for tag, fn in (("cholesky f32 8192",
+                             lambda: linalg.cholesky(s32)),
+                            ("lu f32 8192", lambda: linalg.lu(g32)),
+                            ("solve f32 8192",
+                             lambda: linalg.solve(g32, rhs))):
+                # the first trace read by both readers
+                prof = profile_call(fn, cpu=False, match=(
+                    "trsm_gemm", "gemm_simt", "gemm_gemv"),
+                    readers=not pricing)
+                emit(profile=tag, machine=machine, **prof)
+                pricing.setdefault(tag, {})[machine] = {
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "wall_s": prof["wall_ms_profiled"] / 1e3,
+                    "kernel_launches": prof["kernel_launches"],
+                    "b2_launches": prof["matched"]["trsm_gemm"]["launches"]}
+    emit(pricings="h100 vs tpu-like on one card (device-only profiles)",
+         **pricing)
+    return {**launches, **variants, "plans": plans}
+
+
+def phase_tune(gen):
+    """The tuning loop on the card, with the launch counts zeroed just
+    before and read just after: measured sweeps of B1's tiles into a
+    temporary registry, a tuned ``linalg.gemm`` that hits it and launches
+    the winner's tile, the fused-vs-staged sweep of B3, the calibration
+    (GEMM ladder, stream suite, the chain kernel per op class). No staged
+    trailing update is timed against B2: the main phase asserts that the
+    h100 chain planner fuses them all."""
+    import tempfile
+
+    from repro_torch import arch, linalg, obs
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.tune import dispatch as td
+    from repro_torch.tune import search
+    from repro_torch.tune.registry import Registry
+
+    counts = zero_launches()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_tune_") as tmp:
+        reg = Registry(path=os.path.join(tmp, "registry.json"),
+                       autoload=False)
+        sweeps = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            res, secs = sync_time(lambda: search.tune_gemm(
+                TUNE_N, TUNE_N, TUNE_N, dtype, registry=reg, top_k=3,
+                reps=3, seed=SEED))
+            for row in res.measured:        # each candidate ran its tile
+                assert row["tile_source"] == "plan" and tuple(row["tile"]) \
+                    == (row["bm"], row["bn"], row["bk"]), row
+            emit(sweep=f"tune_gemm {TUNE_N}^3 {res.dtype}", wall_s=secs,
+                 **res.to_json())
+            sweeps[dtype] = res
+        reg.save()
+        win = sweeps[torch.float32].best.params
+        res = td.resolve("gemm", (TUNE_N,) * 3, torch.float32,
+                         policy="tuned", registry=Registry(path=reg.path),
+                         backend="cuda")
+        want = (win["bm"], win["bn"], win["bk"])
+        assert res.source == "registry" and (
+            res.gemm_plan.bm, res.gemm_plan.bn, res.gemm_plan.bk) == want, res
+        a = torch.randn(TUNE_N, TUNE_N, generator=gen, device="cuda")
+        b = torch.randn(TUNE_N, TUNE_N, generator=gen, device="cuda")
+        before = obs.counters_snapshot()
+        with linalg.use(policy="tuned", device="cuda", registry=reg.path):
+            out, secs = sync_time(lambda: linalg.gemm(a, b))
+        hits = obs.counters_delta(before).get("dispatch.registry_hit", 0)
+        launch = gk.gemm.last_launch
+        assert hits == 1 and launch["tile"] == want \
+            and launch["tile_source"] == "plan", (hits, launch)
+        compare(f"linalg.gemm f32 {TUNE_N}^3 tuned (registry) vs plain", out,
+                gk.gemm_plain(a, b))
+        emit(call=f"linalg.gemm f32 {TUNE_N}^3 policy=tuned", wall_s=secs,
+             source=res.source, registry_hits=hits, winner=want,
+             tile=launch["tile"], tile_source=launch["tile_source"],
+             variant=launch["variant"])
+        del a, b, out
+        fres, secs = sync_time(lambda: search.tune_fused_gemm(
+            TUNE_N, TUNE_N, TUNE_N, "gelu", torch.float32, registry=reg,
+            reps=3, seed=SEED))
+        emit(sweep=f"tune_fused_gemm {TUNE_N}^3 float32 gelu", wall_s=secs,
+             **fres.to_json())
+    result, secs = sync_time(lambda: arch.calibrate_full("cuda"))
+    fitted, h100 = result.machine, arch.get("h100")
+    cycles = {r["params"]["op_class"]: r["params"]["cycles_per_op"]
+              for r in result.report if r["bench"] == "chain"}
+    best = {k: result.best_residual(k) for k in ("gemm", "stream")}
+    emit(calibration=fitted.name, wall_s=secs,
+         fitted={"peak_flops": fitted.pe.peak_flops,
+                 "hbm_bw": fitted.memory.hbm_bw,
+                 "depths": dict(fitted.fpu.depths)},
+         h100={"peak_flops": h100.pe.peak_flops,
+               "hbm_bw": h100.memory.hbm_bw,
+               "depths": dict(h100.fpu.depths)},
+         cycles_per_op=cycles, best_residual=best,
+         tolerance=arch.CALIBRATION_TOLERANCE, report=list(result.report))
+    assert all(v <= arch.CALIBRATION_TOLERANCE for v in best.values()), best
+    launches = {k: w.launches for k, w in counts.items()}
+    assert launches["gemm"] > 0 and launches["gemm_bias_act"] > 0 \
+        and launches["fpu_chain"] > 0, launches
+    emit(phase="tune", launches=launches)
+    emit(chain_switch="none: the h100 chain planner fuses every trailing "
+                      "update of the drivers (B2 fits its shared memory at "
+                      "nb = 128 and the fused chain moves fewer bytes), so "
+                      "there is no staged n' to time")
+    return launches
 
 
 def trsm_gemm_row(gen, nb, n, form, dtype):
@@ -554,7 +828,8 @@ def trsm_gemm_row(gen, nb, n, form, dtype):
 
 
 def phase_times(gen, launches):
-    from repro_torch.core.codesign import plan_factorization
+    from repro_torch.core.codesign import plan_factorization, plan_from_blocks
+    from repro_torch.kernels import fpu_chain as fc
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import gemm as gk
 
@@ -562,24 +837,31 @@ def phase_times(gen, launches):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     rows = []
-    # B1 at each of the main path's dtypes: bf16 priced at the bf16 tensor
-    # peak, f32 at the FP32 peak, f64 at the FP64 (tensor) peak
+    # B1 at each of the main path's dtypes, at every compiled tile of the
+    # dtype's tiled variant (the default, which the main path's plan names,
+    # first): bf16 priced at the bf16 tensor peak, f32 at the FP32 peak,
+    # f64 at the FP64 (tensor) peak
     for dtype, n in ((torch.float32, N), (torch.bfloat16, N),
                      (torch.float64, N64)):
         a, b = rnd(n, n).to(dtype), rnd(n, n).to(dtype)
         b_ms, b_by = bound(2.0 * n ** 3, 3 * n * n * a.element_size(), dtype)
-        got = gk.gemm(a, b)
-        rows.append(dict(
-            name="gemm", shape=f"{n}x{n}x{n} {str(dtype)[6:]}",
-            ms=cuda_ms(lambda: gk.gemm(a, b)),
-            plain_ms=cuda_ms(lambda: gk.gemm_plain(a, b)),
-            library_ms=cuda_ms(lambda: torch.matmul(a, b)), bound_ms=b_ms,
-            bound_by=b_by, variant=gk.gemm.last_launch["variant"],
-            tile=gk.gemm.last_launch["tile"],
-            max_abs_err=(got.double() - gk.gemm_plain(a, b).double())
-            .abs().max().item(),
-            equals_library_bitwise=bool(torch.equal(got, torch.matmul(a, b)))))
-        del a, b, got
+        plain = gk.gemm_plain(a, b)
+        plain_ms = cuda_ms(lambda: gk.gemm_plain(a, b))
+        library_ms = cuda_ms(lambda: torch.matmul(a, b))
+        for tile in gk.TILE_SETS[gk.TILED[dtype]]:
+            plan = plan_from_blocks(n, n, n, *tile, dtype=dtype,
+                                    machine="h100")
+            got = gk.gemm(a, b, plan=plan)
+            assert gk.gemm.last_launch["tile"] == tile
+            rows.append(dict(
+                name="gemm", shape=f"{n}x{n}x{n} {str(dtype)[6:]}",
+                ms=cuda_ms(lambda: gk.gemm(a, b, plan=plan)),
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, variant=gk.gemm.last_launch["variant"],
+                tile=tile, max_abs_err=(got.double() - plain.double())
+                .abs().max().item(), equals_library_bitwise=bool(
+                    torch.equal(got, torch.matmul(a, b)))))
+        del a, b, got, plain
     # the solve's blocked-TRSM updates, 128 x k x 1 (k up to N - 128, a
     # window of the factor), on "gemv": its wrapper's host time per call
     # exceeds the kernels' device time, so ms and library_ms are timed as
@@ -612,22 +894,50 @@ def phase_times(gen, launches):
     # bias add + tanh-gelu priced as 9 operations per output
     b_ms, b_by = bound(gemm_flops + 9.0 * N * N, gemm_bytes + N * f32,
                        torch.float32)
-    rows.append(dict(
-        name="gemm_bias_act", shape=f"{N}x{N}x{N} float32 gelu+bias",
-        ms=cuda_ms(lambda: fk.gemm_bias_act(a, b, bias, "gelu")),
-        plain_ms=cuda_ms(lambda: fk.gemm_bias_act_plain(a, b, bias, "gelu")),
-        library_ms=cuda_ms(lambda: F.gelu(torch.addmm(bias, a, b),
-                                          approximate="tanh")),
-        bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=(fk.gemm_bias_act(a, b, bias, "gelu")
-                     - fk.gemm_bias_act_plain(a, b, bias, "gelu"))
-        .abs().max().item(), variant=fk.gemm_bias_act.last_launch["variant"],
-        tile=fk.gemm_bias_act.last_launch["tile"]))
+    plain_ms = cuda_ms(lambda: fk.gemm_bias_act_plain(a, b, bias, "gelu"))
+    library_ms = cuda_ms(lambda: F.gelu(torch.addmm(bias, a, b),
+                                        approximate="tanh"))
+    for tile in gk.TILE_SETS["ffma"]:
+        plan = plan_from_blocks(N, N, N, *tile, dtype=torch.float32,
+                                machine="h100")
+        rows.append(dict(
+            name="gemm_bias_act", shape=f"{N}x{N}x{N} float32 gelu+bias",
+            ms=cuda_ms(lambda: fk.gemm_bias_act(a, b, bias, "gelu",
+                                                plan=plan)),
+            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+            bound_by=b_by,
+            max_abs_err=(fk.gemm_bias_act(a, b, bias, "gelu", plan=plan)
+                         - fk.gemm_bias_act_plain(a, b, bias, "gelu"))
+            .abs().max().item(),
+            variant=fk.gemm_bias_act.last_launch["variant"],
+            tile=fk.gemm_bias_act.last_launch["tile"]))
+    del a, b, bias
+    # the FPU-chain probe per op class at the calibration's chain length:
+    # one warp's dependent chain (bound by its latency; the roofline bound
+    # below is the flops and bytes it does, far under it). Its launches
+    # come from the tune phase. The plain loop is one launch per step (two
+    # for sqrt), so it is timed over one call after its warm-up.
+    v0, it = chain_input(gen), chain_iters()
+    for op in fc.OP_CLASSES:
+        b_ms, b_by = bound((2.0 if op == "sqrt" else 1.0) * fc.LANES * it,
+                           2 * fc.LANES * 4 + 8, torch.float32)
+        got, cycles = fc.fpu_chain(op, v0, it)
+        rows.append(dict(
+            name="fpu_chain", shape=f"{fc.LANES} lanes x {it} steps, {op}",
+            ms=graph_ms(lambda: fc.fpu_chain(op, v0, it)),
+            plain_ms=cuda_ms(lambda: fc.fpu_chain_plain(op, v0, it), reps=1),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            timing="ms: 20 launches in one CUDA graph, replayed; plain_ms: "
+                   "one call after one warm-up",
+            cycles_per_op=int(cycles) / it,
+            max_abs_err=(got - fc.fpu_chain_plain(op, v0, it)).abs().max()
+            .item()))
     # B2 at the trailing updates the drivers launch: the first of the 8192
     # Cholesky (syrk, n' = 8064), two later ones (4096, 1024), the first of
     # the 8192 LU (lu, m = n' = 8064, unit diagonal) and the first of the
     # 4096 f64 Cholesky (n' = 3968); the first row is the kernels line's
-    nb = plan_factorization(N, "potrf", dtype=torch.float32).block
+    nb = plan_factorization(N, "potrf", dtype=torch.float32,
+                            machine="h100").block
     for form, n, dtype in (("syrk", N - nb, torch.float32),
                            ("syrk", 4096, torch.float32),
                            ("syrk", 1024, torch.float32),
@@ -777,12 +1087,14 @@ def ssd_check(sk, args, chunk, tag=""):
 def zero_launches():
     from repro_torch.kernels import dotp as dk
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fpu_chain as fc
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import gemm as gk
     from repro_torch.kernels import ssd_scan as sk
     wrappers = {"gemm": gk.gemm, "gemm_bias_act": fk.gemm_bias_act,
                 "trsm_gemm": fk.trsm_gemm, "dotp": dk.dotp,
-                "attention": fa.attention, "ssd_scan": sk.ssd_scan}
+                "attention": fa.attention, "ssd_scan": sk.ssd_scan,
+                "fpu_chain": fc.fpu_chain}
     for w in wrappers.values():
         w.launches = 0
     gk.reset_launches(gk.gemm)
@@ -825,7 +1137,7 @@ def model_agreement():
         (rel, launches)
 
 
-def profile_call(fn, top=10, match=(), cpu=True, pad=0):
+def profile_call(fn, top=10, match=(), cpu=True, pad=0, readers=False):
     """One run of ``fn`` under ``torch.profiler``: wall ms (profiler on),
     device-busy ms summed over the kernels it launched, their count, the
     ``top`` kernels by device time, and for each substring in ``match``
@@ -834,7 +1146,13 @@ def profile_call(fn, top=10, match=(), cpu=True, pad=0):
     ``pad`` tiny kernels run and are waited for inside the trace before
     ``fn``: the first kernel records of a trace on the card can be lost
     or skewed, and these take their place (they are counted in the busy
-    time and launches, and match nothing of the kernels here)."""
+    time and launches, and match nothing of the kernels here). The device
+    records are read straight from the trace's kineto events, summed by
+    name (the profiler's own ``key_averages`` builds a Python object per
+    event first: tens of seconds for the 214k kernels of a solve).
+    ``readers=True`` also sums the device kernels' self time as
+    ``key_averages`` reports it on the same trace, and the seconds that
+    took, so the two readers can be compared."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -849,20 +1167,32 @@ def profile_call(fn, top=10, match=(), cpu=True, pad=0):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()        # device-side events
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+    by_name = {}                                # name -> [device ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            acc = by_name.setdefault(e.name(), [0, 0])
+            acc[0] += e.duration_ns()
+            acc[1] += 1
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    both = {}
+    if readers:
+        t0 = time.perf_counter()
+        avgs = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        both = {"key_averages": {
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in avgs) / 1e3,
+            "kernel_launches": sum(e.count for e in avgs),
+            "seconds": time.perf_counter() - t0}}
+    return {**both, "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-            "kernel_launches": sum(e.count for e in kernels),
-            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                    for e in kernels[:top]],
+            "kernel_launches": sum(c for _, c in by_name.values()),
+            "top": [[k[:80], ns / 1e6, c] for k, (ns, c) in kernels[:top]],
             "matched": {m: {"device_ms": sum(
-                e.self_device_time_total for e in kernels if m in e.key)
-                / 1e3, "launches": sum(e.count for e in kernels
-                                       if m in e.key)} for m in match}}
+                ns for k, (ns, _) in by_name.items() if m in k) / 1e6,
+                "launches": sum(c for k, (_, c) in by_name.items()
+                                if m in k)} for m in match}}
 
 
 def phase_model(gen):
@@ -1116,14 +1446,18 @@ def main() -> int:
     launches = phase_main(gen, _build.BUILD_DIR)
     emit(phase_done="main", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    launches["fpu_chain"] = phase_tune(gen)["fpu_chain"]
+    emit(phase_done="tune", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     model_launches = phase_model(gen)
     emit(phase_done="model", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     rows = phase_times(gen, launches) + model_rows(gen, model_launches)
     emit(phase_done="times", wall_s=time.perf_counter() - t0)
     # the kernels line holds one row per kernel, the first of its name:
-    # gemm at 8192^3 f32, attention on the windowed layers (29 of 32); the
-    # other dtypes' and the global layers' rows are in the times lines
+    # gemm at 8192^3 f32 on the main path's tile, attention on the
+    # windowed layers (29 of 32), fpu_chain's mul class; the other dtypes',
+    # tiles', classes' and the global layers' rows are in the times lines
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)

@@ -4,14 +4,26 @@ Port of ``repro.arch.registry``. The built-in machines are field-for-field
 the reference's:
 
 ``"tpu-like"``
-    The default (TPU v5e assumptions, native bfloat16). The port's planners
-    still price this machine, so their plans stay bit-equal to the
-    reference's; a Hopper-shaped spec is later work.
+    The default (TPU v5e assumptions, native bfloat16), and the machine of
+    CPU tensors: the port's plans for them stay bit-equal to the
+    reference's.
 ``"paper-pe"``
     The paper's PE/APE-based accelerator (section-5 pipeline depths,
     double-precision native).
 ``"cpu-host"``
     A host-CPU-shaped machine.
+``"h100"``
+    One NVIDIA H100 SXM (Hopper, sm_90), the machine of CUDA tensors. The
+    port's own; the reference has no GPU spec.
+
+Which machine prices a call: the innermost :func:`machine_scope` (which
+``linalg.use(machine=...)`` enters), else the :func:`set_default_machine`
+process default, else the machine of the device the call runs on
+(:func:`device_machine`: ``"h100"`` for ``cuda``, :data:`DEFAULT_MACHINE`
+for ``cpu`` and for a call that names no device). A named machine always
+wins. The tune-registry key rule stays the reference's, per device: the
+device's own machine adds no key component, any other machine its name
+(:func:`machine_key_component`).
 
 The current machine is dynamically scoped (contextvars): :func:`machine_scope`
 nests, :func:`set_default_machine` replaces the process default.
@@ -84,9 +96,61 @@ CPU_HOST = MachineSpec(
         pj_per_byte_hbm=60.0, static_w=30.0, area_mm2=200.0),
 )
 
+# One H100 SXM. Sources: NVIDIA's H100 data sheet and the Hopper
+# architecture white paper (the figures chip_smoke.py prices its bounds
+# with), the FPU depths from this package's own chain probe on the card
+# (csrc/fpu_chain.cu through arch.calibrate, chip_smoke.py's tune phase; the
+# run is named in PERF.md). Values marked "assumption" have no published
+# source and are modeling constants of this spec.
+H100 = MachineSpec(
+    name="h100",
+    # the paper's workload is f32/f64 dense LAPACK, which the FP32 (FFMA)
+    # and FP64 (tensor-core) rates price alike; one peak_flops cannot hold
+    # the 989 TFLOP/s bf16 tensor rate as well (ROADMAP.md section C)
+    native_dtype="float32",
+    fpu=FPUSpec(
+        # dependent-issue latency in SM cycles of each class: the chain
+        # probe's 4.44 / 4.44 / 59.75 / 61.50 cycles per op over 65536
+        # steps (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6); div
+        # and sqrt are IEEE multi-instruction sequences on Hopper
+        depths={"mul": 4, "add": 4, "div": 60, "sqrt": 62},
+        # assumption: the paper's characterization constants (as paper-pe)
+        t_p={"mul": 60.0, "add": 40.0, "div": 160.0, "sqrt": 200.0},
+        t_o=1.0,
+        gamma={"mul": 0.5, "add": 0.5, "div": 0.8, "sqrt": 0.9},  # assumption
+        acc_overhead=0.75,                                        # assumption
+    ),
+    memory=MemorySpec(
+        hbm_bw=3.35e12,                 # HBM3, data sheet
+        vmem_bytes=232448,              # shared memory one CTA may use (227 KB)
+        ici_bw=450e9,                   # NVLink 900 GB/s, 450 each way
+        hbm_bytes=80 * 10 ** 9,         # 80 GB, data sheet
+        pipeline_fill_s=5e-6),          # assumption: one eager launch
+    pe=PEGeometry(
+        mxu=16,                         # MMA granule: wgmma k16, mma.sync m16
+        sublane=4,                      # warp schedulers per SM
+        lane=32,                        # warp width
+        vreg_budget=255,                # registers per thread
+        peak_flops=67e12,               # FP32 (FFMA) and FP64 (tensor), data sheet
+        sm_count=132,                   # data sheet
+        # the SM clock the FP32 peak implies: 67e12 / (132 SMs x 128 lanes x 2)
+        clock_hz=67e12 / (132 * 128 * 2)),
+    power_area=PowerAreaSpec(
+        # assumption: 100 W static, the rest of the 700 W board limit
+        # spread over the FP32 peak (600 W / 67 TFLOP/s ~ 9 pJ per flop);
+        # div and sqrt priced as the instruction sequences they run
+        pj_per_flop={"mul": 9.0, "add": 9.0, "div": 90.0, "sqrt": 90.0},
+        pj_per_byte_hbm=30.0,           # assumption: HBM3 ~ 3.7 pJ/bit
+        static_w=100.0,                 # assumption
+        area_mm2=814.0),                # GH100 die, white paper
+)
+
 _REGISTRY: Dict[str, MachineSpec] = {
-    m.name: m for m in (TPU_LIKE, PAPER_PE, CPU_HOST)
+    m.name: m for m in (TPU_LIKE, PAPER_PE, CPU_HOST, H100)
 }
+
+# the machine of each device type a call can run on (others: DEFAULT_MACHINE)
+DEVICE_MACHINES = {"cuda": "h100"}
 
 
 def register(spec: MachineSpec, overwrite: bool = False) -> MachineSpec:
@@ -129,15 +193,29 @@ def _as_spec(machine: Union[MachineSpec, str, None]) -> Optional[MachineSpec]:
                     f"None; got {type(machine).__name__}")
 
 
-def current_machine() -> MachineSpec:
+def _device_type(device) -> Optional[str]:
+    if device is None:
+        return None
+    return getattr(device, "type", None) or str(device).split(":")[0]
+
+
+def device_machine(device=None) -> MachineSpec:
+    """The machine of a device (a ``torch.device``, or a type such as
+    ``"cuda"`` / ``"cpu"``): ``"h100"`` for CUDA, :data:`DEFAULT_MACHINE`
+    for anything else and for ``None``."""
+    return get(DEVICE_MACHINES.get(_device_type(device), DEFAULT_MACHINE))
+
+
+def current_machine(device=None) -> MachineSpec:
     """The active machine: innermost :func:`machine_scope`, else the
-    :func:`set_default_machine` process default, else ``"tpu-like"``."""
+    :func:`set_default_machine` process default, else the machine of
+    ``device`` (:func:`device_machine`; ``"tpu-like"`` for ``None``)."""
     scoped = _scope.get()
     if scoped is not None:
         return scoped
     if _process_default is not None:
         return _process_default
-    return _REGISTRY[DEFAULT_MACHINE]
+    return device_machine(device)
 
 
 @contextlib.contextmanager
@@ -152,25 +230,27 @@ def machine_scope(machine: Union[MachineSpec, str, None]) -> Iterator[MachineSpe
 
 
 def set_default_machine(machine: Union[MachineSpec, str, None]) -> MachineSpec:
-    """Replace the process-default machine (``None`` resets to
-    ``"tpu-like"``); scopes layer on top."""
+    """Replace the process-default machine (``None`` resets it: each call
+    is priced for its device's machine again); scopes layer on top."""
     global _process_default
     _process_default = _as_spec(machine)
     return current_machine()
 
 
-def resolve_machine(machine: Union[MachineSpec, str, None] = None) -> MachineSpec:
+def resolve_machine(machine: Union[MachineSpec, str, None] = None,
+                    device=None) -> MachineSpec:
     """A ``machine=`` argument as a MachineSpec (``None`` = the ambient
-    :func:`current_machine`)."""
+    :func:`current_machine` of ``device``)."""
     if machine is None:
-        return current_machine()
-    spec = _as_spec(machine)
-    return spec if spec is not None else current_machine()
+        return current_machine(device)
+    return _as_spec(machine)
 
 
-def machine_key_component(machine: Union[MachineSpec, str, None]) -> Optional[str]:
-    """The tune-registry key component for a machine: ``None`` for the
-    default machine, the machine name otherwise (same rule as the
-    reference, so registry files are shared)."""
-    mach = resolve_machine(machine)
-    return None if mach.name == DEFAULT_MACHINE else mach.name
+def machine_key_component(machine: Union[MachineSpec, str, None],
+                          device=None) -> Optional[str]:
+    """The tune-registry key component for a machine on a device: ``None``
+    for the device's own machine (:func:`device_machine`), the machine name
+    otherwise. For ``device=None`` that is the reference's rule (``None``
+    for ``"tpu-like"``), so registry files written on the CPU are shared."""
+    mach = resolve_machine(machine, device)
+    return None if mach.name == device_machine(device).name else mach.name

@@ -6,7 +6,9 @@ the JAX package loads here unchanged and vice versa.
 
 ``FPUSpec``
     Per-op-class pipeline depths plus the eq.-2 technology constants
-    (``t_p``, ``t_o``, ``gamma``) and the accumulator bookkeeping cost.
+    (``t_p``, ``t_o``, ``gamma``) and the accumulator bookkeeping cost;
+    ``pipe_params`` / ``tpi`` / ``p_opt`` feed
+    :mod:`repro_torch.core.pipeline_model`.
 ``MemorySpec``
     HBM / on-chip scratch / inter-chip bandwidths and capacities, plus the
     per grid-step software-pipeline fill cost the planners price.
@@ -20,8 +22,19 @@ the JAX package loads here unchanged and vice versa.
     The frozen composition of the four, with a name and a native compute
     dtype (the planners' dtype default).
 
-The eq.-2/eq.-3 helpers of the reference ``FPUSpec`` (``pipe_params``,
-``tpi``, ``p_opt``) come with the port of ``core/pipeline_model.py``.
+Each field also has a GPU meaning, which the ``"h100"`` spec of
+:mod:`repro_torch.arch.registry` uses: ``vmem_bytes`` is the shared memory
+one CTA may use, ``mxu`` the MMA granule the planner aligns blocks to,
+``sublane`` x ``lane`` the FP32 lanes of one SM (warp schedulers x warp
+width), ``vreg_budget`` the registers one thread may hold, ``ici_bw`` the
+NVLink rate each way, ``pipeline_fill_s`` the cost of one eager kernel
+launch, ``depths`` each op class's dependent-issue latency in SM cycles.
+Two fields have no counterpart in the reference and are optional:
+``PEGeometry.sm_count`` (SMs the planner fills with CTAs; set only for a
+GPU, it is what makes :mod:`repro_torch.core.codesign` price CTA tiles)
+and ``PEGeometry.clock_hz`` (the SM clock; else derived from the peak).
+A spec that leaves them ``None`` writes the reference's JSON byte for
+byte.
 """
 from __future__ import annotations
 
@@ -35,6 +48,10 @@ from repro_torch import _dtype
 OP_CLASSES = ("mul", "add", "div", "sqrt")
 
 SCHEMA_VERSION = 1
+
+# PEGeometry fields the reference lacks: written only when set, so a spec
+# without them writes the reference's JSON byte for byte
+PORT_ONLY_PE_FIELDS = ("sm_count", "clock_hz")
 
 
 def _class_map(value, name: str, cast) -> Dict[str, Any]:
@@ -70,6 +87,29 @@ class FPUSpec:
         for k, d in self.depths.items():
             if d < 1:
                 raise ValueError(f"depths[{k!r}] must be >= 1, got {d}")
+
+    def pipe_params(self, op_class: str, n_i: float, n_h: float):
+        """A :class:`repro_torch.core.pipeline_model.PipeParams` for one op
+        class of this FPU at a given workload census."""
+        from repro_torch.core.pipeline_model import PipeParams
+        return PipeParams(n_i=float(n_i), n_h=float(n_h),
+                          gamma=self.gamma[op_class],
+                          t_p=self.t_p[op_class], t_o=self.t_o)
+
+    def tpi(self, op_class: str, p, n_i: float, n_h: float):
+        """Paper eq.-2 time-per-instruction of one pipe at depth ``p``."""
+        from repro_torch.core import pipeline_model
+        return pipeline_model.tpi(p, n_i=float(n_i), n_h=float(n_h),
+                                  gamma=self.gamma[op_class],
+                                  t_p=self.t_p[op_class], t_o=self.t_o)
+
+    def p_opt(self, op_class: str, n_i: float, n_h: float) -> float:
+        """Paper eq.-3 closed-form optimal depth for one op class (+inf
+        for hazard-free streams, the multiplier's flat curve)."""
+        from repro_torch.core import pipeline_model
+        return float(pipeline_model.p_opt(
+            n_i=float(n_i), n_h=float(n_h), gamma=self.gamma[op_class],
+            t_p=self.t_p[op_class], t_o=self.t_o))
 
     @property
     def add_latency(self) -> int:
@@ -113,22 +153,33 @@ class PEGeometry:
     lane: int
     vreg_budget: int              # architectural vector registers
     peak_flops: float             # per chip, at the native dtype
+    sm_count: Optional[int] = None    # GPU only: streaming multiprocessors
+    clock_hz: Optional[float] = None  # GPU only: the SM clock
 
     def __post_init__(self):
         for f in ("mxu", "sublane", "lane", "vreg_budget", "peak_flops"):
             if not float(getattr(self, f)) > 0:
                 raise ValueError(f"{f} must be positive, "
                                  f"got {getattr(self, f)!r}")
+        for f in PORT_ONLY_PE_FIELDS:
+            v = getattr(self, f)
+            if v is not None and not float(v) > 0:
+                raise ValueError(f"{f} must be positive or None, got {v!r}")
 
     @property
     def mxu_clock(self) -> float:
-        """Cycles/s implied by the peak rate (2*mxu^2 flops per cycle)."""
+        """Cycles/s: ``clock_hz`` where set, else implied by the peak rate
+        (2*mxu^2 flops per cycle)."""
+        if self.clock_hz is not None:
+            return float(self.clock_hz)
         return self.peak_flops / (2 * self.mxu * self.mxu)
 
     @property
     def vpu_flops(self) -> float:
-        """Vector (non-matrix) peak: one lane-grid op per cycle."""
-        return self.mxu_clock * self.sublane * self.lane
+        """Vector (non-matrix) peak: one lane-grid op per cycle, on each
+        of ``sm_count`` SMs where set."""
+        return self.mxu_clock * self.sublane * self.lane \
+            * (self.sm_count or 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,7 +271,8 @@ class MachineSpec:
                     "gamma": dict(self.fpu.gamma),
                     "acc_overhead": self.fpu.acc_overhead},
             "memory": dataclasses.asdict(self.memory),
-            "pe": dataclasses.asdict(self.pe),
+            "pe": {k: v for k, v in dataclasses.asdict(self.pe).items()
+                   if not (k in PORT_ONLY_PE_FIELDS and v is None)},
             "power_area": {"pj_per_flop": dict(self.power_area.pj_per_flop),
                            "pj_per_byte_hbm": self.power_area.pj_per_byte_hbm,
                            "static_w": self.power_area.static_w,

@@ -10,12 +10,19 @@ streamed chains (:func:`plan_fused_chain`). Each takes ``machine=`` (a
 returns bit-for-bit what the reference returns for the same machine, so
 the dispatcher resolves the same plans on both sides.
 
-The CUDA kernels take their CTA tiles from their own sources, not from
-these plans: a plan sized for the TPU's VMEM cannot be a CTA tile. The
-kernel wrappers record the plan they were handed beside the tile they
-launched with. The model kernels' planners (:func:`plan_attention`,
-:func:`plan_ssd`) are ported with the serving slice; ``plan_pdgemm``
-comes with the distributed slice.
+Under a GPU spec (one with ``pe.sm_count``, the ``"h100"`` machine of CUDA
+tensors) the planners price what the card's kernels hold instead of the
+TPU's double-buffered VMEM blocks: :func:`plan_gemm` and
+:func:`plan_from_blocks` return CTA tiles of ``csrc/gemm.cu``
+(:data:`HOPPER_TILES`; the stages of A and B in shared memory within
+``vmem_bytes``, the accumulator tile in registers within ``vreg_budget``,
+enough CTAs for a wave of ``sm_count`` SMs), which B1 and B3 launch, and
+:func:`plan_fused_chain` prices B2's real per-CTA shared memory
+(:func:`trsm_gemm_smem`, the one formula ``kernels/fused.py`` uses) and B3
+on B1's tile. Under the reference's machines every plan is the
+reference's, field for field. The model kernels' planners
+(:func:`plan_attention`, :func:`plan_ssd`) are ported with the serving
+slice; ``plan_pdgemm`` comes with the distributed slice.
 """
 from __future__ import annotations
 
@@ -29,6 +36,26 @@ from repro_torch.arch import MachineSpec
 
 _machine = _arch.resolve_machine
 _TPU = _arch.get(_arch.DEFAULT_MACHINE)
+
+# csrc/gemm.cu's compiled CTA tiles of each operand width's tiled variant
+# (2 bytes: bf16 "wgmma", 4: f32 "ffma", 8: f64 "dmma"), the default first:
+# (bm, bn, bk, stages, threads holding the accumulator tile)
+HOPPER_TILES = {
+    2: ("wgmma", ((128, 256, 64, 4, 256), (128, 128, 64, 6, 256))),
+    4: ("ffma", ((128, 128, 16, 3, 256), (64, 128, 16, 3, 128))),
+    8: ("dmma", ((128, 128, 32, 3, 256), (64, 128, 32, 3, 128))),
+}
+
+# csrc/trsm_gemm.cu's shapes (B2): solve widths (X columns per block), the
+# update tile (BM, BN, BK) and its stages, the transpose tile
+TRSM_GEMM_WIDTHS = (32, 16, 8, 4, 2, 1)
+TRSM_GEMM_TILE = (128, 128, 16)
+TRSM_GEMM_STAGES, TRSM_GEMM_TT = 3, 32
+
+
+def is_gpu(mach: MachineSpec) -> bool:
+    """Does ``mach`` describe a GPU (its planners price CTA tiles)?"""
+    return mach.pe.sm_count is not None
 
 
 def resolve_dtype_bytes(dtype=None, dtype_bytes: Optional[int] = None,
@@ -82,6 +109,31 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def hopper_tiles(dtype_bytes: int) -> Tuple[Tuple[int, ...], ...]:
+    """The compiled tiles (bm, bn, bk, stages, threads) of the tiled
+    variant that takes ``dtype_bytes``-wide operands, the default first."""
+    if dtype_bytes not in HOPPER_TILES:
+        raise ValueError(f"no tiled GEMM variant takes {dtype_bytes}-byte "
+                         f"operands; widths {tuple(HOPPER_TILES)}")
+    return HOPPER_TILES[dtype_bytes][1]
+
+
+def cta_smem_bytes(dtype_bytes: int, bm: int, bn: int, bk: int,
+                   stages: int) -> int:
+    """Dynamic shared memory of one csrc/gemm.cu tiled-variant CTA: the
+    stages of A and B ("ffma" pads A's rows by four floats), plus the
+    mbarriers and the 1024-byte alignment of the TMA variants."""
+    if dtype_bytes == 4:
+        return stages * (bm * (bk + 4) + bk * bn) * 4
+    return stages * (bm * bk + bk * bn) * dtype_bytes + 2 * stages * 8 + 1024
+
+
+def accumulator_registers(dtype_bytes: int, bm: int, bn: int,
+                          threads: int) -> int:
+    """32-bit registers per thread that hold a CTA's accumulator tile."""
+    return bm * bn * _acc_bytes(dtype_bytes) // 4 // threads
+
+
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     """GEMM tiling picked by the model (same fields as the reference)."""
@@ -107,10 +159,14 @@ def plan_gemm(m: int, n: int, k: int, dtype_bytes: Optional[int] = None,
     """Choose (bm, bn, bk) for C[m,n] += A[m,k] B[k,n]: matrix-unit
     aligned blocks, double-buffered blocks + accumulator within the
     scratch budget, at least ``min_grid_steps`` grid steps, maximal
-    arithmetic intensity then bk."""
+    arithmetic intensity then bk. Under a GPU spec: a compiled CTA tile
+    (:func:`_plan_gemm_gpu`; ``min_grid_steps`` gives way to a wave of
+    CTAs)."""
     mach = _machine(machine)
     dtype_bytes = resolve_dtype_bytes(dtype, dtype_bytes, mach)
     vmem_budget = mach.memory.vmem_bytes if vmem_budget is None else vmem_budget
+    if is_gpu(mach):
+        return _plan_gemm_gpu(m, n, k, dtype_bytes, vmem_budget, mach)
     mxu = mach.pe.mxu
     ridge = mach.pe.peak_flops / mach.memory.hbm_bw
     pm, pn, pk = (_round_up(max(d, 1), mxu) for d in (m, n, k))
@@ -154,14 +210,56 @@ def plan_gemm(m: int, n: int, k: int, dtype_bytes: Optional[int] = None,
     return best
 
 
+def _gpu_plan(m: int, n: int, k: int, bm: int, bn: int, bk: int,
+              stages: int, dtype_bytes: int, mach: MachineSpec) -> GemmPlan:
+    """The GemmPlan of one CTA tile: the kernel's shared memory as its
+    footprint, the reference's intensity formula."""
+    grid = (-(-m // bm), -(-n // bn), -(-k // bk))
+    ai = (2 * bm * bn * bk) / ((bm * bk + bk * bn) * dtype_bytes
+                               + bm * bn * dtype_bytes / max(grid[2], 1))
+    return GemmPlan(bm, bn, bk,
+                    optimal_accumulators(max(bk // mach.pe.mxu, 1), max_u=8,
+                                         machine=mach),
+                    grid, cta_smem_bytes(dtype_bytes, bm, bn, bk, stages), ai,
+                    mach.pe.peak_flops / mach.memory.hbm_bw)
+
+
+def _plan_gemm_gpu(m: int, n: int, k: int, dtype_bytes: int,
+                   vmem_budget: int, mach: MachineSpec) -> GemmPlan:
+    """A compiled tile of the dtype's tiled variant: among those whose
+    stages fit ``vmem_budget`` and whose accumulator fits the register
+    budget, the most CTAs up to one per SM (a wave), then the highest
+    arithmetic intensity, then the deepest k step. When none fits, the
+    tile with the smallest footprint."""
+    m, n, k = (max(int(d), 1) for d in (m, n, k))
+    tiles = hopper_tiles(dtype_bytes)
+    fits = [t for t in tiles
+            if cta_smem_bytes(dtype_bytes, *t[:4]) <= vmem_budget
+            and accumulator_registers(dtype_bytes, t[0], t[1], t[4])
+            <= mach.pe.vreg_budget]
+    if not fits:
+        fits = [min(tiles, key=lambda t: cta_smem_bytes(dtype_bytes, *t[:4]))]
+    plans = [_gpu_plan(m, n, k, *t[:4], dtype_bytes, mach) for t in fits]
+    sms = mach.pe.sm_count
+    return max(plans, key=lambda p: (min(p.grid[0] * p.grid[1], sms),
+                                     p.arithmetic_intensity, p.bk))
+
+
 def plan_from_blocks(m: int, n: int, k: int, bm: int, bn: int, bk: int,
                      dtype_bytes: Optional[int] = None, dtype=None,
                      machine: Optional[MachineSpec] = None) -> GemmPlan:
     """Rebuild a full :class:`GemmPlan` from explicit block dims (registry
-    entries), deriving grid, footprint and intensity as :func:`plan_gemm`."""
+    entries), deriving grid, footprint and intensity as :func:`plan_gemm`
+    (under a GPU spec, the footprint of that CTA tile)."""
     mach = _machine(machine)
     dtype_bytes = resolve_dtype_bytes(dtype, dtype_bytes, mach)
     bm_, bn_, bk_ = (max(int(b), 1) for b in (bm, bn, bk))
+    if is_gpu(mach):
+        # the stages of that compiled tile, else of the variant's default
+        tiles = hopper_tiles(dtype_bytes)
+        stages = next((t[3] for t in tiles if t[:3] == (bm_, bn_, bk_)),
+                      tiles[0][3])
+        return _gpu_plan(m, n, k, bm_, bn_, bk_, stages, dtype_bytes, mach)
     grid = (-(-m // bm_), -(-n // bn_), -(-k // bk_))
     vmem = 2 * (bm_ * bk_ + bk_ * bn_) * dtype_bytes \
         + bm_ * bn_ * _acc_bytes(dtype_bytes)
@@ -387,7 +485,9 @@ def plan_fused_chain(kind: str, m: int, n: int, k: int,
             + _stage_time(epi_flops, epi_bytes, mach) + 2 * fill
         fused_t = _stage_time(2.0 * m * n * k + epi_flops, fused_b, mach) \
             + fill
-        vmem = g.vmem_bytes + g.bn * db
+        # B3 runs on B1's tile; the bias is read in the epilogue, from
+        # device memory, on the card
+        vmem = g.vmem_bytes if is_gpu(mach) else g.vmem_bytes + g.bn * db
         return FusedChainPlan(kind, epilogue, g, g.bm, int(vmem),
                               vmem <= budget, int(unfused_b), int(fused_b),
                               unfused_t, fused_t)
@@ -406,14 +506,47 @@ def plan_fused_chain(kind: str, m: int, n: int, k: int,
     unfused_t = solve_t + _stage_time(gemm_flops, unfused_gemm_b, mach) \
         + 2 * fill
     fused_t = solve_t + _stage_time(gemm_flops, fused_gemm_b, mach) + fill
-    bm = min(g.bm, _round_up(m, max(mach.pe.sublane, 1)))
     acc = _acc_bytes(db)
-    vmem = (k * k + k * n) * db + k * n * acc + k * n * db \
-        + bm * n * (db + acc) + (bm * k * db if form == "lu" else 0)
-    return FusedChainPlan(kind, form, g, bm, int(vmem), vmem <= budget,
+    if is_gpu(mach):
+        # B2's own shared memory per CTA, not the TPU kernel's resident
+        # panel: the footprint of its solve block and update stages
+        fp = trsm_gemm_footprint(acc, k, budget)
+        bm = TRSM_GEMM_TILE[0]
+        vmem = fp[2] if fp is not None else trsm_gemm_smem(acc, k, 1, False)
+        fits = fp is not None
+    else:
+        bm = min(g.bm, _round_up(m, max(mach.pe.sublane, 1)))
+        vmem = (k * k + k * n) * db + k * n * acc + k * n * db \
+            + bm * n * (db + acc) + (bm * k * db if form == "lu" else 0)
+        fits = vmem <= budget
+    return FusedChainPlan(kind, form, g, bm, int(vmem), fits,
                           int(solve_bytes + unfused_gemm_b),
                           int(solve_bytes + fused_gemm_b),
                           unfused_t, fused_t)
+
+
+def trsm_gemm_smem(acc_bytes: int, nb: int, width: int, l_smem: bool) -> int:
+    """csrc/trsm_gemm.cu::smem_bytes, B2's dynamic shared memory per CTA:
+    the larger of the solve phase (an X block of ``width`` columns, L11
+    beside it when ``l_smem``) and the update phase (its stages)."""
+    bm, _, bk = TRSM_GEMM_TILE
+    nbp = -(-nb // bk) * bk
+    xs = max(nbp * (width + 1), TRSM_GEMM_TT * (TRSM_GEMM_TT + 1))
+    solve = (xs + (nb * nb if l_smem else 0)) * acc_bytes
+    stage_ld = bm + 4 if acc_bytes == 8 else bm
+    return max(solve, TRSM_GEMM_STAGES * 2 * bk * stage_ld * acc_bytes)
+
+
+def trsm_gemm_footprint(acc_bytes: int, nb: int,
+                        budget: int) -> Optional[Tuple[int, bool, int]]:
+    """(width, l_smem, bytes) of B2 at panel width ``nb``: the widest solve
+    width (:data:`TRSM_GEMM_WIDTHS`) whose X block fits ``budget``, then
+    L11 beside it if it still fits; ``None`` when no width fits."""
+    for width in TRSM_GEMM_WIDTHS:
+        if trsm_gemm_smem(acc_bytes, nb, width, False) <= budget:
+            l_smem = trsm_gemm_smem(acc_bytes, nb, width, True) <= budget
+            return width, l_smem, trsm_gemm_smem(acc_bytes, nb, width, l_smem)
+    return None
 
 
 # ------------------------------- model kernels ------------------------------

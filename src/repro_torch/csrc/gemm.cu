@@ -15,22 +15,32 @@
 // (kernels/gemm.py::gemm_variant) picks from dtype, shape and layout alone,
 // one main loop each, all sharing the epilogue:
 //
-// - "wgmma" (bf16 -> bf16 / f32): the tensor cores. A 128x256 CTA tile,
-//   64-deep k stages in a 4-stage ring filled by TMA (128-byte swizzle) and
-//   tracked by mbarriers; one producer warp issues the loads, two consumer
-//   warpgroups each run wgmma m64n256k16 on 64 rows (A K-major, the
-//   row-major B MN-major through the transpose bit), f32 accumulators in
-//   registers. Needs unit column strides and 16-byte aligned row strides
-//   and bases (TMA); ragged edges read TMA's zero fill.
+// - "wgmma" (bf16 -> bf16 / f32): the tensor cores. A 128x256 (4-stage
+//   ring) or 128x128 (6-stage ring) CTA tile, 64-deep k stages filled by
+//   TMA (128-byte swizzle) and tracked by mbarriers; one producer warp
+//   issues the loads, two consumer warpgroups each run wgmma m64nBNk16 on
+//   64 rows (A K-major, the row-major B MN-major through the transpose
+//   bit), f32 accumulators in registers. Needs unit column strides and
+//   16-byte aligned row strides and bases (TMA); ragged edges read TMA's
+//   zero fill.
 // - "ffma" (f32): IEEE FFMA, never TF32 (the reference tolerance, rtol
 //   2e-4, rules TF32 out), so its ceiling is the 67 TFLOP/s FP32 rate. A
-//   128x128x16 CTA tile in a 3-stage cp.async ring, 256 threads with an
-//   8x8 register micro-tile fed by 16-byte shared-memory reads. Each output is
-//   one FMA chain in k order, as in "simt".
+//   128x128x16 (256 threads) or 64x128x16 (128 threads) CTA tile in a
+//   3-stage cp.async ring, an 8x8 register micro-tile per thread fed by
+//   16-byte shared-memory reads. Each output is one FMA chain in k order,
+//   as in "simt".
 // - "dmma" (f64): the FP64 tensor cores through mma.sync m16n8k8 (IEEE
 //   FP64 FMA; only the order of the sums differs from an FFMA chain). A
-//   128x128 CTA tile, 32-deep k stages in a 3-stage TMA ring, a producer
-//   warpgroup and eight consumer warps with a 64x32 tile each.
+//   128x128 or 64x128 CTA tile, 32-deep k stages in a 3-stage TMA ring, a
+//   producer (a warpgroup at 128 rows, for setmaxnreg; a warp at 64) and
+//   one consumer warp per 64x32 block.
+//
+// The tiled variants are templates on the CTA tile; the wrapper passes the
+// tile of the plan it was handed (kernels/gemm.py::launch_tile) and the C
+// side launches that instantiation, or refuses a tile it was not compiled
+// for. The compiled sets (the default first): wgmma Wg<256>, Wg<128>; ffma
+// Ff<128>, Ff<64>; dmma Dm<128>, Dm<64>; mirrored, with each tile's stages,
+// by core/codesign.py::HOPPER_TILES.
 // - "gemv" (any dtype; n <= 16, m > 16, A with a unit column stride): the
 //   blocked TRSM's 128 x k x nrhs updates and linalg.gemv. K is split over
 //   the CTAs so that all SMs stream A, and the partials are summed in a
@@ -146,25 +156,31 @@ gemm_simt_kernel(const T* __restrict__ a, long long sa0, long long sa1,
 
 // ------------------------------- "wgmma" -------------------------------------
 
-namespace wg {
-constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
-constexpr int CONSUMERS = 2;                       // warpgroups of 64 rows
-constexpr int THREADS = CONSUMERS * 128 + 32;      // + one producer warp
-constexpr int A_BYTES = BM * BK * 2;               // [128 m][64 k], K-major
-constexpr int B_CHUNK = BK * 64 * 2;               // one [64 k][64 n] box
-constexpr int B_BYTES = (BN / 64) * B_CHUNK;       // MN-major, 4 chunks
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
-}  // namespace wg
+// the compiled wgmma tiles: BM 128, BK 64, BN 256 (4 stages) or 128 (6)
+template <int BN_>
+struct Wg {
+  static constexpr int BM = 128, BN = BN_, BK = 64;
+  static constexpr int STAGES = BN == 256 ? 4 : 6;
+  static constexpr int CONSUMERS = 2;                       // warpgroups of 64 rows
+  static constexpr int THREADS = CONSUMERS * 128 + 32;      // + one producer warp
+  static constexpr int A_BYTES = BM * BK * 2;               // [128 m][64 k], K-major
+  static constexpr int B_CHUNK = BK * 64 * 2;               // one [64 k][64 n] box
+  static constexpr int B_BYTES = (BN / 64) * B_CHUNK;       // MN-major, BN / 64 boxes
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+};
 
-template <typename TO>
-__global__ void __launch_bounds__(wg::THREADS, 1)
+template <int BN, typename TO>
+__global__ void __launch_bounds__(Wg<BN>::THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
                   const __nv_bfloat16* __restrict__ bias, int epilogue,
                   TO* __restrict__ c, long long sc0, int m, int n, int k) {
-  using namespace wg;
+  using W = Wg<BN>;
   using namespace hopper;
+  constexpr int BM = W::BM, BK = W::BK, STAGES = W::STAGES;
+  constexpr int CONSUMERS = W::CONSUMERS, A_BYTES = W::A_BYTES;
+  constexpr int B_CHUNK = W::B_CHUNK, STAGE_BYTES = W::STAGE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -211,9 +227,14 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n256k16_ss<0, 1>(acc, desc_sw128(sa + 32 * kk, 16, 1024),
-                                desc_sw128(sb + 2048 * kk, B_CHUNK, 1024));
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = desc_sw128(sa + 32 * kk, 16, 1024);
+      const uint64_t db = desc_sw128(sb + 2048 * kk, B_CHUNK, 1024);
+      if constexpr (BN == 256)
+        wgmma_m64n256k16_ss<0, 1>(acc, da, db);
+      else
+        wgmma_m64n128k16_ss<0, 1>(acc, da, db);
+    }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -254,14 +275,18 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // ------------------------------- "ffma" --------------------------------------
 
-namespace ff {
-constexpr int BM = 128, BN = 128, BK = 16, STAGES = 3, THREADS = 256;
-struct Stage {
-  float a[BM][BK + 4];   // the pad keeps the rows 16-byte aligned for cp.async
-  float b[BK][BN];
+// the compiled ffma tiles: BN 128, BK 16, BM 128 (256 threads) or 64 (128);
+// every thread holds an 8x8 micro-tile
+template <int BM_>
+struct Ff {
+  static constexpr int BM = BM_, BN = 128, BK = 16, STAGES = 3;
+  static constexpr int THREADS = BM * BN / 64;
+  struct Stage {
+    float a[BM][BK + 4];   // the pad keeps the rows 16-byte aligned for cp.async
+    float b[BK][BN];
+  };
+  static constexpr int SMEM = STAGES * sizeof(Stage);
 };
-constexpr int SMEM = STAGES * sizeof(Stage);
-}  // namespace ff
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
@@ -287,11 +312,14 @@ __device__ __forceinline__ int chunk_bytes(int idx, int limit) {
 
 // one BM x BK tile of A and one BK x BN tile of B (both row-major, rows
 // 16-byte aligned) into a stage; cells past the matrix read as zero
-__device__ __forceinline__ void load_stage(ff::Stage& st, const float* a,
-                                           long long sa0, const float* b,
-                                           long long sb0, int row0, int col0,
-                                           int k0, int m, int n, int k) {
-  using namespace ff;
+template <int BM>
+__device__ __forceinline__ void load_stage(typename Ff<BM>::Stage& st,
+                                           const float* a, long long sa0,
+                                           const float* b, long long sb0,
+                                           int row0, int col0, int k0, int m,
+                                           int n, int k) {
+  using F = Ff<BM>;
+  constexpr int BK = F::BK, BN = F::BN, THREADS = F::THREADS;
   constexpr int A_CHUNKS = BM * BK / 4, B_CHUNKS = BK * BN / 4;
   static_assert(A_CHUNKS % THREADS == 0 && B_CHUNKS % THREADS == 0, "");
 #pragma unroll
@@ -312,18 +340,19 @@ __device__ __forceinline__ void load_stage(ff::Stage& st, const float* a,
   }
 }
 
-// thread (ty, tx) owns rows {4 ty + i, 64 + 4 ty + i} and columns
+// thread (ty, tx) owns rows {4 ty + i, BM / 2 + 4 ty + i} and columns
 // {4 tx + j, 64 + 4 tx + j}, i, j < 4: one FFMA chain per output, in k order
-__device__ __forceinline__ void ffma_stage(const ff::Stage& st,
+template <int BM>
+__device__ __forceinline__ void ffma_stage(const typename Ff<BM>::Stage& st,
                                            float (&acc)[8][8]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int k4 = 0; k4 < ff::BK; k4 += 4) {
+  for (int k4 = 0; k4 < Ff<BM>::BK; k4 += 4) {
     float4 av[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       av[i] = *reinterpret_cast<const float4*>(
-          &st.a[(i / 4) * 64 + 4 * ty + i % 4][k4]);
+          &st.a[(i / 4) * (BM / 2) + 4 * ty + i % 4][k4]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float4 b0 = *reinterpret_cast<const float4*>(&st.b[k4 + kk][4 * tx]);
@@ -346,14 +375,16 @@ __device__ __forceinline__ void ffma_stage(const ff::Stage& st,
 // the main loop keeps STAGES - 1 stages in flight while the block multiplies
 // the oldest; one barrier per stage both publishes the stage just waited for
 // and frees the one multiplied last, which the next load refills
-__global__ void __launch_bounds__(ff::THREADS, 1)
+template <int BM>
+__global__ void __launch_bounds__(Ff<BM>::THREADS, 1)
 gemm_ffma_kernel(const float* __restrict__ a, long long sa0,
                  const float* __restrict__ b, long long sb0,
                  const float* __restrict__ bias, int epilogue,
                  float* __restrict__ c, long long sc0, int m, int n, int k) {
-  using namespace ff;
+  using F = Ff<BM>;
+  constexpr int BN = F::BN, BK = F::BK, STAGES = F::STAGES;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  Stage* st = reinterpret_cast<Stage*>(smem_raw);
+  auto* st = reinterpret_cast<typename F::Stage*>(smem_raw);
   int tm, tn;
   tile_of(blockIdx.x, (m + BM - 1) / BM, (n + BN - 1) / BN, tm, tn);
   const int row0 = tm * BM, col0 = tn * BN;
@@ -366,7 +397,7 @@ gemm_ffma_kernel(const float* __restrict__ a, long long sa0,
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
     if (t < ktiles)
-      load_stage(st[t], a, sa0, b, sb0, row0, col0, t * BK, m, n, k);
+      load_stage<BM>(st[t], a, sa0, b, sb0, row0, col0, t * BK, m, n, k);
     cp_async_commit();                  // empty groups keep the count even
   }
   for (int t = 0; t < ktiles; ++t) {
@@ -374,16 +405,16 @@ gemm_ffma_kernel(const float* __restrict__ a, long long sa0,
     __syncthreads();
     const int next = t + STAGES - 1;
     if (next < ktiles)
-      load_stage(st[next % STAGES], a, sa0, b, sb0, row0, col0, next * BK, m,
-                 n, k);
+      load_stage<BM>(st[next % STAGES], a, sa0, b, sb0, row0, col0,
+                     next * BK, m, n, k);
     cp_async_commit();
-    ffma_stage(st[t % STAGES], acc);
+    ffma_stage<BM>(st[t % STAGES], acc);
   }
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = row0 + (i / 4) * 64 + 4 * ty + i % 4;
+    const int r = row0 + (i / 4) * (BM / 2) + 4 * ty + i % 4;
     if (r >= m) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -395,28 +426,33 @@ gemm_ffma_kernel(const float* __restrict__ a, long long sa0,
 
 // ------------------------------- "dmma" --------------------------------------
 //
-// f64 on the FP64 tensor cores. A 128x128 CTA tile, 32-deep k stages in a
+// f64 on the FP64 tensor cores. A BM x 128 CTA tile, 32-deep k stages in a
 // 3-stage ring filled by TMA and tracked by full / empty mbarriers: one
-// producer warpgroup (one warp, 8 lanes issuing loads) and eight consumer
-// warps, each multiplying a 64x32 block with mma.sync m16n8k8; setmaxnreg
-// gives the consumers the registers the 64 f64 accumulators need. TMA
-// writes each operand as boxes four doubles wide (A: [k / 4][128 m][4 k],
+// producer warp (8 lanes issuing loads) and BM / 16 consumer warps, each
+// multiplying a 64x32 block with mma.sync m16n8k8 (64 f64 accumulators in
+// registers). TMA writes each operand as boxes four doubles wide (A:
+// [k / 4][BM m][4 k],
 // B: [n / 4][32 k][4 n]), so the 32 bytes a lane group reads for one
 // fragment row are contiguous and a half-warp's 16 reads cover 128 distinct
 // bytes: no bank conflicts and no padding, which TMA cannot write.
 
-namespace dm {
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
-constexpr int CONSUMERS = 8;                       // warps
-// + one producer warpgroup: setmaxnreg moves registers between the
-// warpgroups of a CTA, so the consumers' 232 come from the four producer
-// warps dropping from the 168 a 384-thread launch gets to 40
-constexpr int THREADS = CONSUMERS * 32 + 128;
-constexpr int A_BOX = BM * 4 * 8, B_BOX = BK * 4 * 8;   // bytes per box
-constexpr int A_BYTES = (BK / 4) * A_BOX, B_BYTES = (BN / 4) * B_BOX;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
-}  // namespace dm
+// the compiled dmma tiles: BN 128, BK 32, BM 128 or 64. One consumer warp
+// per 64x32 block; the producer is a warpgroup at BM 128 (setmaxnreg moves
+// registers between the warpgroups of a CTA, so the consumers' 232 come
+// from the four producer warps dropping from the 168 a 384-thread launch
+// gets to 40) and one warp at BM 64 (a 160-thread launch leaves every
+// thread the registers the accumulators need, no setmaxnreg)
+template <int BM_>
+struct Dm {
+  static constexpr int BM = BM_, BN = 128, BK = 32, STAGES = 3;
+  static constexpr int CONSUMERS = (BM / 64) * (BN / 32);   // warps
+  static constexpr bool SETMAXNREG = BM == 128;
+  static constexpr int THREADS = CONSUMERS * 32 + (SETMAXNREG ? 128 : 32);
+  static constexpr int A_BOX = BM * 4 * 8, B_BOX = BK * 4 * 8;  // bytes per box
+  static constexpr int A_BYTES = (BK / 4) * A_BOX, B_BYTES = (BN / 4) * B_BOX;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+};
 
 // warp w owns the 64 x 32 block at rows 64 (w / 4), columns 32 (w % 4), as
 // 4 x 4 mma.sync m16n8k8 tiles. With g = lane / 4, t = lane % 4: A register r
@@ -424,29 +460,31 @@ constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 // register r holds row t + 4 r, column g; C register r holds row g + 8 (r / 2),
 // column 2 t + r % 2. (m8n8k4 runs at half this shape's rate on the H100:
 // src/repro_torch/tools/f64_mma_rate.cu.)
+template <int BM>
 __device__ __forceinline__ void dmma_stage(const uint8_t* sa, const uint8_t* sb,
                                            double (&acc)[4][4][4]) {
+  using D = Dm<BM>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = (warp / 4) * 64 + g;
   // column c0 + 8 j sits in B box c0 / 4 + 2 j at offset g % 4
-  const uint8_t* bcol = sb + ((warp % 4) * 8 + g / 4) * dm::B_BOX + (g % 4) * 8;
+  const uint8_t* bcol = sb + ((warp % 4) * 8 + g / 4) * D::B_BOX + (g % 4) * 8;
 #pragma unroll
-  for (int k8 = 0; k8 < dm::BK; k8 += 8) {
+  for (int k8 = 0; k8 < D::BK; k8 += 8) {
     double bv[4][2];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         bv[j][r] = *reinterpret_cast<const double*>(
-            bcol + 2 * j * dm::B_BOX + (k8 + t + 4 * r) * 32);
+            bcol + 2 * j * D::B_BOX + (k8 + t + 4 * r) * 32);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       double av[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         av[r] = *reinterpret_cast<const double*>(
-            sa + (k8 / 4 + r / 2) * dm::A_BOX +
+            sa + (k8 / 4 + r / 2) * D::A_BOX +
             (r0 + 16 * i + 8 * (r % 2)) * 32 + t * 8);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -462,52 +500,53 @@ __device__ __forceinline__ void dmma_stage(const uint8_t* sa, const uint8_t* sb,
   }
 }
 
-__global__ void __launch_bounds__(dm::THREADS, 1)
+template <int BM>
+__global__ void __launch_bounds__(Dm<BM>::THREADS, 1)
 gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const double* __restrict__ bias, int epilogue,
                  double* __restrict__ c, long long sc0, int m, int n, int k) {
   using namespace hopper;
+  using D = Dm<BM>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + dm::STAGES * dm::STAGE_BYTES);
-  uint64_t* empty = full + dm::STAGES;
+      reinterpret_cast<uint64_t*>(smem + D::STAGES * D::STAGE_BYTES);
+  uint64_t* empty = full + D::STAGES;
   int tm, tn;
-  tile_of(blockIdx.x, (m + dm::BM - 1) / dm::BM, (n + dm::BN - 1) / dm::BN, tm,
-          tn);
-  const int ktiles = (k + dm::BK - 1) / dm::BK;
+  tile_of(blockIdx.x, (m + BM - 1) / BM, (n + D::BN - 1) / D::BN, tm, tn);
+  const int ktiles = (k + D::BK - 1) / D::BK;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < dm::STAGES; ++s) {
+    for (int s = 0; s < D::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], dm::CONSUMERS);   // lane 0 of every consumer warp
+      mbar_init(&empty[s], D::CONSUMERS);    // lane 0 of every consumer warp
     }
     fence_barrier_init();
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp >= dm::CONSUMERS) {               // the producer warpgroup
-    setmaxnreg_dec<40>();
-    if (warp > dm::CONSUMERS) return;        // one warp issues the loads
+  if (warp >= D::CONSUMERS) {                // the producer
+    if constexpr (D::SETMAXNREG) setmaxnreg_dec<40>();
+    if (warp > D::CONSUMERS) return;         // one warp issues the loads
     for (int t = 0; t < ktiles; ++t) {
-      const int s = t % dm::STAGES;
-      mbar_wait(&empty[s], ((t / dm::STAGES) & 1) ^ 1);
-      uint8_t* sa = smem + s * dm::STAGE_BYTES;
-      uint8_t* sb = sa + dm::A_BYTES;
-      if (lane == 0) mbar_expect_tx(&full[s], dm::STAGE_BYTES);
+      const int s = t % D::STAGES;
+      mbar_wait(&empty[s], ((t / D::STAGES) & 1) ^ 1);
+      uint8_t* sa = smem + s * D::STAGE_BYTES;
+      uint8_t* sb = sa + D::A_BYTES;
+      if (lane == 0) mbar_expect_tx(&full[s], D::STAGE_BYTES);
       __syncwarp();
-      if (lane < dm::BK / 4) {               // lane q: A box q, B boxes 4q..
-        tma_load_2d(sa + lane * dm::A_BOX, &map_a, &full[s],
-                    t * dm::BK + 4 * lane, tm * dm::BM);
+      if (lane < D::BK / 4) {                // lane q: A box q, B boxes 4q..
+        tma_load_2d(sa + lane * D::A_BOX, &map_a, &full[s],
+                    t * D::BK + 4 * lane, tm * BM);
 #pragma unroll
         for (int q = 4 * lane; q < 4 * lane + 4; ++q)
-          tma_load_2d(sb + q * dm::B_BOX, &map_b, &full[s],
-                      tn * dm::BN + 4 * q, t * dm::BK);
+          tma_load_2d(sb + q * D::B_BOX, &map_b, &full[s],
+                      tn * D::BN + 4 * q, t * D::BK);
       }
     }
   } else {
-    setmaxnreg_inc<232>();
+    if constexpr (D::SETMAXNREG) setmaxnreg_inc<232>();
     double acc[4][4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -516,16 +555,16 @@ gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0;
     for (int t = 0; t < ktiles; ++t) {
-      const int s = t % dm::STAGES;
-      mbar_wait(&full[s], (t / dm::STAGES) & 1);
-      const uint8_t* sa = smem + s * dm::STAGE_BYTES;
-      dmma_stage(sa, sa + dm::A_BYTES, acc);
+      const int s = t % D::STAGES;
+      mbar_wait(&full[s], (t / D::STAGES) & 1);
+      const uint8_t* sa = smem + s * D::STAGE_BYTES;
+      dmma_stage<BM>(sa, sa + D::A_BYTES, acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    const int r0 = tm * dm::BM + (warp / 4) * 64 + lane / 4;
-    const int c0 = tn * dm::BN + (warp % 4) * 32 + 2 * (lane % 4);
+    const int r0 = tm * BM + (warp / 4) * 64 + lane / 4;
+    const int c0 = tn * D::BN + (warp % 4) * 32 + 2 * (lane % 4);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -545,15 +584,17 @@ gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+template <int BM>
 int launch_dmma(const void* a, long long sa0, const void* b, long long sb0,
                 const void* bias, int epilogue, void* c, long long sc0, int m,
                 int n, int k, cudaStream_t stream) {
+  using D = Dm<BM>;
   CUtensorMap map_a, map_b;
   const cuuint64_t dims_a[2] = {cuuint64_t(k), cuuint64_t(m)};
   const cuuint64_t dims_b[2] = {cuuint64_t(n), cuuint64_t(k)};
   const cuuint64_t stride_a[1] = {cuuint64_t(sa0) * 8};
   const cuuint64_t stride_b[1] = {cuuint64_t(sb0) * 8};
-  const cuuint32_t box_a[2] = {4, dm::BM}, box_b[2] = {4, dm::BK};
+  const cuuint32_t box_a[2] = {4, BM}, box_b[2] = {4, D::BK};
   int err = hopper::make_map(&map_a, a, 2, dims_a, stride_a, box_a,
                              CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
                              CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -563,13 +604,15 @@ int launch_dmma(const void* a, long long sa0, const void* b, long long sb0,
                            CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_dmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dm::SMEM);
+      gemm_dmma_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      D::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long tiles = static_cast<long long>((m + dm::BM - 1) / dm::BM) *
-                          ((n + dm::BN - 1) / dm::BN);
-  gemm_dmma_kernel<<<static_cast<unsigned>(tiles), dm::THREADS, dm::SMEM,
-                     stream>>>(map_a, map_b, static_cast<const double*>(bias),
-                               epilogue, static_cast<double*>(c), sc0, m, n, k);
+  const long long tiles = static_cast<long long>((m + BM - 1) / BM) *
+                          ((n + D::BN - 1) / D::BN);
+  gemm_dmma_kernel<BM><<<static_cast<unsigned>(tiles), D::THREADS, D::SMEM,
+                         stream>>>(map_a, map_b,
+                                   static_cast<const double*>(bias), epilogue,
+                                   static_cast<double*>(c), sc0, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -780,58 +823,70 @@ int launch_simt(const void* a, long long sa0, long long sa1, const void* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TO>
+template <int BN, typename TO>
 int launch_wgmma(const void* a, long long sa0, const void* b, long long sb0,
                  const void* bias, int epilogue, void* c, long long sc0, int m,
                  int n, int k, cudaStream_t stream) {
-  using namespace wg;
+  using W = Wg<BN>;
   CUtensorMap map_a, map_b;
   const cuuint64_t dims_a[2] = {cuuint64_t(k), cuuint64_t(m)};
   const cuuint64_t dims_b[2] = {cuuint64_t(n), cuuint64_t(k)};
   const cuuint64_t stride_a[1] = {cuuint64_t(sa0) * 2};
   const cuuint64_t stride_b[1] = {cuuint64_t(sb0) * 2};
-  const cuuint32_t box_a[2] = {BK, BM}, box_b[2] = {64, BK};
+  const cuuint32_t box_a[2] = {W::BK, W::BM}, box_b[2] = {64, W::BK};
   int err = hopper::make_map(&map_a, a, 2, dims_a, stride_a, box_a);
   if (err == 0) err = hopper::make_map(&map_b, b, 2, dims_b, stride_b, box_b);
   if (err != 0) return err;
-  auto kernel = gemm_wgmma_kernel<TO>;
+  auto kernel = gemm_wgmma_kernel<BN, TO>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long tiles =
-      static_cast<long long>((m + BM - 1) / BM) * ((n + BN - 1) / BN);
-  kernel<<<static_cast<unsigned>(tiles), THREADS, SMEM, stream>>>(
+      static_cast<long long>((m + W::BM - 1) / W::BM) * ((n + BN - 1) / BN);
+  kernel<<<static_cast<unsigned>(tiles), W::THREADS, W::SMEM, stream>>>(
       map_a, map_b, static_cast<const __nv_bfloat16*>(bias), epilogue,
       static_cast<TO*>(c), sc0, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BM>
 int launch_ffma(const void* a, long long sa0, const void* b, long long sb0,
                 const void* bias, int epilogue, void* c, long long sc0, int m,
                 int n, int k, cudaStream_t stream) {
+  using F = Ff<BM>;
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_ffma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ff::SMEM);
+      gemm_ffma_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long tiles = static_cast<long long>((m + ff::BM - 1) / ff::BM) *
-                          ((n + ff::BN - 1) / ff::BN);
-  gemm_ffma_kernel<<<static_cast<unsigned>(tiles), ff::THREADS, ff::SMEM,
-                     stream>>>(static_cast<const float*>(a), sa0,
-                               static_cast<const float*>(b), sb0,
-                               static_cast<const float*>(bias), epilogue,
-                               static_cast<float*>(c), sc0, m, n, k);
+  const long long tiles = static_cast<long long>((m + BM - 1) / BM) *
+                          ((n + F::BN - 1) / F::BN);
+  gemm_ffma_kernel<BM><<<static_cast<unsigned>(tiles), F::THREADS, F::SMEM,
+                         stream>>>(static_cast<const float*>(a), sa0,
+                                   static_cast<const float*>(b), sb0,
+                                   static_cast<const float*>(bias), epilogue,
+                                   static_cast<float*>(c), sc0, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-// launches `variant`; cudaErrorInvalidValue when the variant does not take
-// these dtypes or this layout (the wrapper never asks for that: it picks
-// the variant from the same facts, kernels/gemm.py::gemm_variant)
-int dispatch(int variant, int dtype, int out_dtype, const void* a,
-             long long sa0, long long sa1, const void* b, long long sb0,
-             long long sb1, const void* bias, int epilogue, void* c,
-             long long sc0, int m, int n, int k, void* stream) {
+// is (bm, bn, bk) the tile of instantiation T?
+template <typename T>
+bool is_tile(int bm, int bn, int bk) {
+  return bm == T::BM && bn == T::BN && bk == T::BK;
+}
+
+// launches `variant` at the CTA tile (bm, bn, bk); cudaErrorInvalidValue
+// when the variant does not take these dtypes or this layout, or was not
+// compiled for this tile (the wrapper never asks for that: it picks the
+// variant from the same facts, kernels/gemm.py::gemm_variant, and the tile
+// from the compiled set, kernels/gemm.py::launch_tile). "simt" has one tile.
+int dispatch(int variant, int bm, int bn, int bk, int dtype, int out_dtype,
+             const void* a, long long sa0, long long sa1, const void* b,
+             long long sb0, long long sb1, const void* bias, int epilogue,
+             void* c, long long sc0, int m, int n, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (variant == kSimt) {
+    if (bm != simt::BM || bn != simt::BN || bk != simt::BK) return bad;
     if (dtype == kF32 && out_dtype == kF32)
       return launch_simt<float, float, float>(a, sa0, sa1, b, sb0, sb1, bias,
                                               epilogue, c, sc0, m, n, k, s);
@@ -850,16 +905,41 @@ int dispatch(int variant, int dtype, int out_dtype, const void* a,
   if (sa1 != 1 || sb1 != 1 || !aligned16(a, sa0, elem) ||
       !aligned16(b, sb0, elem))
     return bad;
-  if (variant == kWgmma && dtype == kBF16 && out_dtype == kBF16)
-    return launch_wgmma<__nv_bfloat16>(a, sa0, b, sb0, bias, epilogue, c, sc0,
-                                       m, n, k, s);
-  if (variant == kWgmma && dtype == kBF16 && out_dtype == kF32)
-    return launch_wgmma<float>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n,
-                               k, s);
-  if (variant == kFfma && dtype == kF32 && out_dtype == kF32)
-    return launch_ffma(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k, s);
-  if (variant == kDmma && dtype == kF64 && out_dtype == kF64)
-    return launch_dmma(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k, s);
+  if (variant == kWgmma && dtype == kBF16 &&
+      (out_dtype == kBF16 || out_dtype == kF32)) {
+    const bool f32 = out_dtype == kF32;
+    if (is_tile<Wg<256>>(bm, bn, bk))
+      return f32 ? launch_wgmma<256, float>(a, sa0, b, sb0, bias, epilogue, c,
+                                            sc0, m, n, k, s)
+                 : launch_wgmma<256, __nv_bfloat16>(a, sa0, b, sb0, bias,
+                                                    epilogue, c, sc0, m, n, k,
+                                                    s);
+    if (is_tile<Wg<128>>(bm, bn, bk))
+      return f32 ? launch_wgmma<128, float>(a, sa0, b, sb0, bias, epilogue, c,
+                                            sc0, m, n, k, s)
+                 : launch_wgmma<128, __nv_bfloat16>(a, sa0, b, sb0, bias,
+                                                    epilogue, c, sc0, m, n, k,
+                                                    s);
+    return bad;
+  }
+  if (variant == kFfma && dtype == kF32 && out_dtype == kF32) {
+    if (is_tile<Ff<128>>(bm, bn, bk))
+      return launch_ffma<128>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
+                              s);
+    if (is_tile<Ff<64>>(bm, bn, bk))
+      return launch_ffma<64>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
+                             s);
+    return bad;
+  }
+  if (variant == kDmma && dtype == kF64 && out_dtype == kF64) {
+    if (is_tile<Dm<128>>(bm, bn, bk))
+      return launch_dmma<128>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
+                              s);
+    if (is_tile<Dm<64>>(bm, bn, bk))
+      return launch_dmma<64>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
+                             s);
+    return bad;
+  }
   return bad;
 }
 
@@ -867,14 +947,16 @@ int dispatch(int variant, int dtype, int out_dtype, const void* a,
 }  // namespace repro
 
 // C[m, n] (row stride sc0, unit column stride) = A[m, k] @ B[k, n] on
-// `variant` (repro::Variant). Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int repro_gemm(int variant, int dtype, int out_dtype, const void* a,
-                          long long sa0, long long sa1, const void* b,
-                          long long sb0, long long sb1, void* c,
-                          long long sc0, int m, int n, int k, void* stream) {
-  return repro::dispatch(variant, dtype, out_dtype, a, sa0, sa1, b, sb0, sb1,
-                         nullptr, repro::kNone, c, sc0, m, n, k, stream);
+// `variant` (repro::Variant) at the CTA tile (bm, bn, bk). Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int repro_gemm(int variant, int bm, int bn, int bk, int dtype,
+                          int out_dtype, const void* a, long long sa0,
+                          long long sa1, const void* b, long long sb0,
+                          long long sb1, void* c, long long sc0, int m, int n,
+                          int k, void* stream) {
+  return repro::dispatch(variant, bm, bn, bk, dtype, out_dtype, a, sa0, sa1, b,
+                         sb0, sb1, nullptr, repro::kNone, c, sc0, m, n, k,
+                         stream);
 }
 
 // C = act(A @ B + bias) on the "gemv" variant (n <= 16, A with a unit
@@ -891,15 +973,15 @@ extern "C" int repro_gemv(int dtype, int out_dtype, const void* a,
                      static_cast<cudaStream_t>(stream));
 }
 
-// C = act(A @ B + bias); bias may be null (no bias), epilogue is a
-// repro::Epilogue code.
-extern "C" int repro_gemm_bias_act(int variant, int dtype, int out_dtype,
-                                   const void* a, long long sa0,
-                                   long long sa1, const void* b,
-                                   long long sb0, long long sb1,
-                                   const void* bias, int epilogue, void* c,
-                                   long long sc0, int m, int n, int k,
-                                   void* stream) {
-  return repro::dispatch(variant, dtype, out_dtype, a, sa0, sa1, b, sb0, sb1,
-                         bias, epilogue, c, sc0, m, n, k, stream);
+// C = act(A @ B + bias) at the CTA tile (bm, bn, bk); bias may be null (no
+// bias), epilogue is a repro::Epilogue code.
+extern "C" int repro_gemm_bias_act(int variant, int bm, int bn, int bk,
+                                   int dtype, int out_dtype, const void* a,
+                                   long long sa0, long long sa1,
+                                   const void* b, long long sb0,
+                                   long long sb1, const void* bias,
+                                   int epilogue, void* c, long long sc0, int m,
+                                   int n, int k, void* stream) {
+  return repro::dispatch(variant, bm, bn, bk, dtype, out_dtype, a, sa0, sa1, b,
+                         sb0, sb1, bias, epilogue, c, sc0, m, n, k, stream);
 }

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels: nvcc into shared libraries, ctypes to bind.
 
 Each source under ``repro_torch/csrc/`` (``gemm.cu``, ``trsm_gemm.cu``,
-``dotp.cu``, ``flash_attention.cu``, ``ssd_scan.cu``) compiles on its own, at first use, with
+``dotp.cu``, ``flash_attention.cu``, ``ssd_scan.cu``, ``fpu_chain.cu``)
+compiles on its own, at first use, with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -31,7 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 ROOT = os.path.dirname(os.path.dirname(_PKG))        # checkout root (src/..)
 BUILD_DIR = os.path.join(ROOT, "build", "repro_torch")
-SOURCES = ("gemm", "trsm_gemm", "dotp", "flash_attention", "ssd_scan")
+SOURCES = ("gemm", "trsm_gemm", "dotp", "flash_attention", "ssd_scan",
+           "fpu_chain")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,9 +41,11 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
     "gemm": {
-        "repro_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, I, I, I, P], I),
+        "repro_gemm": ([I, I, I, I, I, I, P, LL, LL, P, LL, LL, P, LL, I, I,
+                        I, P], I),
         "repro_gemm_bias_act": (
-            [I, I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I, P], I),
+            [I, I, I, I, I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I, P],
+            I),
         "repro_gemv": ([I, I, P, LL, P, LL, LL, P, I, P, I, P, LL, I, I, I,
                         P], I),
     },
@@ -65,6 +69,9 @@ SIGNATURES = {
                             P, LL, LL, LL, LL, I, I, I, I, I, I, I,
                             P, P, P, P, P], I),
         "repro_ssd_scan_smem_bytes": ([I, I, I, I, I], LL),
+    },
+    "fpu_chain": {
+        "repro_fpu_chain": ([I, P, F, I, P, P, P], I),
     },
 }
 

@@ -7,9 +7,11 @@
     register accumulator, in the accumulator type, before the single
     store, so C is written to device memory once. It runs on B1's main
     loop, in the variant :func:`~repro_torch.kernels.gemm.gemm_variant`
-    picks (bf16 on the tensor cores, f32 on FFMA, f64 on DMMA). Bound by
-    operations at the main path's shapes, like B1; the epilogue adds n bias
-    reads and a few flops per output.
+    picks (bf16 on the tensor cores, f32 on FFMA, f64 on DMMA), at the CTA
+    tile of the plan it is handed when that tile is compiled (as B1,
+    :func:`~repro_torch.kernels.gemm.launch_tile`). Bound by operations at
+    the main path's shapes, like B1; the epilogue adds n bias reads and a
+    few flops per output.
 
 ``trsm_gemm`` (B2, ``csrc/trsm_gemm.cu``)
     Replaces ``repro/kernels/fused.py::trsm_gemm`` (``_trsm_gemm_kernel``).
@@ -23,7 +25,9 @@
     workspace (with BL transposed beside it for ``"lu"``); then they walk
     C's 128 x 128 tiles with B1's ``ffma`` micro-tile (f32, bf16) or
     ``dmma`` mma.sync shape (f64) over K = nb. Bound by operations; see the
-    note in ``csrc/trsm_gemm.cu``.
+    note in ``csrc/trsm_gemm.cu``. Its shared memory per CTA is
+    :func:`repro_torch.core.codesign.trsm_gemm_smem`, the formula the
+    chain planner prices it with.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`gemm_bias_act_plain`, :func:`trsm_gemm_plain`)
@@ -39,20 +43,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import obs as _obs
-from repro_torch.core.codesign import GemmPlan, plan_gemm
+from repro_torch.core.codesign import (TRSM_GEMM_TILE, TRSM_GEMM_TT,
+                                       TRSM_GEMM_WIDTHS, GemmPlan,
+                                       trsm_gemm_footprint)
 from repro_torch.kernels import _build
 from repro_torch.kernels.gemm import (DTYPE_CODES, accumulator_dtype,
-                                      check_operands, gemm_plain,
-                                      gemm_variant, launch, record_call,
-                                      reset_launches)
+                                      check_operands, default_plan,
+                                      gemm_plain, gemm_variant, launch,
+                                      record_call, reset_launches)
 
 EPILOGUES = ("none", "relu", "gelu")     # index = csrc/common.cuh code
 SMEM_LIMIT = 232448                      # dynamic shared memory per block
-# csrc/trsm_gemm.cu's shapes: solve widths (X columns per block), the
-# update tile (BM, BN, BK) and its stages, the padding of the workspaces
-TRSM_GEMM_WIDTHS = (32, 16, 8, 4, 2, 1)
-TRSM_GEMM_TILE = (128, 128, 16)
-_TRSM_STAGES, _TRSM_PAD, _TRSM_TT = 3, 128, 32
+# csrc/trsm_gemm.cu's padding of the workspaces; its solve widths, update
+# tile and shared-memory formula live in core/codesign.py, which prices B2
+# with them (trsm_gemm_smem)
+_TRSM_PAD = 128
 
 
 def apply_epilogue(x: torch.Tensor, epilogue: str,
@@ -98,8 +103,9 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
                   epilogue: str = "none", plan: Optional[GemmPlan] = None,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = act(A @ B + bias) in one launch (CUDA) or its plain version
-    (CPU). ``bias`` is a length-n vector of a's dtype; ``plan`` is
-    recorded beside the variant and its CTA tile, as in B1."""
+    (CPU). ``bias`` is a length-n vector of a's dtype; ``plan`` picks the
+    CTA tile and is recorded beside the variant and the tile, as in B1
+    (:func:`repro_torch.kernels.gemm.gemm`)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; "
                          f"expected one of {EPILOGUES}")
@@ -111,16 +117,16 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"bias must be ({n},) {a.dtype} on {a.device}; got "
                          f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
     if plan is None:
-        plan = plan_gemm(m, n, k, dtype=a.dtype)
+        plan = default_plan(a, b)
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=out_dtype, device=a.device)
     variant = gemm_variant(a, b)
-    record_call(gemm_bias_act, plan, variant, a.device)
+    tile = record_call(gemm_bias_act, plan, variant, a.device)
     if a.device.type == "cpu":
         return gemm_bias_act_plain(a, b, bias, epilogue, out_dtype)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     bias = None if bias is None else bias.contiguous()   # held past launch
-    launch(gemm_bias_act, "repro_gemm_bias_act", variant, a, b, c,
+    launch(gemm_bias_act, "repro_gemm_bias_act", variant, tile, a, b, c,
            None if bias is None else bias.data_ptr(),
            EPILOGUES.index(epilogue))
     return c
@@ -163,33 +169,22 @@ class TrsmGemmPlan(NamedTuple):
     a_operand: str         # the update's A: "X^T" (syrk) | "BL" (lu)
 
 
-def _trsm_smem(acc_bytes: int, nb: int, width: int, l_smem: bool) -> int:
-    """csrc/trsm_gemm.cu::smem_bytes: max(solve, update) bytes."""
-    bm, _, bk = TRSM_GEMM_TILE
-    nbp = -(-nb // bk) * bk
-    xs = max(nbp * (width + 1), _TRSM_TT * (_TRSM_TT + 1))
-    solve = (xs + (nb * nb if l_smem else 0)) * acc_bytes
-    stage_ld = bm + 4 if acc_bytes == 8 else bm
-    return max(solve, _TRSM_STAGES * 2 * bk * stage_ld * acc_bytes)
-
-
 def trsm_gemm_plan(dtype: torch.dtype, nb: int, form: str) -> TrsmGemmPlan:
     """The widest solve width (:data:`TRSM_GEMM_WIDTHS`) whose X block
     fits the shared memory, then L11 beside it if it still fits (else the
-    kernel reads L11 through the cache)."""
-    acc_bytes = accumulator_dtype(dtype).itemsize
-    for width in TRSM_GEMM_WIDTHS:
-        if _trsm_smem(acc_bytes, nb, width, False) <= SMEM_LIMIT:
-            l_smem = _trsm_smem(acc_bytes, nb, width, True) <= SMEM_LIMIT
-            bk = TRSM_GEMM_TILE[2]
-            return TrsmGemmPlan(
-                width, l_smem, -(-nb // bk) * bk,
-                _trsm_smem(acc_bytes, nb, width, l_smem),
-                "dmma" if dtype == torch.float64 else "ffma",
-                "X^T" if form == "syrk" else "BL")
-    raise ValueError(f"trsm_gemm: panel width nb={nb} leaves no room for "
-                     f"a one-column X block in {SMEM_LIMIT} bytes of "
-                     f"shared memory ({dtype})")
+    kernel reads L11 through the cache):
+    :func:`repro_torch.core.codesign.trsm_gemm_footprint`."""
+    fp = trsm_gemm_footprint(accumulator_dtype(dtype).itemsize, nb,
+                             SMEM_LIMIT)
+    if fp is None:
+        raise ValueError(f"trsm_gemm: panel width nb={nb} leaves no room for "
+                         f"a one-column X block in {SMEM_LIMIT} bytes of "
+                         f"shared memory ({dtype})")
+    width, l_smem, smem = fp
+    bk = TRSM_GEMM_TILE[2]
+    return TrsmGemmPlan(width, l_smem, -(-nb // bk) * bk, smem,
+                        "dmma" if dtype == torch.float64 else "ffma",
+                        "X^T" if form == "syrk" else "BL")
 
 
 def trsm_gemm_grid(co_resident: int, plan: TrsmGemmPlan, m: int, n: int,
@@ -200,7 +195,7 @@ def trsm_gemm_grid(co_resident: int, plan: TrsmGemmPlan, m: int, n: int,
     pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
     solve = pad(n) // plan.width
     if form == "lu":
-        solve += -(-plan.nb_padded // _TRSM_TT) * (pad(m) // _TRSM_TT)
+        solve += -(-plan.nb_padded // TRSM_GEMM_TT) * (pad(m) // TRSM_GEMM_TT)
     bm, bn, _ = TRSM_GEMM_TILE
     update = -(-m // bm) * -(-n // bn)
     return max(1, min(co_resident, max(solve, update)))

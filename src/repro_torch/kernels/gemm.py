@@ -8,10 +8,12 @@ loops over K inside the block, in place of the TPU's sequential K grid
 axis. The source has five variants (:data:`VARIANTS`), and
 :func:`gemm_variant` picks one from dtype, shape and layout alone:
 
-- ``"wgmma"``: bf16 on the tensor cores (TMA ring, wgmma), 128x256 tiles;
-- ``"ffma"``: f32 on IEEE FFMA (never TF32), 128x128 tiles, cp.async ring;
-- ``"dmma"``: f64 on the FP64 tensor cores (mma.sync m16n8k8), 128x128
-  tiles, TMA ring, warp-specialised;
+- ``"wgmma"``: bf16 on the tensor cores (TMA ring, wgmma), 128x256 or
+  128x128 tiles;
+- ``"ffma"``: f32 on IEEE FFMA (never TF32), 128x128 or 64x128 tiles,
+  cp.async ring;
+- ``"dmma"``: f64 on the FP64 tensor cores (mma.sync m16n8k8), 128x128 or
+  64x128 tiles, TMA ring, warp-specialised;
 - ``"gemv"``: any dtype, ``n <= SKINNY < m`` with A's column stride 1 (the
   blocked TRSM's 128 x k x nrhs updates, ``linalg.gemv``): bound by the
   bytes of A, K split over the CTAs (:func:`gemv_split`) and the partials
@@ -28,7 +30,8 @@ there is no other path, and a variant that refuses its operands raises.
 counts nothing), ``gemm.variant_launches`` the same per variant, and
 ``gemm.last_launch`` records, on both routes, the
 :class:`~repro_torch.core.codesign.GemmPlan` it was handed beside the
-variant and the CTA tile the layout picks.
+variant, the CTA tile it runs (:func:`launch_tile`) and where that tile
+came from (``tile_source``: ``"plan"`` or ``"default"``).
 """
 from __future__ import annotations
 
@@ -36,15 +39,19 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.codesign import GemmPlan, plan_gemm
+from repro_torch import arch as _arch
+from repro_torch.core.codesign import HOPPER_TILES, GemmPlan, plan_gemm
 from repro_torch.kernels import _build
 
 # csrc/gemm.cu's variants (index = repro::Variant code; "gemv" has its
-# own entry point) and their CTA tiles (BM, BN, BK)
+# own entry point) and the CTA tiles (BM, BN, BK) each is compiled for, the
+# default first; "simt" and "gemv" have one fixed shape each
 VARIANTS = ("simt", "wgmma", "ffma", "dmma", "gemv")
-TILES = {"simt": (64, 64, 16), "wgmma": (128, 256, 64),
-         "ffma": (128, 128, 16), "dmma": (128, 128, 32),
-         "gemv": (16, 16, 256)}     # rows per CTA, largest n, k per chunk
+TILE_SETS = {"simt": ((64, 64, 16),),
+             "gemv": ((16, 16, 256),),   # rows per CTA, largest n, k per chunk
+             **{v: tuple(t[:3] for t in tiles)
+                for v, tiles in HOPPER_TILES.values()}}
+TILES = {v: tiles[0] for v, tiles in TILE_SETS.items()}   # the defaults
 # the tiled variant of each dtype
 TILED = {torch.bfloat16: "wgmma", torch.float32: "ffma",
          torch.float64: "dmma"}
@@ -130,11 +137,32 @@ def gemv_split(m: int, k: int, sms: int) -> tuple:
     return -(-k // ks), ks
 
 
-def record_call(wrapper, plan, variant: str, device: torch.device) -> None:
-    """Record the plan, variant and CTA tile of one call of ``wrapper``
-    (either route); counts nothing."""
-    wrapper.last_launch = {"plan": plan, "variant": variant,
-                           "tile": TILES[variant], "device": device.type}
+def default_plan(a: torch.Tensor, b: torch.Tensor) -> GemmPlan:
+    """:func:`plan_gemm` for A @ B at a's dtype under the ambient machine of
+    a's device (``"h100"`` on the card, unless a scope names another)."""
+    return plan_gemm(a.shape[0], b.shape[1], a.shape[1], dtype=a.dtype,
+                     machine=_arch.resolve_machine(None, a.device))
+
+
+def launch_tile(variant: str, plan: Optional[GemmPlan]) -> tuple:
+    """(CTA tile, source) a call runs on ``variant``: the plan's (bm, bn,
+    bk) when the variant is compiled for it (``"plan"``), else the
+    variant's default tile, :data:`TILES` (``"default"``: a plan priced for
+    another machine, or "simt" / "gemv", which have one shape each)."""
+    if plan is not None and (plan.bm, plan.bn, plan.bk) in TILE_SETS[variant]:
+        return (plan.bm, plan.bn, plan.bk), "plan"
+    return TILES[variant], "default"
+
+
+def record_call(wrapper, plan, variant: str, device: torch.device) -> tuple:
+    """Record the plan, variant, CTA tile and the tile's source of one call
+    of ``wrapper`` (either route) in ``wrapper.last_launch``, a record only;
+    counts nothing. Returns the CTA tile the call runs
+    (:func:`launch_tile`), which the caller hands to :func:`launch`."""
+    tile, source = launch_tile(variant, plan)
+    wrapper.last_launch = {"plan": plan, "variant": variant, "tile": tile,
+                           "tile_source": source, "device": device.type}
+    return tile
 
 
 def reset_launches(wrapper) -> None:
@@ -143,7 +171,7 @@ def reset_launches(wrapper) -> None:
     wrapper.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
-def launch(wrapper, entry: str, variant: str, a: torch.Tensor,
+def launch(wrapper, entry: str, variant: str, tile: tuple, a: torch.Tensor,
            b: torch.Tensor, c: torch.Tensor, bias: Optional[int] = None,
            epilogue: int = 0) -> None:
     """Launch one csrc/gemm.cu entry point of ``wrapper`` on ``variant``
@@ -151,7 +179,8 @@ def launch(wrapper, entry: str, variant: str, a: torch.Tensor,
     (``bias`` a pointer or None, ``epilogue`` an EPILOGUES code, both for
     ``repro_gemm_bias_act``); ``"gemv"`` goes to ``repro_gemv`` with its K
     split. Raises on a refused launch, and counts the launch in ``wrapper``
-    (total and per variant) once it has gone through."""
+    (total and per variant) once it has gone through. The tiled variants
+    run ``tile`` (bm, bn, bk), the one :func:`record_call` returned."""
     m, k = a.shape
     n = b.shape[1]
     if variant == "simt" and -(-m // TILES["simt"][0]) > _MAX_ROW_BLOCKS:
@@ -177,7 +206,8 @@ def launch(wrapper, entry: str, variant: str, a: torch.Tensor,
             entry = "repro_gemv"
         else:
             err = getattr(lib, entry)(
-                VARIANTS.index(variant), DTYPE_CODES[a.dtype],
+                VARIANTS.index(variant), *tile,
+                DTYPE_CODES[a.dtype],
                 DTYPE_CODES[c.dtype],
                 a.data_ptr(), a.stride(0), a.stride(1),
                 b.data_ptr(), b.stride(0), b.stride(1),
@@ -191,22 +221,27 @@ def launch(wrapper, entry: str, variant: str, a: torch.Tensor,
 def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = A @ B: the CUDA kernel for CUDA tensors, :func:`gemm_plain` for
-    CPU tensors. ``plan`` (default: :func:`plan_gemm` at a's dtype) is
-    recorded, not tiled by: the CTA tile is that of :func:`gemm_variant`
-    (:data:`TILES`)."""
+    CPU tensors.
+
+    The variant comes from dtype, shape and layout (:func:`gemm_variant`);
+    the CTA tile from ``plan`` (default: :func:`default_plan`, the
+    ambient machine's plan for a's device): a tiled variant runs the
+    plan's (bm, bn, bk) when it is compiled for that tile
+    (:data:`TILE_SETS`), else its default tile (:data:`TILES`), and
+    ``last_launch["tile_source"]`` says which (:func:`launch_tile`)."""
     out_dtype = check_operands(a, b, out_dtype)
     m, k = a.shape
     n = b.shape[1]
     if plan is None:
-        plan = plan_gemm(m, n, k, dtype=a.dtype)
+        plan = default_plan(a, b)
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=out_dtype, device=a.device)
     variant = gemm_variant(a, b)
-    record_call(gemm, plan, variant, a.device)
+    tile = record_call(gemm, plan, variant, a.device)
     if a.device.type == "cpu":
         return gemm_plain(a, b, out_dtype)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    launch(gemm, "repro_gemm", variant, a, b, c)
+    launch(gemm, "repro_gemm", variant, tile, a, b, c)
     return c
 
 

@@ -17,15 +17,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch import arch as _arch
 from repro_torch import obs as _obs
 from repro_torch.core.codesign import plan_factorization
 from repro_torch.tune import dispatch as _tune
 from repro_torch.tune.policy import resolve_policy
 
 
-def default_block(n: int, kind: str, dtype=None) -> int:
-    """Model-picked panel width NB for a size-n factorization."""
-    return plan_factorization(n, kind=kind, dtype=dtype).block
+def default_block(n: int, kind: str, dtype=None, device=None) -> int:
+    """Model-picked panel width NB for a size-n factorization, priced for
+    the ambient machine of ``device``."""
+    return plan_factorization(n, kind=kind, dtype=dtype,
+                              machine=_arch.resolve_machine(None, device)).block
 
 
 def potrf_unblocked(a: torch.Tensor) -> torch.Tensor:
@@ -56,7 +59,7 @@ def potrf(a: torch.Tensor, block: Optional[int] = None,
     pol = resolve_policy(policy)
     n = a.shape[0]
     if block is None:
-        block = default_block(n, "potrf", a.dtype)
+        block = default_block(n, "potrf", a.dtype, a.device)
     if n <= block:
         return potrf_unblocked(a)
     a = a.clone()

@@ -67,7 +67,7 @@ def getrf(a: torch.Tensor, block: Optional[int] = None,
     n, nc = a.shape
     kmax = min(n, nc)
     if block is None:
-        block = default_block(kmax, "getrf", a.dtype)
+        block = default_block(kmax, "getrf", a.dtype, a.device)
     if kmax <= block:
         return getrf_unblocked(a)
     a = a.clone()

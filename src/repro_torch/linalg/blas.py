@@ -38,11 +38,12 @@ from repro_torch.linalg.context import (current, resolved_accum_dtype,
 def _routine(op, info=None):
     """Routine wrapper: machine scoping + one obs span per public call.
 
-    The resolved ``ctx.machine`` becomes the ambient
-    :func:`repro_torch.arch.machine_scope` for the whole call, so every
-    nested planner/registry resolution - the trailing updates inside a
-    blocked factorization included - sees it. When a trace is capturing,
-    the body runs under a ``linalg.<op>`` span annotated by
+    The resolved machine (``ctx.machine``, else the ambient machine of the
+    context's device: :func:`repro_torch.linalg.context.resolved_machine`)
+    becomes the :func:`repro_torch.arch.machine_scope` for the whole call,
+    so every nested planner/registry resolution - the trailing updates
+    inside a blocked factorization included - sees it. When a trace is
+    capturing, the body runs under a ``linalg.<op>`` span annotated by
     ``info(*args, **kw)`` (shapes, dtype, flop/byte counts); with no
     capture active the wrapper goes straight to the body.
     """
@@ -53,13 +54,10 @@ def _routine(op, info=None):
             mach = resolved_machine(ctx)
             tr = resolved_obs(ctx)
             if tr is None and not _obs.enabled():
-                if mach is None:
-                    return fn(*args, context=ctx, **kw)
                 with _arch.machine_scope(mach):
                     return fn(*args, context=ctx, **kw)
             with contextlib.ExitStack() as st:
-                if mach is not None:
-                    st.enter_context(_arch.machine_scope(mach))
+                st.enter_context(_arch.machine_scope(mach))
                 if tr is None:
                     # ctx.obs=False under an ambient trace: mask capture
                     # for the whole body (nested spans included)

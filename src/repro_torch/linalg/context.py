@@ -19,8 +19,11 @@ resolves an :class:`ExecutionContext`:
     silently); ``"cuda"`` without a card raises ``RuntimeError``.
 ``machine``
     A :class:`repro_torch.arch.MachineSpec` or registered name the call's
-    planners and registry keys resolve against (``None`` inherits the
-    ambient machine); the routine body runs under an ``arch.machine_scope``.
+    planners and registry keys resolve against. ``None`` inherits the
+    ambient machine: an enclosing ``arch.machine_scope``, else the machine
+    of the context's device (``"h100"`` for ``"cuda"``, ``"tpu-like"``
+    for ``"cpu"``; :func:`resolved_machine`). The routine body runs under an
+    ``arch.machine_scope`` of the resolved machine.
 ``obs``
     Observability capture: ``None`` inherits the ambient
     :func:`repro_torch.obs.trace`, ``False`` suppresses capture, a
@@ -115,7 +118,6 @@ class ExecutionContext:
 
     def describe(self) -> Dict[str, Any]:
         """JSON-able summary of the resolved context."""
-        from repro_torch import arch as _arch
         from repro_torch.tune.policy import default_policy
         pol = self.policy if self.policy not in (UNSET, None) \
             else default_policy()
@@ -128,12 +130,7 @@ class ExecutionContext:
             reg_path = getattr(reg, "path", None)
         acc = None if self.accum_dtype in (UNSET, None) \
             else _dtype.name(self.accum_dtype)
-        if self.machine in (UNSET, None):
-            mach = _arch.current_machine().name
-        elif isinstance(self.machine, str):
-            mach = self.machine
-        else:
-            mach = self.machine.name
+        mach = resolved_machine(self).name
         if self.obs in (UNSET, None):
             obs_desc = None
         elif self.obs is False:
@@ -257,15 +254,16 @@ def resolved_device(ctx: ExecutionContext) -> torch.device:
 
 
 def resolved_machine(ctx: ExecutionContext):
-    """ctx.machine as a MachineSpec-or-None (names resolved through the
-    arch registry; None = the ambient machine)."""
+    """ctx.machine as a MachineSpec (names resolved through the arch
+    registry). Unset or ``None``: the ambient machine of the context's
+    device, :func:`repro_torch.arch.current_machine` - an enclosing
+    ``machine_scope`` or process default, else ``"h100"`` for ``cuda`` and
+    ``"tpu-like"`` for ``cpu``. Needs no card."""
+    from repro_torch import arch as _arch
     mach = ctx.machine
     if mach is UNSET or mach is None:
-        return None
-    if isinstance(mach, str):
-        from repro_torch import arch as _arch
-        return _arch.get(mach)
-    return mach
+        return _arch.current_machine(resolved_device_name(ctx))
+    return _arch.resolve_machine(mach)
 
 
 def resolved_obs(ctx: ExecutionContext):

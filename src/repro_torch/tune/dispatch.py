@@ -10,10 +10,14 @@ it. Every BLAS-3 and blocked-LAPACK call of the port funnels through here.
     model       (never consulted)   plan_gemm / plan_trsm config
     tuned       stored config       model config  (source="fallback-model")
 
-The plans are the reference's, priced for the ambient machine; the CUDA
-kernels record the plan they were handed beside the CTA tile they
-launched with. The backend component of registry keys is the operands'
-device type: ``"cuda"`` on the card, ``"cpu"`` on the CPU.
+The plans are priced for the ambient machine of the call's device
+(:func:`repro_torch.arch.current_machine`: ``"h100"`` on the card,
+``"tpu-like"`` on the CPU, unless a scope or ``machine=`` names another),
+and B1 / B3 launch the CTA tile of the resolved plan
+(:func:`repro_torch.kernels.gemm.launch_tile`). The backend component of
+registry keys is the operands' device type: ``"cuda"`` on the card,
+``"cpu"`` on the CPU; the machine component follows the device's rule
+(:func:`repro_torch.arch.machine_key_component`).
 """
 from __future__ import annotations
 
@@ -99,13 +103,16 @@ def resolve(op: str, shape: Tuple[int, ...], dtype,
             epilogue: str = "none", form: str = "lu",
             has_bias: bool = True) -> Resolution:
     """Resolve one call's config. shape is (m, n, k) for gemm/syrk and the
-    fused chains, (m, n) for gemv, (n, nrhs) for trsm; ``machine`` (None =
-    ambient) parameterizes every planner and, for non-default machines,
-    suffixes the registry key."""
+    fused chains, (m, n) for gemv, (n, nrhs) for trsm; ``backend`` is the
+    device type the call runs on (default: ``"cuda"`` when a card is
+    present); ``machine`` (None = the ambient machine of that device,
+    ``Resolution.machine`` names it) parameterizes every planner and, when
+    it is not the device's own machine, suffixes the registry key."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
-    mach = _arch.resolve_machine(machine)
-    mach_str = _arch.machine_key_component(mach)
+    backend = backend or default_backend()
+    mach = _arch.resolve_machine(machine, backend)
+    mach_str = _arch.machine_key_component(mach, backend)
     pol = resolve_policy(policy)
     if not uses_kernel(pol):
         # the reference trsm still needs a diagonal width: 64, the
@@ -114,7 +121,6 @@ def resolve(op: str, shape: Tuple[int, ...], dtype,
                                     block=64 if op == "trsm" else None,
                                     machine=mach.name))
     db = _dtype.itemsize(dtype)
-    backend = backend or default_backend()
     cfg = None
     source = "model"
     if pol == "tuned":

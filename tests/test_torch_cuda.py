@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import codesign as cd
 from repro_torch.kernels import dotp as dk
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fpu_chain as fc
 from repro_torch.kernels import fused as fk
 from repro_torch.kernels import gemm as gk
 from repro_torch.kernels import ops
@@ -125,7 +127,11 @@ def test_gemm_tiled_variants_match_plain(card, dtype, out, variant):
         got = gk.gemm(a, b, out_dtype=odt)
         assert gk.gemm.variant_launches[variant] == before + 1
         assert gk.gemm.last_launch["variant"] == variant
-        assert gk.gemm.last_launch["tile"] == gk.TILES[variant]
+        # the h100 plan's tile, which is always a compiled one
+        plan = gk.gemm.last_launch["plan"]
+        assert gk.gemm.last_launch["tile"] == (plan.bm, plan.bn, plan.bk)
+        assert gk.gemm.last_launch["tile_source"] == "plan"
+        assert gk.gemm.last_launch["tile"] in gk.TILE_SETS[variant]
         _close(got, gk.gemm_plain(a, b, odt), out, 4.0)
         for epi in fk.EPILOGUES:
             _close(fk.gemm_bias_act(a, b, bias, epi, out_dtype=odt),
@@ -137,6 +143,58 @@ def test_gemm_tiled_variants_match_plain(card, dtype, out, variant):
     assert gk.gemm_variant(a, b) == variant
     _close(gk.gemm(a, b, out_dtype=odt), gk.gemm_plain(a, b, odt), out, 4.0)
     torch.cuda.synchronize()
+
+
+# every compiled tile of the tiled variants, with its operand and output
+# dtypes (B3 on the same tile)
+TILE_CASES = [(dt, out, v, t) for dt, outs in (
+    ("bfloat16", ("bfloat16", "float32")), ("float32", ("float32",)),
+    ("float64", ("float64",))) for out in outs
+    for v in (gk.TILED[getattr(torch, dt)],) for t in gk.TILE_SETS[v]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out,variant,tile", TILE_CASES)
+def test_gemm_compiled_tile_matches_plain(card, dtype, out, variant, tile):
+    """Each compiled CTA tile, handed over in a plan, launches (its own
+    tile, ``tile_source == "plan"``) and agrees with the plain version at a
+    shape that cuts it in m, n and k and at one it divides; B3 on it."""
+    rng = np.random.default_rng(6)
+    tdt, odt = getattr(torch, dtype), getattr(torch, out)
+    dev = lambda *s: torch.from_numpy(rng.normal(size=s)).to(card, tdt)
+    bm, bn, bk = tile
+    for m, n, k in ((3 * bm + 5, 2 * bn + 8, 5 * bk + 8),
+                    (2 * bm, 2 * bn, 4 * bk)):
+        a, b, bias = dev(m, k), dev(k, n), dev(n)
+        plan = cd.plan_from_blocks(m, n, k, bm, bn, bk, dtype=tdt,
+                                   machine="h100")
+        before = gk.gemm.variant_launches[variant]
+        got = gk.gemm(a, b, plan=plan, out_dtype=odt)
+        assert gk.gemm.variant_launches[variant] == before + 1
+        assert gk.gemm.last_launch["tile"] == tile
+        assert gk.gemm.last_launch["tile_source"] == "plan"
+        _close(got, gk.gemm_plain(a, b, odt), out, 4.0)
+        got = fk.gemm_bias_act(a, b, bias, "gelu", plan=plan, out_dtype=odt)
+        assert fk.gemm_bias_act.last_launch["tile"] == tile
+        _close(got, fk.gemm_bias_act_plain(a, b, bias, "gelu", odt), out, 4.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", fc.OP_CLASSES)
+def test_fpu_chain_matches_plain_bitwise(card, op):
+    """The dependent chain of each op class on the card gives the plain
+    loop's bits (IEEE float32 mul, add, div and sqrt round alike) and a
+    positive cycle count of at least one cycle per step."""
+    v0 = torch.from_numpy(1.5 + np.random.default_rng(7).uniform(size=8)
+                          .astype(np.float32)).to(card)
+    before = fc.fpu_chain.launches
+    got, cycles = fc.fpu_chain(op, v0, 512)
+    assert fc.fpu_chain.launches == before + 1
+    assert torch.equal(got, fc.fpu_chain_plain(op, v0, 512))
+    cycles = int(cycles)
+    assert cycles >= 512, cycles
+    print(f"\nfpu_chain {op}: {cycles / 512:.2f} cycles per dependent op")
 
 
 @pytest.mark.cuda
