@@ -6,10 +6,11 @@ Run from the root of a checkout on a machine with a CUDA card::
     python3 chip_smoke.py
 
 It builds every kernel of the port from ``src/repro_torch/csrc`` (one nvcc
-per source, in parallel) and drives the port's three paths: dense BLAS-3
-and blocked LAPACK through ``repro_torch.linalg`` at n = 8192, the tuning
-loop (sweep, registry, tuned dispatch, calibration), and the model zoo
-serving hymba-1.5b at full width. Phases, each printing JSON lines with
+per source, in parallel) and drives the port's paths: dense BLAS-3 and
+blocked LAPACK through ``repro_torch.linalg`` at n = 8192, QR, least
+squares, the batched drivers and level 1, the tuning loop (sweep,
+registry, tuned dispatch, calibration), and the model zoo serving
+hymba-1.5b at full width. Phases, each printing JSON lines with
 its wall time:
 
 1. ``probe``: the card, its power limit, capability 9.0, TF32 off, the
@@ -36,7 +37,20 @@ its wall time:
    device-only profile each of cholesky, lu and solve at 8192 under
    ``h100`` and again under ``linalg.use(machine="tpu-like")``, the two
    pricings side by side (device-busy ms, wall s).
-4. ``tune``: with the launch counts zeroed, ``tune_gemm`` at 4096^3 in
+4. ``lapack``: under ``h100`` and ``policy="model"``, each call with the
+   launch counts zeroed just before and read just after, against the
+   counts its plan implies: ``linalg.qr`` at 8192 f32 and 4096 f64 (B1
+   twice per panel with trailing columns, all on the tiled variant; Q's
+   orthogonality and A - QR checked in f64), one device-only profile of the
+   8192 call, a cold-start ``tuned`` QR at 4096 f32 bitwise the model's;
+   ``linalg.lstsq`` 8192 x 4096 f32 with 16 right-hand sides against the
+   f64 solution; ``batched_cholesky`` / ``batched_lu`` of 64 x 512 f32
+   (B2 three times per item), ``batched_qr`` of 64 x 512 x 256 and their
+   ``batched_solve`` with 8 right-hand sides (B1 ``gemv`` per TRSM
+   update); the level-1 routines at n = 2^26 f32 against f64 (none
+   launches a kernel of the port), ms per call beside the bytes bound; and
+   a traced 4096 f32 QR written by both exporters and read back.
+5. ``tune``: with the launch counts zeroed, ``tune_gemm`` at 4096^3 in
    f32, bf16 and f64 into a temporary registry (each candidate's tile,
    median, spread, modeled seconds and residual), a ``linalg.gemm`` under
    ``policy="tuned"`` that must hit the registry and launch the winner's
@@ -44,7 +58,7 @@ its wall time:
    at its default sizes (``calibrated-cuda`` beside ``h100``'s datasheet
    numbers, the cycles
    per dependent op of each class from the chain kernel).
-5. ``model``: hymba-1.5b (32 layers, d_model 1600) built on the card from
+6. ``model``: hymba-1.5b (32 layers, d_model 1600) built on the card from
    seed 0, one untimed prefill of 2 x 4096 tokens (set-up), then a warm
    ``model_zoo.prefill`` of 2 x 4096 other tokens with the launch counts
    zeroed just before and read just after (B5 and B6 must launch once per
@@ -52,7 +66,7 @@ its wall time:
    same way), one profiled prefill (device-busy time, the top kernels and
    B6's three ``ssd_`` kernels summed) and decode step, then a reduced
    hybrid model's ``forward`` on the card against its CPU (plain) route.
-6. ``times``: each kernel at its path's shapes against its plain version,
+7. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
@@ -126,6 +140,16 @@ REPLACES = {
                   "src/repro/arch/calibrate.py:131"),
 }
 TUNE_N = 4096                  # the tune phase's sweep shape (n^3)
+# the lapack phase: lstsq's rows, columns and right-hand sides; the
+# batched drivers' items, n and right-hand sides (ensemble-Kalman and
+# per-head-whitening sizes) and the columns of batched_qr's items; the
+# level-1 vectors' length (256 MB each in f32)
+LSTSQ = (8192, 4096, 16)
+BATCHED = (64, 512, 8)
+BATCHED_TALL = 256
+LEVEL1_N = 2 ** 26
+# QR's residuals |A - QR|/|A| and |Q^TQ - I|/sqrt(n): the Cholesky limits
+LAPACK_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 
 
 def emit(**row):
@@ -692,6 +716,417 @@ def phase_main(gen, build_dir):
     emit(pricings="h100 vs tpu-like on one card (device-only profiles)",
          **pricing)
     return {**launches, **variants, "plans": plans}
+
+
+def counted(tag, fn):
+    """``fn()`` run to completion with every kernel's launch count zeroed
+    just before and read just after; prints its wall seconds and counts."""
+    from repro_torch.kernels import gemm as gk
+
+    wrappers = zero_launches()
+    out, secs = sync_time(fn)
+    launches = {name: w.launches for name, w in wrappers.items()}
+    launches["gemm_variants"] = {v: c for v, c in
+                                 gk.gemm.variant_launches.items() if c}
+    emit(call=tag, wall_s=secs, launches=launches)
+    return out, launches
+
+
+def lapack_plans():
+    """The launch counts the lapack phase's calls imply under the card's
+    machine: B1 twice per QR panel with trailing columns (V^T C and V W),
+    "gemv" once per off-diagonal update of a TRSM with <= 16 right-hand
+    sides, B2 once per fused trailing update of a batched item."""
+    from repro_torch.lapack.cholesky import default_block
+    from repro_torch.tune import dispatch as td
+
+    def qr(m, n, dtype):
+        kmax = min(m, n)
+        block = default_block(kmax, "geqrf", dtype, "cuda")
+        return {"block": block, "b1": 2 * sum(
+            j0 + min(block, kmax - j0) < n for j0 in range(0, kmax, block))}
+
+    def trsm_updates(n, nrhs, dtype):
+        block = td.resolve("trsm", (n, nrhs), dtype, policy="model",
+                           backend="cuda").block
+        return -(-n // block) - 1
+
+    _, n, nrhs = BATCHED
+    m, k, lrhs = LSTSQ
+    facts = [factorization_plan(f"batched {kind} item", kind, n,
+                                torch.float32, form)
+             for kind, form in (("potrf", "syrk"), ("getrf", "lu"))]
+    return {f"qr f32 {N}": qr(N, N, torch.float32),
+            f"qr f64 {N64}": qr(N64, N64, torch.float64),
+            f"qr f32 {N64}": qr(N64, N64, torch.float32),
+            "lstsq": {**qr(m, k, torch.float32),
+                      "gemv": trsm_updates(k, lrhs, torch.float32)},
+            "batched items": facts,
+            "batched_qr item": qr(n, BATCHED_TALL, torch.float32),
+            # lower + upper solve per item of potrf / getrf, one of geqrf
+            "batched_solve gemv per item": {
+                "potrf": 2 * trsm_updates(n, nrhs, torch.float32),
+                "getrf": 2 * trsm_updates(n, nrhs, torch.float32),
+                "geqrf": trsm_updates(BATCHED_TALL, nrhs, torch.float32)}}
+
+
+def only(launches, trsm_gemm=0, **variants):
+    """Assert that a counted call launched exactly these B1 variants and
+    this many B2, and no other kernel."""
+    others = {k: v for k, v in launches.items()
+              if k not in ("gemm", "gemm_variants", "trsm_gemm") and v}
+    assert launches["gemm_variants"] == variants and launches["gemm"] == sum(
+        variants.values()) and launches["trsm_gemm"] == trsm_gemm \
+        and not others, (launches, variants, trsm_gemm)
+
+
+def phase_lapack():
+    """QR, least squares, the batched drivers, level 1 and the trace
+    exporters on the card under ``h100`` and ``policy="model"``, each call
+    counted on its own (:func:`counted`) against the counts its plan
+    implies (:func:`lapack_plans`). Before each driver call, every kernel
+    it runs is held to its plain version at the operands the driver hands
+    it (:func:`qr_update_checks`, :func:`b2_walk`,
+    :func:`trsm_gemv_checks`). Its inputs come from a generator of its own,
+    seeded with ``SEED``, so the later phases draw what they drew without
+    it."""
+    import math
+    import tempfile
+
+    from repro_torch import linalg, obs
+    from repro_torch.lapack import batched as lb
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.float64).to(dtype)
+
+    plans = lapack_plans()
+    emit(phase="lapack plans", **plans)
+    unfused = [f for f in plans["batched items"]
+               if f["fused"] != f["updates"]]
+    assert not unfused, f"h100 stages batched trailing updates: {unfused}"
+    t_phase = time.perf_counter()
+    checks = {}
+
+    def check(name, value, limit):
+        emit(residual=name, value=value, limit=limit, ok=value <= limit)
+        assert value <= limit, (name, value, limit)
+        checks[name] = value
+
+    # ---- QR: 8192 f32, 4096 f64 (B1 tiled twice per trailing update)
+    for n, dtype, tiled in ((N, torch.float32, "ffma"),
+                            (N64, torch.float64, "dmma")):
+        tag = f"qr {str(dtype)[6:].replace('float', 'f')} {n}"
+        a = rnd(n, n, dtype=dtype)
+        qr_update_checks(a, plans[tag]["block"], tiled)
+        with linalg.use(policy="model", device="cuda"):
+            (q, r), launches = counted(tag, lambda: linalg.qr(a))
+        only(launches, **{tiled: plans[tag]["b1"]})
+        a64, q64 = a.double(), q.double()
+        eye = torch.eye(n, device="cuda", dtype=torch.float64)
+        check(f"{tag} |A-QR|/|A|", rel(a64 - q64 @ r.double()) / rel(a64),
+              LAPACK_TOL[dtype])
+        check(f"{tag} |Q^TQ-I|/sqrt(n)", rel(q64.T @ q64 - eye)
+              / math.sqrt(n), LAPACK_TOL[dtype])
+        del q, r, a64, q64, eye
+        if dtype == torch.float32:
+            with linalg.use(policy="model", device="cuda"):
+                prof = profile_call(lambda: linalg.qr(a), cpu=False,
+                                    match=("gemm_ffma", "gemm_simt"))
+            emit(profile=f"{tag} (device only)", **prof)
+            assert prof["matched"]["gemm_ffma"]["launches"] <= \
+                plans[tag]["b1"] and prof["matched"]["gemm_simt"][
+                    "launches"] == 0, prof["matched"]
+        del a
+
+    # ---- a cold-start tuned QR equals the model's bitwise; then traced
+    small = f"qr f32 {N64}"
+    a = rnd(N64, N64)
+    qr_update_checks(a, plans[small]["block"], "ffma")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_lapack_") as tmp:
+        cold = os.path.join(tmp, "cold-start-registry.json")
+        with linalg.use(policy="model", device="cuda"):
+            (qm, rm), launches = counted(small, lambda: linalg.qr(a))
+        only(launches, ffma=plans[small]["b1"])
+        with linalg.use(policy="tuned", device="cuda", registry=cold):
+            (qt, rt), launches = counted(f"tuned (cold start) {small}",
+                                         lambda: linalg.qr(a))
+        only(launches, ffma=plans[small]["b1"])
+        assert torch.equal(qm, qt) and torch.equal(rm, rt)
+        assert not os.path.exists(cold)
+        tr = obs.Trace(small)
+        with linalg.use(policy="model", device="cuda", obs=tr):
+            sync_time(lambda: linalg.qr(a))
+        tr.finish()
+        export_checks(tr, tmp, plans[small])
+    del a, qm, rm, qt, rt
+
+    # ---- least squares: 8192 x 4096 f32, 16 right-hand sides
+    m, k, lrhs = LSTSQ
+    a, b = rnd(m, k), rnd(m, lrhs)
+    qr_update_checks(a, plans["lstsq"]["block"], "ffma")
+    # the final solve's factor R = triu(packed)[:k, :k]: a (k, k) window of
+    # an (m, k) tensor, row stride k; triu(A) has its layout
+    trsm_gemv_checks(gen, torch.triu(a)[:k, :k], False, lrhs, "lstsq R")
+    with linalg.use(policy="model", device="cuda"):
+        x, launches = counted(f"lstsq f32 {m}x{k} nrhs={lrhs}",
+                              lambda: linalg.lstsq(a, b))
+    only(launches, ffma=plans["lstsq"]["b1"], gemv=plans["lstsq"]["gemv"])
+    want = torch.linalg.lstsq(a.double(), b.double()).solution
+    check("lstsq f32 |x - x_f64|/|x_f64|", rel(x.double() - want) / rel(want),
+          1e-4)
+    del a, b, x, want
+
+    # ---- batched drivers: 64 items of 512 (and 512 x 256 for QR)
+    items, n, nrhs = BATCHED
+    per_item = plans["batched_solve gemv per item"]
+    fused = {f["call"].split()[1]: f["fused"] for f in plans["batched items"]}
+    g = rnd(items, n, n)
+    spd = g @ g.transpose(1, 2) / n + torch.eye(n, device="cuda")
+    tall = rnd(items, n, BATCHED_TALL)
+    rhs = rnd(items, n, nrhs)
+    blocks = {f["call"].split()[1]: f["block"] for f in plans["batched items"]}
+    b2_walk("potrf", spd[0], blocks["potrf"])
+    b2_walk("getrf", g[0], blocks["getrf"])
+    qr_update_checks(tall[0], plans["batched_qr item"]["block"], "ffma")
+    batched = {}
+    for kind, routine, a in (("potrf", "batched_cholesky", spd),
+                             ("getrf", "batched_lu", g),
+                             ("geqrf", "batched_qr", tall)):
+        with linalg.use(policy="model", device="cuda"):
+            res, launches = counted(
+                f"{routine} {items}x{tuple(a.shape[1:])} f32",
+                lambda: getattr(linalg, routine)(a))
+            batched[routine] = launches
+            if kind == "geqrf":
+                only(launches, ffma=items * plans["batched_qr item"]["b1"])
+            else:
+                only(launches, trsm_gemm=items * fused[kind])
+            # the solve's triangular factors of the first item, as
+            # potrs / getrs / geqrs hand them to the blocked TRSM
+            f0 = res.factors[0]
+            factors = {"potrf": ((f0, True), (f0.T.contiguous(), False)),
+                       "getrf": ((f0, True), (f0, False)),
+                       "geqrf": ((torch.triu(f0)[:BATCHED_TALL,
+                                                 :BATCHED_TALL], False),)}
+            for t, lower in factors[kind]:
+                trsm_gemv_checks(gen, t, lower, nrhs,
+                                 f"batched_solve ({kind}) item 0")
+            x, launches = counted(f"batched_solve ({kind}) nrhs={nrhs}",
+                                  lambda: linalg.batched_solve(res, rhs))
+            batched[f"batched_solve ({kind})"] = launches
+        only(launches, gemv=items * per_item[kind])
+        a64, x64, r64 = a.double(), x.double(), rhs.double()
+        check(f"{routine} max_i |A_i - rebuilt|/|A_i|",
+              max(rel(d) / rel(s) for d, s in
+                  zip(lb.reconstruct(res).double() - a64, a64)), 1e-4)
+        if kind == "geqrf":
+            # least squares: the normal equations' backward residual, and
+            # x against the f64 solution
+            want = torch.linalg.lstsq(a64, r64).solution
+            check("batched_solve (geqrf) max_i |A^T(Ax-b)|/(|A|(|A||x|+|b|))",
+                  max(rel(ai.T @ (ai @ xi - bi)) / (rel(ai) * (
+                      rel(ai) * rel(xi) + rel(bi)))
+                      for ai, xi, bi in zip(a64, x64, r64)), 1e-5)
+            check("batched_solve (geqrf) max_i |x - x_f64|/|x_f64|",
+                  max(rel(xi - wi) / rel(wi) for xi, wi in zip(x64, want)),
+                  1e-4)
+        else:
+            check(f"batched_solve ({kind}) max_i |Ax-b|/(|A||x|+|b|)",
+                  max(rel(ai @ xi - bi) / (rel(ai) * rel(xi) + rel(bi))
+                      for ai, xi, bi in zip(a64, x64, r64)), 1e-5)
+        del res, x, a64, x64, r64
+    del g, spd, tall, rhs
+
+    # ---- level 1 at n = 2^26 f32, each against the same sums in f64
+    level1_checks(gen, check)
+    emit(phase="lapack", wall_s=time.perf_counter() - t_phase,
+         batched_launches=batched, residuals=checks)
+
+
+def path_gemm_check(name, x, y, variant):
+    """B1 at one operand pair of the lapack path, on the tile of its
+    ``h100`` plan (as ``tune.dispatch`` hands it over), against the plain
+    version; the call must take ``variant``."""
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.tune import dispatch as td
+
+    plan = td.resolve("gemm", (x.shape[0], y.shape[1], x.shape[1]), x.dtype,
+                      policy="model", backend="cuda").gemm_plan
+    got = gk.gemm(x, y, plan=plan)
+    launch = gk.gemm.last_launch
+    assert launch["variant"] == variant, (name, launch)
+    compare(f"gemm {name} {tuple(x.shape)}x{tuple(y.shape)} strides "
+            f"{x.stride()} {y.stride()} [{variant} {launch['tile']}]",
+            got, gk.gemm_plain(x, y))
+
+
+def qr_update_checks(a, block, tiled):
+    """B1 at the first trailing update of the blocked QR of ``a``: the
+    first panel factored, then V^T C and V W on the operands ``geqrf``
+    hands over (``lapack/qr.py::wy_operands``: V^T contiguous, C a window
+    of the packed matrix), both on the dtype's ``tiled`` variant."""
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.lapack import qr as lq
+
+    tag = f"qr {str(a.dtype)[6:]} {a.shape[0]}x{a.shape[1]} nb={block}"
+    panel, tau = lq.geqrf_unblocked(a[:, :block])
+    packed = torch.cat([panel, a[:, block:]], 1)
+    vt, v, t, c = lq.wy_operands(packed, 0, block, tau)
+    path_gemm_check(f"{tag} V^T C", vt, c, tiled)
+    path_gemm_check(f"{tag} V W", v, t.T @ gk.gemm_plain(vt, c), tiled)
+
+
+def b2_walk(kind, a, block):
+    """B2 at every trailing update of one batched item's blocked ``potrf``
+    (form "syrk") or ``getrf`` (form "lu"), on the strided views of the
+    working copy that the driver hands over, against the plain version;
+    the walk goes on with the plain results."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.lapack import cholesky as lc
+    from repro_torch.lapack import lu as ll
+
+    a, n = a.clone(), a.shape[0]
+    form, unit = ("syrk", False) if kind == "potrf" else ("lu", True)
+    for j0 in range(0, n - block, block):
+        j1 = j0 + block
+        if kind == "potrf":
+            a[j0:j1, j0:j1] = lc.potrf_unblocked(a[j0:j1, j0:j1])
+            args = (a[j0:j1, j0:j1], a[j1:, j0:j1].T, None, a[j1:, j1:])
+        else:
+            for k in range(j0, j1):
+                ll._pivot_step(a, k, j1)
+            args = (a[j0:j1, j0:j1], a[j0:j1, j1:], a[j1:, j0:j1],
+                    a[j1:, j1:])
+        x, c = fk.trsm_gemm(*args, form=form, unit_diag=unit)
+        xp, cp = fk.trsm_gemm_plain(*args, form=form, unit_diag=unit)
+        name = (f"trsm_gemm {str(a.dtype)[6:]} batched {kind} item "
+                f"nb={block} n={n - j1} {form} unit={unit}")
+        compare(name + " X", x, xp)
+        compare(name + " C", c, cp)
+        if kind == "potrf":
+            a[j1:, j0:j1] = xp.T
+        else:
+            a[j0:j1, j1:] = xp
+        a[j1:, j1:] = cp
+
+
+def trsm_gemv_checks(gen, t, lower, nrhs, tag):
+    """B1's "gemv" at every off-diagonal update of the blocked TRSM that a
+    solve runs on the triangular factor ``t`` with ``nrhs`` right-hand
+    sides (``blas/level3.py::trsm``: a row window of T times the solved
+    rows of X), each against its plain version."""
+    from repro_torch.tune import dispatch as td
+
+    n = t.shape[0]
+    block = td.resolve("trsm", (n, nrhs), t.dtype, policy="model",
+                       backend="cuda").block
+    x = torch.randn(n, nrhs, generator=gen, device="cuda", dtype=t.dtype)
+    side = "lower" if lower else "upper"
+    for i0 in range(0, n, block):
+        i1 = min(i0 + block, n)
+        if lower and i0 > 0:
+            path_gemm_check(f"{tag} {side} TRSM rows {i0}:{i1}",
+                            t[i0:i1, :i0], x[:i0], "gemv")
+        elif not lower and i1 < n:
+            path_gemm_check(f"{tag} {side} TRSM rows {i0}:{i1}",
+                            t[i0:i1, i1:], x[i1:], "gemv")
+
+
+def export_checks(tr, tmp, plan):
+    """Write ``tr`` (a traced QR f32 4096) in both exporter formats, read
+    the files back and check them: the schema version and event fields,
+    ``ts`` / ``t_start`` in order, and the QR's panel and trailing spans
+    nested under its ``linalg.qr`` span."""
+    from repro_torch import obs
+
+    chrome = obs.save_chrome_trace(tr, os.path.join(tmp, "qr.json"))
+    lines = obs.save_jsonl(tr, os.path.join(tmp, "qr.jsonl"))
+    with open(chrome) as f:
+        blob = json.load(f)
+    with open(lines) as f:
+        recs = [json.loads(line) for line in f]
+    events = blob["traceEvents"]
+    ts = [e["ts"] for e in events]
+    body = [r for r in recs if r["kind"] == "event"]
+    assert blob["otherData"]["schema_version"] == obs.SCHEMA_VERSION
+    assert recs[0]["kind"] == "header" and recs[-1]["kind"] == "counters"
+    assert recs[0]["schema_version"] == obs.SCHEMA_VERSION
+    assert all(tuple(k for k in r if k != "kind") == obs.EVENT_FIELDS
+               for r in body), body[:2]
+    assert ts == sorted(ts) and len(events) == len(body) == len(tr.events)
+    starts = [r["t_start"] for r in body]
+    assert starts == sorted(starts)
+    (top,) = [r for r in body if r["name"] == "linalg.qr"]
+    nested = {name: sum(r["name"] == name and r["parent"] == top["id"]
+                        for r in body)
+              for name in ("geqrf.panel", "geqrf.trailing")}
+    panels = -(-N64 // plan["block"])
+    assert nested == {"geqrf.panel": panels,
+                      "geqrf.trailing": plan["b1"] // 2}, nested
+    emit(export=f"{tr.name} traced, written and read back",
+         events=len(body), nested=nested,
+         bytes={"chrome": os.path.getsize(chrome),
+                "jsonl": os.path.getsize(lines)},
+         summary=obs.summary(tr).splitlines()[:6])
+
+
+def level1_checks(gen, check):
+    """Each level-1 routine (``dot`` in its three schedules) at n = 2^26
+    f32 through ``linalg`` on the card against the same computation in
+    f64 on the card, its ms per call (CUDA events) beside the bytes it
+    must move at 3.35 TB/s; none may launch B4 or any other kernel of the
+    port. ``iamax`` must be exact."""
+    from repro_torch import linalg
+
+    n = LEVEL1_N
+    x = torch.randn(n, generator=gen, device="cuda")
+    y = torch.randn(n, generator=gen, device="cuda")
+    x64, y64 = x.double(), y.double()
+    xy = x64 * y64
+    dot_err = lambda got: abs(got.item() - xy.sum().item()) \
+        / xy.abs().sum().item()
+    vec = n * 4
+    # name: (call, bytes it must move, its error against f64)
+    cases = {
+        "dot tree": (lambda: linalg.dot(x, y), 2 * vec, dot_err),
+        "dot sequential": (lambda: linalg.dot(x, y, schedule="sequential"),
+                           2 * vec, dot_err),
+        "dot strided U=8": (lambda: linalg.dot(x, y, schedule="strided"),
+                            2 * vec, dot_err),
+        "axpy": (lambda: linalg.axpy(1.5, x, y), 3 * vec,
+                 lambda got: rel_max(got, 1.5 * x64 + y64)),
+        "scal": (lambda: linalg.scal(-2.0, x), 2 * vec,
+                 lambda got: rel_max(got, -2.0 * x64)),
+        "nrm2": (lambda: linalg.nrm2(x), vec, lambda got: abs(
+            got.item() - x64.norm().item()) / x64.norm().item()),
+        "asum": (lambda: linalg.asum(x), vec, lambda got: abs(
+            got.item() - x64.abs().sum().item()) / x64.abs().sum().item()),
+        "iamax": (lambda: linalg.iamax(x), vec, lambda got: float(
+            got.item() != x64.abs().argmax().item())),
+        "rot": (lambda: linalg.rot(x, y, 0.6, 0.8), 4 * vec,
+                lambda got: max(rel_max(got[0], 0.6 * x64 + 0.8 * y64),
+                                rel_max(got[1], 0.6 * y64 - 0.8 * x64))),
+    }
+    rows = {}
+    with linalg.use(policy="model", device="cuda"):
+        for name, (fn, nbytes, err) in cases.items():
+            got, launches = counted(f"{name} n=2^26 f32", fn)
+            assert not any(v for k, v in launches.items()
+                           if k != "gemm_variants"), launches
+            check(f"{name} n=2^26 f32 vs f64",
+                  err(got), 0.0 if name == "iamax" else 1e-5)
+            rows[name] = {"ms": cuda_ms(fn), "bound_ms": nbytes
+                          / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit(level1="n=2^26 f32, ms per call (CUDA events, 5 calls after one "
+                "warm-up) beside the bytes bound at 3.35 TB/s", **rows)
+
+
+def rel_max(got, want):
+    """max|got - want| / max|want|, in f64."""
+    return (got.double() - want).abs().max().item() / want.abs().max().item()
 
 
 def phase_tune(gen):
@@ -1445,6 +1880,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches = phase_main(gen, _build.BUILD_DIR)
     emit(phase_done="main", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_lapack()
+    emit(phase_done="lapack", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     launches["fpu_chain"] = phase_tune(gen)["fpu_chain"]
     emit(phase_done="tune", wall_s=time.perf_counter() - t0)

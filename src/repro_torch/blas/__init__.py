@@ -1,5 +1,10 @@
-"""repro_torch.blas - BLAS level-2/3 cores (port of ``repro.blas``).
-
-Level 1, the d-prefixed deprecation shims and the distributed layer are
-later work.
+"""repro_torch.blas - BLAS level-1/2/3 cores and the deprecated
+d-prefixed shims (port of ``repro.blas``; the distributed layer is later
+work). The public, context-scoped front-end is :mod:`repro_torch.linalg`.
 """
+from repro_torch.blas import level1, level2, level3
+from repro_torch.blas.level1 import (asum, axpy, dasum, daxpy, ddot, dnrm2,
+                                     dot, drot, dscal, iamax, idamax, nrm2,
+                                     rot, scal)
+from repro_torch.blas.level2 import dgemv, dger, dtrsv, gemv, ger, trsv
+from repro_torch.blas.level3 import dgemm, dsyrk, dtrsm, gemm, syrk, trsm

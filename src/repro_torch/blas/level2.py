@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.blas._deprecated import compat, warn_once
 from repro_torch.blas.level3 import _trsm_unblocked
 from repro_torch.tune import dispatch as _tune
 
@@ -38,3 +39,31 @@ def trsv(a: torch.Tensor, b: torch.Tensor, lower: bool = True,
     """Solve op(T) x = b for triangular T by row-sequential substitution
     (the divider-pipe hazard chain); b is (n,) or (n, k)."""
     return _trsm_unblocked(a, b, lower=lower, unit_diag=unit_diag)
+
+
+# -------------------------- deprecated d-prefixed shims ----------------------
+# Old kwargs map to a per-call compat context (no ``interpret``: the
+# operands' device decides where the port runs).
+
+def dgemv(a, x, beta=0.0, y=None, alpha=1.0, trans: bool = False,
+          policy: Optional[str] = None, use_kernel: Optional[bool] = None,
+          registry=None, use_pallas: Optional[bool] = None):
+    """Deprecated alias of :func:`repro_torch.linalg.gemv`."""
+    warn_once("dgemv", "gemv")
+    linalg, ctx = compat(policy, use_kernel, registry, use_pallas)
+    return linalg.gemv(a, x, y=y, alpha=alpha, beta=beta, trans=trans,
+                       context=ctx)
+
+
+def dger(alpha, x, y, a):
+    """Deprecated alias of :func:`repro_torch.linalg.ger`."""
+    warn_once("dger", "ger")
+    linalg, ctx = compat()
+    return linalg.ger(alpha, x, y, a, context=ctx)
+
+
+def dtrsv(a, b, lower: bool = True, unit_diag: bool = False):
+    """Deprecated alias of :func:`repro_torch.linalg.trsv`."""
+    warn_once("dtrsv", "trsv")
+    linalg, ctx = compat()
+    return linalg.trsv(a, b, lower=lower, unit_diag=unit_diag, context=ctx)

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.blas._deprecated import compat, warn_once
 from repro_torch.tune import dispatch as _tune
 from repro_torch.tune.policy import resolve_policy
 
@@ -117,3 +118,40 @@ def _trsm_unblocked(a: torch.Tensor, b: torch.Tensor, lower: bool,
         s = b[i] - strict[i] @ x
         x[i] = s if unit_diag else s / diag[i]
     return x
+
+
+# -------------------------- deprecated d-prefixed shims ----------------------
+# Old kwargs map to a per-call compat context (no ``interpret``: the
+# operands' device decides where the port runs).
+
+def dgemm(a, b, c=None, alpha=1.0, beta=0.0, transa: bool = False,
+          transb: bool = False, policy: Optional[str] = None,
+          use_kernel: Optional[bool] = None, registry=None,
+          use_pallas: Optional[bool] = None):
+    """Deprecated alias of :func:`repro_torch.linalg.gemm`."""
+    warn_once("dgemm", "gemm")
+    linalg, ctx = compat(policy, use_kernel, registry, use_pallas)
+    return linalg.gemm(a, b, c=c, alpha=alpha, beta=beta, transa=transa,
+                       transb=transb, context=ctx)
+
+
+def dsyrk(a, c=None, alpha=1.0, beta=0.0, lower: bool = True,
+          trans: bool = False, policy: Optional[str] = None,
+          use_kernel: Optional[bool] = None, registry=None,
+          use_pallas: Optional[bool] = None):
+    """Deprecated alias of :func:`repro_torch.linalg.syrk`."""
+    warn_once("dsyrk", "syrk")
+    linalg, ctx = compat(policy, use_kernel, registry, use_pallas)
+    return linalg.syrk(a, c=c, alpha=alpha, beta=beta, lower=lower,
+                       trans=trans, context=ctx)
+
+
+def dtrsm(a, b, lower: bool = True, unit_diag: bool = False,
+          left: bool = True, block: Optional[int] = None,
+          policy: Optional[str] = None, use_kernel: Optional[bool] = None,
+          registry=None, use_pallas: Optional[bool] = None):
+    """Deprecated alias of :func:`repro_torch.linalg.trsm`."""
+    warn_once("dtrsm", "trsm")
+    linalg, ctx = compat(policy, use_kernel, registry, use_pallas)
+    return linalg.trsm(a, b, lower=lower, unit_diag=unit_diag, left=left,
+                       block=block, context=ctx)

@@ -1,3 +1,11 @@
-"""repro_torch.lapack - blocked Cholesky, LU and the LU solve (port of
-``repro.lapack``; QR, least squares and the batched drivers are later
-work)."""
+"""repro_torch.lapack - blocked Cholesky, LU and QR, the solves on them,
+and the batched drivers (port of ``repro.lapack``; the distributed layer
+is later work)."""
+from repro_torch.lapack import batched, cholesky, lu, qr, solve
+from repro_torch.lapack.batched import (FactorizationResult, batched_geqrf,
+                                        batched_getrf, batched_potrf,
+                                        batched_solve, reconstruct)
+from repro_torch.lapack.cholesky import potrf, potrf_unblocked
+from repro_torch.lapack.lu import getrf, getrf_unblocked, lu_reconstruct
+from repro_torch.lapack.qr import geqrf, geqrf_unblocked, q_from_geqrf
+from repro_torch.lapack.solve import gesv, lstsq_qr

@@ -1,30 +1,49 @@
 """repro_torch.linalg - the dtype-generic, context-scoped front-end.
 
-Port of ``repro.linalg`` for BLAS levels 2-3 and the Cholesky/LU/solve
-drivers. The execution - policy, registry, accumulation dtype, machine,
-device - is carried by a scoped :class:`ExecutionContext`::
+Port of ``repro.linalg``: one set of routine names (``gemm``, ``gemv``,
+``syrk``, ``trsm``, ``axpy``, ``dot``, ..., ``cholesky``, ``lu``,
+``qr``, ``solve``, ``lstsq`` and their batched forms) over float32 /
+float64 (bfloat16 storage on the GEMM paths). The execution - policy,
+registry, accumulation dtype, machine, device - is carried by a scoped
+:class:`ExecutionContext`::
 
     from repro_torch import linalg
 
     with linalg.use(policy="model"):       # kernels on the card (default)
         c = linalg.gemm(a, b)              # numpy in, cuda tensor out
-        l = linalg.cholesky(spd)
+        q, r = linalg.qr(a)
+        res = linalg.batched_cholesky(spd_batch)
+        x = linalg.batched_solve(res, rhs)
 
     with linalg.use(device="cpu", policy="model"):
         c = linalg.gemm(a, b)              # the kernels' plain versions
 
-Level 1, QR/least squares, the batched drivers, the mesh routes and the
-d-prefixed shims are later work.
+The old d-prefixed routines (``repro_torch.blas.dgemm``, ...) survive as
+warn-once shims that forward here. The reference's mesh routes come with
+the distributed layer.
 """
-from repro_torch.linalg.blas import (gemm, gemm_bias_act, gemv, ger, syrk,
+from repro_torch.lapack.batched import FactorizationResult
+from repro_torch.linalg.blas import (asum, axpy, dot, gemm, gemm_bias_act,
+                                     gemv, ger, iamax, nrm2, rot, scal, syrk,
                                      trsm, trsv)
 from repro_torch.linalg.context import (UNSET, ExecutionContext, get_context,
                                         reset_context, set_context, use)
-from repro_torch.linalg.lapack import cholesky, lu, solve
+from repro_torch.linalg.lapack import (batched_cholesky, batched_lu,
+                                       batched_qr, batched_solve, cholesky,
+                                       lstsq, lu, qr, solve)
 
 __all__ = [
+    # context machinery
     "ExecutionContext", "use", "get_context", "set_context", "reset_context",
+    # BLAS level 1
+    "axpy", "dot", "scal", "nrm2", "asum", "iamax", "rot",
+    # BLAS level 2
     "gemv", "ger", "trsv",
+    # BLAS level 3
     "gemm", "gemm_bias_act", "syrk", "trsm",
-    "cholesky", "lu", "solve",
+    # LAPACK
+    "cholesky", "lu", "qr", "solve", "lstsq",
+    # batched LAPACK
+    "batched_cholesky", "batched_lu", "batched_qr", "batched_solve",
+    "FactorizationResult",
 ]

@@ -1,6 +1,6 @@
 """dtype-generic BLAS front-end, routed by the active ExecutionContext.
 
-Port of ``repro.linalg.blas`` (levels 2 and 3). Every routine here:
+Port of ``repro.linalg.blas`` (levels 1-3). Every routine here:
 
 * places numpy inputs on the context's device and raises on a tensor
   that lies elsewhere (:func:`_place`);
@@ -12,8 +12,8 @@ Port of ``repro.linalg.blas`` (levels 2 and 3). Every routine here:
 * takes a leading batch axis on the matrix routines (3-D operands loop
   over the 2-D path - no vmap).
 
-The numeric cores live in :mod:`repro_torch.blas.level2` / ``level3``.
-Level 1 and the mesh-routed paths are later work.
+The numeric cores live in :mod:`repro_torch.blas.level1` / ``level2`` /
+``level3``. The reference's mesh routes come with the distributed layer.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch
 from repro_torch import _dtype
 from repro_torch import arch as _arch
 from repro_torch import obs as _obs
+from repro_torch.blas import level1 as _l1
 from repro_torch.blas import level2 as _l2
 from repro_torch.blas import level3 as _l3
 from repro_torch.linalg.context import (current, resolved_accum_dtype,
@@ -166,6 +167,18 @@ def _trsv_info(a, b, **kw):
     n = _shape(a)[-1]
     return {"shape": [n], "dtype": _dtype_name(a, b), "flops": n * n,
             "bytes": _nbytes(a, b)}
+
+
+def _vec_info(flop_per_elem):
+    def info(*args, **kw):
+        arrs = [a for a in args if getattr(a, "shape", None) is not None
+                or isinstance(a, (list, tuple))]
+        x = arrs[0] if arrs else args[0]
+        x = x if getattr(x, "shape", None) is not None else _as_tensor(x)
+        return {"shape": list(_shape(x)), "dtype": _dtype_name(x),
+                "flops": flop_per_elem * int(np.prod(_shape(x))),
+                "bytes": _nbytes(*args)}
+    return info
 
 
 # ------------------------- operands: device and dtype -----------------------
@@ -343,3 +356,66 @@ def trsv(a, b, lower: bool = True, unit_diag: bool = False, dtype=None,
     ctx = current(context)
     store, (a_, b_) = _operands(ctx, dtype, a, b)
     return _cast(_l2.trsv(a_, b_, lower=lower, unit_diag=unit_diag), store)
+
+
+# -------------------------------- level 1 -----------------------------------
+
+@_routine("dot", _vec_info(2))
+def dot(x, y, schedule: str = "tree", accumulators: int = 8, dtype=None,
+        context=None) -> torch.Tensor:
+    """Inner product with an explicit reduction schedule (tree / sequential
+    / strided, see :func:`repro_torch.blas.level1.dot`); plain PyTorch,
+    never B4, as in the reference. ``accum_dtype`` in the context upcasts
+    the whole reduction."""
+    ctx = current(context)
+    store, (x_, y_) = _operands(ctx, dtype, x, y)
+    return _cast(_l1.dot(x_, y_, schedule=schedule,
+                         accumulators=accumulators), store)
+
+
+@_routine("axpy", _vec_info(2))
+def axpy(alpha, x, y, dtype=None, context=None) -> torch.Tensor:
+    """y <- alpha*x + y."""
+    ctx = current(context)
+    store, (x_, y_) = _operands(ctx, dtype, x, y)
+    return _cast(_l1.axpy(alpha, x_, y_), store)
+
+
+@_routine("scal", _vec_info(1))
+def scal(alpha, x, dtype=None, context=None) -> torch.Tensor:
+    """x <- alpha*x."""
+    ctx = current(context)
+    store, (x_,) = _operands(ctx, dtype, x)
+    return _cast(_l1.scal(alpha, x_), store)
+
+
+@_routine("nrm2", _vec_info(2))
+def nrm2(x, dtype=None, context=None) -> torch.Tensor:
+    """Overflow-safe Euclidean norm."""
+    ctx = current(context)
+    store, (x_,) = _operands(ctx, dtype, x)
+    return _cast(_l1.nrm2(x_), store)
+
+
+@_routine("asum", _vec_info(1))
+def asum(x, dtype=None, context=None) -> torch.Tensor:
+    """Sum of absolute values."""
+    ctx = current(context)
+    store, (x_,) = _operands(ctx, dtype, x)
+    return _cast(_l1.asum(x_), store)
+
+
+@_routine("iamax", _vec_info(1))
+def iamax(x, context=None) -> torch.Tensor:
+    """Index of the first max-|x| element (0-based int64; no dtype cast)."""
+    (x_,) = _place(current(context), x)
+    return _l1.iamax(x_)
+
+
+@_routine("rot", _vec_info(6))
+def rot(x, y, c, s, dtype=None, context=None):
+    """Apply a Givens rotation: (c*x + s*y, c*y - s*x)."""
+    ctx = current(context)
+    store, (x_, y_) = _operands(ctx, dtype, x, y)
+    gx, gy = _l1.rot(x_, y_, c, s)
+    return _cast(gx, store), _cast(gy, store)

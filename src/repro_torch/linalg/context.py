@@ -209,6 +209,29 @@ def reset_context() -> None:
     _scopes.set(())
 
 
+def compat_context(policy=None, use_kernel=None, registry=None,
+                   use_pallas=None) -> ExecutionContext:
+    """Old kwargs -> per-call context (the d-prefixed shims' bridge).
+
+    Pins ``accum_dtype=None`` and ``machine=None`` so a deprecated call
+    behaves like the routine it shims - operand-dtype accumulation and no
+    machine of its own (``machine=None`` overrides any enclosing context
+    machine: the call is priced for the ambient machine of its device) -
+    whatever context is active. The device still comes from the context.
+    ``use_kernel`` / ``use_pallas`` go through
+    :func:`repro_torch.tune.policy.resolve_policy`, which owns their
+    deprecation warnings.
+    """
+    if policy is not None or use_kernel is not None or use_pallas is not None:
+        from repro_torch.tune.policy import resolve_policy
+        pol = resolve_policy(policy, use_kernel, use_pallas)
+    else:
+        pol = UNSET
+    return ExecutionContext(
+        policy=pol, accum_dtype=None, machine=None,
+        registry=registry if registry is not None else UNSET)
+
+
 # ------------------------- lazy field normalizers ---------------------------
 
 _registry_cache: Dict[str, Any] = {}

@@ -7,14 +7,19 @@
             linalg.cholesky(a)               # spans + provenance events
     tr.counters                              # counter delta of the capture
 
-The span schema (:data:`EVENT_FIELDS`) and the counter vocabulary
-(:data:`KNOWN_COUNTERS`) are the reference's. The exporters
-(``repro.obs.export``) are later work.
+    obs.save_chrome_trace(tr, "chol.json")   # chrome://tracing / Perfetto
+    obs.save_jsonl(tr, "chol.jsonl")         # one event per line
+    print(obs.summary(tr))                   # per-(cat, name) rollup
+
+The span schema (:data:`EVENT_FIELDS`), the exporters' file formats and
+the counter vocabulary (:data:`KNOWN_COUNTERS`) are the reference's.
 """
 from repro_torch.obs.counters import (KNOWN_COUNTERS, delta as counters_delta,
                                       inc, reset as reset_counters,
                                       snapshot as counters_snapshot,
                                       value as counter)
+from repro_torch.obs.export import (save_chrome_trace, save_jsonl, summary,
+                                    to_chrome_trace, to_jsonl)
 from repro_torch.obs.trace import (EVENT_FIELDS, NOOP_SPAN, SCHEMA_VERSION,
                                    Span, Trace, annotate, capture,
                                    current_trace, enabled, event, span, trace)
@@ -25,4 +30,6 @@ __all__ = [
     "enabled", "current_trace", "NOOP_SPAN",
     "KNOWN_COUNTERS", "inc", "counter", "counters_snapshot",
     "counters_delta", "reset_counters",
+    "to_chrome_trace", "save_chrome_trace", "to_jsonl", "save_jsonl",
+    "summary",
 ]

@@ -15,7 +15,8 @@ and, when disabled, costs one contextvar lookup:
 
 Host-clock caveat: CUDA work is asynchronous, so a span's wall time is
 the time to *enqueue* the work unless the code inside it synchronises.
-Timing spans with CUDA events is later work (with the exporters).
+The reference's spans time the host too; device time per span would be a
+field the reference lacks.
 """
 from __future__ import annotations
 

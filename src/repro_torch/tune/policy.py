@@ -5,12 +5,13 @@
 ``"tuned"``     - the kernels, measured config from the registry; a cold
                   start falls back to the ``model`` resolution.
 
-The deprecated ``use_kernel``/``use_pallas`` aliases of the reference
-come with the port of its d-prefixed shims.
+``use_kernel`` (and its older spelling ``use_pallas``) survive as
+deprecated aliases: True -> ``"model"``, False -> ``"reference"``.
 """
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional
 
 POLICIES = ("reference", "model", "tuned")
@@ -19,6 +20,7 @@ POLICIES = ("reference", "model", "tuned")
 KERNEL_POLICIES = ("model", "tuned")
 
 _ENV_POLICY = "REPRO_TUNE_POLICY"
+_warned_aliases: set = set()
 
 
 def default_policy() -> str:
@@ -31,14 +33,32 @@ def default_policy() -> str:
     return pol
 
 
-def resolve_policy(policy: Optional[str] = None) -> str:
-    """An explicit ``policy``, validated; ``None`` = :func:`default_policy`."""
-    if policy is None:
-        return default_policy()
-    if policy not in POLICIES:
-        raise ValueError(f"unknown policy {policy!r}; expected one of "
-                         f"{POLICIES}")
-    return policy
+def resolve_policy(policy: Optional[str] = None,
+                   use_kernel: Optional[bool] = None,
+                   use_pallas: Optional[bool] = None) -> str:
+    """Collapse (policy, deprecated use_kernel/use_pallas) into one policy.
+
+    An explicit ``policy`` always wins (validated). ``use_kernel``, then
+    ``use_pallas``, map True -> ``"model"`` and False -> ``"reference"``;
+    each alias warns once per process. With none given,
+    :func:`default_policy` applies.
+    """
+    if policy is not None:
+        if policy not in POLICIES:
+            raise ValueError(f"unknown policy {policy!r}; expected one of "
+                             f"{POLICIES}")
+        return policy
+    for name, flag in (("use_kernel", use_kernel), ("use_pallas", use_pallas)):
+        if flag is None:
+            continue
+        if name not in _warned_aliases:
+            _warned_aliases.add(name)
+            warnings.warn(
+                f"{name} is deprecated; pass policy='model' (True) or "
+                f"policy='reference' (False) instead", DeprecationWarning,
+                stacklevel=3)
+        return "model" if flag else "reference"
+    return default_policy()
 
 
 def uses_kernel(policy: str) -> bool:

@@ -253,6 +253,26 @@ def test_gemm_gemv_matches_plain(card, dtype, out):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_qr_trailing_update_matches_plain(card, dtype):
+    """geqrf with its trailing products on B1 (``model``) against the same
+    factorization with plain products (``reference``) on the card: 5
+    panels of 64, 4 with trailing columns, two tiled launches each."""
+    from repro_torch.lapack import qr
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(384, 320, generator=gen, device=card, dtype=torch.float64)
+    a = a.to(dt)
+    gk.reset_launches(gk.gemm)
+    packed, tau = qr.geqrf(a, block=64, policy="model")
+    launches = dict(gk.gemm.variant_launches)
+    plain, plain_tau = qr.geqrf(a, block=64, policy="reference")
+    assert launches == {**dict.fromkeys(gk.VARIANTS, 0), gk.TILED[dt]: 8}
+    _close(packed, plain, dtype, 16.0)
+    _close(tau, plain_tau, dtype, 16.0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 def test_trsm_gemm_kernel_matches_plain(card, dtype):
     rng = np.random.default_rng(0)
