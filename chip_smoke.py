@@ -9,9 +9,10 @@ It builds every kernel of the port from ``src/repro_torch/csrc`` (one nvcc
 per source, in parallel) and drives the port's paths: dense BLAS-3 and
 blocked LAPACK through ``repro_torch.linalg`` at n = 8192, QR, least
 squares, the batched drivers and level 1, the tuning loop (sweep,
-registry, tuned dispatch, calibration), and the model zoo serving
-hymba-1.5b at full width. Phases, each printing JSON lines with
-its wall time:
+registry, tuned dispatch, calibration), the model zoo serving
+hymba-1.5b at full width, and the paper's own apparatus (figs 12-13 on
+the PE scoreboard kernel, the quickstart's codesigned kernels). Phases,
+each printing JSON lines with its wall time:
 
 1. ``probe``: the card, its power limit, capability 9.0, TF32 off, the
    kernel build.
@@ -66,14 +67,27 @@ its wall time:
    same way), one profiled prefill (device-busy time, the top kernels and
    B6's three ``ssd_`` kernels summed) and decode step, then a reduced
    hybrid model's ``forward`` on the card against its CPU (plain) route.
-7. ``times``: each kernel at its path's shapes against its plain version,
+7. ``paper``: with the launch counts zeroed just before and read just
+   after, figs 12-13 at the paper's n = 100 through ``core.pe``
+   (``sweep_joint`` of dgemm, dgeqrf and dgetrf over the adder and
+   multiplier, of dgeqrf and dgetrf over sqrt and divider, depths 2-24:
+   one B8 launch each), section 5's DOT4 against scalar dgemm at mul 5 /
+   add 4 (two ``simulate``), and the quickstart's steps 4-5 (B4 at n =
+   4096 with U* accumulators, B1 on ``plan_gemm(2048, 2048, 2048)``'s
+   tile); exactly 7 B8, 1 B4 and 1 B1 launches. Then every B8 result held
+   exactly to its plain version (two depths per sweep at n = 100, all of
+   fig 12's dgemm, every sweep in full at n = 48), B4 and B1 to theirs,
+   and per sweep CPI, TPI, the best depth by TPI beside the eq.-7 depths
+   of its section-4 profile, and B8's ms.
+8. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
    three dtypes (CUDA-graph replay: its wrapper's host time exceeds the
    kernels'), the FPU-chain probe per class, B4 against ``torch.dot`` in
    20 alternating turns, B6 at the prefill shape by CUDA-graph replay (its
-   three launches per call) and by the profiler's device ms per call.
+   three launches per call) and by the profiler's device ms per call;
+   B8's row comes from the paper phase.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -138,6 +152,10 @@ REPLACES = {
     # dependent chains (repro/arch/calibrate.py, run_microbenchmarks)
     "fpu_chain": ("src/repro_torch/csrc/fpu_chain.cu",
                   "src/repro/arch/calibrate.py:131"),
+    # not a TPU kernel: the card's counterpart of the reference's jitted,
+    # vmapped PE scoreboard scan (repro/core/pe.py, _scoreboard)
+    "pe_scoreboard": ("src/repro_torch/csrc/pe_scoreboard.cu",
+                      "src/repro/core/pe.py:111"),
 }
 TUNE_N = 4096                  # the tune phase's sweep shape (n^3)
 # the lapack phase: lstsq's rows, columns and right-hand sides; the
@@ -150,6 +168,21 @@ BATCHED_TALL = 256
 LEVEL1_N = 2 ** 26
 # QR's residuals |A - QR|/|A| and |Q^TQ - I|/sqrt(n): the Cholesky limits
 LAPACK_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+# the paper phase: figs 12-13 at the paper's n = 100 (joint depths of the
+# swept pair), section 5's DOT4 comparison at its depths; every sweep held
+# to B8's plain version in full at n = 48; the quickstart's steps 4-5 at
+# its sizes (B4 at n = 4096, B1 at plan_gemm(2048, 2048, 2048))
+PAPER_N, PAPER_CHECK_N = 100, 48
+PAPER_DEPTHS = [2, 4, 6, 8, 12, 16, 24]
+SEC5_DEPTHS = {"mul": 5, "add": 4}
+QUICK_DOT_N, QUICK_GEMM_N = 4096, 2048
+# B8's least time per instruction: the recurrence's dependent chain of one
+# step with ready[] on chip, a shared-memory load-to-use (assumed 30
+# cycles, the Hopper microbenchmark literature's figure) then a max and an
+# add on the integer pipe (assumed 4 cycles each, as the FPU-chain probe
+# reads for FADD / FMUL), at the card's maximum SM clock (nvidia-smi
+# clocks.max.sm, read in the run)
+PE_STEP_CYCLES = 30 + 2 * 4
 
 
 def emit(**row):
@@ -1525,11 +1558,12 @@ def zero_launches():
     from repro_torch.kernels import fpu_chain as fc
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import gemm as gk
+    from repro_torch.kernels import pe_scoreboard as ps
     from repro_torch.kernels import ssd_scan as sk
     wrappers = {"gemm": gk.gemm, "gemm_bias_act": fk.gemm_bias_act,
                 "trsm_gemm": fk.trsm_gemm, "dotp": dk.dotp,
                 "attention": fa.attention, "ssd_scan": sk.ssd_scan,
-                "fpu_chain": fc.fpu_chain}
+                "fpu_chain": fc.fpu_chain, "pe_scoreboard": ps.pe_scoreboard}
     for w in wrappers.values():
         w.launches = 0
     gk.reset_launches(gk.gemm)
@@ -1734,8 +1768,9 @@ def ssd_work(b, h, L, p, n, chunk, itemsize):
 
 def model_rows(gen, launches):
     """Times of B4-B6 at their paths' shapes: dotp at n = 2^26 f32 (the
-    kernels phase; the model path launches no dotp), attention and the SSD
-    scan at the hymba prefill's shapes (bf16)."""
+    kernels phase; its launches are the paper path's, the model path
+    launches none), attention and the SSD scan at the hymba prefill's
+    shapes (bf16)."""
     from repro_torch.kernels import dotp as dk
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as sk
@@ -1756,8 +1791,8 @@ def model_rows(gen, launches):
         timing="ms, library_ms: 5 calls back to back (host time shows); "
                "*_graph: 20 calls in one CUDA graph, replayed",
         launch=dk.dotp.last_launch,
-        launches_note="the model path launches no dotp; its launches come "
-                      "from the kernels phase"))
+        launches_note="the paper path's (the quickstart's step 5); the "
+                      "model path launches no dotp"))
     # B4 against torch.dot in turns (kernel, library, library, kernel, ...),
     # 20 repetitions each, so the gap is read against the spread
     times = {"dotp": [], "torch.dot": []}
@@ -1860,6 +1895,205 @@ def model_rows(gen, launches):
     return rows
 
 
+def paper_sweeps(n):
+    """Figs 12-13 at size n: (tag, stream, the units swept jointly, the
+    matching section-4 profile)."""
+    from repro_torch.core import characterization as ch
+    from repro_torch.core import isa
+
+    qr, lu = isa.compile_dgeqrf(n), isa.compile_dgetrf(n)
+    return [("fig12 dgemm", isa.compile_dgemm(n, n, n, unroll=4),
+             ("add", "mul"), ch.characterize_dgemm(n, n, n, unroll=4)),
+            ("fig12 dgeqrf", qr, ("add", "mul"), ch.characterize_dgeqrf(n)),
+            ("fig12 dgetrf", lu, ("add", "mul"), ch.characterize_dgetrf(n)),
+            ("fig13 dgeqrf", qr, ("sqrt", "div"), ch.characterize_dgeqrf(n)),
+            ("fig13 dgetrf", lu, ("sqrt", "div"), ch.characterize_dgetrf(n))]
+
+
+def pe_args(stream, results, device="cuda"):
+    """B8's operands (opcode, src1, src2, lat) for the depth
+    configurations of ``results``."""
+    import numpy as np
+    from repro_torch.core import pe
+
+    lat = np.stack([pe._latency_vector(r.depths) for r in results])
+    return [torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(device)
+            for v in (stream.opcode, stream.src1, stream.src2, lat)]
+
+
+def pe_exact(tag, stream, results):
+    """Hold the (cycles, stalls) of ``results`` (the entry point's, from
+    B8 on the card) to B8's plain version on the same stream and depths;
+    raises on any difference. Returns the plain version's seconds and the
+    largest |kernel - plain| over cycles and stalls (0)."""
+    from repro_torch.kernels import pe_scoreboard as ps
+
+    args = pe_args(stream, results, "cpu")
+    t0 = time.perf_counter()
+    cycles, stalls = ps.pe_scoreboard_plain(*args)
+    secs = time.perf_counter() - t0
+    got = [(r.cycles, r.stalls) for r in results]
+    want = list(zip(cycles.tolist(), stalls.tolist()))
+    err = max(max(abs(g[0] - w[0]), abs(g[1] - w[1]))
+              for g, w in zip(got, want))
+    emit(check=f"B8 {tag}: {stream.n_instructions} instructions x "
+               f"{len(results)} configurations vs plain", max_abs_err=err,
+         tol=0, reason="integer recurrence: exact", plain_s=secs,
+         ok=err == 0)
+    if err:
+        raise AssertionError(f"B8 {tag}: kernel {got} != plain {want}")
+    for r in results:
+        assert r.cycles >= r.n_instructions and r.stalls >= 0, r
+    return secs, err
+
+
+def pe_bound(n, configs, clock_mhz):
+    """(least ms, what bounds it) of B8 on n instructions at ``configs``
+    depth configurations: n dependent steps of PE_STEP_CYCLES at the
+    card's clock (the configurations run side by side), or reading 12 B of
+    stream per instruction per configuration at the HBM rate."""
+    t_ops = n * PE_STEP_CYCLES / (clock_mhz * 1e6)
+    t_bytes = 12.0 * n * configs / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_paper():
+    """The paper's own apparatus on the card, through the entry points a
+    user calls (``repro_torch.core.pe``, ``codesign``, ``kernels``), with
+    the launch counts zeroed just before and read just after: figs 12-13
+    at n = 100 (five joint sweeps, one B8 launch each), section 5's DOT4
+    against scalar dgemm (two), then the quickstart's steps 4-5 (B4 with
+    U* accumulators, B1 on plan_gemm's tile). Then every B8 result is held
+    to the plain version (two depths per sweep at n = 100, all seven of
+    fig 12's dgemm; every sweep in full at n = 48), B4 and B1 to theirs,
+    and each sweep prints CPI, TPI, the best depth by TPI beside the eq.-7
+    depths of its section-4 profile, and the kernel's ms. Returns B8's
+    row of the kernels line and the path's launch counts. Draws from a
+    generator of its own."""
+    from repro_torch.core import codesign, isa, pe
+    from repro_torch.kernels import dotp as dk
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.kernels import pe_scoreboard as ps
+
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    sweeps = paper_sweeps(PAPER_N)
+    # fig 12's dgemm stream (unroll 4, the compiler's default) is section
+    # 5's scalar dgemm
+    sec5 = (("dot4", isa.compile_dgemm(PAPER_N, PAPER_N, PAPER_N,
+                                       dot4=True)), ("scalar", sweeps[0][1]))
+    x = torch.randn(QUICK_DOT_N, generator=gen, device="cuda")
+    y = torch.randn(QUICK_DOT_N, generator=gen, device="cuda")
+    a = torch.randn(QUICK_GEMM_N, QUICK_GEMM_N, generator=gen, device="cuda")
+    b = torch.randn(QUICK_GEMM_N, QUICK_GEMM_N, generator=gen, device="cuda")
+    emit(paper_streams={tag: s.n_instructions for tag, s, _, _ in sweeps}
+         | {f"section 5 {tag}": s.n_instructions for tag, s in sec5},
+         n=PAPER_N, compile_s=time.perf_counter() - t0,
+         sm_clock_max_mhz=clock_mhz)
+
+    counts = zero_launches()
+    t0 = time.perf_counter()
+    results, walls = {}, {}
+    for tag, stream, units, _ in sweeps:
+        results[tag], walls[tag] = sync_time(lambda: pe.sweep_joint(
+            stream, list(units), PAPER_DEPTHS))
+    for tag, stream in sec5:
+        results[tag], walls[tag] = sync_time(lambda: pe.simulate(
+            stream, SEC5_DEPTHS))
+    u = codesign.optimal_accumulators(QUICK_DOT_N)
+    plan = codesign.plan_gemm(QUICK_GEMM_N, QUICK_GEMM_N, QUICK_GEMM_N,
+                              dtype=torch.float32, machine="h100")
+    dot = dk.dotp(x, y, accumulators=u)
+    c = gk.gemm(a, b, plan=plan)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counts.items()}
+    expect = {"pe_scoreboard": len(sweeps) + len(sec5), "dotp": 1, "gemm": 1}
+    assert {k: v for k, v in launches.items() if v} == expect, launches
+    launch = gk.gemm.last_launch
+    assert launch["tile"] == (plan.bm, plan.bn, plan.bk) \
+        and launch["tile_source"] == "plan", (launch, plan)
+    emit(phase="paper", wall_s=path_s, launches=launches,
+         quickstart={"accumulators": u, "dotp": dk.dotp.last_launch,
+                     "plan": [plan.bm, plan.bn, plan.bk],
+                     "gemm_variant": launch["variant"],
+                     "gemm_tile": launch["tile"]})
+
+    # correctness (not part of the counted run)
+    compare(f"quickstart dotp n={QUICK_DOT_N} f32 (U*={u}) vs plain", dot,
+            dk.dotp_plain(x, y))
+    compare(f"quickstart gemm {QUICK_GEMM_N}^3 f32 plan_gemm tile vs plain",
+            c, gk.gemm_plain(a, b))
+    plain = {}
+    for tag, stream, _, _ in sweeps:
+        res = results[tag]
+        plain[tag] = pe_exact(f"{tag} n={PAPER_N}", stream,
+                              res if tag == "fig12 dgemm"
+                              else [res[0], res[-1]])
+    for tag, stream in sec5:
+        pe_exact(f"section 5 {tag} n={PAPER_N}", stream, [results[tag]])
+    t1 = time.perf_counter()
+    for tag, stream, units, _ in paper_sweeps(PAPER_CHECK_N):
+        pe_exact(f"{tag} n={PAPER_CHECK_N}", stream, pe.sweep_joint(
+            stream, list(units), PAPER_DEPTHS))
+    for tag, stream in (("dot4", isa.compile_dgemm(
+            PAPER_CHECK_N, PAPER_CHECK_N, PAPER_CHECK_N, dot4=True)),
+            ("scalar", isa.compile_dgemm(PAPER_CHECK_N, PAPER_CHECK_N,
+                                         PAPER_CHECK_N))):
+        pe_exact(f"section 5 {tag} n={PAPER_CHECK_N}", stream,
+                 [pe.simulate(stream, SEC5_DEPTHS)])
+    emit(paper_checks_n48_s=time.perf_counter() - t1)
+
+    # the figures, each sweep's kernel timed on its own inputs
+    kernel_ms = {}
+    for tag, stream, units, prof in sweeps:
+        res = results[tag]
+        args = pe_args(stream, res)
+        kernel_ms[tag] = cuda_ms(lambda: ps.pe_scoreboard(*args), reps=1)
+        emit(paper=tag, n=PAPER_N, instructions=stream.n_instructions,
+             units=list(units), depths=PAPER_DEPTHS,
+             cycles=[r.cycles for r in res], stalls=[r.stalls for r in res],
+             cpi=[r.cpi for r in res], tpi=[r.tpi for r in res],
+             best_depth_by_tpi=pe.best_depth(res, units[0]),
+             eq7_optimal_depths=prof.optimal_depths(),
+             eq7_popt_closed_form=prof.popt_closed_form(),
+             hazard_ratios=prof.hazard_ratios(), kernel_ms=kernel_ms[tag],
+             entry_point_wall_s=walls[tag])
+    r4, r1 = results["dot4"], results["scalar"]
+    emit(paper="section 5: DOT4 vs scalar dgemm", n=PAPER_N,
+         depths=SEC5_DEPTHS, dot4_cycles=r4.cycles, scalar_cycles=r1.cycles,
+         scalar_over_dot4_cycles=r1.cycles / r4.cycles,
+         dot4_instructions=r4.n_instructions,
+         scalar_instructions=r1.n_instructions,
+         flops_per_cycle={"dot4": r4.flops / r4.cycles,
+                          "scalar": r1.flops / r1.cycles},
+         tpi={"dot4": r4.tpi, "scalar": r1.tpi},
+         entry_point_wall_s={k: walls[k] for k in ("dot4", "scalar")})
+    tag, stream = sweeps[0][0], sweeps[0][1]
+    b_ms, b_by = pe_bound(stream.n_instructions, len(PAPER_DEPTHS),
+                          clock_mhz)
+    source, replaces = REPLACES["pe_scoreboard"]
+    row = dict(name="pe_scoreboard", route="cuda", source=source,
+               replaces=replaces, launches=launches["pe_scoreboard"],
+               shape=f"{tag} n={PAPER_N}: {stream.n_instructions} "
+                     f"instructions x {len(PAPER_DEPTHS)} configurations",
+               ms=kernel_ms[tag], plain_ms=plain[tag][0] * 1e3,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               max_abs_err=plain[tag][1],
+               timing="ms: CUDA events over one launch after one warm-up "
+                      "(the wrapper's zeroed ready[] scratch included); "
+                      "plain_ms: the plain version on the CPU, once",
+               bound=f"{PE_STEP_CYCLES} cycles per dependent step at "
+                     f"{clock_mhz} MHz")
+    emit(phase="times (paper)", rows=[row])
+    return row, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -1890,7 +2124,12 @@ def main() -> int:
     model_launches = phase_model(gen)
     emit(phase_done="model", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    rows = phase_times(gen, launches) + model_rows(gen, model_launches)
+    paper_row, paper_launches = phase_paper()
+    model_launches["dotp"] = paper_launches["dotp"]
+    emit(phase_done="paper", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rows = phase_times(gen, launches) + model_rows(gen, model_launches) \
+        + [paper_row]
     emit(phase_done="times", wall_s=time.perf_counter() - t0)
     # the kernels line holds one row per kernel, the first of its name:
     # gemm at 8192^3 f32 on the main path's tile, attention on the

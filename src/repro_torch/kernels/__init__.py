@@ -11,6 +11,12 @@ wrapper                         CUDA source                    replaces (Pallas,
 ``ssd_scan.ssd_scan``           ``csrc/ssd_scan.cu``           ``repro/kernels/ssd_scan.py::ssd_scan``
 ==============================  =============================  ==========================================
 
+Two kernels replace jitted JAX programs, not Pallas kernels:
+``fpu_chain.fpu_chain`` (``csrc/fpu_chain.cu``; the dependent chains of
+``repro/arch/calibrate.py``) and ``pe_scoreboard.pe_scoreboard``
+(``csrc/pe_scoreboard.cu``; the PE scoreboard scan of
+``repro/core/pe.py``).
+
 Kernels are built at first use (:mod:`repro_torch.kernels._build`); a
 wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 version for CPU tensors. :mod:`repro_torch.kernels.ops` is the model-facing

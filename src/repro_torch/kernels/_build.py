@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels: nvcc into shared libraries, ctypes to bind.
 
 Each source under ``repro_torch/csrc/`` (``gemm.cu``, ``trsm_gemm.cu``,
-``dotp.cu``, ``flash_attention.cu``, ``ssd_scan.cu``, ``fpu_chain.cu``)
-compiles on its own, at first use, with
+``dotp.cu``, ``flash_attention.cu``, ``ssd_scan.cu``, ``fpu_chain.cu``,
+``pe_scoreboard.cu``) compiles on its own, at first use, with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -33,7 +33,7 @@ CSRC = os.path.join(_PKG, "csrc")
 ROOT = os.path.dirname(os.path.dirname(_PKG))        # checkout root (src/..)
 BUILD_DIR = os.path.join(ROOT, "build", "repro_torch")
 SOURCES = ("gemm", "trsm_gemm", "dotp", "flash_attention", "ssd_scan",
-           "fpu_chain")
+           "fpu_chain", "pe_scoreboard")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -72,6 +72,9 @@ SIGNATURES = {
     },
     "fpu_chain": {
         "repro_fpu_chain": ([I, P, F, I, P, P, P], I),
+    },
+    "pe_scoreboard": {
+        "repro_pe_scoreboard": ([P, P, P, I, P, I, P, P, P, P], I),
     },
 }
 

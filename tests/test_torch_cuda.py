@@ -12,12 +12,15 @@ import pytest
 import torch
 
 from repro_torch.core import codesign as cd
+from repro_torch.core import isa
+from repro_torch.core import pe
 from repro_torch.kernels import dotp as dk
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fpu_chain as fc
 from repro_torch.kernels import fused as fk
 from repro_torch.kernels import gemm as gk
 from repro_torch.kernels import ops
+from repro_torch.kernels import pe_scoreboard as ps
 from repro_torch.kernels import ssd_scan as sk
 
 # tests/conftest.py's dtype tolerances (rtol, atol), repeated here so the
@@ -439,3 +442,68 @@ def test_ssd_kernel_matches_plain(card, dtype):
     zero = torch.zeros((1, 2, 0, 16), device=card, dtype=tdt)
     assert sk.ssd_scan(zero, zero[..., 0], zero, zero).shape == zero.shape
     torch.cuda.synchronize()
+
+
+def _pe_random_stream(rng, n):
+    """A random SSA stream: any opcode, each source an earlier id or -1."""
+    idx = np.arange(n)
+    src = [np.where(idx > 0, rng.integers(-1, np.maximum(idx, 1)), -1)
+           for _ in range(2)]
+    return (rng.integers(0, isa.N_OPCODES, size=n).astype(np.int32),
+            src[0].astype(np.int32), src[1].astype(np.int32))
+
+
+def _pe_streams(rng):
+    """Random streams (one past a staged chunk of 1024, one of several
+    chunks) and compiled BLAS/LAPACK streams of every compiler form."""
+    out = [_pe_random_stream(rng, n) for n in (1, 37, 1025, 5000)]
+    for s in (isa.compile_ddot(300, schedule="sequential"),
+              isa.compile_ddot(300, dot4=True),
+              isa.compile_ddot(300, fma=True),
+              isa.compile_dgemm(16, 16, 16, unroll=4),
+              isa.compile_dgemm(12, 12, 12, dot4=True),
+              isa.compile_dgeqrf(24), isa.compile_dgetrf(24),
+              isa.compile_dpotrf(24)):
+        out.append((s.opcode, s.src1, s.src2))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("configs", [1, 3, 8])
+def test_pe_scoreboard_matches_plain_exactly(card, configs):
+    rng = np.random.default_rng(configs)
+    for opcode, src1, src2 in _pe_streams(rng):
+        lat = rng.integers(1, 40, size=(configs, isa.N_OPCODES)).astype(
+            np.int32)
+        args = [torch.from_numpy(a) for a in (opcode, src1, src2, lat)]
+        before = ps.pe_scoreboard.launches
+        cycles, stalls = ps.pe_scoreboard(*(a.to(card) for a in args))
+        assert ps.pe_scoreboard.launches == before + 1
+        want_cycles, want_stalls = ps.pe_scoreboard_plain(*args)
+        assert cycles.cpu().tolist() == want_cycles.tolist()
+        assert stalls.cpu().tolist() == want_stalls.tolist()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_pe_sweeps_launch_once_each(card):
+    """One B8 launch per simulate, sweep and sweep_joint, on the card by
+    default, each equal to the CPU route's results."""
+    s = isa.compile_dgeqrf(20)
+    calls = [lambda **kw: [pe.simulate(s, {"add": 6}, **kw)],
+             lambda **kw: pe.sweep(s, "add", [2, 4, 8, 16], **kw),
+             lambda **kw: pe.sweep_joint(s, ["sqrt", "div"], [2, 4, 8, 16],
+                                         **kw)]
+    for call in calls:
+        before = ps.pe_scoreboard.launches
+        got = call()
+        assert ps.pe_scoreboard.launches == before + 1
+        assert got == call(device="cpu")
+
+
+@pytest.mark.cuda
+def test_pe_scoreboard_refuses_empty_stream(card):
+    empty = torch.zeros(0, dtype=torch.int32, device=card)
+    lat = torch.ones((1, isa.N_OPCODES), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="empty stream"):
+        ps.pe_scoreboard(empty, empty, empty, lat)
