@@ -10,7 +10,8 @@ per source, in parallel) and drives the port's paths: dense BLAS-3 and
 blocked LAPACK through ``repro_torch.linalg`` at n = 8192, QR, least
 squares, the batched drivers and level 1, the tuning loop (sweep,
 registry, tuned dispatch, calibration), the model zoo serving
-hymba-1.5b at full width, and the paper's own apparatus (figs 12-13 on
+hymba-1.5b, internvl2-1b and whisper-small at full width and qwen3-moe
+at full width with 4 of its 94 layers, and the paper's own apparatus (figs 12-13 on
 the PE scoreboard kernel, the quickstart's codesigned kernels). Phases,
 each printing JSON lines with its wall time:
 
@@ -24,7 +25,8 @@ each printing JSON lines with its wall time:
    a ragged one and the tune phase's 4096^3; the FPU-chain probe bitwise,
    per op class, at the calibration's chain length; B6's three
    passes' f32 scratch against ``ssd_scan_passes``, B4 on contiguous,
-   offset-by-one and strided views, and two calls of each bitwise equal.
+   offset-by-one and strided views, and two calls of each bitwise equal;
+   B5 in bf16 at the model families' own forms (``FAMILY_ATTN_CHECKS``).
 3. ``main``: under the card's machine (``h100``; the phase prints it and
    the plans it resolves: panel widths, GEMM tiles, the TRSM block, fused
    or not per trailing update) ``gemm`` (8192^3 f32 and bf16, 4096^3
@@ -67,7 +69,23 @@ each printing JSON lines with its wall time:
    same way), one profiled prefill (device-busy time, the top kernels and
    B6's three ``ssd_`` kernels summed) and decode step, then a reduced
    hybrid model's ``forward`` on the card against its CPU (plain) route.
-7. ``paper``: with the launch counts zeroed just before and read just
+7. ``families``: internvl2-1b (vlm, 24 layers, d_model 896) and
+   whisper-small (encdec, 12 + 12 layers, d_model 768) at full width, and
+   qwen3-moe-235b-a22b at full width cut to 4 of its 94 layers (d_model
+   4096, 128 experts top 8; 44.8 GB of f32 parameters), one at a time,
+   each built on the card from seed 0 (init s, parameters, bytes, peak
+   memory after its prefill), an untimed set-up prefill, then a warm
+   ``model_zoo.prefill`` with the launch counts zeroed just before and
+   read just after: B5 24 / 36 / 4 times, all ``wgmma``, and no other
+   kernel (internvl2: 2 x (256 patches + 3840 tokens); whisper: 4 x (1500
+   frames, 448 tokens); qwen3-moe: 2 x 4096 tokens), one device-only
+   profile of each, then ``serve_batch`` of 4 requests (internvl2,
+   qwen3-moe) or whisper's caches from the memory, 32 prompt tokens
+   replayed and 32 greedy ``decode_step``s, each with its decode tokens/s.
+   Then reduced moe (capacity factors 1.25 and 0.5), vlm and encdec
+   models' ``forward`` on the card against the CPU, and each moe forward
+   twice on the card, bitwise equal.
+8. ``paper``: with the launch counts zeroed just before and read just
    after, figs 12-13 at the paper's n = 100 through ``core.pe``
    (``sweep_joint`` of dgemm, dgeqrf and dgetrf over the adder and
    multiplier, of dgeqrf and dgetrf over sqrt and divider, depths 2-24:
@@ -79,7 +97,7 @@ each printing JSON lines with its wall time:
    fig 12's dgemm, every sweep in full at n = 48), B4 and B1 to theirs,
    and per sweep CPI, TPI, the best depth by TPI beside the eq.-7 depths
    of its section-4 profile, and B8's ms.
-8. ``times``: each kernel at its path's shapes against its plain version,
+9. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
@@ -87,7 +105,7 @@ each printing JSON lines with its wall time:
    kernels'), the FPU-chain probe per class, B4 against ``torch.dot`` in
    20 alternating turns, B6 at the prefill shape by CUDA-graph replay (its
    three launches per call) and by the profiler's device ms per call;
-   B8's row comes from the paper phase.
+   B8's row comes from the paper phase; B5 at the families' forms last.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -137,6 +155,14 @@ PREFILL = (2, 4096)            # batch x tokens of the model phase's prefill
 MODEL_TOL = (2e-4, "f32 on both sides; the card's kernels sum in another "
                    "order than the CPU oracles (the f32 rtol of "
                    "tests/conftest.py)")
+# the families phase: full-width configs, each prefill's (batch, tokens)
+# and the B5 launches it must make, all on wgmma; qwen3-moe is cut to 4 of
+# its 94 layers (its f32 parameters: 44.8 GB for 4 layers, 1.05 TB for 94)
+FAMILY_VLM = ("internvl2-1b", (2, 3840), 24)       # + 256 patches each
+FAMILY_ENCDEC = ("whisper-small", (4, 448), 36)    # + 1500 frames each
+FAMILY_MOE = ("qwen3-moe-235b-a22b", (2, 4096), 4)
+MOE_LAYERS = 4
+FAMILY_NEW = 32                # new tokens per request / decode steps
 REPLACES = {
     "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:51"),
     "gemm_bias_act": ("src/repro_torch/csrc/gemm.cu",
@@ -1435,6 +1461,17 @@ ATTN_CHECKS = [
     (1, 8, 2, 1, 300, 64, False, None, 0, 170),
     (1, 25, 5, 131, 1029, 64, True, 1024, 898, None),
 ]
+# B5 at the families' own forms, bf16 on wgmma at their own head dim:
+# whisper-small's encoder (non-causal over 1500 frames), its cross-attention
+# (448 tokens against 1500 frames) and decoder self-attention, qwen3-moe's
+# 16:1 GQA at D = 128, internvl2-1b's 7:1 GQA over 256 + 3840 positions
+FAMILY_ATTN_CHECKS = [
+    (4, 12, 12, 1500, 1500, 64, False),
+    (4, 12, 12, 448, 1500, 64, False),
+    (4, 12, 12, 448, 448, 64, True),
+    (2, 64, 4, 4096, 4096, 128, True),
+    (2, 14, 2, 4096, 4096, 64, True),
+]
 # (b, h, L, p, n, chunk) for the SSD scan: ragged L, chunks 16 / 64 / 256
 SSD_CHECKS = [(2, 3, 100, 64, 16, 16), (2, 3, 300, 64, 16, 64),
               (1, 4, 1000, 64, 16, 256), (1, 2, 257, 64, 128, 256)]
@@ -1506,6 +1543,16 @@ def phase_model_kernels(gen):
                           f"k{tuple(k.shape)} {kw} [{variant}]",
                           fa.attention(q, k, v, **kw),
                           fa.attention_plain(q, k, v, **kw))
+    for b, hq, hkv, sq, sk_, d, causal in FAMILY_ATTN_CHECKS:
+        q, k, v = attention_inputs(gen, b, hq, hkv, sq, sk_, d,
+                                   torch.bfloat16)
+        variant = fa.attention_variant(q, k, v)
+        assert variant == "wgmma", (q.shape, k.shape, variant)
+        compare_close(f"attention family form bf16 q{tuple(q.shape)} "
+                      f"k{tuple(k.shape)} causal={causal} [{variant}]",
+                      fa.attention(q, k, v, causal=causal),
+                      fa.attention_plain(q, k, v, causal=causal))
+        del q, k, v
     pb, ps = PREFILL
     q, k, v = attention_inputs(gen, pb, 25, 5, ps, ps, 64, torch.bfloat16)
     for window in (None, 1024):     # the prefill's global / windowed layers
@@ -1742,6 +1789,284 @@ def phase_model(gen):
     return launches
 
 
+def counted_prefill(name, cfg, model, batch, want_b5):
+    """``model_zoo.prefill`` with the launch counts zeroed just before and
+    read just after: B5 exactly ``want_b5`` times, all on ``wgmma``, and no
+    other kernel (the projections and expert products are library
+    matmuls, as the reference's jnp ones). Returns (outputs, seconds,
+    launches)."""
+    from repro_torch.models import model_zoo
+
+    counts = zero_launches()
+    out, secs = sync_time(lambda: model_zoo.prefill(model, batch, cfg))
+    launches = {k: w.launches for k, w in counts.items()}
+    variants = dict(counts["attention"].variant_launches)
+    assert launches["attention"] == want_b5 == variants["wgmma"], \
+        (name, launches, variants)
+    assert not any(n for k, n in launches.items() if k != "attention"), \
+        (name, launches)
+    logits = out[0]
+    assert bool(torch.isfinite(logits).all()), name
+    launches["attention_variants"] = variants
+    return out, secs, launches
+
+
+def family_build(cfg, note=None):
+    """``model_zoo.init`` of ``cfg`` on the card from ``SEED``, after the
+    peak-memory counter is reset; the parameter count must equal
+    ``model_zoo.param_count``."""
+    from repro_torch.models import model_zoo
+
+    torch.cuda.reset_peak_memory_stats()
+    model, secs = sync_time(lambda: model_zoo.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda"))
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == model_zoo.param_count(cfg), cfg.name
+    emit(call=f"model_zoo.init {cfg.name}", wall_s=secs, params=n_params,
+         param_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()),
+         n_layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv, cfg.hd],
+         vocab=cfg.vocab, compute_dtype=cfg.dtype, reduced=note)
+    return model
+
+
+def family_serve(cfg, model, rng, want_b5):
+    """``serve_batch`` of 4 requests (prompts of 16-64 tokens, greedy,
+    ``FAMILY_NEW`` new tokens each), counted: B5 ``want_b5`` times in its
+    prefill and nowhere else."""
+    import numpy as np
+    from repro_torch.launch.serve import Request, serve_batch
+
+    reqs = [Request(rng.integers(0, cfg.vocab, size=int(rng.integers(
+        16, 65))).astype(np.int32), FAMILY_NEW) for _ in range(4)]
+    counts = zero_launches()
+    (outs, stats), secs = sync_time(
+        lambda: serve_batch(model, cfg, reqs, max_len=128))
+    launches = {k: w.launches for k, w in counts.items()}
+    assert launches["attention"] == want_b5, launches
+    assert not any(n for k, n in launches.items() if k != "attention"), \
+        launches
+    for r, o in zip(reqs, outs):
+        new = o[len(r.prompt):]
+        assert len(new) == r.max_new and all(0 <= t < cfg.vocab for t in new)
+    emit(call=f"serve_batch {cfg.name} 4 requests greedy max_len=128",
+         wall_s=secs, decode_tokens_per_s=stats["decode_tokens_per_s"],
+         steps=stats["steps"], prompts=[len(r.prompt) for r in reqs],
+         launches=launches)
+    return stats["decode_tokens_per_s"]
+
+
+def phase_families(gen):
+    """internvl2-1b and whisper-small at full width, qwen3-moe at full
+    width with 4 of its 94 layers: each built from ``SEED`` on the card,
+    a set-up prefill, a counted warm prefill (B5 once per attention layer,
+    all ``wgmma``), and serving (``serve_batch``; whisper through
+    ``model_zoo``'s caches and ``decode_step``); each model freed before
+    the next is built. Then the reduced moe, vlm and encdec models on the
+    card against the CPU. Returns B5's launches per prefill."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.models import model_zoo
+    from repro_torch.models.frontends import synthetic_frontend
+
+    rng = np.random.default_rng(SEED)
+    b5 = {}
+
+    def tokens(cfg, shape):
+        return torch.randint(0, cfg.vocab, shape, generator=gen,
+                             device="cuda")
+
+    def prefill_row(cfg, launches, secs, positions, **extra):
+        emit(call=f"model_zoo.prefill {cfg.name} (warm, counted)",
+             wall_s=secs, positions=positions,
+             tokens_per_s=positions / secs, launches=launches,
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, **extra)
+
+    # ---- vlm: internvl2-1b, 256 patches + 3840 tokens per row ----
+    arch, (b, s), want = FAMILY_VLM
+    cfg = registry.get_config(arch)
+    model = family_build(cfg)
+
+    def batch():
+        return {"tokens": tokens(cfg, (b, s)),
+                "patches": synthetic_frontend(gen, cfg, b)}
+    warm = batch()
+    _, secs = sync_time(lambda: model_zoo.prefill(model, warm, cfg))
+    emit(call=f"model_zoo.prefill {arch} (cold, set-up; not counted)",
+         wall_s=secs)
+    del warm
+    counted = batch()
+    (logits, aux, kv), secs, launches = counted_prefill(
+        arch, cfg, model, counted, want)
+    n = cfg.num_prefix_tokens
+    assert logits.shape == (b, n + s, cfg.vocab) and float(aux) == 0.0
+    assert kv["k"].shape == (cfg.n_layers, b, n + s, cfg.n_kv, cfg.hd)
+    prefill_row(cfg, launches, secs, b * (n + s), patches=n, tokens=s,
+                batch=b)
+    b5[arch] = launches["attention"]
+    del logits, kv, counted
+    emit(profile=f"model_zoo.prefill {arch}", **profile_call(
+        lambda: model_zoo.prefill(model, batch(), cfg), cpu=False,
+        match=("attn_",)))
+    family_serve(cfg, model, rng, want)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- encdec: whisper-small, 1500 frames and 448 tokens per row ----
+    arch, (b, s), want = FAMILY_ENCDEC
+    cfg = registry.get_config(arch)
+    model = family_build(cfg)
+
+    def batch():
+        return {"frames": synthetic_frontend(gen, cfg, b),
+                "tokens": tokens(cfg, (b, s))}
+    _, secs = sync_time(lambda: model_zoo.prefill(model, batch(), cfg))
+    emit(call=f"model_zoo.prefill {arch} (cold, set-up; not counted)",
+         wall_s=secs)
+    counted = batch()
+    (logits, aux, memory), secs, launches = counted_prefill(
+        arch, cfg, model, counted, want)
+    assert logits.shape == (b, s, cfg.vocab) and float(aux) == 0.0
+    assert memory.shape == (b, cfg.encoder_seq, cfg.d_model)
+    prefill_row(cfg, launches, secs, b * s, frames=cfg.encoder_seq,
+                batch=b, frames_per_s=b * cfg.encoder_seq / secs)
+    b5[arch] = launches["attention"]
+    emit(profile=f"model_zoo.prefill {arch}", **profile_call(
+        lambda: model_zoo.prefill(model, batch(), cfg), cpu=False,
+        match=("attn_",)))
+    # serving through the caches: the first FAMILY_NEW tokens of the
+    # counted prompt replayed, then FAMILY_NEW greedy steps
+    prompt = counted["tokens"][:, :FAMILY_NEW]
+    counts = zero_launches()
+
+    def serve():
+        caches = model_zoo.init_caches(model, cfg, b, 2 * FAMILY_NEW,
+                                       memory=memory)
+        replay = []
+        for t in range(FAMILY_NEW):
+            lg, caches = model_zoo.decode_step(model, prompt[:, t:t + 1],
+                                               cfg, caches, t)
+            replay.append(lg[:, 0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for t in range(FAMILY_NEW, 2 * FAMILY_NEW):
+            nxt = lg[:, -1].float().argmax(-1)
+            out.append(nxt)
+            lg, caches = model_zoo.decode_step(model, nxt[:, None], cfg,
+                                               caches, t)
+        torch.cuda.synchronize()
+        return torch.stack(replay, 1), torch.stack(out, 1), \
+            time.perf_counter() - t0
+    (replay, new, dec_s), secs = sync_time(serve)
+    assert not any(w.launches for w in counts.values()), "decode launched"
+    assert new.shape == (b, FAMILY_NEW) and bool(
+        ((new >= 0) & (new < cfg.vocab)).all())
+    assert bool(torch.isfinite(replay).all())
+    # the replayed prompt's logits beside the teacher-forced pass's (bf16,
+    # plain decode attention against B5): reported, not a check
+    drift = (replay.float() - logits[:, :FAMILY_NEW].float()).abs().max()
+    emit(call=f"{arch} init_caches(memory) + {FAMILY_NEW} replayed + "
+              f"{FAMILY_NEW} greedy decode_steps, batch {b}",
+         wall_s=secs, decode_s=dec_s,
+         decode_tokens_per_s=b * FAMILY_NEW / dec_s,
+         replay_vs_prefill_max_abs=drift.item(),
+         prefill_logits_max_abs=logits[:, :FAMILY_NEW].float().abs().max()
+         .item())
+    del model, memory, logits, counted, prompt, replay
+    torch.cuda.empty_cache()
+
+    # ---- moe: qwen3-moe-235b-a22b at full width, 4 of its 94 layers ----
+    arch, (b, s), want = FAMILY_MOE
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=MOE_LAYERS)
+    model = family_build(cfg, note=f"n_layers 94 -> {MOE_LAYERS}, memory of "
+                                   f"one card")
+    warm = tokens(cfg, (b, s))
+    _, secs = sync_time(lambda: model_zoo.prefill(model, {"tokens": warm},
+                                                  cfg))
+    emit(call=f"model_zoo.prefill {arch} (cold, set-up; not counted)",
+         wall_s=secs)
+    del warm, _
+    counted = {"tokens": tokens(cfg, (b, s))}
+    (logits, aux, kv), secs, launches = counted_prefill(
+        arch, cfg, model, counted, want)
+    assert logits.shape == (b, s, cfg.vocab) and float(aux) > 0
+    prefill_row(cfg, launches, secs, b * s, aux=aux.item(), batch=b)
+    b5[arch] = launches["attention"]
+    del logits, kv
+    emit(profile=f"model_zoo.prefill {arch}", **profile_call(
+        lambda: model_zoo.prefill(model, counted, cfg), cpu=False,
+        match=("attn_",)))
+    family_serve(cfg, model, rng, want)
+    del model, counted
+    torch.cuda.empty_cache()
+    family_agreement()
+    return b5
+
+
+def family_agreement():
+    """Reduced moe, vlm and encdec models (3 layers, d_model 256, 4 heads,
+    vocab 512, f32; the moe 8 experts, top 2) on the card against the same
+    weights on the CPU's plain routes; the moe also at capacity factor 0.5
+    (it drops assignments: the card must drop the same ones), and each moe
+    forward twice on the card, bitwise equal."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models import model_zoo
+    from repro_torch.models.frontends import synthetic_frontend
+
+    tol, reason = MODEL_TOL
+    for arch, over, want_b5 in (
+            ("qwen3-moe-235b-a22b", {}, 3),
+            ("qwen3-moe-235b-a22b", {"capacity_factor": 0.5}, 3),
+            ("internvl2-1b", {}, 3), ("whisper-small", {}, 2 + 3 + 3)):
+        cfg = dataclasses.replace(reduce_config(
+            registry.get_config(arch), layers=3, d_model=256, vocab=512,
+            heads=4), dtype="float32", **over)
+        cpu = model_zoo.init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        card = model_zoo.init(cfg, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(SEED)
+        gen = torch.Generator().manual_seed(SEED)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, size=(2, {"encdec": 448, "vlm": 768}.get(
+                cfg.family, 1024))))}
+        if cfg.frontend:
+            key = "frames" if cfg.family == "encdec" else "patches"
+            batch[key] = synthetic_frontend(gen, cfg, 2, torch.float32)
+        on_card = {k: v.cuda() for k, v in batch.items()}
+        counts = zero_launches()
+        got, got_aux = model_zoo.forward(card, on_card, cfg)
+        launches = {k: w.launches for k, w in counts.items()}
+        want, want_aux = model_zoo.forward(cpu, batch, cfg)
+        err = (got.cpu().double() - want.double()).abs().max().item()
+        rel_err = err / want.double().abs().max().item()
+        aux_err = abs(got_aux.item() - want_aux.item())
+        ok = rel_err <= tol and bool(torch.isfinite(got).all()) \
+            and aux_err <= tol * abs(want_aux.item())
+        extra = "".join(f", {k} {v}" for k, v in over.items())
+        tag = f"{cfg.family} 3x256 ({arch} reduced{extra})"
+        emit(check=f"{tag} forward 2x{got.shape[1]}: cuda vs cpu (plain "
+                   f"routes), max|dlogits|/max|logits|", value=rel_err,
+             max_abs_err=err, aux=[got_aux.item(), want_aux.item()],
+             tol=tol, reason=reason, launches=launches, ok=ok)
+        assert ok and launches["attention"] == want_b5, \
+            (tag, rel_err, aux_err, launches)
+        if cfg.family == "moe":
+            again, again_aux = model_zoo.forward(card, on_card, cfg)
+            assert torch.equal(got, again) and torch.equal(
+                got_aux, again_aux), f"{tag}: two card calls differ"
+            emit(check=f"{tag} forward: two card calls bitwise equal",
+                 ok=True)
+        del cpu, card
+
+
 def attention_work(b, hq, hkv, sq, sk, d, itemsize, causal=True, window=None,
                    q_offset=0):
     """(flops, bytes) the masks leave: 4 D per live (query, key) pair for
@@ -1892,6 +2217,51 @@ def model_rows(gen, launches):
     emit(phase="times (model)", rows=rows,
          peaks="bf16 rows priced at the bf16 tensor peak (989 TFLOP/s), "
                "f32 at the FP32 peak (67 TFLOP/s); HBM 3.35 TB/s")
+    return rows
+
+
+def family_rows(gen, b5):
+    """B5's times at the families' forms (bf16, ``wgmma``) beside its
+    plain version, SDPA and the bound; each row's launches are those of
+    its family's counted prefill (``b5``: whisper-small's 36 split into
+    its encoder, decoder self- and cross-attention layers)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+
+    w = registry.get_config(FAMILY_ENCDEC[0])
+    per_row = [w.encoder_layers, w.n_layers, w.n_layers,
+               b5[FAMILY_MOE[0]], b5[FAMILY_VLM[0]]]
+    assert sum(per_row[:3]) == b5[FAMILY_ENCDEC[0]], (per_row, b5)
+    names = ["whisper-small encoder", "whisper-small cross",
+             "whisper-small decoder self", "qwen3-moe", "internvl2-1b"]
+    rows = []
+    for (b, hq, hkv, sq, sk, d, causal), n, name in zip(
+            FAMILY_ATTN_CHECKS, per_row, names):
+        q, k, v = attention_inputs(gen, b, hq, hkv, sq, sk, d,
+                                   torch.bfloat16)
+        flops, nbytes = attention_work(b, hq, hkv, sq, sk, d, 2,
+                                       causal=causal)
+        b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
+        got = fa.attention(q, k, v, causal=causal)
+        rows.append(dict(
+            name="attention", shape=f"{name}: q{tuple(q.shape)} "
+            f"k/v{tuple(k.shape)} bfloat16 causal={causal}",
+            ms=cuda_ms(lambda: fa.attention(q, k, v, causal=causal)),
+            plain_ms=cuda_ms(lambda: fa.attention_plain(q, k, v,
+                                                        causal=causal)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=(got.float() - fa.attention_plain(
+                q, k, v, causal=causal).float()).abs().max().item(),
+            variant=fa.attention.last_launch["variant"],
+            tile=fa.attention.last_launch["tile"], route="cuda",
+            source=REPLACES["attention"][0],
+            replaces=REPLACES["attention"][1], launches=n,
+            launches_note=f"per {name.split()[0]} prefill (families phase)"))
+        del q, k, v, got
+    emit(phase="times (families)", rows=rows,
+         peaks="bf16 at the tensor peak (989 TFLOP/s); HBM 3.35 TB/s")
     return rows
 
 
@@ -2124,12 +2494,15 @@ def main() -> int:
     model_launches = phase_model(gen)
     emit(phase_done="model", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    family_b5 = phase_families(gen)
+    emit(phase_done="families", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     paper_row, paper_launches = phase_paper()
     model_launches["dotp"] = paper_launches["dotp"]
     emit(phase_done="paper", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     rows = phase_times(gen, launches) + model_rows(gen, model_launches) \
-        + [paper_row]
+        + [paper_row] + family_rows(gen, family_b5)
     emit(phase_done="times", wall_s=time.perf_counter() - t0)
     # the kernels line holds one row per kernel, the first of its name:
     # gemm at 8192^3 f32 on the main path's tile, attention on the

@@ -1,2 +1,3 @@
-"""repro_torch.models - the model zoo for the dense, ssm and hybrid
-families (port of ``repro.models``); see :mod:`repro_torch.models.model_zoo`."""
+"""repro_torch.models - the model zoo for the dense, moe, ssm, hybrid, vlm
+and encdec families (port of ``repro.models``); see
+:mod:`repro_torch.models.model_zoo`."""

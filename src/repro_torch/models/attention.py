@@ -1,12 +1,12 @@
-"""GQA attention with RoPE, a KV cache and sliding windows (port of
-``repro.models.attention``).
+"""GQA attention with RoPE, a KV cache, sliding windows and
+cross-attention (port of ``repro.models.attention``).
 
-The full-sequence path (training / prefill) goes through
-:func:`repro_torch.kernels.ops.attention`: kernel B5 on the card, the
-reference's plain oracles on the CPU. The decode path writes one token
-into the cache and attends with a kv-length mask in plain PyTorch, as the
-reference does (``masked_decode_attention`` reaches no kernel there
-either). Cross-attention waits for the encoder-decoder family.
+The full-sequence paths (training / prefill, and the encoder-decoder's
+cross-attention) go through :func:`repro_torch.kernels.ops.attention`:
+kernel B5 on the card, the reference's plain oracles on the CPU. The
+decode path writes one token into the cache and attends with a kv-length
+mask in plain PyTorch, as the reference does (``masked_decode_attention``
+reaches no kernel there either).
 """
 from __future__ import annotations
 
@@ -117,3 +117,20 @@ class Attention(nn.Module):
         o = masked_decode_attention(q.movedim(2, 1), kh, vh, kv_len)
         o = o.movedim(1, 2).reshape(b, 1, self.cfg.n_heads * self.cfg.hd)
         return linear(o, self.wo), cache
+
+    def cross(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """Decoder cross-attention (``apply_cross_attention``): queries from
+        x (B, S, d), keys and values from the encoder memory (B, Sm, d), no
+        RoPE and no biases, every query attending to every memory row (on
+        the card: B5 with Sq != Sk, causal off)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        sm = memory.shape[1]
+        hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv
+        q = linear(x, self.wq).reshape(b, s, hq, hd)
+        k = (memory @ self.wk.to(x.dtype)).reshape(b, sm, hkv, hd)
+        v = (memory @ self.wv.to(x.dtype)).reshape(b, sm, hkv, hd)
+        o = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
+                          causal=False)
+        o = o.movedim(1, 2).reshape(b, s, hq * hd)
+        return linear(o, self.wo)

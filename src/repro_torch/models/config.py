@@ -4,7 +4,7 @@ dataclass, field for field, with its properties and ``param_count``.
 Families: dense (GQA transformer), moe (dense + expert FFNs), ssm (Mamba-2),
 hybrid (parallel attn+SSM heads, Hymba-style), encdec (Whisper-style),
 vlm/audio (LM backbone + stub modality frontend feeding precomputed
-embeddings). The port's model code runs dense, ssm and hybrid.
+embeddings). The port's model code runs all six.
 """
 from __future__ import annotations
 

@@ -1,8 +1,16 @@
-"""Modality frontend sizes (port of ``frontend_tokens`` and its constants
-from ``repro.models.frontends``). The frontends themselves are stubs in the
-reference too (precomputed frame / patch embeddings); the port's model
-code does not run the vlm and audio families yet."""
+"""Modality frontend stubs (port of ``repro.models.frontends``).
+
+The reference specifies the transformer backbone only; the frontend hands
+over precomputed frame (audio) or patch (vision) embeddings of width
+d_model. :func:`frontend_spec` gives their ``(shape, dtype)``, the pair the
+port's registry uses for a ``jax.ShapeDtypeStruct``, and
+:func:`synthetic_frontend` draws matching random embeddings for smoke runs.
+"""
 from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -16,3 +24,24 @@ def frontend_tokens(cfg: ModelConfig) -> int:
     if cfg.frontend == "vision":
         return cfg.num_prefix_tokens or INTERNVL_PATCHES
     return 0
+
+
+def frontend_spec(cfg: ModelConfig, batch: int, dtype=torch.bfloat16
+                  ) -> Optional[Tuple[Tuple[int, int, int], torch.dtype]]:
+    """((batch, frontend tokens, d_model), dtype), or None without a
+    frontend."""
+    n = frontend_tokens(cfg)
+    if n == 0:
+        return None
+    return (batch, n, cfg.d_model), dtype
+
+
+def synthetic_frontend(generator: torch.Generator, cfg: ModelConfig,
+                       batch: int, dtype=torch.bfloat16,
+                       device=None) -> torch.Tensor:
+    """0.02 N(0, 1) embeddings of :func:`frontend_spec`'s shape, drawn from
+    ``generator`` on ``device`` (default: the generator's)."""
+    shape = (batch, frontend_tokens(cfg), cfg.d_model)
+    device = generator.device if device is None else device
+    return (0.02 * torch.randn(shape, generator=generator, device=device)
+            ).to(dtype)

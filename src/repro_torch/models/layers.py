@@ -1,5 +1,5 @@
 """Shared layer primitives (port of ``repro.models.layers``): RMSNorm,
-embedding, gated FFN, RoPE.
+embedding, gated FFN, RoPE, sinusoidal positions.
 
 Parameters are stored in float32 and cast to the compute dtype at use; norms
 and RoPE run in float32 - the reference's numerics. Modules are built with
@@ -11,6 +11,7 @@ slice serves, and the kernels have no backward yet.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -84,6 +85,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """(seq, d) sine / cosine positions, computed in float32: sines in the
+    even columns, cosines in the odd ones. The cosines take the first
+    ``(d + 1) // 2`` frequencies, as the reference's do, so an odd ``d``
+    raises on both sides."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(-math.log(10_000.0) * torch.arange(
+        0, d, 2, dtype=torch.float32, device=device) / d)
+    pe = torch.zeros(seq, d, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[: (d + 1) // 2])
+    return pe.to(dtype)
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:

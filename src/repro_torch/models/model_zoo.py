@@ -1,28 +1,37 @@
 """Unified model API (port of ``repro.models.model_zoo``): init / forward /
-prefill / init_caches / decode_step / param_count over the dense, ssm and
-hybrid families.
+prefill / init_caches / decode_step / param_count / active_param_count
+over all six families (dense, moe, ssm, hybrid, vlm, encdec).
 
 The entry points run on the device the model lives on, which
 :func:`init` puts on ``cuda`` unless the caller asks for the CPU; on the
 card the full-sequence paths (forward, prefill) run kernels B5 and B6 in
-every layer that has attention or an SSM. They run under
-``torch.no_grad()``: this slice serves, and the kernels have no backward
-yet. Building an encoder-decoder, moe or vlm model raises
-``NotImplementedError`` naming the ROADMAP item that ports it. The ``cfg``
-arguments mirror the reference's signatures; the model carries its own.
+every layer that has attention or an SSM (the encoder-decoder: B5 in the
+encoder, the decoder's self-attention and its cross-attention). They run
+under ``torch.no_grad()``: this package serves, and the kernels have no
+backward yet. The ``cfg`` arguments mirror the reference's signatures; the
+model carries its own.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import LM
+
+Model = Union[LM, EncDec]
+
+
+def build(cfg: ModelConfig, device=None) -> Model:
+    """The module of ``cfg``'s family on ``device``, its storage
+    uninitialized."""
+    return (EncDec if cfg.family == "encdec" else LM)(cfg, device=device)
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-         device="cuda") -> LM:
+         device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` with the reference's shapes and
     distributions (truncated normal at +-2 sigma scaled as the reference,
     ones / zeros / log-spaced decays where it has them), drawn from
@@ -36,7 +45,7 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                            "for the CPU with device='cpu'")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    model = LM(cfg, device=device)
+    model = build(cfg, device)
     for module in model.modules():
         reset = getattr(module, "reset", None)
         if reset is not None:
@@ -45,28 +54,38 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 @torch.no_grad()
-def forward(model: LM, batch: dict, cfg: ModelConfig):
-    """batch: {'tokens': (B, S)}. Returns (logits, aux)."""
-    logits = model(batch["tokens"])
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+def forward(model: Model, batch: dict, cfg: ModelConfig):
+    """batch: {'tokens': (B, S)} and, for the frontend families,
+    {'frames' | 'patches': (B, P, d)}. Returns (logits, aux)."""
+    if cfg.family == "encdec":
+        return model(batch["frames"], batch["tokens"])
+    return model(batch["tokens"], batch.get("patches"))
 
 
 @torch.no_grad()
-def prefill(model: LM, batch: dict, cfg: ModelConfig):
-    """Returns (logits, aux, caches): caches are the stacked per-layer KV
-    of a dense model, None for ssm and hybrid (as in the reference)."""
-    logits, kv = model.prefill(batch["tokens"])
-    return (logits, torch.zeros((), dtype=torch.float32,
-                                device=logits.device), kv)
+def prefill(model: Model, batch: dict, cfg: ModelConfig):
+    """Returns (logits, aux, caches): the stacked per-layer KV of the
+    attention families, None for ssm and hybrid, the encoder's memory for
+    the encoder-decoder (as in the reference)."""
+    if cfg.family == "encdec":
+        memory = model.encode(batch["frames"])
+        logits = model.decode_train(batch["tokens"], memory)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device), memory
+    return model.prefill(batch["tokens"], batch.get("patches"))
 
 
-def init_caches(model: LM, cfg: ModelConfig, batch: int, max_len: int,
+def init_caches(model: Model, cfg: ModelConfig, batch: int, max_len: int,
+                memory: Optional[torch.Tensor] = None,
                 dtype=torch.bfloat16):
+    if cfg.family == "encdec":
+        assert memory is not None, "encdec caches need the encoder memory"
+        return model.init_decode_caches(memory, batch, max_len, dtype)
     return model.init_caches(batch, max_len, dtype)
 
 
 @torch.no_grad()
-def decode_step(model: LM, token: torch.Tensor, cfg: ModelConfig, caches,
+def decode_step(model: Model, token: torch.Tensor, cfg: ModelConfig, caches,
                 cache_index: int):
     """token (B, 1) -> (logits (B, 1, V), caches updated in place)."""
     return model.decode_step(token, caches, cache_index)
@@ -75,4 +94,15 @@ def decode_step(model: LM, token: torch.Tensor, cfg: ModelConfig, caches,
 def param_count(cfg: ModelConfig) -> int:
     """Exact parameter count, from the module built on the meta device (no
     allocation)."""
-    return sum(p.numel() for p in LM(cfg, device="meta").parameters())
+    return sum(p.numel() for p in build(cfg, "meta").parameters())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token: the total less the experts a token
+    does not select."""
+    total = param_count(cfg)
+    if cfg.family != "moe":
+        return total
+    de = cfg.d_expert or cfg.d_ff
+    per_expert = cfg.d_model * de * (3 if cfg.glu else 2)
+    return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * per_expert

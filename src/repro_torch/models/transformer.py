@@ -1,13 +1,16 @@
-"""Decoder-only LM for the dense, ssm and hybrid families (port of
-``repro.models.transformer``).
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families (port
+of ``repro.models.transformer``).
 
 The reference scans over layers whose parameters are stacked on a leading
 axis; here the layers are an ``nn.ModuleList`` and the scan is a Python
-loop. Remat is a training concern and waits with the trainer; so do the
-moe and vlm families (:data:`WAITING`).
+loop. Remat is a training concern and waits with the trainer. The moe
+family's blocks take :class:`~repro_torch.models.moe.MoE` for their FFN;
+a vlm model projects the frontend's prefix embeddings with
+``frontend_proj`` and prepends them to the token embeddings. The
+encoder-decoder family is :mod:`repro_torch.models.encdec`.
 
 Caches: hybrid models keep a per-layer list (global layers carry the full
-horizon, windowed layers a ring of ``window`` slots); dense and ssm models
+horizon, windowed layers a ring of ``window`` slots); the other families
 keep the reference's stacked (n_layers, ...) tensors. Decode updates the
 caches in place and returns them.
 """
@@ -21,31 +24,25 @@ from torch import nn
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (FFN, Embedding, RMSNorm, param,
                                        truncated_normal_)
 
-FAMILIES = ("dense", "ssm", "hybrid")
-# families the reference runs that this package does not yet, and the
-# ROADMAP.md item that ports them
-WAITING = {"moe": "ROADMAP.md A.10 (models/moe.py)",
-           "vlm": "ROADMAP.md A.10 (models/frontends.py, the vision stub)",
-           "encdec": "ROADMAP.md A.10 (models/encdec.py)"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 Caches = Union[List[Dict], Dict[str, torch.Tensor]]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family in WAITING:
-        raise NotImplementedError(
-            f"repro_torch runs the {FAMILIES} families; {cfg.family!r} "
-            f"({cfg.name}) waits for {WAITING[cfg.family]}")
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 class Block(nn.Module):
-    """One residual block: mixer (attention, SSM or hybrid) and FFN."""
+    """One residual block: mixer (attention, SSM or hybrid) and FFN (the
+    moe family: the expert FFN, whose aux loss the block returns; the
+    other blocks return ``None`` for it)."""
 
     def __init__(self, cfg: ModelConfig, is_global: bool, device=None):
         super().__init__()
@@ -61,14 +58,24 @@ class Block(nn.Module):
             self.attn = attn_mod.Attention(cfg, device=device)
         has_ffn = cfg.family != "ssm" or cfg.d_ff
         self.ln2 = RMSNorm(d, cfg.norm_eps, device=device) if has_ffn else None
-        self.ffn = FFN(d, cfg.d_ff, cfg.glu, cfg.act, device=device) \
-            if has_ffn else None
+        self.ffn = self.moe = None
+        if cfg.family == "moe":
+            assert cfg.moe_every == 1, "every layer of a moe model is moe"
+            self.moe = moe_mod.MoE(cfg, device=device)
+        elif has_ffn:
+            self.ffn = FFN(d, cfg.d_ff, cfg.glu, cfg.act, device=device)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.ffn is None else x + self.ffn(self.ln2(x))
+    def _ffn(self, x: torch.Tensor):
+        """x plus the FFN's output, and the aux loss (moe) or None."""
+        if self.moe is not None:
+            y, aux = self.moe(self.ln2(x))
+            return x + y, aux
+        if self.ffn is None:
+            return x, None
+        return x + self.ffn(self.ln2(x)), None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """(x, aux): aux is the moe FFN's float32 loss, else None."""
         h = self.ln1(x)
         if self.ssm is not None:
             x = x + self.ssm(h)
@@ -79,6 +86,7 @@ class Block(nn.Module):
         return self._ffn(x)
 
     def decode(self, x: torch.Tensor, cache: Dict, cache_index: int):
+        """(x, aux, cache) for one token, the cache updated in place."""
         h = self.ln1(x)
         if self.ssm is not None:
             y, nc = self.ssm.decode(h, cache)
@@ -88,7 +96,8 @@ class Block(nn.Module):
             smax = cache["k"].shape[1]
             y, nc = self.attn.decode(h, cache, cache_index % smax,
                                      cache_index, min(cache_index + 1, smax))
-        return self._ffn(x + y), nc
+        x, aux = self._ffn(x + y)
+        return x, aux, nc
 
 
 class LM(nn.Module):
@@ -103,17 +112,28 @@ class LM(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self.head = None if cfg.tie_embeddings else \
             param(cfg.d_model, cfg.vocab, device=device)
+        self.frontend_proj = None if cfg.frontend is None else \
+            param(cfg.d_model, cfg.d_model, device=device)
 
     def reset(self, generator=None) -> None:
-        if self.head is not None:
-            truncated_normal_(self.head, self.cfg.d_model ** -0.5, generator)
+        for w in (self.head, self.frontend_proj):
+            if w is not None:
+                truncated_normal_(w, self.cfg.d_model ** -0.5, generator)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed(tokens, getattr(torch, self.cfg.dtype))
+    def _embed(self, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings, after the projected prefix embeddings (B, P,
+        d) of a frontend when given."""
+        dtype = getattr(torch, self.cfg.dtype)
+        x = self.embed(tokens, dtype)
+        if prefix_embeds is None:
+            return x
+        pe = prefix_embeds.to(dtype) @ self.frontend_proj.to(dtype)
+        return torch.cat([pe, x], dim=1)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
@@ -124,33 +144,41 @@ class LM(nn.Module):
             logits = c * torch.tanh(logits.float() / c)
         return logits
 
-    def _positions(self, tokens: torch.Tensor) -> torch.Tensor:
-        b, s = tokens.shape
+    @staticmethod
+    def _positions(x: torch.Tensor) -> torch.Tensor:
+        b, s = x.shape[:2]
         return torch.arange(s, dtype=torch.int32,
-                            device=tokens.device)[None].expand(b, s)
+                            device=x.device)[None].expand(b, s)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Training / prefill forward: tokens (B, S) -> logits (B, S, V)."""
-        x = self._embed(tokens)
-        positions = self._positions(tokens)
-        for blk in self.blocks:
-            x = blk(x, positions)
-        return self._logits(x)
+    def forward(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None):
+        """Training / prefill forward: tokens (B, S) (after prefix_embeds
+        (B, P, d) when given) -> (logits (B, P + S, V), aux), aux the
+        float32 sum of the moe layers' losses (0 without them)."""
+        return self._run(tokens, prefix_embeds, collect_kv=False)[:2]
 
-    def prefill(self, tokens: torch.Tensor):
-        """Forward plus the per-layer KV of the dense family (stacked
-        (n_layers, B, S, Hkv, hd)); ssm and hybrid models return None."""
-        x = self._embed(tokens)
-        positions = self._positions(tokens)
+    def prefill(self, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None):
+        """Forward plus the per-layer KV of the attention families (dense,
+        moe, vlm: stacked (n_layers, B, S, Hkv, hd)); ssm and hybrid
+        models return None. Returns (logits, aux, kv)."""
+        return self._run(tokens, prefix_embeds, collect_kv=True)
+
+    def _run(self, tokens, prefix_embeds, collect_kv: bool):
+        x = self._embed(tokens, prefix_embeds)
+        positions = self._positions(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ks, vs = [], []
         for blk in self.blocks:
-            if blk.attn is not None:
+            if collect_kv and blk.attn is not None:
                 _, k, v = blk.attn.project_qkv(blk.ln1(x), positions)
                 ks.append(k)
                 vs.append(v)
-            x = blk(x, positions)
+            x, a = blk(x, positions)
+            if a is not None:
+                aux = aux + a
         kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
-        return self._logits(x), kv
+        return self._logits(x), aux, kv
 
     def init_caches(self, batch: int, max_len: int,
                     dtype=torch.bfloat16) -> Caches:
@@ -174,10 +202,10 @@ class LM(nn.Module):
         cache_index = int(cache_index)
         for i, blk in enumerate(self.blocks):
             if isinstance(caches, list):
-                x, caches[i] = blk.decode(x, caches[i], cache_index)
+                x, _, caches[i] = blk.decode(x, caches[i], cache_index)
                 continue
             views = {k: v[i] for k, v in caches.items()}
-            x, nc = blk.decode(x, dict(views), cache_index)
+            x, _, nc = blk.decode(x, dict(views), cache_index)
             for k, v in nc.items():
                 if v is not views[k]:          # replaced, not written in place
                     caches[k][i].copy_(v)

@@ -413,6 +413,57 @@ def test_attention_variants_match_plain(card, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
+    (4, 12, 12, 1500, 1500, 64, False),    # whisper-small's encoder
+    (4, 12, 12, 448, 1500, 64, False),     # its cross-attention
+    (2, 64, 4, 4096, 4096, 128, True),     # qwen3-moe, 16:1 GQA
+    (2, 14, 2, 4096, 4096, 64, True),      # internvl2-1b, 7:1 GQA
+])
+def test_attention_family_forms_match_plain(card, b, hq, hkv, sq, sk, d,
+                                            causal):
+    """B5 at the model families' own forms (bf16, ``wgmma``), including a
+    ragged 1500-key tail with causal off and Sq != Sk, at chip_smoke.py's
+    CLOSE_TOL."""
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def view(s, h):
+        return torch.randn(b, s, h, d, generator=gen, device=card) \
+            .to(torch.bfloat16).movedim(2, 1)
+    q, k, v = view(sq, hq), view(sk, hkv), view(sk, hkv)
+    assert fa.attention_variant(q, k, v) == "wgmma"
+    got = fa.attention(q, k, v, causal=causal)
+    worst, norm_err = _close_scaled(
+        got, fa.attention_plain(q, k, v, causal=causal), "bfloat16")
+    print(f"\nattention q{tuple(q.shape)} k{tuple(k.shape)} causal={causal}"
+          f": elementwise <= {worst:.4g} of its limit, normwise <= "
+          f"{norm_err:.3g}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.25, 0.5])
+def test_moe_forward_is_bitwise_repeatable(card, factor):
+    """The moe FFN combines each token's k gated slots by a sum over k (no
+    scatter-add), so two calls on the card are bitwise equal, drops
+    included (capacity factor 0.5)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models import model_zoo
+    cfg = dataclasses.replace(reduce_config(
+        registry.get_config("qwen3-moe-235b-a22b"), layers=2, d_model=256,
+        vocab=512, heads=4), capacity_factor=factor)
+    model = model_zoo.init(cfg, device=card)
+    tokens = torch.randint(0, cfg.vocab, (2, 300), device=card,
+                           generator=torch.Generator(card).manual_seed(1))
+    one = model_zoo.forward(model, {"tokens": tokens}, cfg)
+    two = model_zoo.forward(model, {"tokens": tokens}, cfg)
+    assert torch.isfinite(one[0]).all() and one[1].item() > 0
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernel_matches_plain(card, dtype):
     rng = np.random.default_rng(0)

@@ -1,14 +1,16 @@
 """repro_torch's model zoo and serving path against the JAX package.
 
-Small dense, ssm and hybrid configurations in float32: the same weights
+Small dense, ssm, hybrid and vlm configurations in float32 (moe and
+encdec: ``test_torch_moe.py``, ``test_torch_encdec.py``): the same weights
 (``repro.models`` initializes them; ``repro_torch.models.convert`` carries
 them across as numpy arrays) and the same numpy tokens go through both
 packages on the CPU, where the port's ops take the reference's plain
 routes. Tolerance: 1e-4 absolute and relative on logits and layer outputs
 of order one (f32 sums in another order, over at most a few layers).
-Configs, registry, parameter counts and ``reduce_config`` must match
-exactly. The port's full-width hymba-1.5b runs on the card in
-``chip_smoke.py``.
+Configs, registry, parameter counts (every registry config at full width,
+built on ``meta``), frontend specs and ``reduce_config`` must match
+exactly. The port's full-width hymba-1.5b, internvl2-1b, whisper-small
+and qwen3-moe (4 of its layers) run on the card in ``chip_smoke.py``.
 """
 import dataclasses
 
@@ -22,6 +24,7 @@ from repro.configs import registry as jreg
 from repro.launch import serve as jserve
 from repro.launch.train import reduce_config as jreduce
 from repro.models import attention as jattn
+from repro.models import frontends as jfront
 from repro.models import hybrid as jhyb
 from repro.models import layers as jlayers
 from repro.models import mamba2 as jmamba
@@ -34,6 +37,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch.train import reduce_config as treduce
 from repro_torch.models import attention as tattn
 from repro_torch.models import convert
+from repro_torch.models import frontends as tfront
 from repro_torch.models import hybrid as thyb
 from repro_torch.models import layers as tlayers
 from repro_torch.models import mamba2 as tmamba
@@ -50,6 +54,9 @@ SMALL = {
     "hybrid": dict(n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
                    vocab=128, ssm_state=16, ssm_head_dim=16, window=8,
                    global_layers=(0,)),
+    "vlm": dict(n_layers=2, d_model=64, n_heads=4, n_kv=2, d_ff=128,
+                vocab=97, qkv_bias=True, tie_embeddings=True,
+                frontend="vision", num_prefix_tokens=6),
 }
 
 
@@ -130,11 +137,70 @@ def test_full_width_hymba_counts():
     assert tzoo.param_count(t) == jzoo.param_count(j)
 
 
-def test_waiting_families_raise():
-    for arch in ("qwen3-moe-235b-a22b", "internvl2-1b", "whisper-small"):
-        cfg = treg.get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tzoo.init(cfg, device="cpu")
+@pytest.mark.parametrize("arch", jreg.ARCHS)
+def test_full_width_counts_match_reference(arch):
+    """Every registry config at full width (kimi-k2's 1T parameters too:
+    the port builds on ``meta``, the reference traces abstractly)."""
+    j, t = jreg.get_config(arch), treg.get_config(arch)
+    assert tzoo.param_count(t) == jzoo.param_count(j)
+    assert tzoo.active_param_count(t) == jzoo.active_param_count(j)
+
+
+@pytest.mark.parametrize("arch", treg.ARCHS)
+def test_every_config_builds_and_runs_reduced(arch):
+    """``model_zoo.init`` builds every registry config on the CPU at a
+    reduced width, and one forward gives finite logits of the right shape
+    (with the config's frontend input, when it has one)."""
+    cfg = dataclasses.replace(treduce(treg.get_config(arch), 2, 64,
+                                      vocab=64, heads=4), dtype="float32")
+    if cfg.frontend:
+        cfg = dataclasses.replace(cfg, encoder_seq=12, num_prefix_tokens=5)
+    model = tzoo.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, 64, (2, 9), generator=gen)}
+    spec = tfront.frontend_spec(cfg, 2, torch.float32)
+    if spec is not None:
+        key = "frames" if cfg.frontend == "audio" else "patches"
+        batch[key] = tfront.synthetic_frontend(gen, cfg, 2, torch.float32)
+    logits, aux = tzoo.forward(model, batch, cfg)
+    prefix = 5 if cfg.family == "vlm" else 0
+    assert logits.shape == (2, 9 + prefix, 64)
+    assert bool(torch.isfinite(logits).all()) and aux.dtype == torch.float32
+    assert (float(aux) > 0) == (cfg.family == "moe")
+
+
+def test_frontend_spec_and_synthetic_frontend_match_reference():
+    for arch in jreg.ARCHS:
+        j, t = jreg.get_config(arch), treg.get_config(arch)
+        for dt in ("bfloat16", "float32"):
+            want = jfront.frontend_spec(j, 3, jnp.dtype(dt))
+            got = tfront.frontend_spec(t, 3, getattr(torch, dt))
+            assert (got is None) == (want is None), arch
+            if want is not None:
+                assert (got[0], str(got[1]).removeprefix("torch.")) == \
+                    (tuple(want.shape), str(want.dtype))
+    t = treg.get_config("internvl2-1b")
+    x = tfront.synthetic_frontend(torch.Generator().manual_seed(0), t, 4)
+    assert x.shape == (4, 256, 896) and x.dtype == torch.bfloat16
+    assert x.device.type == "cpu"
+    assert 0.019 < x.float().std().item() < 0.021
+    assert abs(x.float().mean().item()) < 1e-3
+    w = treg.get_config("whisper-small")
+    x = tfront.synthetic_frontend(torch.Generator().manual_seed(0), w, 1,
+                                  torch.float32, device="cpu")
+    assert x.shape == (1, 1500, 768) and x.dtype == torch.float32
+    again = tfront.synthetic_frontend(torch.Generator().manual_seed(0), w, 1,
+                                      torch.float32)
+    assert torch.equal(x, again)
+
+
+def test_unknown_family_raises():
+    _, tc = _configs("dense")
+    bad = dataclasses.replace(tc, family="retnet")
+    with pytest.raises(ValueError, match="unknown model family"):
+        tzoo.init(bad, device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        tzoo.param_count(bad)
 
 
 def test_init_on_the_card_without_one_raises():
@@ -292,6 +358,41 @@ def test_lm_forward_prefill_decode_match_reference(rng, family):
         _close(tlg, jlg)
 
 
+@pytest.mark.parametrize("with_patches", [False, True])
+def test_vlm_forward_prefill_decode_match_reference(rng, with_patches):
+    jc, tc = _configs("vlm")
+    params = jzoo.init(jax.random.PRNGKey(3), jc)
+    params["blocks"]["attn"]["bq"] = jnp.asarray(rng.normal(
+        size=params["blocks"]["attn"]["bq"].shape).astype(np.float32))
+    model = convert.from_jax_params(_np(params), tc, device="cpu")
+    assert model.frontend_proj.shape == (64, 64)
+    toks = rng.integers(0, jc.vocab, size=(2, 12)).astype(np.int32)
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    n = 0
+    if with_patches:
+        n = jc.num_prefix_tokens
+        jb["patches"], tb["patches"] = _x(rng, 2, n, 64)
+    jl, _ = jzoo.forward(params, jb, jc)
+    tl, aux = tzoo.forward(model, tb, tc)
+    assert tl.shape == (2, n + 12, jc.vocab) and float(aux) == 0.0
+    _close(tl, jl)
+    jl, _, jkv = jzoo.prefill(params, jb, jc)
+    tl, _, tkv = tzoo.prefill(model, tb, tc)
+    _close(tl, jl)
+    assert tkv["k"].shape == (2, 2, n + 12, 2, 16)
+    _close(tkv["k"], jkv["k"])
+    _close(tkv["v"], jkv["v"])
+    jcache = jzoo.init_caches(params, jc, 2, 16, dtype=jnp.float32)
+    tcache = tzoo.init_caches(model, tc, 2, 16, dtype=torch.float32)
+    step = jax.jit(lambda tok, c, i: jzoo.decode_step(params, tok, jc, c, i))
+    for t in range(9):
+        jlg, jcache = step(jnp.asarray(toks[:, t:t + 1]), jcache,
+                           jnp.int32(t))
+        tlg, tcache = tzoo.decode_step(model, torch.from_numpy(
+            toks[:, t:t + 1]), tc, tcache, t)
+        _close(tlg, jlg)
+
+
 def test_hybrid_decode_equals_forward():
     """The port's own decode path (ring caches on windowed layers) equals
     its full-sequence forward, as the reference's does (< 1e-4)."""
@@ -335,6 +436,20 @@ def test_serve_batch_matches_reference_tokens():
     (dec,) = tr.spans(name="serve.decode")
     assert dec.attrs["steps"] == tstats["steps"]
     assert len(tr.spans(name="serve.request")) == 3
+
+
+def test_serve_batch_vlm_matches_reference_tokens():
+    jc, tc = _configs("vlm")
+    params = jzoo.init(jax.random.PRNGKey(4), jc)
+    model = convert.from_jax_params(_np(params), tc, device="cpu")
+    jouts, _ = jserve.serve_batch(
+        params, jc, _requests(jserve.Request, np.random.default_rng(1),
+                              jc.vocab), max_len=32)
+    touts, _ = tserve.serve_batch(
+        model, tc, _requests(tserve.Request, np.random.default_rng(1),
+                             tc.vocab), max_len=32)
+    assert [list(map(int, o)) for o in touts] == \
+        [list(map(int, o)) for o in jouts]
 
 
 def test_serve_sampling_follows_the_generator():
