@@ -11,7 +11,8 @@ blocked LAPACK through ``repro_torch.linalg`` at n = 8192, QR, least
 squares, the batched drivers and level 1, the tuning loop (sweep,
 registry, tuned dispatch, calibration), the model zoo serving
 hymba-1.5b, internvl2-1b and whisper-small at full width and qwen3-moe
-at full width with 4 of its 94 layers, and the paper's own apparatus (figs 12-13 on
+at full width with 4 of its 94 layers, the trainer taking hymba-1.5b's
+steps at full width, and the paper's own apparatus (figs 12-13 on
 the PE scoreboard kernel, the quickstart's codesigned kernels). Phases,
 each printing JSON lines with its wall time:
 
@@ -85,7 +86,22 @@ each printing JSON lines with its wall time:
    Then reduced moe (capacity factors 1.25 and 0.5), vlm and encdec
    models' ``forward`` on the card against the CPU, and each moe forward
    twice on the card, bitwise equal.
-8. ``paper``: with the launch counts zeroed just before and read just
+8. ``train``: hymba-1.5b at full width (1.64B parameters; f32 masters,
+   grads, m and v: 26.3 GB) from ``train_state.init_state`` on the card,
+   ``make_train_step`` (the plain oracles under autograd, as the
+   reference's ``use_pallas=False``; remat ``full``; the reference
+   ``main()``'s AdamW) on ``make_batch``'s 2 x 4096 tokens: one untimed
+   step, ``TRAIN_TIMED`` timed ones (finite loss and grad norm above 0,
+   ``lr`` equal to ``schedule``, the parameters moved), the launch counts
+   zeroed before and read after (B1-B8: 0), seconds per step, tokens/s,
+   peak memory and the bound; one device-only profile of a step. Then
+   reduced hybrid and dense models (f32, the dense one in 2 microbatches)
+   3 steps on the card against the CPU from one state, with f32 and 8-bit
+   moments (``TRAIN_TOL``), the remat policies' loss and gradients on the
+   card, and ``train_loop`` failed at step 7 and restarted by
+   ``run_with_restarts`` from its checkpoint: the resumed losses against
+   an uninterrupted run, the last checkpoint restored bitwise.
+9. ``paper``: with the launch counts zeroed just before and read just
    after, figs 12-13 at the paper's n = 100 through ``core.pe``
    (``sweep_joint`` of dgemm, dgeqrf and dgetrf over the adder and
    multiplier, of dgeqrf and dgetrf over sqrt and divider, depths 2-24:
@@ -97,7 +113,7 @@ each printing JSON lines with its wall time:
    fig 12's dgemm, every sweep in full at n = 48), B4 and B1 to theirs,
    and per sweep CPI, TPI, the best depth by TPI beside the eq.-7 depths
    of its section-4 profile, and B8's ms.
-9. ``times``: each kernel at its path's shapes against its plain version,
+10. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
@@ -163,6 +179,52 @@ FAMILY_ENCDEC = ("whisper-small", (4, 448), 36)    # + 1500 frames each
 FAMILY_MOE = ("qwen3-moe-235b-a22b", (2, 4096), 4)
 MOE_LAYERS = 4
 FAMILY_NEW = 32                # new tokens per request / decode steps
+# the train phase: hymba-1.5b at full width, its steps' (batch, tokens),
+# the timed steps after one untimed, and the reference main()'s AdamW
+# settings at its default 100 steps (lr 3e-4, warmup max(100 // 20, 5));
+# then reduced hybrid and dense models (3 layers, d_model 256, 4 heads,
+# vocab 512, f32; the hybrid's window 128 so its local layers take the
+# banded oracle) at 2 x TRAIN_SMALL_SEQ tokens, at the CPU tests' lr
+TRAIN = (2, 4096)
+TRAIN_TIMED = 4
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5, decay_steps=100)
+TRAIN_SMALL_SEQ = 1024
+TRAIN_SMALL_OPT = dict(lr=5e-3, warmup_steps=2, decay_steps=20)
+TRAIN_AGREE_STEPS = 3
+# substrings of kernel names the train step's profile sums apart (they may
+# overlap): cuBLAS f32 and bf16 products, elementwise, reductions, softmax
+TRAIN_PROFILE_MATCH = ("gemm_f32f32", "bf16", "nvjet", "elementwise",
+                       "reduce_kernel", "softmax", "Memcpy", "index")
+# card against CPU after TRAIN_AGREE_STEPS steps of the same reduced state
+# in f32 (TF32 off), (limit, reason):
+TRAIN_TOL = {
+    "loss": (1e-5, "relative; f32 sums in another order (cuBLAS against "
+                   "the CPU's BLAS) over a few thousand terms"),
+    "grad_norm": (1e-5, "relative; as the loss"),
+    "lr": (1e-6, "relative; the same f32 formula, the card's and the CPU's "
+                 "f32 cosines may differ in the last place"),
+    "params": (2e-4, "absolute at lr 5e-3: where a gradient is near zero "
+                     "AdamW's m / (sqrt(v) + eps) turns rounding-level "
+                     "differences into a share of the step (the bound "
+                     "tests/test_train_integration.py uses)"),
+    "codes_off": (1e-3, "share of the 8-bit codes apart: after the first "
+                        "step from one state one step apart at most (a "
+                        "moment that differs in its last bit can round to "
+                        "the next code); after the last, the share alone "
+                        "(the parameters have moved apart by then)"),
+    "scales": (1e-4, "relative, after the first step: a block's absmax "
+                     "from gradients that agree to f32 rounding"),
+    "params_8bit": (2 * TRAIN_AGREE_STEPS * TRAIN_SMALL_OPT["lr"],
+                    "absolute: a code one step apart moves its moment by a "
+                    "quantization step, up to about two learning rates of "
+                    "update a step where v sits at its floor"),
+    "remat": (1e-5, "max |g_policy - g_none| / max |g_none| per tensor: "
+                    "the recompute repeats the same kernels on the same "
+                    "inputs; the limit leaves room for a kernel that sums "
+                    "in a varying order"),
+    "resume": (1e-4, "relative per step; the reference's resume bound "
+                     "(atomics in the backward may reorder sums)"),
+}
 REPLACES = {
     "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:51"),
     "gemm_bias_act": ("src/repro_torch/csrc/gemm.cu",
@@ -2067,6 +2129,316 @@ def family_agreement():
         del cpu, card
 
 
+def train_attention_flops(cfg, b, s):
+    """Attention's matmul flops in one remat training step of ``cfg`` at
+    (b, s): QK^T and PV over the unmasked (causal, windowed) pairs, 4
+    flops a pair per head dimension, taken four times (the forward, its
+    recompute under remat, and the backward's two)."""
+    w = cfg.window or s
+    local = w * (w + 1) // 2 + (s - w) * w if s > w else s * (s + 1) // 2
+    pairs = sum(s * (s + 1) // 2 if i in cfg.global_layers else local
+                for i in range(cfg.n_layers))
+    return 4 * (4 * b * cfg.n_heads * cfg.hd * pairs)
+
+
+def train_steps(cfg, opt_cfg, step_fn, state, seq):
+    """One untimed step, then ``TRAIN_TIMED`` timed ones, at (TRAIN[0],
+    seq) tokens from ``make_batch``; the launch counts zeroed before the
+    first and read after the last. Returns (state, per-step records,
+    launches, the last batch)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train import optimizer
+
+    data = DataConfig(vocab=cfg.vocab, global_batch=TRAIN[0], seq_len=seq,
+                      seed=SEED)
+    steps = []
+    counts = zero_launches()
+    for i in range(1 + TRAIN_TIMED):
+        batch = make_batch(cfg, data, i, accum=max(cfg.accum_steps, 1),
+                           device="cuda")
+        (state, m), secs = sync_time(lambda: step_fn(state, batch))
+        want_lr = optimizer.schedule(opt_cfg, torch.tensor(i + 1,
+                                                           device="cuda"))
+        rec = {"step": i, "wall_s": secs, "loss": m["loss"].item(),
+               "grad_norm": m["grad_norm"].item(), "lr": m["lr"].item()}
+        assert torch.isfinite(m["loss"]) and torch.isfinite(
+            m["grad_norm"]) and rec["grad_norm"] > 0, rec
+        assert torch.equal(m["lr"], want_lr), (rec, want_lr.item())
+        steps.append(rec)
+    launches = {k: w.launches for k, w in counts.items()}
+    return state, steps, launches, batch
+
+
+def phase_train():
+    """hymba-1.5b trained at full width on the card (``init_state``, then
+    ``make_train_step``: the plain oracles under autograd with per-layer
+    remat, f32 masters, grads and moments), then reduced models' steps on
+    the card against the CPU (f32, 8-bit moments, the remat policies) and
+    a restart of ``train_loop`` from its checkpoint."""
+    from repro_torch.configs import registry
+    from repro_torch.train import train_state as ts
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = registry.get_config("hymba-1.5b")
+    assert cfg.remat and cfg.remat_policy == "full" and not cfg.opt_8bit
+    opt_cfg = AdamWConfig(eight_bit=cfg.opt_8bit, **TRAIN_OPT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, secs = sync_time(lambda: ts.init_state(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, opt_cfg,
+        "cuda"))
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    moment_bytes = sum(t.numel() * t.element_size()
+                       for k in ("m", "v") for t in state["opt"][k].values())
+    emit(call="train_state.init_state hymba-1.5b", wall_s=secs,
+         params=n_params, param_bytes=param_bytes,
+         moment_bytes=moment_bytes,
+         state_bytes_with_grads=2 * param_bytes + moment_bytes,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, compute_dtype=cfg.dtype,
+         remat=cfg.remat_policy, eight_bit=opt_cfg.eight_bit, opt=TRAIN_OPT)
+    watch = {n: p.detach().reshape(-1)[:1024].clone() for n, p in
+             list(model.named_parameters())[:: 40]}
+    step_fn = ts.make_train_step(cfg, opt_cfg)
+    seq, cut = TRAIN[1], None
+    while True:
+        torch.cuda.empty_cache()
+        try:
+            state, steps, launches, batch = train_steps(
+                cfg, opt_cfg, step_fn, state, seq)
+            break
+        except torch.cuda.OutOfMemoryError:
+            # a cut of the sequence, never of remat; printed beside the peak
+            cut = f"seq {TRAIN[1]} -> {seq // 2}: out of memory at {seq}"
+            emit(note=f"train step out of memory at 2 x {seq}",
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            seq //= 2
+            assert seq >= 512, "the train step does not fit at 2 x 1024"
+    assert not any(launches.values()), launches
+    assert all(not torch.equal(p.detach().reshape(-1)[:1024], watch[n])
+               for n, p in model.named_parameters() if n in watch), \
+        "a parameter did not change"
+    timed = [r["wall_s"] for r in steps[1:]]
+    step_s = statistics.median(timed)
+    tokens = TRAIN[0] * seq
+    flops = 8 * n_params * tokens + train_attention_flops(cfg, TRAIN[0],
+                                                          seq)
+    bound_s = flops / PEAK_FLOPS[torch.bfloat16]
+    emit(call=f"train step hymba-1.5b {TRAIN[0]}x{seq} (1 untimed + "
+              f"{TRAIN_TIMED} timed)", cut=cut, steps=steps,
+         step_s=step_s, step_s_all=timed, tokens_per_s=tokens / step_s,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         peak_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, bound_s=bound_s,
+         bound="8 x params x tokens + attention's unmasked pairs (forward, "
+               "remat recompute, backward) at 989 TFLOP/s bf16",
+         bound_flops=flops)
+    for _ in range(3):
+        prof = profile_call(lambda: step_fn(state, batch), cpu=False,
+                            pad=32, top=12, match=TRAIN_PROFILE_MATCH)
+        if prof["kernel_launches"] > 1000:
+            break
+    emit(profile=f"train step hymba-1.5b {TRAIN[0]}x{seq}", **prof)
+    del state, model, batch, step_fn, watch
+    torch.cuda.empty_cache()
+    train_agreement()
+    train_restart()
+
+
+def train_small_cfg(arch):
+    """The reduced f32 config of ``arch`` the agreement and restart checks
+    train (the hybrid's window 128: its local layers take the banded
+    oracle at TRAIN_SMALL_SEQ)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+
+    cfg = dataclasses.replace(reduce_config(
+        registry.get_config(arch), layers=3, d_model=256, vocab=512,
+        heads=4), dtype="float32")
+    return dataclasses.replace(cfg, window=128) if cfg.window else cfg
+
+
+def train_agreement():
+    """Reduced hybrid and dense models: one state copied to the card and
+    to the CPU, ``TRAIN_AGREE_STEPS`` steps on each with f32 and with
+    8-bit moments (loss and grad norm each step, then the parameters; the
+    codes and scales), and on the card the 'full', 'dots' and 'none'
+    remat policies' loss and gradients."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    for arch in ("hymba-1.5b", "granite-3-8b"):
+        cfg = train_small_cfg(arch)
+        accum = max(cfg.accum_steps, 1)        # granite-3-8b's is 2
+        data = DataConfig(vocab=cfg.vocab, global_batch=2,
+                          seq_len=TRAIN_SMALL_SEQ, seed=SEED)
+        for eight_bit in (False, True):
+            opt = optimizer.AdamWConfig(eight_bit=eight_bit,
+                                        **TRAIN_SMALL_OPT)
+            cpu = ts.init_state(torch.Generator().manual_seed(SEED), cfg,
+                                opt, "cpu")
+            card_model = model_zoo.build(cfg, "cuda")
+            card_model.load_state_dict(cpu["params"].state_dict())
+            card = ts.state_for(card_model, opt)
+            step = ts.make_train_step(cfg, opt)
+            per_step, codes = [], {}
+            counts = zero_launches()
+            for i in range(TRAIN_AGREE_STEPS):
+                batch = make_batch(cfg, data, i, accum=accum, device="cpu")
+                card, got = step(card, {k: v.cuda() for k, v in
+                                        batch.items()})
+                cpu, want = step(cpu, batch)
+                per_step.append({k: abs(got[k].item() - want[k].item())
+                                 / abs(want[k].item())
+                                 for k in ("loss", "grad_norm", "lr")})
+                if eight_bit and i in (0, TRAIN_AGREE_STEPS - 1):
+                    codes[f"after step {i + 1}"] = code_stats(card["opt"],
+                                                              cpu["opt"])
+            launches = {k: w.launches for k, w in counts.items()}
+            p_err = max((a.detach().cpu() - b.detach()).abs().max().item()
+                        for a, b in zip(card["params"].parameters(),
+                                        cpu["params"].parameters()))
+            first, last = codes.get("after step 1"), codes.get(
+                f"after step {TRAIN_AGREE_STEPS}")
+            ok = (all(r["loss"] <= TRAIN_TOL["loss"][0]
+                      and r["grad_norm"] <= TRAIN_TOL["grad_norm"][0]
+                      and r["lr"] <= TRAIN_TOL["lr"][0] for r in per_step)
+                  and p_err <= TRAIN_TOL["params_8bit" if eight_bit
+                                         else "params"][0]
+                  and not any(launches.values())
+                  and (not eight_bit or (
+                      first["codes_off_share"] <= TRAIN_TOL["codes_off"][0]
+                      and first["codes_max_off"] <= 1
+                      and first["scale_max_rel"] <= TRAIN_TOL["scales"][0]
+                      and last["codes_off_share"]
+                      <= TRAIN_TOL["codes_off"][0])))
+            emit(check=f"{cfg.family} 3x256 ({arch} reduced) "
+                       f"{TRAIN_AGREE_STEPS} train steps 2x"
+                       f"{TRAIN_SMALL_SEQ}, {'8-bit' if eight_bit else 'f32'}"
+                       f" moments, {accum} microbatches: cuda vs cpu",
+                 per_step_rel=per_step,
+                 params_max_abs=p_err, codes=codes, launches=launches,
+                 tol={k: v[0] for k, v in TRAIN_TOL.items()},
+                 reasons={k: v[1] for k, v in TRAIN_TOL.items()}, ok=ok)
+            assert ok, (arch, eight_bit, per_step, p_err, codes, launches)
+            del cpu, card, card_model
+        # the remat policies on the card: one batch, the same parameters
+        batch = {k: v.cuda() for k, v in
+                 make_batch(cfg, data, 0, device="cpu").items()}
+        model = model_zoo.init(cfg, torch.Generator(device="cuda")
+                               .manual_seed(SEED), "cuda")
+        model.requires_grad_(True)
+        params = optimizer.named_parameters(model)
+        out = {}
+        for policy in ("none", "full", "dots"):
+            pcfg = dataclasses.replace(cfg, remat_policy=policy)
+            torch.cuda.reset_peak_memory_stats()
+            out[policy] = ts.value_and_grad(model, params, batch, pcfg)
+            out[policy] += (torch.cuda.max_memory_allocated(),)
+        loss0, g0, _ = out["none"]
+        worst = {p: max(((g[k] - g0[k]).abs().max()
+                         / g0[k].abs().max().clamp_min(1e-30)).item()
+                        for k in g0) for p, (_, g, _) in out.items()}
+        ok = all(torch.equal(l, loss0) or abs(l.item() - loss0.item())
+                 <= TRAIN_TOL["remat"][0] * abs(loss0.item())
+                 for l, _, _ in out.values()) \
+            and max(worst.values()) <= TRAIN_TOL["remat"][0]
+        emit(check=f"{cfg.family} 3x256 remat full / dots / none on the "
+                   f"card: loss and grads", loss={p: o[0].item() for p, o in
+                                                  out.items()},
+             grads_max_rel=worst,
+             peak_bytes={p: o[2] for p, o in out.items()},
+             tol=TRAIN_TOL["remat"][0], reason=TRAIN_TOL["remat"][1], ok=ok)
+        assert ok, worst
+        del model, params, out, g0
+
+
+def code_stats(card_opt, cpu_opt):
+    """The card's 8-bit moments against the CPU's: the share of codes
+    apart, the largest distance, the largest relative scale difference."""
+    off, n, worst, s_err = 0, 0, 0, 0.0
+    for mom in ("m", "v"):
+        for k, g in card_opt[mom].items():
+            w = cpu_opt[mom][k]
+            d = (g.q.cpu().int() - w.q.int()).abs()
+            off += int((d > 0).sum())
+            n += d.numel()
+            worst = max(worst, int(d.max()))
+            s_err = max(s_err, ((g.scale.cpu() - w.scale).abs()
+                                / w.scale.abs().clamp_min(1e-30)).max()
+                        .item())
+    return {"codes_off_share": off / n, "codes_max_off": worst,
+            "scale_max_rel": s_err}
+
+
+def train_restart():
+    """``train_loop`` on the reduced hybrid on the card: 12 steps
+    uninterrupted, then with checkpoints every 3 and a failure injected at
+    step 7 under ``run_with_restarts`` (one restart, resumed at 7); the
+    resumed losses against the uninterrupted run's, and the last
+    checkpoint restored bitwise into a fresh model."""
+    import tempfile
+
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model_zoo
+    from repro_torch.runtime.fault_tolerance import run_with_restarts
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    cfg = train_small_cfg("hymba-1.5b")
+    opt = optimizer.AdamWConfig(**TRAIN_SMALL_OPT)
+    data = DataConfig(vocab=cfg.vocab, global_batch=2,
+                      seq_len=TRAIN_SMALL_SEQ, seed=SEED)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_train_") as tmp:
+        (_, ref_hist), ref_s = sync_time(lambda: train_loop(
+            cfg, opt, data, None, steps=12, ckpt_dir=os.path.join(tmp, "a"),
+            save_interval=1000, log_every=100, device="cuda"))
+        ckpt = os.path.join(tmp, "b")
+        calls, done = [], {}
+
+        def loop(resume):
+            calls.append(resume)
+            done["run"] = train_loop(
+                cfg, opt, data, None, steps=12, ckpt_dir=ckpt,
+                save_interval=3, log_every=100, device="cuda",
+                fail_at_step=7 if len(calls) == 1 else -1)
+            return 12
+
+        report, secs = sync_time(lambda: run_with_restarts(loop,
+                                                           max_restarts=2))
+        state, hist = done["run"]
+        like = ts.state_for(model_zoo.build(cfg, "cuda"), opt)
+        back, step = ck.restore(ckpt, like)
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            state["params"].parameters(), back["params"].parameters())) \
+            and all(torch.equal(state["opt"][k][n], back["opt"][k][n])
+                    for k in ("m", "v") for n in state["opt"][k]) \
+            and torch.equal(state["opt"]["step"], back["opt"]["step"])
+        steps_saved = ck.all_steps(ckpt)
+    rel_err = [abs(a - b) / abs(b) for a, b in zip(hist, ref_hist[7:])]
+    ok = (report.completed and report.restarts == 1 and len(hist) == 5
+          and step == 11 and bitwise and steps_saved == [6, 9, 11]
+          and max(rel_err) <= TRAIN_TOL["resume"][0])
+    emit(check="train_loop restart on the card: hybrid 3x256, 12 steps, "
+               "checkpoints every 3, failure at step 7",
+         restarts=report.restarts, completed=report.completed,
+         resumed_losses=hist, uninterrupted_losses=ref_hist[7:],
+         rel_err=rel_err, restored_step=step, restored_bitwise=bitwise,
+         checkpoints=steps_saved, uninterrupted_s=ref_s, restarted_s=secs,
+         tol=TRAIN_TOL["resume"][0], reason=TRAIN_TOL["resume"][1], ok=ok)
+    assert ok, (report, rel_err, bitwise, steps_saved)
+
+
 def attention_work(b, hq, hkv, sq, sk, d, itemsize, causal=True, window=None,
                    q_offset=0):
     """(flops, bytes) the masks leave: 4 D per live (query, key) pair for
@@ -2496,6 +2868,9 @@ def main() -> int:
     t0 = time.perf_counter()
     family_b5 = phase_families(gen)
     emit(phase_done="families", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_train()
+    emit(phase_done="train", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     paper_row, paper_launches = phase_paper()
     model_launches["dotp"] = paper_launches["dotp"]

@@ -1,2 +1,2 @@
 """repro_torch.launch - the serving launcher (port of ``repro.launch.serve``)
-and the config reduction it shares with the trainer, which waits."""
+and the training launcher (port of ``repro.launch.train``)."""

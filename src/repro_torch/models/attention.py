@@ -3,7 +3,8 @@ cross-attention (port of ``repro.models.attention``).
 
 The full-sequence paths (training / prefill, and the encoder-decoder's
 cross-attention) go through :func:`repro_torch.kernels.ops.attention`:
-kernel B5 on the card, the reference's plain oracles on the CPU. The
+kernel B5 on the card, the reference's plain oracles on the CPU or when
+the caller passes ``use_kernels=False`` (the trainer does). The
 decode path writes one token into the cache and attends with a kv-length
 mask in plain PyTorch, as the reference does (``masked_decode_attention``
 reaches no kernel there either).
@@ -84,13 +85,14 @@ class Attention(nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                window: Optional[int] = None, causal: bool = True
-                ) -> torch.Tensor:
+                window: Optional[int] = None, causal: bool = True,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Full-sequence (training / prefill) attention. x: (B, S, d)."""
         q, k, v = self.project_qkv(x, positions)
         # (B, Hq, S, hd) views: the kernel reads them through their strides
         o = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
-                          causal=causal, window=window)
+                          causal=causal, window=window,
+                          use_kernels=use_kernels)
         b, s = x.shape[:2]
         o = o.movedim(1, 2).reshape(b, s, self.cfg.n_heads * self.cfg.hd)
         return linear(o, self.wo)
@@ -118,7 +120,8 @@ class Attention(nn.Module):
         o = o.movedim(1, 2).reshape(b, 1, self.cfg.n_heads * self.cfg.hd)
         return linear(o, self.wo), cache
 
-    def cross(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    def cross(self, x: torch.Tensor, memory: torch.Tensor,
+              use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Decoder cross-attention (``apply_cross_attention``): queries from
         x (B, S, d), keys and values from the encoder memory (B, Sm, d), no
         RoPE and no biases, every query attending to every memory row (on
@@ -131,6 +134,6 @@ class Attention(nn.Module):
         k = (memory @ self.wk.to(x.dtype)).reshape(b, sm, hkv, hd)
         v = (memory @ self.wv.to(x.dtype)).reshape(b, sm, hkv, hd)
         o = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
-                          causal=False)
+                          causal=False, use_kernels=use_kernels)
         o = o.movedim(1, 2).reshape(b, s, hq * hd)
         return linear(o, self.wo)

@@ -15,7 +15,7 @@ caches in place and returns them.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -25,6 +25,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (FFN, Embedding, RMSNorm, param,
                                        sinusoidal_positions,
                                        truncated_normal_)
+from repro_torch.models.transformer import maybe_remat
 
 
 class EncBlock(nn.Module):
@@ -36,9 +37,10 @@ class EncBlock(nn.Module):
         self.ln2 = RMSNorm(d, cfg.norm_eps, device=device)
         self.ffn = FFN(d, cfg.d_ff, cfg.glu, cfg.act, device=device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions, causal=False)
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, causal=False,
+                          use_kernels=use_kernels)
         return x + self.ffn(self.ln2(x))
 
 
@@ -54,9 +56,12 @@ class DecBlock(nn.Module):
         self.ffn = FFN(d, cfg.d_ff, cfg.glu, cfg.act, device=device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                memory: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions, causal=True)
-        x = x + self.xattn.cross(self.ln_x(x), memory)
+                memory: torch.Tensor, use_kernels: Optional[bool] = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, causal=True,
+                          use_kernels=use_kernels)
+        x = x + self.xattn.cross(self.ln_x(x), memory,
+                                 use_kernels=use_kernels)
         return x + self.ffn(self.ln2(x))
 
 
@@ -94,31 +99,37 @@ class EncDec(nn.Module):
                            device=x.device)[None].expand(b, s)
         return table, pos
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor,
+               use_kernels: Optional[bool] = None) -> torch.Tensor:
         """frames (B, S_enc, d), the stub frontend's embeddings -> memory
-        (B, S_enc, d)."""
+        (B, S_enc, d). Each block under ``maybe_remat`` (the reference's
+        remat of the encoder scan)."""
         table, positions = self._positions(frames)
         x = frames.to(self.dtype) + table[None]
         for blk in self.enc_blocks:
-            x = blk(x, positions)
+            x = maybe_remat(blk, self.cfg, x, positions,
+                            use_kernels=use_kernels)
         return self.enc_norm(x)
 
-    def decode_train(self, tokens: torch.Tensor, memory: torch.Tensor
-                     ) -> torch.Tensor:
+    def decode_train(self, tokens: torch.Tensor, memory: torch.Tensor,
+                     use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Teacher-forced decoder pass: tokens (B, S) and the memory ->
-        logits (B, S, V)."""
+        logits (B, S, V), each block under ``maybe_remat``."""
         table, positions = self._positions(tokens)
         x = self.embed(tokens, self.dtype) + table[None]
         for blk in self.dec_blocks:
-            x = blk(x, positions, memory)
+            x = maybe_remat(blk, self.cfg, x, positions, memory,
+                            use_kernels=use_kernels)
         return self._logits(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.dec_norm(x) @ self.head.to(x.dtype)
 
-    def forward(self, frames: torch.Tensor, tokens: torch.Tensor):
+    def forward(self, frames: torch.Tensor, tokens: torch.Tensor,
+                use_kernels: Optional[bool] = None):
         """(logits, aux): the aux loss is a float32 zero."""
-        logits = self.decode_train(tokens, self.encode(frames))
+        memory = self.encode(frames, use_kernels=use_kernels)
+        logits = self.decode_train(tokens, memory, use_kernels=use_kernels)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
 

@@ -8,7 +8,7 @@ attention runs per layer, as the reference's ``lax.cond`` arranges.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -53,12 +53,12 @@ class Hybrid(nn.Module):
         return 0.5 * (self.attn_scale.to(ya.dtype) * ya
                       + self.ssm_scale.to(ys.dtype) * ys)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Full-sequence path: windowed or global attention, and the SSM."""
         window = None if self.is_global else self.cfg.window
-        ya = self.attn(x, positions, window=window)
-        return self._fuse(ya, self.ssm(x))
+        ya = self.attn(x, positions, window=window, use_kernels=use_kernels)
+        return self._fuse(ya, self.ssm(x, use_kernels=use_kernels))
 
     def decode(self, x: torch.Tensor, cache: Dict, cache_index: int
                ) -> Tuple[torch.Tensor, Dict]:

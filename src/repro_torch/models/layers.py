@@ -6,8 +6,9 @@ and RoPE run in float32 - the reference's numerics. Modules are built with
 uninitialized storage (``torch.empty``) on the device they are given;
 :func:`repro_torch.models.model_zoo.init` draws the reference's
 distributions into them and :func:`repro_torch.models.convert.from_jax_params`
-copies the JAX package's values. Parameters do not require grad: this
-slice serves, and the kernels have no backward yet.
+copies the JAX package's values. Parameters are built without
+``requires_grad``, so serving records no graph; the trainer
+(:func:`repro_torch.train.train_state.init_state`) turns it on.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from torch import nn
 
 
 def param(*shape: int, device=None) -> nn.Parameter:
-    """An uninitialized float32 parameter (no grad) of ``shape``."""
+    """An uninitialized float32 parameter of ``shape``, not requiring
+    grad until the trainer asks."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                     device=device), requires_grad=False)
 
@@ -67,8 +69,10 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         # gather then cast: the same values as the reference's cast then
-        # gather, without casting the whole table
-        return self.table[ids].to(dtype)
+        # gather, without casting the whole table; F.embedding's backward
+        # sums each row's gradients in a fixed order (an indexing
+        # backward adds them in an order that varies from run to run)
+        return F.embedding(ids, self.table).to(dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -3,8 +3,9 @@ causal depthwise conv, and the selective state space.
 
 The full-sequence path runs the chunked SSD through
 :func:`repro_torch.kernels.ops.ssd` (kernel B6 on the card, the reference's
-chunked oracle on the CPU); decode is the one-step recurrence against a
-cached (H, P, N) state and conv tail, in plain PyTorch as in the reference.
+chunked oracle on the CPU or under ``use_kernels=False``); decode is the
+one-step recurrence against a cached (H, P, N) state and conv tail, in
+plain PyTorch as in the reference.
 """
 from __future__ import annotations
 
@@ -109,14 +110,16 @@ class Mamba2(nn.Module):
         y = y.reshape(bsz, s, self.cfg.d_inner)
         return linear(self.norm(y * F.silu(z)), self.out_proj)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Full-sequence path. x: (B, S, d)."""
         z, xs, B, C, dt = self._split(linear(x, self.in_proj))
         xbc, _ = causal_conv(torch.cat([xs, B, C], dim=-1), self.conv_w,
                              self.conv_b)
         xs, B, C = self._mix(xbc)
         xh, a_log, Bh, Ch = self._prepare_ssd(xs, B, C, dt)
-        y = ops.ssd(xh, a_log, Bh, Ch, chunk=self.cfg.ssm_chunk)
+        y = ops.ssd(xh, a_log, Bh, Ch, chunk=self.cfg.ssm_chunk,
+                    use_kernels=use_kernels)
         return self._out(y, xh, z)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor]

@@ -6,10 +6,17 @@ The entry points run on the device the model lives on, which
 :func:`init` puts on ``cuda`` unless the caller asks for the CPU; on the
 card the full-sequence paths (forward, prefill) run kernels B5 and B6 in
 every layer that has attention or an SSM (the encoder-decoder: B5 in the
-encoder, the decoder's self-attention and its cross-attention). They run
-under ``torch.no_grad()``: this package serves, and the kernels have no
-backward yet. The ``cfg`` arguments mirror the reference's signatures; the
-model carries its own.
+encoder, the decoder's self-attention and its cross-attention).
+
+Grad mode: :func:`prefill` and :func:`decode_step` serve and run under
+``torch.no_grad()``. :func:`forward` runs in the caller's grad mode, so
+the trainer takes gradients through it; a model's parameters are built
+without ``requires_grad`` (``train.train_state.init_state`` turns it on),
+so a forward over a serving model records nothing. The kernels have no
+backward (nor have the reference's): a forward that records on the card
+passes ``use_kernels=False`` (the reference's ``use_pallas=False``) and
+takes the plain oracles; with the kernels it raises. The ``cfg`` arguments
+mirror the reference's signatures; the model carries its own.
 """
 from __future__ import annotations
 
@@ -53,13 +60,17 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
-@torch.no_grad()
-def forward(model: Model, batch: dict, cfg: ModelConfig):
+def forward(model: Model, batch: dict, cfg: ModelConfig,
+            use_kernels: Optional[bool] = None):
     """batch: {'tokens': (B, S)} and, for the frontend families,
-    {'frames' | 'patches': (B, P, d)}. Returns (logits, aux)."""
+    {'frames' | 'patches': (B, P, d)}. Returns (logits, aux). Runs in the
+    caller's grad mode; ``use_kernels`` as :func:`repro_torch.kernels.ops.
+    attention`'s (``None``: the device decides)."""
     if cfg.family == "encdec":
-        return model(batch["frames"], batch["tokens"])
-    return model(batch["tokens"], batch.get("patches"))
+        return model(batch["frames"], batch["tokens"],
+                     use_kernels=use_kernels)
+    return model(batch["tokens"], batch.get("patches"),
+                 use_kernels=use_kernels)
 
 
 @torch.no_grad()

@@ -3,7 +3,8 @@ of ``repro.models.transformer``).
 
 The reference scans over layers whose parameters are stacked on a leading
 axis; here the layers are an ``nn.ModuleList`` and the scan is a Python
-loop. Remat is a training concern and waits with the trainer. The moe
+loop. While autograd records, each block runs under :func:`maybe_remat`,
+the reference's per-layer remat with its policies. The moe
 family's blocks take :class:`~repro_torch.models.moe.MoE` for their FFN;
 a vlm model projects the frontend's prefix embeddings with
 ``frontend_proj`` and prepends them to the token embeddings. The
@@ -16,10 +17,12 @@ caches in place and returns them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import hybrid as hybrid_mod
@@ -37,6 +40,42 @@ Caches = Union[List[Dict], Dict[str, torch.Tensor]]
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+# the products that ``checkpoint_dots_with_no_batch_dims`` saves: a matmul
+# with no batch dimension (``x @ w`` folds its leading axes into ``mm``);
+# the batched products (``bmm``: attention scores, the SSD's chunk
+# products, the experts) are recomputed, as the reference's policy does
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(block: nn.Module, cfg: ModelConfig, *args, **kwargs):
+    """``block(*args, **kwargs)`` with per-layer remat under
+    ``cfg.remat_policy`` (the reference's ``maybe_remat``): 'full'
+    recomputes the whole block in the backward, 'dots' saves the outputs of
+    the products with no batch dimension and recomputes the rest, 'none'
+    (or ``cfg.remat`` off) saves everything. Remat applies only while
+    autograd records the block (grad mode on, and a parameter or input
+    that requires grad); serving runs the block as it is."""
+    recording = torch.is_grad_enabled() and (
+        any(isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+        or any(p.requires_grad for p in block.parameters()))
+    if not recording or not cfg.remat or cfg.remat_policy == "none":
+        return block(*args, **kwargs)
+    if cfg.remat_policy == "full":
+        return ckpt.checkpoint(block, *args, use_reentrant=False, **kwargs)
+    if cfg.remat_policy == "dots":
+        return ckpt.checkpoint(
+            block, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy),
+            **kwargs)
+    raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
 
 
 class Block(nn.Module):
@@ -74,15 +113,17 @@ class Block(nn.Module):
             return x, None
         return x + self.ffn(self.ln2(x)), None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                use_kernels: Optional[bool] = None):
         """(x, aux): aux is the moe FFN's float32 loss, else None."""
         h = self.ln1(x)
         if self.ssm is not None:
-            x = x + self.ssm(h)
+            x = x + self.ssm(h, use_kernels=use_kernels)
         elif self.mix is not None:
-            x = x + self.mix(h, positions)
+            x = x + self.mix(h, positions, use_kernels=use_kernels)
         else:
-            x = x + self.attn(h, positions, window=self.cfg.window)
+            x = x + self.attn(h, positions, window=self.cfg.window,
+                              use_kernels=use_kernels)
         return self._ffn(x)
 
     def decode(self, x: torch.Tensor, cache: Dict, cache_index: int):
@@ -151,11 +192,13 @@ class LM(nn.Module):
                             device=x.device)[None].expand(b, s)
 
     def forward(self, tokens: torch.Tensor,
-                prefix_embeds: Optional[torch.Tensor] = None):
+                prefix_embeds: Optional[torch.Tensor] = None,
+                use_kernels: Optional[bool] = None):
         """Training / prefill forward: tokens (B, S) (after prefix_embeds
         (B, P, d) when given) -> (logits (B, P + S, V), aux), aux the
         float32 sum of the moe layers' losses (0 without them)."""
-        return self._run(tokens, prefix_embeds, collect_kv=False)[:2]
+        return self._run(tokens, prefix_embeds, collect_kv=False,
+                         use_kernels=use_kernels)[:2]
 
     def prefill(self, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None):
@@ -164,7 +207,8 @@ class LM(nn.Module):
         models return None. Returns (logits, aux, kv)."""
         return self._run(tokens, prefix_embeds, collect_kv=True)
 
-    def _run(self, tokens, prefix_embeds, collect_kv: bool):
+    def _run(self, tokens, prefix_embeds, collect_kv: bool,
+             use_kernels: Optional[bool] = None):
         x = self._embed(tokens, prefix_embeds)
         positions = self._positions(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -174,7 +218,8 @@ class LM(nn.Module):
                 _, k, v = blk.attn.project_qkv(blk.ln1(x), positions)
                 ks.append(k)
                 vs.append(v)
-            x, a = blk(x, positions)
+            x, a = maybe_remat(blk, self.cfg, x, positions,
+                               use_kernels=use_kernels)
             if a is not None:
                 aux = aux + a
         kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None

@@ -558,3 +558,85 @@ def test_pe_scoreboard_refuses_empty_stream(card):
     lat = torch.ones((1, isa.N_OPCODES), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="empty stream"):
         ps.pe_scoreboard(empty, empty, empty, lat)
+
+
+def _reduced_train_cfg(arch):
+    """chip_smoke.py's reduced f32 train config (3 layers, d_model 256, 4
+    heads, vocab 512; the hybrid's window 128 for the banded oracle)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+    cfg = dataclasses.replace(reduce_config(
+        registry.get_config(arch), layers=3, d_model=256, vocab=512,
+        heads=4), dtype="float32", accum_steps=1)
+    return dataclasses.replace(cfg, window=128) if cfg.window else cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-3-8b"])
+@pytest.mark.parametrize("eight_bit", [False, True])
+def test_train_step_on_card_matches_cpu(card, arch, eight_bit):
+    """Three train steps of one reduced state on the card and on the CPU
+    (the plain oracles on both, TF32 off; no kernel launches): loss and
+    grad norm within rtol 1e-5 (f32 sums in another order), the learning
+    rate within 1e-6, the f32 run's parameters within 2e-4 at lr 5e-3
+    (AdamW's normalization of near-zero gradients); the 8-bit codes after
+    the first step at most 0.1 % apart, by one step at most, after the
+    last at most 0.1 % apart (the parameters have moved apart by then)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _reduced_train_cfg(arch)
+    opt = optimizer.AdamWConfig(lr=5e-3, warmup_steps=2, decay_steps=20,
+                                eight_bit=eight_bit)
+    data = DataConfig(vocab=cfg.vocab, global_batch=2, seq_len=1024)
+    cpu = ts.init_state(torch.Generator().manual_seed(0), cfg, opt, "cpu")
+    model = model_zoo.build(cfg, card)
+    model.load_state_dict(cpu["params"].state_dict())
+    gpu = ts.state_for(model, opt)
+    step = ts.make_train_step(cfg, opt)
+    def codes_apart():
+        off = torch.cat([(g.q.cpu().int() - cpu["opt"][mom][k].q.int())
+                         .abs().reshape(-1) for mom in ("m", "v")
+                         for k, g in gpu["opt"][mom].items()])
+        return off.max().item(), (off > 0).float().mean().item()
+
+    fa.attention.launches = sk.ssd_scan.launches = 0
+    for i in range(3):
+        batch = make_batch(cfg, data, i, device="cpu")
+        gpu, got = step(gpu, {k: v.to(card) for k, v in batch.items()})
+        cpu, want = step(cpu, batch)
+        for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-6)):
+            assert got[k].item() == pytest.approx(want[k].item(),
+                                                  rel=rtol), (i, k)
+        if eight_bit and i == 0:
+            worst, share = codes_apart()
+            assert worst <= 1 and share <= 1e-3, (worst, share)
+    assert fa.attention.launches == sk.ssd_scan.launches == 0
+    if eight_bit:
+        assert codes_apart()[1] <= 1e-3
+        return
+    for a, b in zip(gpu["params"].parameters(), cpu["params"].parameters()):
+        assert (a.detach().cpu() - b.detach()).abs().max() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_train_forward_with_kernels_refuses_grads(card):
+    """On the card a recording forward must ask for the plain route: the
+    kernels have no backward."""
+    from repro_torch.models import model_zoo
+    cfg = _reduced_train_cfg("hymba-1.5b")
+    model = model_zoo.init(cfg, device=card)
+    tokens = torch.zeros((1, 64), dtype=torch.int64, device=card)
+    logits, _ = model_zoo.forward(model, {"tokens": tokens}, cfg)
+    assert not logits.requires_grad
+    model.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model_zoo.forward(model, {"tokens": tokens}, cfg)
+    logits, _ = model_zoo.forward(model, {"tokens": tokens}, cfg,
+                                  use_kernels=False)
+    assert logits.requires_grad
