@@ -12,9 +12,11 @@ squares, the batched drivers and level 1, the tuning loop (sweep,
 registry, tuned dispatch, calibration), the model zoo serving
 hymba-1.5b, internvl2-1b and whisper-small at full width and qwen3-moe
 at full width with 4 of its 94 layers, the trainer taking hymba-1.5b's
-steps at full width, and the paper's own apparatus (figs 12-13 on
-the PE scoreboard kernel, the quickstart's codesigned kernels). Phases,
-each printing JSON lines with its wall time:
+steps at full width, the paper's own apparatus (figs 12-13 on the PE
+scoreboard kernel, the quickstart's codesigned kernels), and the
+paper's workload on a mesh of SPMD ranks (SUMMA and the batch-sharded
+drivers through ``linalg.use(mesh=...)``). Phases, each printing JSON
+lines with its wall time:
 
 1. ``probe``: the card, its power limit, capability 9.0, TF32 off, the
    kernel build.
@@ -113,7 +115,29 @@ each printing JSON lines with its wall time:
    fig 12's dgemm, every sweep in full at n = 48), B4 and B1 to theirs,
    and per sweep CPI, TPI, the best depth by TPI beside the eq.-7 depths
    of its section-4 profile, and B8's ms.
-10. ``times``: each kernel at its path's shapes against its plain version,
+10. ``mesh``: the paper's workload on a mesh, each rank a spawned process
+   (the kernels already built). A (1, 1) mesh on one NCCL rank: ``gemm``
+   8192^3 f32 under ``use(mesh=(1, 1))`` is one B1 launch with zero hops,
+   bitwise the single-device ``gemm``, and a cold-start ``tuned`` call
+   bitwise the ``model`` one. Then four gloo ranks sharing the card (NCCL
+   refuses two ranks on one card; each panel crosses through pinned host
+   memory): under ``use(mesh=(2, 2))`` ``gemm`` 8192^3 f32 and 4096^3 f64
+   (4 B1 launches a rank on the resolved local tile, ``collective.bytes``
+   equal to ``plan_pdgemm``'s), ``syrk`` 8192, ``trsm`` 8192 with 512
+   right-hand sides, the batched drivers and their solves at the lapack
+   phase's sizes and ``batched_cholesky`` at a ragged 62 (one identity
+   pad record), each held to the single-device result (a batched rank
+   checks the next rank's slab, and its launches equal the single-device
+   call's), and rank 0 holds B1 at the mesh path's own operands against
+   the plain version: one SUMMA step's strided panels (f32 and f64) and
+   every off-diagonal update of its trsm slab; ``compressed_grad_sync`` on one hymba-1.5b layer over a
+   4-rank "pod" axis, two steps with error feedback (the ranks' means
+   bitwise equal, within the int8 bound of the plain mean); and
+   ``sharded_decode_attention`` at hymba-1.5b's decode shapes over a
+   4-rank "model" axis with ragged per-row lengths (1e-5 of max|f64
+   attention|). Every leg's seconds beside ``plan_pdgemm``'s terms, with
+   ``MESH_NOTE``: not a scaling number.
+11. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
@@ -271,6 +295,28 @@ QUICK_DOT_N, QUICK_GEMM_N = 4096, 2048
 # reads for FADD / FMUL), at the card's maximum SM clock (nvidia-smi
 # clocks.max.sm, read in the run)
 PE_STEP_CYCLES = 30 + 2 * 4
+# the mesh phase: SPMD ranks, each a spawned process. (1, 1) is one NCCL
+# rank; (2, 2) is four gloo ranks sharing the one card; the gradient sync
+# runs over a 4-rank "pod" axis, flash-decoding over a 4-rank "model" axis
+MESH_GLOO = (2, 2)
+MESH_TRSM_RHS = 512            # trsm right-hand sides: 128 a rank
+MESH_RAGGED = 62               # a batch the 4 ranks pad by two identities
+MESH_SYNC_STEPS = 2            # compressed_grad_sync steps (error feedback)
+# hymba-1.5b's decode: batch, query heads, kv heads, head dim, cache length,
+# and the rows' valid cache lengths (one full, three ragged)
+MESH_DECODE = (4, 25, 5, 64, 4096)
+MESH_KV_LEN = (4096, 3001, 1500, 17)
+MESH_DECODE_TOL = (1e-5, "relative to max|plain|: f32 partial softmaxes "
+                         "combined in another order (reading 3.3e-7 "
+                         "absolute at max|plain| 1.44); a bf16 combine "
+                         "errs by about 1e-4 of it and fails")
+MESH_SYNC_SLACK = (1e-6, "relative to max|y|: f32 rounding of the "
+                         "dequantized codes' sum on top of the int8 bound "
+                         "(half a code step of each rank's block scale, "
+                         "averaged)")
+MESH_TIMEOUT_S = 600
+MESH_NOTE = ("four ranks share one card, and the links are host loopback "
+             "through gloo, not NVLink. This is not a scaling number.")
 
 
 def emit(**row):
@@ -2836,6 +2882,510 @@ def phase_paper():
     return row, launches
 
 
+def mesh_counted(fn):
+    """``fn()`` run to completion with the kernels' launch counts and the
+    obs counters zeroed just before and read just after: (result, wall s,
+    launches, counter deltas, collective records)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.obs import counters
+
+    wrappers = zero_launches()
+    before = counters.snapshot()
+    mesh_barrier()
+    with coll.record_collectives() as rec:
+        out, secs = sync_time(fn)
+    launches = {name: w.launches for name, w in wrappers.items()
+                if w.launches}
+    launches["gemm_variants"] = {v: c for v, c in
+                                 gk.gemm.variant_launches.items() if c}
+    return out, secs, launches, counters.delta(before), rec
+
+
+def mesh_barrier():
+    """Line the ranks up (after the card's queue drains), so a leg's wall
+    time is its own and not a wait for a slower rank's checks."""
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def mesh_held(rows, name, got, want, tol=None):
+    """``compare`` of a mesh leg with its single-device result, as a row
+    of the rank's output; raises past the tolerance."""
+    tol, reason = tol or TOL[want.dtype]
+    err = (got.double() - want.double()).abs().max().item()
+    scale = max(want.double().abs().max().item(), 1.0)
+    ok = bool(torch.isfinite(got).all()) and err <= tol * scale
+    rows.append({"check": name, "max_abs_err": err, "scale": scale,
+                 "tol": tol, "reason": reason, "bitwise": bool(
+                     torch.equal(got, want)), "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name}: |mesh - single device| = {err} > "
+                             f"{tol} * {scale}")
+
+
+def mesh_leg(rows, leg, secs, launches, counters, plan=None):
+    row = {"leg": leg, "wall_s": secs, "launches": launches,
+           "collective_bytes": counters.get("collective.bytes", 0),
+           "collective_hops": counters.get("collective.hops", 0)}
+    if plan is not None:
+        row.update(plan_compute_s=plan.compute_s,
+                   plan_collective_s=plan.collective_s,
+                   plan_collective_bytes=plan.collective_bytes)
+    rows.append(row)
+
+
+def mesh_one_rank(tmp):
+    """The (1, 1) mesh on one NCCL rank: pdgemm 8192^3 f32 under "model"
+    through ``linalg.gemm`` is one B1 launch with zero hops, bitwise the
+    single-device gemm; a cold-start "tuned" call bitwise the "model"
+    one."""
+    from repro_torch import linalg
+    from repro_torch.core import codesign as cd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a = torch.randn(N, N, generator=gen, device="cuda")
+    b = torch.randn(N, N, generator=gen, device="cuda")
+    rows = []
+    with linalg.use(policy="model"):
+        want = linalg.gemm(a, b)
+    with linalg.use(policy="model", mesh=(1, 1)):
+        got, secs, launches, ctr, rec = mesh_counted(
+            lambda: linalg.gemm(a, b))
+    plan = cd.plan_pdgemm(N, N, N, 1, 1, dtype=torch.float32,
+                          machine="h100")
+    mesh_leg(rows, "pdgemm (1, 1) nccl f32 8192^3", secs, launches, ctr,
+             plan)
+    assert launches == {"gemm": 1, "gemm_variants": {"ffma": 1}}, launches
+    assert [r.kind for r in rec] == ["pdgemm", "ring_bcast", "ring_bcast"]
+    assert sum(r.hops for r in rec) == 0 and not ctr.get("collective.bytes")
+    assert torch.equal(got, want), "(1, 1) pdgemm is not the gemm bitwise"
+    with linalg.use(policy="tuned", mesh=(1, 1),
+                    registry=os.path.join(tmp, "cold-registry.json")):
+        tuned, secs = sync_time(lambda: linalg.gemm(a, b))
+    assert torch.equal(tuned, got), "cold-start tuned != model"
+    rows.append({"leg": "pdgemm (1, 1) nccl tuned (cold start)",
+                 "wall_s": secs, "bitwise_gemm": True,
+                 "bitwise_tuned_model": True})
+    return rows
+
+
+def mesh_gemm_legs(rows, rnd, lower_t):
+    """gemm f32 8192^3 and f64 4096^3, syrk 8192 f32 and trsm 8192 f32
+    with MESH_TRSM_RHS right-hand sides under ``use(mesh=MESH_GLOO)``; one
+    more f32 gemm call with rank 0 under a device-only profile."""
+    import torch.distributed as dist
+
+    from repro_torch import linalg
+    from repro_torch.core import codesign as cd
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.tune import dispatch as td
+
+    px, py = MESH_GLOO
+    for tag, n, dtype in (("gemm f32 8192^3", N, torch.float32),
+                          ("gemm f64 4096^3", N64, torch.float64)):
+        a, b = rnd(n, n, dtype=dtype), rnd(n, n, dtype=dtype)
+        plan = cd.plan_pdgemm(n, n, n, px, py, dtype=dtype, machine="h100")
+        res = td.resolve("pdgemm", (n, n, n), dtype, policy="model",
+                         backend="cuda", mesh=MESH_GLOO)
+        with linalg.use(policy="model", mesh=MESH_GLOO):
+            got, secs, launches, ctr, rec = mesh_counted(
+                lambda: linalg.gemm(a, b))
+        mesh_leg(rows, f"{tag} (2, 2) gloo", secs, launches, ctr, plan)
+        variant = gk.TILED[dtype]
+        assert launches == {"gemm": px * py,
+                            "gemm_variants": {variant: px * py}}, launches
+        tile = (res.gemm_plan.bm, res.gemm_plan.bn, res.gemm_plan.bk)
+        assert gk.gemm.last_launch["tile"] == tile and \
+            gk.gemm.last_launch["tile_source"] == "plan", gk.gemm.last_launch
+        assert ctr["collective.bytes"] == plan.collective_bytes, (ctr, plan)
+        assert len(rec) == 1 + 2 * px * py
+        with linalg.use(policy="model"):
+            mesh_held(rows, f"mesh {tag}", got, linalg.gemm(a, b))
+        rows[-1]["tile"] = list(tile)
+        if dist.get_rank() == 0:
+            mesh_summa_panel_check(rows, tag, a, b, res, variant)
+        if dtype == torch.float32:
+            # where a SUMMA call's time goes: rank 0's device records (its
+            # B1 launches and staging copies) against its wall time
+            mesh_barrier()
+            with linalg.use(policy="model", mesh=MESH_GLOO):
+                if dist.get_rank() == 0:
+                    rows.append({"profile": f"{tag} (2, 2) gloo, rank 0, "
+                                            f"device only", **profile_call(
+                                 lambda: linalg.gemm(a, b), cpu=False,
+                                 match=("gemm_ffma", "Memcpy"), pad=32)})
+                else:
+                    linalg.gemm(a, b)
+        del a, b, got
+    a = rnd(N, N)
+    plan = cd.plan_pdgemm(N, N, N, px, py, dtype=torch.float32,
+                          machine="h100")
+    with linalg.use(policy="model", mesh=MESH_GLOO):
+        got, secs, launches, ctr, _ = mesh_counted(lambda: linalg.syrk(a))
+    mesh_leg(rows, "syrk f32 8192 (2, 2) gloo", secs, launches, ctr, plan)
+    assert launches == {"gemm": px * py,
+                        "gemm_variants": {"ffma": px * py}}, launches
+    with linalg.use(policy="model"):
+        mesh_held(rows, "mesh syrk f32 8192", got, linalg.syrk(a))
+    del a, got
+    t = lower_t(N)
+    rhs = rnd(N, MESH_TRSM_RHS)
+    with linalg.use(policy="model", mesh=MESH_GLOO):
+        got, secs, launches, ctr, rec = mesh_counted(
+            lambda: linalg.trsm(t, rhs))
+    mesh_leg(rows, f"trsm f32 8192 x {MESH_TRSM_RHS} (2, 2) gloo", secs,
+             launches, ctr)
+    assert launches["gemm"] > 0 and set(launches["gemm_variants"]) == \
+        {"ffma"}, launches
+    assert not rec and not ctr.get("collective.bytes")
+    with linalg.use(policy="model"):
+        mesh_held(rows, "mesh trsm f32 8192", got, linalg.trsm(t, rhs))
+    if dist.get_rank() == 0:
+        mesh_trsm_slab_check(rows, t, got[:, :MESH_TRSM_RHS // (px * py)])
+
+
+def mesh_summa_panel_check(rows, tag, a, b, res, variant):
+    """B1 at rank 0's first SUMMA step (mesh coordinates (0, 0), the
+    owner of both panels) on the operands ``_summa_inner`` hands
+    ``_local_update``: a column panel of its A shard (a strided view) and
+    a row panel of its B shard, against the plain version."""
+    from repro_torch.blas import distributed as bd
+    from repro_torch.kernels import gemm as gk
+
+    px, py = MESH_GLOO
+    steps = px * py
+    kf = -(-a.shape[1] // steps)
+    ap = bd._block(bd._pad2(a, px, steps * kf), 0, 0, px, py)[:, :kf]
+    bp = bd._block(bd._pad2(b, steps * kf, py), 0, 0, px, py)[:kf, :]
+    got = bd._local_update(ap, bp, res)
+    launch = gk.gemm.last_launch
+    assert launch["variant"] == variant, launch
+    mesh_held(rows, f"mesh {tag} SUMMA step 0 panel {tuple(ap.shape)} x "
+                    f"{tuple(bp.shape)} strides {ap.stride()} {bp.stride()} "
+                    f"[{variant} {launch['tile']}] against the plain "
+                    f"version", got, gk.gemm_plain(ap, bp))
+
+
+def mesh_trsm_slab_check(rows, t, x):
+    """B1 at every off-diagonal update of the blocked TRSM that rank 0
+    runs on its slab of right-hand sides (``pdtrsm``: T replicated, the
+    slab's solution ``x``), on the operands ``level3.trsm`` hands over (a
+    row window of T, the solved rows of X), each against the plain
+    version; one row with the worst."""
+    from repro_torch.blas import level3
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.tune import dispatch as td
+
+    n, nrhs = x.shape
+    x = x.contiguous()
+    block = td.resolve("trsm", (n, nrhs), t.dtype, policy="model",
+                       backend="cuda").block
+    tol, reason = TOL[t.dtype]
+    worst, variants = None, set()
+    for i0 in range(block, n, block):
+        tw, xs = t[i0:i0 + block, :i0], x[:i0]
+        got = level3.gemm(tw, xs, policy="model")
+        variants.add(gk.gemm.last_launch["variant"])
+        want = gk.gemm_plain(tw, xs)
+        err = (got.double() - want.double()).abs().max().item()
+        scale = max(want.double().abs().max().item(), 1.0)
+        if worst is None or err / scale > worst[0] / worst[1]:
+            worst = (err, scale, i0)
+    ok = worst[0] <= tol * worst[1] and variants == {"ffma"}
+    rows.append({"check": f"mesh trsm f32 {n} rank 0 slab {nrhs} rhs: B1 at "
+                          f"its {len(range(block, n, block))} off-diagonal "
+                          f"updates (block {block}) against the plain "
+                          f"version", "variants": sorted(variants),
+                 "max_abs_err": worst[0], "scale": worst[1],
+                 "worst_rows": worst[2], "tol": tol, "reason": reason,
+                 "ok": ok})
+    assert ok, rows[-1]
+
+
+def mesh_batched_legs(rows, rnd, rank, world):
+    """The batched drivers at the lapack phase's sizes under
+    ``use(mesh=MESH_GLOO)``, then ``batched_cholesky`` at a ragged batch.
+    Each rank holds the gathered result's slab of the next rank to the
+    single-device driver on that slab (so the four ranks check every
+    item), and its own launches to that single-device call's count."""
+    from repro_torch import linalg
+    from repro_torch.lapack import batched as lb
+
+    items, n, nrhs = BATCHED
+    g = rnd(items, n, n)
+    spd = g @ g.transpose(1, 2) / n + torch.eye(n, device="cuda")
+    tall = rnd(items, n, BATCHED_TALL)
+    rhs = rnd(items, n, nrhs)
+    per = items // world
+    sl = slice(((rank + 1) % world) * per, ((rank + 1) % world + 1) * per)
+    for tag, fn, x in (("batched_cholesky", linalg.batched_cholesky, spd),
+                       ("batched_lu", linalg.batched_lu, g),
+                       ("batched_qr", linalg.batched_qr, tall)):
+        with linalg.use(policy="model", mesh=MESH_GLOO):
+            res, secs, launches, ctr, rec = mesh_counted(lambda: fn(x))
+            sol, s_secs, s_launches, _, _ = mesh_counted(
+                lambda: linalg.batched_solve(res, rhs))
+        mesh_leg(rows, f"{tag} {items} x {n} (2, 2) gloo", secs, launches,
+                 ctr)
+        mesh_leg(rows, f"{tag} solve {nrhs} rhs (2, 2) gloo", s_secs,
+                 s_launches, {})
+        assert [r.info for r in rec] == [{"batch": items, "pad": 0,
+                                          "identity": True}]
+        with linalg.use(policy="model"):
+            want, _, w_launches, _, _ = mesh_counted(lambda: fn(x[sl]))
+            w_sol, _, ws_launches, _, _ = mesh_counted(
+                lambda: linalg.batched_solve(want, rhs[sl]))
+        assert launches == w_launches, (tag, launches, w_launches)
+        assert s_launches == ws_launches, (tag, s_launches, ws_launches)
+        mesh_held(rows, f"mesh {tag} factors", res.factors[sl], want.factors)
+        mesh_held(rows, f"mesh {tag} solve", sol[sl], w_sol)
+        if res.pivots is not None:
+            assert torch.equal(res.pivots[sl], want.pivots)
+        if res.tau is not None:
+            mesh_held(rows, f"mesh {tag} tau", res.tau[sl], want.tau)
+    spd = spd[:MESH_RAGGED]
+    with linalg.use(policy="model", mesh=MESH_GLOO):
+        res, secs, launches, ctr, rec = mesh_counted(
+            lambda: linalg.batched_cholesky(spd))
+    mesh_leg(rows, f"batched_cholesky {MESH_RAGGED} x {n} (2, 2) gloo",
+             secs, launches, ctr)
+    pad = -MESH_RAGGED % world
+    assert [(r.kind, r.size, r.info) for r in rec] == [
+        ("pad_batch", world, {"batch": MESH_RAGGED, "pad": pad,
+                              "identity": True})], rec
+    assert res.factors.shape[0] == MESH_RAGGED
+    lo, hi = sl.start, min(sl.stop, MESH_RAGGED)
+    with linalg.use(policy="model"):
+        want = linalg.batched_cholesky(spd[lo:hi])
+    mesh_held(rows, f"mesh batched_cholesky ragged {MESH_RAGGED}",
+              res.factors[lo:hi], want.factors)
+
+
+def mesh_sync_leg(rows, rank, world):
+    """compressed_grad_sync over a 4-rank "pod" axis on one hymba-1.5b
+    layer's parameter shapes, MESH_SYNC_STEPS steps with error feedback:
+    every rank's means bitwise equal (all-reduced MAX and MIN of their
+    bits), and rank 0 holds them to the plain mean of the ranks'
+    error-fed gradients within the int8 bound."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model_zoo
+
+    pod = make_debug_mesh(data=1, model=1, pod=world)
+    cfg = dataclasses.replace(registry.get_config("hymba-1.5b"), n_layers=1)
+    shapes = {k: p.shape for k, p in
+              model_zoo.build(cfg, "meta").blocks[0].named_parameters()}
+
+    def grads(step, r):
+        gen = torch.Generator(device="cuda").manual_seed(
+            SEED + 1000 * step + r)
+        return {k: 1e-3 * torch.randn(s, generator=gen, device="cuda")
+                for k, s in shapes.items()}
+
+    def q_err(y):
+        q, sc = coll._quantize(y)
+        return y - coll._dequantize(q, sc, y.shape), \
+            0.5 * sc.expand(-1, coll.Q_BLOCK).reshape(-1)[:y.numel()] \
+            .reshape(y.shape)
+
+    sync = coll.compressed_grad_sync(pod, "pod")
+    errs = {k: torch.zeros(s, device="cuda") for k, s in shapes.items()}
+    steps = []
+    for step in range(MESH_SYNC_STEPS):
+        mine = grads(step, rank)
+        mesh_barrier()
+        (means, errs), secs = sync_time(lambda: sync(mine, errs))
+        bits = torch.cat([m.reshape(-1).view(torch.int32)
+                          for m in means.values()])
+        hi = coll.all_reduce(bits, pod, "pod", dist.ReduceOp.MAX)
+        lo = coll.all_reduce(bits, pod, "pod", dist.ReduceOp.MIN)
+        agree = bool(torch.equal(hi, lo))
+        steps.append(means)
+        rows.append({"leg": f"compressed_grad_sync step {step} hymba-1.5b "
+                            f"layer ({sum(s.numel() for s in shapes.values())}"
+                            f" values) pod={world} gloo", "wall_s": secs,
+                     "ranks_bitwise_equal": agree})
+        assert agree, "the ranks' compressed means differ"
+    if rank != 0:
+        return
+    feed = [dict.fromkeys(shapes, 0.0) for _ in range(world)]
+    for step, means in enumerate(steps):
+        worst = -float("inf")
+        for k in shapes:
+            ys, bound = [], 0.0
+            for r in range(world):
+                y = grads(step, r)[k] + feed[r][k]
+                feed[r][k], half = q_err(y)
+                ys.append(y)
+                bound = bound + half / world
+            slack = MESH_SYNC_SLACK[0] * max(
+                max(y.abs().max().item() for y in ys), 1e-30)
+            excess = ((means[k] - sum(ys) / world).abs() - bound).max().item()
+            worst = max(worst, excess / slack)   # <= 0: inside the int8 bound
+        rows.append({"check": f"compressed_grad_sync step {step} against "
+                              f"the plain mean of the error-fed gradients",
+                     "worst_excess_over_slack": worst,
+                     "slack": MESH_SYNC_SLACK, "ok": worst <= 1.0})
+        assert worst <= 1.0, f"compressed mean past the int8 bound: {worst}"
+
+
+def mesh_decode_leg(rows, rank, world):
+    """sharded_decode_attention at hymba-1.5b's decode shapes, the cache
+    sharded over a 4-rank "model" axis, ragged per-row lengths; rank 0
+    holds it to plain attention over each row's valid positions in f64."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dec = make_debug_mesh(data=1, model=world)
+    b, hq, hkv, d, s = MESH_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q = torch.randn(b, hq, d, generator=gen, device="cuda")
+    k = torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+    v = torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+    lens = torch.tensor(MESH_KV_LEN, device="cuda")
+    attn = coll.sharded_decode_attention(dec, ("data",))
+    mesh_barrier()
+    out, secs = sync_time(lambda: attn(q, k, v, lens))
+    row = {"leg": f"sharded_decode_attention B {b} heads {hq}/{hkv} D {d} "
+                  f"S {s} kv_len {list(MESH_KV_LEN)} model={world} gloo",
+           "wall_s": secs}
+    if rank == 0:
+        g = hq // hkv
+        qd = q.double().reshape(b, hkv, g, d)
+        sc = torch.einsum("bhgd,bshd->bhgs", qd, k.double()) / d ** 0.5
+        mask = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+        sc = sc.masked_fill(~mask[:, None, None, :], float("-inf"))
+        want = torch.einsum("bhgs,bshd->bhgd", sc.softmax(-1),
+                            v.double()).reshape(b, hq, d)
+        err = (out.double() - want).abs().max().item()
+        scale = want.abs().max().item()
+        row.update(max_abs_err=err, scale=scale, tol=MESH_DECODE_TOL)
+        assert out.shape == (b, hq, d) and \
+            err <= MESH_DECODE_TOL[0] * scale, (err, scale)
+    rows.append(row)
+
+
+def mesh_rank(rank, world, backend, directory):
+    """One rank of the mesh phase, in a spawned process: joins the
+    ``backend`` process group of ``world`` ranks (rendezvous through a
+    file in ``directory``), runs its legs and writes its rows to
+    ``directory/rank<R>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // world))
+    dist.init_process_group(
+        backend, init_method=f"file://{directory}/rdv", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        if world == 1:
+            rows = mesh_one_rank(directory)
+        else:
+            from repro_torch.linalg import context as lctx
+            # every rank makes the meshes, in one order (collectively)
+            lctx.resolved_mesh(lctx.ExecutionContext(mesh=MESH_GLOO))
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+            def rnd(*shape, dtype=torch.float32):
+                return torch.randn(*shape, generator=gen, device="cuda",
+                                   dtype=torch.float64).to(dtype)
+
+            rows = []
+            mesh_gemm_legs(rows, rnd, lambda n: lower(gen, n, torch.float32,
+                                                      False))
+            mesh_batched_legs(rows, rnd, rank, world)
+            mesh_sync_leg(rows, rank, world)
+            mesh_decode_leg(rows, rank, world)
+        with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+            json.dump(rows, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world, backend, directory):
+    """Start ``world`` spawned ranks of :func:`mesh_rank`, wait for them
+    (a failed rank stops the others: they would wait on it) and return
+    their rows; raises if any rank failed or the phase timed out."""
+    import multiprocessing
+
+    os.makedirs(directory)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, backend, directory))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline \
+                and not any(p.exitcode for p in procs):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if bad:
+        raise AssertionError(f"mesh ranks {backend} x {world} failed "
+                             f"(exit codes {bad})")
+    out = []
+    for r in range(world):
+        with open(os.path.join(directory, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_mesh(smi):
+    """The paper's workload on a mesh: SUMMA pdgemm / pdtrsm and the
+    batch-sharded drivers through ``linalg.use(mesh=...)``, the gradient
+    sync and flash-decoding, as SPMD ranks in spawned processes (the
+    kernels already built). First a (1, 1) mesh on one NCCL rank, then
+    four gloo ranks sharing the card (NCCL refuses two ranks on one
+    card). Every leg is held to the single-device result; the rows name
+    the card, its power limit and, beside every time, MESH_NOTE."""
+    import shutil
+    import tempfile
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    top = tempfile.mkdtemp(prefix="mesh-")
+    try:
+        results = {"nccl x 1": run_ranks(1, "nccl",
+                                         os.path.join(top, "nccl1"))}
+        results[f"gloo x {MESH_GLOO[0] * MESH_GLOO[1]}"] = run_ranks(
+            MESH_GLOO[0] * MESH_GLOO[1], "gloo", os.path.join(top, "gloo4"))
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    launches = {}
+    for group, ranks in results.items():
+        for rank, rows in enumerate(ranks):
+            for row in rows:
+                emit(phase="mesh", ranks=group, rank=rank, card=smi,
+                     **({"note": MESH_NOTE} if "wall_s" in row else {}),
+                     **row)
+                for name, count in row.get("launches", {}).items():
+                    if name != "gemm_variants" and group.startswith("gloo"):
+                        launches[name] = launches.get(name, 0) + count
+    emit(phase="mesh", wall_s=time.perf_counter() - t0, card=smi,
+         launches_all_gloo_ranks=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -2875,6 +3425,9 @@ def main() -> int:
     paper_row, paper_launches = phase_paper()
     model_launches["dotp"] = paper_launches["dotp"]
     emit(phase_done="paper", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_mesh(smi)
+    emit(phase_done="mesh", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     rows = phase_times(gen, launches) + model_rows(gen, model_launches) \
         + [paper_row] + family_rows(gen, family_b5)

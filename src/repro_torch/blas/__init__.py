@@ -1,6 +1,7 @@
 """repro_torch.blas - BLAS level-1/2/3 cores and the deprecated
-d-prefixed shims (port of ``repro.blas``; the distributed layer is later
-work). The public, context-scoped front-end is :mod:`repro_torch.linalg`.
+d-prefixed shims (port of ``repro.blas``); SUMMA ``pdgemm`` / ``pdtrsm``
+on a mesh are :mod:`repro_torch.blas.distributed`. The public,
+context-scoped front-end is :mod:`repro_torch.linalg`.
 """
 from repro_torch.blas import level1, level2, level3
 from repro_torch.blas.level1 import (asum, axpy, dasum, daxpy, ddot, dnrm2,
@@ -8,3 +9,6 @@ from repro_torch.blas.level1 import (asum, axpy, dasum, daxpy, ddot, dnrm2,
                                      rot, scal)
 from repro_torch.blas.level2 import dgemv, dger, dtrsv, gemv, ger, trsv
 from repro_torch.blas.level3 import dgemm, dsyrk, dtrsm, gemm, syrk, trsm
+from repro_torch.blas import distributed
+from repro_torch.blas.distributed import (make_blas_mesh, mesh_key, pdgemm,
+                                          pdtrsm)

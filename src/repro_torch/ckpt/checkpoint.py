@@ -8,17 +8,24 @@ schema is the reference's (``step``, ``keys``, ``dtypes``, ``shapes``).
 
 A tree is nested mappings, named tuples (the 8-bit moments), lists and
 tuples, and modules, whose parameters stand under their module path; the
-leaves are tensors or numpy arrays. A key joins the path with ``/``: the
-train state's are ``params/<module path>`` (``params/blocks/0/mix/attn/
-wq``), ``opt/step``, ``opt/m/<module path>`` (8-bit: ``.../q`` and
-``.../scale``). A flat mapping of arrays gives the same keys on both
-sides, so each package reads the other's checkpoint of one.
+leaves are tensors or numpy arrays. A key joins the path with ``/``, and a
+named tuple's field takes a leading ``.``, as the reference prints jax's
+``GetAttrKey``: the train state's keys are ``params/<module path>``
+(``params/blocks/0/mix/attn/wq``), ``opt/step``, ``opt/m/<module path>``
+(8-bit: ``.../.q`` and ``.../.scale``). A flat mapping of arrays gives the
+same keys on both sides, so each package reads the other's checkpoint of
+one. A train state's keys differ in one more place: the reference stacks
+the layers (``params/blocks/mix/attn/wq``, shape (L, ...)) where the port
+keys each layer, so each package's ``restore`` raises ``KeyError`` on the
+other's train state until
+:func:`repro_torch.models.convert.train_state_from_jax` /
+:func:`~repro_torch.models.convert.train_state_to_jax` converts it.
 
 ``restore`` fills the structure of ``like``: a module's parameters are
 copied into it in place (a module cannot be rebuilt from a tree), a tensor
 leaf comes back on that tensor's device with the file's dtype. The
 reference's ``shardings`` (elastic re-placement on a mesh) are left out
-until the distributed item (ROADMAP.md A.7).
+until the trainer's sharding (ROADMAP.md A.7b).
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ def _children(tree):
     if isinstance(tree, nn.Module):
         return [(n.replace(".", _SEP), p) for n, p in tree.named_parameters()]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return list(zip(tree._fields, tree))
+        return [("." + f, v) for f, v in zip(tree._fields, tree)]
     if isinstance(tree, Mapping):
         return [(str(k), v) for k, v in tree.items()]
     if isinstance(tree, (list, tuple)):

@@ -22,7 +22,9 @@ enough CTAs for a wave of ``sm_count`` SMs), which B1 and B3 launch, and
 on B1's tile. Under the reference's machines every plan is the
 reference's, field for field. The model kernels' planners
 (:func:`plan_attention`, :func:`plan_ssd`) are ported with the serving
-slice; ``plan_pdgemm`` comes with the distributed slice.
+slice. :func:`plan_pdgemm` prices SUMMA on a (px, py) mesh: its local plan
+is :func:`plan_gemm`'s (a CTA tile under a GPU spec), its collective term
+the ring broadcasts' bytes over the machine's ``ici_bw``.
 """
 from __future__ import annotations
 
@@ -269,6 +271,66 @@ def plan_from_blocks(m: int, n: int, k: int, bm: int, bn: int, bk: int,
                     optimal_accumulators(bk_ // mach.pe.mxu, max_u=8,
                                          machine=mach),
                     grid, vmem, ai, mach.pe.peak_flops / mach.memory.hbm_bw)
+
+
+# ----------------------------- distributed GEMM ----------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PdgemmPlan:
+    """SUMMA pdgemm schedule on a (px, py) mesh: per-step local tiling plus
+    the roofline extended with a per-hop collective term (the reference's
+    fields)."""
+
+    px: int
+    py: int
+    steps: int                    # SUMMA panel steps = px * py
+    k_fine: int                   # k-panel width per step
+    local: GemmPlan               # tiling of one local panel update
+    compute_s: float              # per-device GEMM flops under the roofline
+    collective_s: float           # per-device ring-broadcast bytes / ici_bw
+    collective_bytes: int         # on-wire bytes per device, all steps
+
+    @property
+    def modeled_time(self) -> float:
+        return max(self.compute_s, self.collective_s)
+
+    @property
+    def collective_bound(self) -> bool:
+        return self.collective_s > self.compute_s
+
+
+def plan_pdgemm(m: int, n: int, k: int, px: int, py: int,
+                dtype_bytes: Optional[int] = None, dtype=None,
+                machine: Optional[MachineSpec] = None) -> PdgemmPlan:
+    """Plan the SUMMA ``pdgemm`` on a (px, py) mesh.
+
+    Per step (one of ``px * py`` fine k-panels) each rank receives an
+    A-panel over a ``py``-ring and a B-panel over a ``px``-ring
+    (:func:`repro_torch.distributed.collectives.ring_bcast`), then runs a
+    local ``(m/px, k_fine) @ (k_fine, n/py)`` update on B1. The collective
+    term sums the per-hop bytes of both rings over all steps against the
+    machine's ``ici_bw``; the compute term is the local flops under the
+    single-device roofline at the ``local`` tiling plus a pipeline fill
+    per step. ``modeled_time`` is their max (overlap assumed)."""
+    from repro_torch.distributed.collectives import ring_bcast_bytes
+    mach = _machine(machine)
+    dtype_bytes = resolve_dtype_bytes(dtype, dtype_bytes, mach)
+    px, py = max(int(px), 1), max(int(py), 1)
+    steps = px * py
+    m_l = -(-max(m, 1) // px)
+    n_l = -(-max(n, 1) // py)
+    k_f = max(-(-max(k, 1) // steps), 1)
+    local = plan_gemm(m_l, n_l, k_f, dtype_bytes=dtype_bytes, machine=mach)
+    flops = 2.0 * m_l * n_l * k_f * steps
+    rate = min(mach.pe.peak_flops,
+               local.arithmetic_intensity * mach.memory.hbm_bw)
+    compute_s = flops / rate + steps * mach.memory.pipeline_fill_s
+    a_panel = m_l * k_f * dtype_bytes
+    b_panel = k_f * n_l * dtype_bytes
+    coll_bytes = steps * (ring_bcast_bytes(a_panel, py)
+                          + ring_bcast_bytes(b_panel, px))
+    return PdgemmPlan(px, py, steps, k_f, local, compute_s,
+                      coll_bytes / mach.memory.ici_bw, coll_bytes)
 
 
 # ------------------------- blocked-factorization plans ----------------------

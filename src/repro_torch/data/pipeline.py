@@ -13,7 +13,7 @@ The frontend families' embeddings differ: the reference draws them from
 ``torch.Generator`` seeded by the same hash of (seed, step), the same
 distribution (0.02 N(0, 1) in bf16) and the same values on every device.
 ``global_batch`` and ``make_batch``'s ``sharding`` (an array sharded over a
-mesh) are left out until the distributed item (ROADMAP.md A.7).
+mesh) are left out until the trainer's sharding (ROADMAP.md A.7b).
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ pipeline, atomic keep-N checkpointing with restore-on-start (a restarted
 job resumes from the latest step by itself), heartbeat and straggler
 detection, gradient accumulation. It runs on ``cuda`` unless asked for
 the CPU (``--device cpu``). The reference's mesh (``--mesh pod``, sharded
-state) waits for the distributed item (ROADMAP.md A.7): ``--mesh none``
+state) waits for the trainer's sharding (ROADMAP.md A.7b): ``--mesh none``
 and ``debug`` both mean one device here, and ``train_loop`` takes
 ``mesh=None`` in the reference's position.
 
@@ -74,8 +74,8 @@ def train_loop(cfg, opt_cfg, data_cfg, mesh, steps: int, ckpt_dir: str,
     """Runs (or resumes) training; returns (final state, loss history).
     ``mesh`` must be None (one device)."""
     if mesh is not None:
-        raise NotImplementedError("a mesh needs the distributed item "
-                                  "(ROADMAP.md A.7); pass mesh=None")
+        raise NotImplementedError("a mesh needs the trainer's sharding "
+                                  "(ROADMAP.md A.7b); pass mesh=None")
     device = _device(device)
     mgr = CheckpointManager(ckpt_dir, save_interval=save_interval, keep=3)
     hb = Heartbeat(os.path.join(ckpt_dir, "heartbeat.json"))
@@ -130,15 +130,15 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", choices=["none", "debug", "pod"],
                     default="debug",
                     help="none and debug: one device; pod needs the "
-                         "distributed item")
+                         "trainer's sharding (ROADMAP.md A.7b)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full-config", action="store_true",
                     help="use the assigned full config")
     args = ap.parse_args(argv)
 
     if args.mesh == "pod":
-        raise NotImplementedError("--mesh pod needs the distributed item "
-                                  "(ROADMAP.md A.7)")
+        raise NotImplementedError("--mesh pod needs the trainer's sharding "
+                                  "(ROADMAP.md A.7b)")
     cfg = registry.get_config(args.arch)
     if not args.full_config:
         cfg = reduce_config(cfg, args.layers, args.d_model, args.vocab,

@@ -18,9 +18,13 @@ registry, accumulation dtype, machine, device - is carried by a scoped
     with linalg.use(device="cpu", policy="model"):
         c = linalg.gemm(a, b)              # the kernels' plain versions
 
+    # every rank of a torch.distributed process group of 4 ranks:
+    with linalg.use(policy="model", mesh=(2, 2)):
+        c = linalg.gemm(a, b)              # SUMMA pdgemm, the global C
+        res = linalg.batched_cholesky(spd_batch)   # batch-sharded
+
 The old d-prefixed routines (``repro_torch.blas.dgemm``, ...) survive as
-warn-once shims that forward here. The reference's mesh routes come with
-the distributed layer.
+warn-once shims that forward here.
 """
 from repro_torch.lapack.batched import FactorizationResult
 from repro_torch.linalg.blas import (asum, axpy, dot, gemm, gemm_bias_act,

@@ -10,10 +10,17 @@ Port of ``repro.linalg.blas`` (levels 1-3). Every routine here:
   active :class:`repro_torch.linalg.ExecutionContext` (``context=``
   overrides per call);
 * takes a leading batch axis on the matrix routines (3-D operands loop
-  over the 2-D path - no vmap).
+  over the 2-D path - no vmap);
+* routes to the distributed backend when the context carries a mesh
+  (``gemm`` -> SUMMA :func:`repro_torch.blas.distributed.pdgemm`,
+  ``syrk`` through ``pdgemm``, ``trsm`` ->
+  :func:`repro_torch.blas.distributed.pdtrsm`), every rank of the mesh
+  calling the routine with the same operands; the routines without a mesh
+  backend (``gemm_bias_act``, ``gemv``, the vector ops, the 3-D forms)
+  run locally under any context, as in the reference.
 
 The numeric cores live in :mod:`repro_torch.blas.level1` / ``level2`` /
-``level3``. The reference's mesh routes come with the distributed layer.
+``level3``.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ from repro_torch.blas import level2 as _l2
 from repro_torch.blas import level3 as _l3
 from repro_torch.linalg.context import (current, resolved_accum_dtype,
                                         resolved_device, resolved_machine,
-                                        resolved_obs, resolved_policy,
-                                        resolved_registry)
+                                        resolved_mesh, resolved_obs,
+                                        resolved_policy, resolved_registry)
 
 
 def _routine(op, info=None):
@@ -259,8 +266,9 @@ def _batched(fn, *arrays):
 @_routine("gemm", _gemm_info)
 def gemm(a, b, c=None, alpha=1.0, beta=0.0, transa: bool = False,
          transb: bool = False, dtype=None, context=None) -> torch.Tensor:
-    """C <- alpha * op(A) op(B) + beta * C, any supported dtype; 3-D
-    operands loop the local path over the leading axis."""
+    """C <- alpha * op(A) op(B) + beta * C, any supported dtype; with a
+    mesh in the context 2-D operands run SUMMA ``pdgemm``; 3-D operands
+    loop the local path over the leading axis."""
     ctx = current(context)
     store, (a_, b_, c_) = _operands(ctx, dtype, a, b, c)
     kw = _kw(ctx)
@@ -270,6 +278,12 @@ def gemm(a, b, c=None, alpha=1.0, beta=0.0, transa: bool = False,
             a_, b_)
         if c_ is not None:
             out = out + beta * c_
+        return _cast(out, store)
+    mesh = resolved_mesh(ctx)
+    if mesh is not None:
+        from repro_torch.blas import distributed as _dist
+        out = _dist.pdgemm(a_.T if transa else a_, b_.T if transb else b_,
+                           mesh, c=c_, alpha=alpha, beta=beta, **kw)
         return _cast(out, store)
     out = _l3.gemm(a_, b_, c=c_, alpha=alpha, beta=beta, transa=transa,
                    transb=transb, **kw)
@@ -295,10 +309,19 @@ def gemm_bias_act(a, b, bias=None, epilogue: str = "none", dtype=None,
 def syrk(a, c=None, alpha=1.0, beta=0.0, lower: bool = True,
          trans: bool = False, dtype=None, context=None) -> torch.Tensor:
     """C <- alpha op(A) op(A)^T + beta C, symmetric output, on the GEMM
-    kernel path (and its registry entries)."""
+    kernel path (and its registry entries); under a mesh the product runs
+    through SUMMA ``pdgemm`` before the triangle mirror."""
     ctx = current(context)
     store, (a_, c_) = _operands(ctx, dtype, a, c)
     kw = _kw(ctx)
+    mesh = resolved_mesh(ctx)
+    if mesh is not None and a_.ndim == 2:
+        from repro_torch.blas import distributed as _dist
+        op_a = a_.T if trans else a_
+        full = alpha * _dist.pdgemm(op_a, op_a.T, mesh, **kw)
+        if c_ is not None:
+            full = full + beta * c_
+        return _cast(_l3.mirror_triangle(full, lower), store)
     core = lambda x, y: _l3.syrk(x, c=y, alpha=alpha, beta=beta, lower=lower,
                                  trans=trans, **kw)
     out = _batched(core, a_, c_) if a_.ndim == 3 else core(a_, c_)
@@ -310,10 +333,17 @@ def trsm(a, b, lower: bool = True, unit_diag: bool = False,
          left: bool = True, block: Optional[int] = None, dtype=None,
          context=None) -> torch.Tensor:
     """Solve op(T) X = B (or X op(T) = B), blocked; the off-diagonal GEMM
-    updates follow the context policy onto the kernel."""
+    updates follow the context policy onto the kernel. Under a mesh the
+    right-hand-side columns are sharded (``pdtrsm``)."""
     ctx = current(context)
     store, (a_, b_) = _operands(ctx, dtype, a, b)
     kw = _kw(ctx)
+    mesh = resolved_mesh(ctx)
+    if mesh is not None and a_.ndim == 2:
+        from repro_torch.blas import distributed as _dist
+        return _cast(_dist.pdtrsm(a_, b_, mesh, lower=lower,
+                                  unit_diag=unit_diag, left=left,
+                                  block=block, **kw), store)
     core = lambda t, r: _l3.trsm(t, r, lower=lower, unit_diag=unit_diag,
                                  left=left, block=block, **kw)
     out = _batched(core, a_, b_) if a_.ndim == 3 else core(a_, b_)

@@ -28,11 +28,19 @@ resolves an :class:`ExecutionContext`:
     Observability capture: ``None`` inherits the ambient
     :func:`repro_torch.obs.trace`, ``False`` suppresses capture, a
     :class:`repro_torch.obs.Trace` routes the spans into it.
+``mesh``
+    ``None``, a ``(px, py)`` tuple, or a ``DeviceMesh``: ``gemm`` /
+    ``syrk`` / ``trsm`` and the batched drivers run on the mesh
+    (:mod:`repro_torch.blas.distributed`,
+    :mod:`repro_torch.lapack.distributed`), every rank calling the
+    routine with the same operands. A tuple becomes a ``("x", "y")`` mesh
+    over the first ``px * py`` ranks on first use (:func:`resolved_mesh`,
+    cached per process group); without an initialized process group that
+    holds it, the call raises - it never runs the local path instead.
 
 Contexts layer: the module default, then :func:`set_context`, then nested
 :func:`use` blocks (a :class:`contextvars.ContextVar`), then a per-call
-``context=`` override; unset fields inherit through :data:`UNSET`. The
-reference's ``mesh`` field comes with the distributed layer.
+``context=`` override; unset fields inherit through :data:`UNSET`.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import dataclasses
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import _dtype
 
@@ -65,7 +74,8 @@ class _UnsetType:
 
 UNSET = _UnsetType()
 
-_FIELDS = ("policy", "registry", "accum_dtype", "device", "machine", "obs")
+_FIELDS = ("policy", "mesh", "registry", "accum_dtype", "device", "machine",
+           "obs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +83,7 @@ class ExecutionContext:
     """One call's execution recipe; fields left :data:`UNSET` inherit."""
 
     policy: Any = UNSET
+    mesh: Any = UNSET
     registry: Any = UNSET
     accum_dtype: Any = UNSET
     device: Any = UNSET
@@ -86,6 +97,17 @@ class ExecutionContext:
                 raise ValueError(
                     f"unknown policy {self.policy!r}; expected one of "
                     f"{POLICIES} (or None for the process default)")
+        if self.mesh is not UNSET and self.mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if isinstance(self.mesh, tuple):
+                if len(self.mesh) != 2 or not all(
+                        isinstance(p, int) and p > 0 for p in self.mesh):
+                    raise ValueError(f"tuple mesh must be (px, py) of "
+                                     f"positive ints; got {self.mesh!r}")
+            elif not isinstance(self.mesh, DeviceMesh):
+                raise ValueError(
+                    f"mesh must be a (px, py) tuple, a DeviceMesh, or None; "
+                    f"got {type(self.mesh).__name__}")
         if self.device is not UNSET:
             try:
                 kind = torch.device(self.device).type
@@ -121,6 +143,9 @@ class ExecutionContext:
         from repro_torch.tune.policy import default_policy
         pol = self.policy if self.policy not in (UNSET, None) \
             else default_policy()
+        mesh = None if self.mesh in (UNSET, None) else (
+            list(self.mesh) if isinstance(self.mesh, tuple)
+            else [int(s) for s in self.mesh.shape])
         reg = self.registry
         if reg is UNSET or reg is None:
             reg_path = None
@@ -137,14 +162,16 @@ class ExecutionContext:
             obs_desc = False
         else:
             obs_desc = getattr(self.obs, "name", "trace")
-        return {"policy": pol, "registry": reg_path, "accum_dtype": acc,
+        return {"policy": pol, "mesh": mesh, "registry": reg_path,
+                "accum_dtype": acc,
                 "device": str(resolved_device_name(self)), "machine": mach,
                 "obs": obs_desc}
 
 
 # fully-resolved root: what a call sees with no context set anywhere
-_DEFAULT = ExecutionContext(policy=None, registry=None, accum_dtype=None,
-                            device="cuda", machine=None, obs=None)
+_DEFAULT = ExecutionContext(policy=None, mesh=None, registry=None,
+                            accum_dtype=None, device="cuda", machine=None,
+                            obs=None)
 _base = _DEFAULT
 _scopes: "contextvars.ContextVar[Tuple[ExecutionContext, ...]]" = \
     contextvars.ContextVar("repro_torch_linalg_scopes", default=())
@@ -213,11 +240,12 @@ def compat_context(policy=None, use_kernel=None, registry=None,
                    use_pallas=None) -> ExecutionContext:
     """Old kwargs -> per-call context (the d-prefixed shims' bridge).
 
-    Pins ``accum_dtype=None`` and ``machine=None`` so a deprecated call
-    behaves like the routine it shims - operand-dtype accumulation and no
-    machine of its own (``machine=None`` overrides any enclosing context
-    machine: the call is priced for the ambient machine of its device) -
-    whatever context is active. The device still comes from the context.
+    Pins ``mesh=None``, ``accum_dtype=None`` and ``machine=None`` so a
+    deprecated call behaves like the routine it shims - local,
+    operand-dtype accumulation and no machine of its own (``machine=None``
+    overrides any enclosing context machine: the call is priced for the
+    ambient machine of its device) - whatever context is active. The
+    device still comes from the context.
     ``use_kernel`` / ``use_pallas`` go through
     :func:`repro_torch.tune.policy.resolve_policy`, which owns their
     deprecation warnings.
@@ -228,13 +256,14 @@ def compat_context(policy=None, use_kernel=None, registry=None,
     else:
         pol = UNSET
     return ExecutionContext(
-        policy=pol, accum_dtype=None, machine=None,
+        policy=pol, mesh=None, accum_dtype=None, machine=None,
         registry=registry if registry is not None else UNSET)
 
 
 # ------------------------- lazy field normalizers ---------------------------
 
 _registry_cache: Dict[str, Any] = {}
+_mesh_cache: Dict[tuple, Any] = {}
 
 
 def resolved_registry(ctx: ExecutionContext):
@@ -248,6 +277,27 @@ def resolved_registry(ctx: ExecutionContext):
             _registry_cache[reg] = Registry(path=reg)
         return _registry_cache[reg]
     return reg
+
+
+def resolved_mesh(ctx: ExecutionContext):
+    """ctx.mesh as a DeviceMesh-or-None: a (px, py) tuple becomes
+    :func:`repro_torch.blas.distributed.make_blas_mesh` on first use,
+    cached per default process group (every rank resolves it in the same
+    order, as the sub-groups are made collectively); raises without a
+    process group that holds it."""
+    mesh = ctx.mesh
+    if mesh is UNSET or mesh is None:
+        return None
+    if isinstance(mesh, tuple):
+        from repro_torch.blas.distributed import make_blas_mesh
+        from repro_torch.launch.mesh import world_ranks
+        world_ranks(mesh[0] * mesh[1], f"linalg.use(mesh={mesh})",
+                    exact=False)
+        key = (mesh, dist.group.WORLD)
+        if key not in _mesh_cache:
+            _mesh_cache[key] = make_blas_mesh(*mesh)
+        return _mesh_cache[key]
+    return mesh
 
 
 def resolved_policy(ctx: ExecutionContext):

@@ -4,8 +4,11 @@ Port of ``repro.linalg.lapack``. ``cholesky`` / ``lu`` / ``qr`` /
 ``solve`` / ``lstsq`` accept one matrix (2-D) or a leading batch axis
 (3-D, delegated to the batched drivers as in the reference); the explicit
 ``batched_*`` forms return the shared
-:class:`repro_torch.lapack.batched.FactorizationResult`. The reference's
-mesh routes come with the distributed layer.
+:class:`repro_torch.lapack.batched.FactorizationResult`. When the context
+carries a mesh, the batched forms (and so the 3-D forms of ``cholesky`` /
+``lu`` / ``qr`` / ``solve`` / ``lstsq``) route to the batch-sharded drivers
+of :mod:`repro_torch.lapack.distributed`; single-matrix factorizations run
+locally under any context, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +25,17 @@ from repro_torch.lapack import solve as _solve
 from repro_torch.lapack.batched import FactorizationResult
 from repro_torch.linalg.blas import (_cast, _dtype_name, _kw, _nbytes,
                                      _operands, _routine, _shape)
-from repro_torch.linalg.context import current
+from repro_torch.linalg.context import current, resolved_mesh
+
+
+def _batched_route(ctx, kind: str, a, **kw):
+    """The batched driver ``kind`` ("potrf" / "getrf" / "geqrf"), on the
+    context's mesh when it carries one."""
+    mesh = resolved_mesh(ctx)
+    if mesh is not None:
+        from repro_torch.lapack import distributed as _dist
+        return getattr(_dist, "batched_" + kind)(a, mesh, **kw)
+    return getattr(_batched, "batched_" + kind)(a, **kw)
 
 
 # Leading-order LAPACK flop counts (the reference's accounting).
@@ -177,7 +190,7 @@ def batched_cholesky(a, block: Optional[int] = None, dtype=None,
     """Cholesky of a (B, n, n) SPD batch -> FactorizationResult("potrf")."""
     ctx = current(context)
     store, (a_,) = _operands(ctx, dtype, a)
-    res = _batched.batched_potrf(a_, block=block, **_kw(ctx))
+    res = _batched_route(ctx, "potrf", a_, block=block, **_kw(ctx))
     return _cast_result(res, store)
 
 
@@ -187,7 +200,7 @@ def batched_lu(a, block: Optional[int] = None, dtype=None,
     """Pivoted LU of a (B, m, n) batch -> FactorizationResult("getrf")."""
     ctx = current(context)
     store, (a_,) = _operands(ctx, dtype, a)
-    res = _batched.batched_getrf(a_, block=block, **_kw(ctx))
+    res = _batched_route(ctx, "getrf", a_, block=block, **_kw(ctx))
     return _cast_result(res, store)
 
 
@@ -197,16 +210,21 @@ def batched_qr(a, block: Optional[int] = None, dtype=None,
     """Householder QR of a (B, m, n) batch -> FactorizationResult("geqrf")."""
     ctx = current(context)
     store, (a_,) = _operands(ctx, dtype, a)
-    res = _batched.batched_geqrf(a_, block=block, **_kw(ctx))
+    res = _batched_route(ctx, "geqrf", a_, block=block, **_kw(ctx))
     return _cast_result(res, store)
 
 
 @_routine("batched_solve", _batched_solve_info)
 def batched_solve(res: FactorizationResult, b, dtype=None,
                   context=None) -> torch.Tensor:
-    """Solve A_i x_i = b_i from any FactorizationResult."""
+    """Solve A_i x_i = b_i from any FactorizationResult (batch-sharded
+    under a mesh)."""
     ctx = current(context)
     store, (factors, b_) = _operands(ctx, dtype, res.factors, b)
     res_ = _cast_result(dataclasses.replace(res, factors=factors),
                         factors.dtype)
+    mesh = resolved_mesh(ctx)
+    if mesh is not None:
+        from repro_torch.lapack import distributed as _dist
+        return _cast(_dist.batched_solve(res_, b_, mesh, **_kw(ctx)), store)
     return _cast(_batched.batched_solve(res_, b_, **_kw(ctx)), store)

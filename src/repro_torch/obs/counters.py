@@ -26,8 +26,9 @@ The names below are the reference's frozen vocabulary, kept unchanged:
     Kernel launches funneled through the dispatcher (each kernel wrapper
     also keeps its own launch count).
 ``collective.hops`` / ``collective.bytes``
-    Ring-broadcast hops and on-wire bytes (kept in the vocabulary for the
-    distributed layer, which is later work in this package).
+    Ring-broadcast hops and on-wire bytes
+    (:func:`repro_torch.distributed.collectives.ring_bcast`, once per
+    call).
 """
 from __future__ import annotations
 

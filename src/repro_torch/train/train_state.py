@@ -10,7 +10,7 @@ then runs the AdamW update in place. ``accum_steps`` > 1 loops over the
 microbatches and adds their gradients in f32 (the reference scans them).
 
 The reference's ``shard_fn`` (activation sharding on a mesh) is left out
-until the distributed item (ROADMAP.md A.7); here a step runs on one
+until the trainer's sharding (ROADMAP.md A.7b); here a step runs on one
 device. Its ``donate`` flag has no counterpart: the step always updates
 the state in place.
 """

@@ -32,14 +32,15 @@ from repro_torch import obs as _obs
 from repro_torch.arch import MachineSpec
 from repro_torch.core.codesign import (FusedChainPlan, GemmPlan,
                                        plan_from_blocks, plan_fused_chain,
-                                       plan_gemm, plan_trsm)
+                                       plan_gemm, plan_pdgemm, plan_trsm)
 from repro_torch.kernels import fused as _fk
 from repro_torch.kernels import gemm as _gk
 from repro_torch.obs import counters as _counters
 from repro_torch.tune.policy import resolve_policy, uses_kernel
 from repro_torch.tune.registry import Registry, default_registry
 
-OPS = ("gemm", "gemv", "trsm", "syrk", "gemm+epilogue", "trsm+gemm")
+OPS = ("gemm", "gemv", "trsm", "syrk", "pdgemm", "gemm+epilogue",
+       "trsm+gemm")
 FUSED_OPS = ("gemm+epilogue", "trsm+gemm")
 
 
@@ -99,27 +100,35 @@ def resolve(op: str, shape: Tuple[int, ...], dtype,
             policy: Optional[str] = None,
             registry: Optional[Registry] = None,
             backend: Optional[str] = None,
+            mesh: Optional[Tuple[int, int]] = None,
             machine: Optional[MachineSpec] = None,
             epilogue: str = "none", form: str = "lu",
             has_bias: bool = True) -> Resolution:
-    """Resolve one call's config. shape is (m, n, k) for gemm/syrk and the
-    fused chains, (m, n) for gemv, (n, nrhs) for trsm; ``backend`` is the
-    device type the call runs on (default: ``"cuda"`` when a card is
-    present); ``machine`` (None = the ambient machine of that device,
-    ``Resolution.machine`` names it) parameterizes every planner and, when
-    it is not the device's own machine, suffixes the registry key."""
+    """Resolve one call's config. shape is (m, n, k) for gemm/syrk/pdgemm
+    (pdgemm: the *global* problem) and the fused chains, (m, n) for gemv,
+    (n, nrhs) for trsm; ``backend`` is the device type the call runs on
+    (default: ``"cuda"`` when a card is present); ``mesh`` is pdgemm's
+    (px, py), whose registry entries live under the mesh-suffixed key
+    ``pdgemm|bucket|dtype|backend|xPXyPY`` and whose plan tiles the
+    per-step local update (:func:`plan_pdgemm`); ``machine`` (None = the
+    ambient machine of that device, ``Resolution.machine`` names it)
+    parameterizes every planner and, when it is not the device's own
+    machine, suffixes the registry key."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
+    if op == "pdgemm" and mesh is None:
+        raise ValueError("pdgemm resolution needs mesh=(px, py)")
     backend = backend or default_backend()
     mach = _arch.resolve_machine(machine, backend)
     mach_str = _arch.machine_key_component(mach, backend)
+    mesh_str = f"x{mesh[0]}y{mesh[1]}" if op == "pdgemm" else None
     pol = resolve_policy(policy)
     if not uses_kernel(pol):
         # the reference trsm still needs a diagonal width: 64, the
         # reference's historical default
         return _observed(Resolution(op, pol, "reference", False,
                                     block=64 if op == "trsm" else None,
-                                    machine=mach.name))
+                                    mesh=mesh_str, machine=mach.name))
     db = _dtype.itemsize(dtype)
     cfg = None
     source = "model"
@@ -133,8 +142,20 @@ def resolve(op: str, shape: Tuple[int, ...], dtype,
         elif op == "gemv":
             lookup_op, lookup_shape = "gemm", (shape[0], 1, shape[1])
         cfg = reg.lookup(lookup_op, lookup_shape, dtype, backend,
-                         machine=mach_str)
+                         mesh=mesh_str, machine=mach_str)
         source = "registry" if cfg is not None else "fallback-model"
+    if op == "pdgemm":
+        # the stored / planned config tiles the per-step local update
+        # (m/px, k_fine) @ (k_fine, n/py)
+        m, n, k = shape
+        px, py = mesh
+        pplan = plan_pdgemm(m, n, k, px, py, dtype_bytes=db, machine=mach)
+        local = pplan.local if cfg is None else plan_from_blocks(
+            -(-max(m, 1) // px), -(-max(n, 1) // py), pplan.k_fine,
+            cfg.params["bm"], cfg.params["bn"], cfg.params["bk"],
+            dtype_bytes=db, machine=mach)
+        return _observed(Resolution(op, pol, source, True, gemm_plan=local,
+                                    mesh=mesh_str, machine=mach.name))
     if op == "trsm":
         n, nrhs = shape
         block = cfg.params["block"] if cfg is not None \
@@ -183,6 +204,9 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
     dispatch("syrk", a, trans=False)   -> a a^T / a^T a (by policy)
     dispatch("gemv", a, x, trans=...)  -> op(a) x (by policy)
     dispatch("trsm", a, b, lower=..., unit_diag=..., left=..., block=...)
+    dispatch("pdgemm", a, b, mesh=..., c=..., alpha=..., beta=...)
+                                       -> SUMMA on the mesh (every rank
+                                          calls it)
     dispatch("gemm+epilogue", a, b, bias=..., epilogue=...)
                                        -> act(a @ b + bias); one fused
                                           launch when the chain plan says
@@ -223,6 +247,11 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
         a, b = args
         from repro_torch.blas import level3         # lazy: avoid import cycle
         return level3.trsm(a, b, policy=policy, registry=registry, **kw)
+    if op == "pdgemm":
+        a, b = args
+        from repro_torch.blas import distributed    # lazy: avoid import cycle
+        return distributed.pdgemm(a, b, policy=policy, registry=registry,
+                                  **kw)
     if op == "gemm+epilogue":
         a, b = args
         bias = kw.pop("bias", None)

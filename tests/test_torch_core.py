@@ -146,8 +146,8 @@ def test_dtype_width_resolution(dtype):
 
 
 def test_golden_default_plans():
-    """Every golden entry the port's planners cover (all but the
-    distributed ``pdgemm`` section) reproduces bit for bit."""
+    """Every golden entry, the distributed ``pdgemm`` section included,
+    reproduces bit for bit."""
     with open(os.path.join(ROOT, "scripts", "golden_default_plans.json")) as f:
         golden = json.load(f)
     tpu = tarch.TPU_LIKE
@@ -197,8 +197,17 @@ def test_golden_default_plans():
                 "fused_wins": c.fused_wins,
                 "gemm": [c.gemm.bm, c.gemm.bn, c.gemm.bk]} == want, key
         n_checked += 1
+    for key, want in golden["pdgemm"].items():
+        mesh, db = key.split("|")
+        px, py = (int(v) for v in mesh[1:].split("y"))
+        p = tcd.plan_pdgemm(4096, 4096, 4096, px, py, dtype_bytes=int(db))
+        assert {"steps": p.steps, "k_fine": p.k_fine,
+                "local": [p.local.bm, p.local.bn, p.local.bk],
+                "compute_s": p.compute_s, "collective_s": p.collective_s,
+                "collective_bytes": p.collective_bytes} == want, key
+        n_checked += 1
     assert n_checked == sum(len(v) for k, v in golden.items()
-                            if k not in ("constants", "pdgemm"))
+                            if k != "constants")
 
 
 # ----------------------------------- obs ------------------------------------
@@ -224,7 +233,7 @@ def test_obs_vocabulary_and_trace():
 
 def test_tune_vocabulary():
     assert tpolicy.POLICIES == jpolicy.POLICIES
-    assert ttd.OPS == tuple(o for o in jtd.OPS if o != "pdgemm")
+    assert ttd.OPS == jtd.OPS
     assert [f.name for f in dataclasses.fields(ttd.Resolution)] == \
         [f.name for f in dataclasses.fields(jtd.Resolution)]
 

@@ -640,3 +640,31 @@ def test_train_forward_with_kernels_refuses_grads(card):
     logits, _ = model_zoo.forward(model, {"tokens": tokens}, cfg,
                                   use_kernels=False)
     assert logits.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_one_rank_nccl_pdgemm_is_gemm(card, tmp_path, dtype):
+    """A (1, 1) mesh on a one-rank NCCL group: ``linalg.gemm`` under
+    ``use(mesh=(1, 1))`` runs SUMMA's one step - zero hops, one B1 launch
+    at the single-device plan - and equals the single-device ``gemm``
+    bitwise; a multi-rank NCCL leg needs a card per rank."""
+    import torch.distributed as dist
+    from repro_torch import linalg
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        dt = getattr(torch, dtype)
+        a = torch.randn((1000, 777), generator=g, device="cuda", dtype=dt)
+        b = torch.randn((777, 900), generator=g, device="cuda", dtype=dt)
+        with linalg.use(policy="model"):
+            want = linalg.gemm(a, b)
+        gk.reset_launches(gk.gemm)
+        with linalg.use(policy="model", mesh=(1, 1)):
+            got = linalg.gemm(a, b)
+        torch.cuda.synchronize()
+        assert gk.gemm.launches == 1
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -96,8 +96,8 @@ def test_train_state_roundtrip_is_bitwise():
         with open(os.path.join(d, "step_0000000001", "manifest.json")) as f:
             man = json.load(f)
         assert "params/blocks/0/attn/wq" in man["keys"]
-        assert "opt/m/blocks/0/attn/wq/q" in man["keys"]
-        assert man["dtypes"]["opt/v/embed/table/q"] == "int8"
+        assert "opt/m/blocks/0/attn/wq/.q" in man["keys"]
+        assert man["dtypes"]["opt/v/embed/table/.q"] == "int8"
         assert man["dtypes"]["opt/step"] == "int32"
         like = ts.state_for(model_zoo.build(CFG, "cpu"), opt)
         r, s = ck.restore(d, like)
