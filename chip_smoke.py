@@ -15,8 +15,9 @@ at full width with 4 of its 94 layers, the trainer taking hymba-1.5b's
 steps at full width, the paper's own apparatus (figs 12-13 on the PE
 scoreboard kernel, the quickstart's codesigned kernels), and the
 paper's workload on a mesh of SPMD ranks (SUMMA and the batch-sharded
-drivers through ``linalg.use(mesh=...)``). Phases, each printing JSON
-lines with its wall time:
+drivers through ``linalg.use(mesh=...)``), and the trainer on a mesh
+(ZeRO-sharded state, elastic restore, a pipeline, sharded decode). Phases,
+each printing JSON lines with its wall time:
 
 1. ``probe``: the card, its power limit, capability 9.0, TF32 off, the
    kernel build.
@@ -137,7 +138,30 @@ lines with its wall time:
    4-rank "model" axis with ragged per-row lengths (1e-5 of max|f64
    attention|). Every leg's seconds beside ``plan_pdgemm``'s terms, with
    ``MESH_NOTE``: not a scaling number.
-11. ``times``: each kernel at its path's shapes against its plain version,
+11. ``shard``: the trainer on a mesh. hymba-1.5b as registered cut to
+   ``SHARD_LAYERS`` layers (f32 compute), ``TRAIN_AGREE_STEPS`` steps on
+   one device here; a probe of DTensor's own all-gather, reduce-scatter
+   and all-to-all on card tensors over gloo (a spawned group each, since
+   one may kill its ranks); then four spawned gloo ranks sharing the
+   card on a (data, model) = ``SHARD_MESH`` mesh of the card's device
+   type: the route's staged collectives, the state placed at
+   ``state_specs`` (each rank's bytes equal to the specs'), 1 +
+   ``SHARD_TIMED`` sharded steps on ``TRAIN``'s tokens (each rank its
+   rows; 0 kernel launches), held after ``TRAIN_AGREE_STEPS`` to the
+   one-device run within ``TRAIN_TOL`` (metrics) and ``SHARD_PARAM_TOL``
+   (every parameter block; the one-device run's last update, what a
+   dropped one would leave, printed beside it), seconds a step, peak memory and the step's
+   ``collective.bytes`` / ``shard.redistribute_bytes``; the (2, 2)
+   checkpoint restored onto (4, 1) and onto one device, bitwise, at the
+   new specs; ``train_loop`` on the debug mesh failed at step 7 and
+   restarted (within 1e-4 of the uninterrupted run); four pipeline stages
+   of blocks 0-3 (bf16, the kernels on) over ``SHARD_MICRO``
+   microbatches, 8 B5 and 8 B6 launches a rank, bitwise the blocks in
+   order; and ``sharding.decode_step`` with parameters at
+   ``params_specs`` and f32 caches at ``cache_specs`` within
+   ``SHARD_DECODE_TOL`` of one device. Rows
+   carry ``SHARD_NOTE``: not a scaling number.
+12. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
@@ -317,6 +341,44 @@ MESH_SYNC_SLACK = (1e-6, "relative to max|y|: f32 rounding of the "
 MESH_TIMEOUT_S = 600
 MESH_NOTE = ("four ranks share one card, and the links are host loopback "
              "through gloo, not NVLink. This is not a scaling number.")
+# the shard phase: hymba-1.5b at full width cut to SHARD_LAYERS layers on a
+# data x model mesh of gloo ranks sharing the card, TRAIN's tokens a step
+# (one untimed step, then SHARD_TIMED timed; the agreement with one device
+# read after TRAIN_AGREE_STEPS), then the pipeline's microbatches of 1 x
+# TRAIN[1] over 4 stages and a sharded decode (batch, tokens, cache length)
+SHARD_MESH = (2, 2)
+SHARD_LAYERS = 4
+SHARD_TIMED = 3
+SHARD_MICRO = 8
+SHARD_DECODE = (4, 6, 64)
+SHARD_DECODE_TOL = (2e-3, "absolute, the reference's bound "
+                          "(tests/test_distributed.py:93-94): f32 on both "
+                          "sides, the rows and the cache's halves summed in "
+                          "another order")
+# the shard leg's parameters against one device after TRAIN_AGREE_STEPS
+# steps at TRAIN_OPT's warmup (lr 6e-5, 1.2e-4, 1.8e-4): TRAIN_TOL's 2e-4
+# is sized for lr 5e-3 and exceeds this leg's whole last update. The
+# phase also prints the planted fault's reading, the last step's update
+# (what a dropped or misapplied last update would leave), and holds the
+# bound a fifth of its median over the leaves
+SHARD_PARAM_TOL = (2e-5, "absolute at lr 1.8e-4 (the third warmup step): "
+                         "readings 1.6e-6 to 4.3e-6 on the card; a dropped "
+                         "last update is off by that step's update, "
+                         "printed beside it")
+SHARD_TIMEOUT_S = 900
+SHARD_NOTE = ("four ranks share one card over gloo (host loopback, each "
+              "buffer staged through pinned host memory), and every rank of "
+              "a model group runs the same rows: not a scaling number")
+SHARD_REDUCED = {
+    "n_layers": f"32 -> {SHARD_LAYERS}: every step moves each parameter "
+                f"three times over gloo's host loopback (gathered, gathered "
+                f"again by remat, gradients reduce-scattered); the (2, 2) "
+                f"SUMMA call moved 728 of its 765 ms there (PERF.md), so 32 "
+                f"layers would take tens of seconds a step",
+    "ranks": "4 ranks on 1 card (gloo: NCCL refuses two ranks on one card)",
+    "compute_dtype": "bfloat16 -> float32 in the train, restart and decode "
+                     "legs: held to one device at TRAIN_TOL (the pipeline "
+                     "serves in bfloat16 on the kernels)"}
 
 
 def emit(**row):
@@ -3313,20 +3375,19 @@ def mesh_rank(rank, world, backend, directory):
         dist.destroy_process_group()
 
 
-def run_ranks(world, backend, directory):
-    """Start ``world`` spawned ranks of :func:`mesh_rank`, wait for them
-    (a failed rank stops the others: they would wait on it) and return
-    their rows; raises if any rank failed or the phase timed out."""
+def spawn_ranks(world, backend, directory, target, timeout_s):
+    """Start ``world`` spawned ranks of ``target`` and wait for them (a
+    failed rank stops the others: they would wait on it); returns their
+    exit codes, None for one stopped at the deadline."""
     import multiprocessing
 
     os.makedirs(directory)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(r, world, backend, directory))
+    procs = [ctx.Process(target=target, args=(r, world, backend, directory))
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + MESH_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         while any(p.is_alive() for p in procs) and time.monotonic() < deadline \
                 and not any(p.exitcode for p in procs):
@@ -3339,7 +3400,16 @@ def run_ranks(world, backend, directory):
             if p.is_alive():
                 p.kill()
                 p.join()
-    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    return [p.exitcode for p in procs]
+
+
+def run_ranks(world, backend, directory, target=None,
+              timeout_s=MESH_TIMEOUT_S):
+    """:func:`spawn_ranks` of ``target`` (default :func:`mesh_rank`), then
+    their rows; raises if any rank failed or the phase timed out."""
+    codes = spawn_ranks(world, backend, directory, target or mesh_rank,
+                        timeout_s)
+    bad = {r: c for r, c in enumerate(codes) if c != 0}
     if bad:
         raise AssertionError(f"mesh ranks {backend} x {world} failed "
                              f"(exit codes {bad})")
@@ -3386,6 +3456,522 @@ def phase_mesh(smi):
     return launches
 
 
+def shard_cfg():
+    """hymba-1.5b as registered, cut to SHARD_LAYERS layers, f32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+
+    cfg = reduce_config(registry.get_config("hymba-1.5b"),
+                        layers=SHARD_LAYERS)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def shard_one_device(cfg, opt_cfg, path):
+    """TRAIN_AGREE_STEPS steps of ``cfg`` on one device from SEED (what the
+    ranks are held to): per-step metrics, and the parameters saved to
+    ``path``."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    torch.cuda.empty_cache()
+    state = ts.init_state(torch.Generator(device="cuda").manual_seed(SEED),
+                          cfg, opt_cfg, "cuda")
+    state_bytes = sh.local_bytes(state)
+    data = DataConfig(vocab=cfg.vocab, global_batch=TRAIN[0],
+                      seq_len=TRAIN[1], seed=SEED)
+    step_fn = ts.make_train_step(cfg, opt_cfg)
+    metrics = []
+    for i in range(TRAIN_AGREE_STEPS):
+        if i == TRAIN_AGREE_STEPS - 1:
+            prev = {k: p.detach().clone() for k, p in
+                    optimizer.named_parameters(state["params"]).items()}
+        (state, m), secs = sync_time(lambda: step_fn(state, make_batch(
+            cfg, data, i, device="cuda")))
+        metrics.append({"wall_s": secs, **{k: m[k].item() for k in
+                                           ("loss", "grad_norm", "lr")}})
+    params = optimizer.named_parameters(state["params"])
+    # the planted fault: each leaf's error if its last update were dropped
+    last = sorted((p.detach() - prev[k]).abs().max().item()
+                  for k, p in params.items())
+    del prev
+    torch.save({k: p.detach().cpu() for k, p in params.items()}, path)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    del state
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "state_bytes": state_bytes,
+            "params": n_params,
+            "last_update_max_abs": {"min_over_leaves": last[0],
+                                    "median_over_leaves":
+                                        last[len(last) // 2]}}
+
+
+def shard_probe_rank(rank, world, backend, directory):
+    """One rank of a probe group (spawned, a group per op: a collective
+    that kills its processes stops only its group): DTensor's own
+    redistribution named by ``directory``'s suffix (``all_gather``,
+    ``reduce_scatter``, ``all_to_all``) on card tensors over a gloo mesh
+    of the card's type; its result or error to ``directory/probe<R>.json``.
+    The route does not depend on the probe."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{directory}/rdv", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_debug_mesh(*SHARD_MESH, device_type="cuda")
+        full = torch.arange(64.0, device="cuda").reshape(8, 8)
+        half = full.chunk(2)[mesh.get_local_rank("data")]
+        src, local, dst, want = {
+            "all_gather": ([Shard(0), Replicate()], half,
+                           [Replicate(), Replicate()], full),
+            "reduce_scatter": ([Partial(), Replicate()], full,
+                               [Shard(0), Replicate()], 2 * half),
+            "all_to_all": ([Shard(0), Replicate()], half,
+                           [Shard(1), Replicate()], full.chunk(2, 1)[
+                               mesh.get_local_rank("data")]),
+        }[os.path.basename(directory).split("-", 1)[1]]
+        try:     # a probe: its outcome is reported, the route is fixed
+            got = DTensor.from_local(local.contiguous(), mesh, src,
+                                     run_check=False).redistribute(
+                mesh, dst).to_local()
+            torch.cuda.synchronize()
+            res = "ok" if torch.equal(got, want) else "wrong values"
+        except Exception as e:                   # noqa: BLE001
+            res = f"{type(e).__name__}: {str(e)[:160]}"
+        with open(os.path.join(directory, f"probe{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_probe(world, top):
+    """DTensor's all-gather, reduce-scatter and all-to-all on card
+    tensors over gloo, a spawned group each: {op: result}, or the exit
+    codes of ranks that died (-11: a segmentation fault)."""
+    out = {}
+    for op in ("all_gather", "reduce_scatter", "all_to_all"):
+        d = os.path.join(top, f"probe-{op}")
+        codes = spawn_ranks(world, "gloo", d, shard_probe_rank, 120)
+        path = os.path.join(d, "probe0.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out[f"dtensor.{op}"] = json.load(f)
+        else:
+            out[f"dtensor.{op}"] = f"the ranks died: exit codes {codes}"
+    return out
+
+
+def shard_staged(mesh):
+    """The route's transport (collectives.py, staged through pinned host
+    memory for gloo) on card tensors: {op: result}."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+
+    full = torch.arange(64.0, device="cuda").reshape(8, 8)
+    half = full.chunk(2)[mesh.get_local_rank("data")]
+    got = {"all_gather": (coll.all_gather_cat(half.contiguous(), mesh,
+                                              "data", 0), full),
+           "reduce_scatter": (coll.reduce_scatter_chunk(full, mesh, "data",
+                                                        0), 2 * half),
+           "all_reduce": (coll.all_reduce(full, mesh, "model",
+                                          dist.ReduceOp.SUM), 2 * full)}
+    out = {f"staged.{k}": "ok" if torch.equal(g, w) else "wrong values"
+           for k, (g, w) in got.items()}
+    assert all(v == "ok" for v in out.values()), out
+    return out
+
+
+def shard_rank(rank, world, backend, directory):
+    """One rank of the shard phase (spawned; rows to
+    ``directory/rank<R>.json``)."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // world))
+    dist.init_process_group(
+        backend, init_method=f"file://{directory}/rdv", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        rows = shard_legs(rank, directory)
+        with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+            json.dump(rows, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_legs(rank, directory):
+    """The shard phase's legs on this rank, in order (module docstring,
+    phase 11); every rank runs every leg (each holds collectives)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(*SHARD_MESH, device_type="cuda")
+    rows = [{"probe": shard_staged(mesh)}]
+    state = shard_train(rows, mesh, rank, directory)
+    shard_elastic(rows, state, rank, directory)
+    del state
+    torch.cuda.empty_cache()
+    shard_restart(rows, directory)
+    shard_pipeline(rows, rank)
+    shard_decode(rows, mesh)
+    return rows
+
+
+def shard_train(rows, mesh, rank, directory):
+    """The 4-layer model's state placed at state_specs (bytes against the
+    specs), then 1 + SHARD_TIMED steps on TRAIN's tokens (each rank its
+    rows), the agreement read after TRAIN_AGREE_STEPS: this rank's
+    parameter blocks against the one-device run's."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.obs import counters
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    cfg = shard_cfg()
+    opt_cfg = optimizer.AdamWConfig(eight_bit=cfg.opt_8bit, **TRAIN_OPT)
+    state = ts.init_state(torch.Generator(device="cuda").manual_seed(SEED),
+                          cfg, opt_cfg, "cuda")
+    state = sh.place_state(state, mesh)
+    torch.cuda.empty_cache()
+    local, want = sh.local_bytes(state), sh.spec_bytes(state, mesh)
+    rows.append({"leg": "state on the mesh", "local_bytes": local,
+                 "spec_bytes": want, "bitwise_spec": local == want})
+    assert local == want, (local, want)
+    data = DataConfig(vocab=cfg.vocab, global_batch=TRAIN[0],
+                      seq_len=TRAIN[1], seed=SEED)
+    bsh = sh.NamedSharding(mesh, sh.batch_specs({"tokens": TRAIN},
+                                                mesh)["tokens"])
+    step_fn = ts.make_train_step(cfg, opt_cfg, sh.make_shard_fn(mesh))
+    counts = zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    steps, p_err = [], None
+    for i in range(1 + SHARD_TIMED):
+        batch = make_batch(cfg, data, i, device="cuda", sharding=bsh)
+        mesh_barrier()
+        before = counters.snapshot()
+        (state, m), secs = sync_time(lambda: step_fn(state, batch))
+        ctr = counters.delta(before)
+        steps.append({"step": i, "wall_s": secs,
+                      **{k: m[k].item() for k in ("loss", "grad_norm", "lr")},
+                      "collective_bytes": ctr.get("collective.bytes", 0),
+                      "redistribute_bytes": ctr.get(
+                          "shard.redistribute_bytes", 0)})
+        if i == TRAIN_AGREE_STEPS - 1:
+            one = torch.load(os.path.join(directory, "..", "one_device.pt"),
+                             mmap=True)
+            p_err = max(
+                (sh.local(p).detach() - one[k][sh.local_index(
+                    p.shape, p.placements, mesh)].cuda()).abs().max().item()
+                for k, p in optimizer.named_parameters(
+                    state["params"]).items())
+            del one
+    launches = {k: w.launches for k, w in counts.items()}
+    rows.append({"leg": f"train step hymba-1.5b {SHARD_LAYERS} layers "
+                        f"{TRAIN[0]}x{TRAIN[1]} on data x model "
+                        f"{SHARD_MESH}, {TRAIN[1]} tokens x "
+                        f"{TRAIN[0] // SHARD_MESH[0]} rows a rank",
+                 "steps": steps, "params_max_abs_after_agree": p_err,
+                 "step_s": statistics.median(r["wall_s"] for r in steps[1:]),
+                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": launches})
+    assert not any(launches.values()), launches
+    return state
+
+
+def shard_elastic(rows, state, rank, directory):
+    """The (2, 2) state's checkpoint (saved by all ranks, written by rank
+    0) restored onto data = 4 x model = 1 (each rank reading its blocks)
+    and onto one device (rank 0): every leaf bitwise the saved one, at
+    the new mesh's specs."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    cfg = shard_cfg()
+    opt_cfg = optimizer.AdamWConfig(eight_bit=cfg.opt_8bit, **TRAIN_OPT)
+    path = os.path.join(directory, "ckpt")
+    mesh_barrier()
+    _, save_s = sync_time(lambda: ck.save(path, 1 + SHARD_TIMED, state))
+    saved = {}
+    for k, v in ck._flatten(state).items():
+        full = sh.full_tensor(v)
+        if rank == 0:
+            saved[k] = full
+    mesh41 = make_debug_mesh(4, 1, device_type="cuda")
+    like = ts.state_for(model_zoo.build(cfg, "meta"), opt_cfg)
+    mesh_barrier()
+    (new, step), restore_s = sync_time(lambda: elastic.elastic_restore(
+        path, like, mesh41))
+    want = ck._flatten(sh.to_shardings(sh.state_specs(
+        sh.state_shapes(new), mesh41), mesh41))
+    got = ck._flatten(new)
+    placed = sorted(want) == sorted(got) and all(
+        tuple(got[k].placements) == want[k].placements for k in want)
+    bitwise41 = True
+    for k, v in got.items():
+        full = sh.full_tensor(v)
+        if rank == 0:
+            bitwise41 = bitwise41 and torch.equal(full, saved[k])
+    del new, got
+    row = {"leg": "elastic: the (2, 2) checkpoint onto data 4 x model 1 "
+                  "and onto one device", "step": step, "save_s": save_s,
+           "restore_4x1_s": restore_s, "placements_4x1": placed}
+    if rank == 0:
+        back, _ = elastic.elastic_restore(path, ts.state_for(
+            model_zoo.build(cfg, "cuda"), opt_cfg), None)
+        bitwise1 = all(torch.equal(v, saved[k]) for k, v in
+                       ck._flatten(back).items())
+        del back
+        row.update(bitwise_4x1=bitwise41, bitwise_one_device=bitwise1,
+                   leaves=len(saved))
+        assert bitwise41 and bitwise1
+    assert placed and step == 1 + SHARD_TIMED
+    rows.append(row)
+    del saved
+    torch.cuda.empty_cache()
+
+
+def shard_restart(rows, directory):
+    """train_loop on the debug mesh over the world's ranks, the reduced
+    hybrid of the train phase's restart: 12 steps uninterrupted, then
+    with checkpoints every 3 and a failure at step 7 under
+    run_with_restarts (resumed from step 6, on the mesh)."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import make_mesh, train_loop
+    from repro_torch.runtime.fault_tolerance import run_with_restarts
+    from repro_torch.train import optimizer
+
+    cfg = train_small_cfg("hymba-1.5b")
+    opt = optimizer.AdamWConfig(**TRAIN_SMALL_OPT)
+    data = DataConfig(vocab=cfg.vocab, global_batch=2,
+                      seq_len=TRAIN_SMALL_SEQ, seed=SEED)
+    dmesh = make_mesh("debug", "cuda")
+    mesh_barrier()
+    (_, ref_hist), ref_s = sync_time(lambda: train_loop(
+        cfg, opt, data, dmesh, steps=12,
+        ckpt_dir=os.path.join(directory, "loop_a"), save_interval=1000,
+        log_every=100))
+    ckpt = os.path.join(directory, "loop_b")
+    calls, done = [], {}
+
+    def loop(resume):
+        calls.append(resume)
+        done["run"] = train_loop(
+            cfg, opt, data, dmesh, steps=12, ckpt_dir=ckpt, save_interval=3,
+            log_every=100, fail_at_step=7 if len(calls) == 1 else -1)
+        return 12
+
+    report, secs = sync_time(lambda: run_with_restarts(loop,
+                                                       max_restarts=2))
+    hist = done["run"][1]
+    rel_err = [abs(a - b) / abs(b) for a, b in zip(hist, ref_hist[7:])]
+    saved = ck.all_steps(ckpt)
+    ok = (report.completed and report.restarts == 1 and len(hist) == 5
+          and saved == [6, 9, 11] and max(rel_err) <= TRAIN_TOL["resume"][0])
+    shape = dict(zip(dmesh.mesh_dim_names, map(int, dmesh.shape)))
+    rows.append({"leg": f"train_loop(mesh=debug {shape}) restart: hybrid "
+                        f"3x256, 12 steps, checkpoints every 3, failure at "
+                        f"step 7",
+                 "restarts": report.restarts, "resumed_losses": hist,
+                 "uninterrupted_losses": ref_hist[7:], "rel_err": rel_err,
+                 "checkpoints": saved, "uninterrupted_s": ref_s,
+                 "restarted_s": secs, "tol": TRAIN_TOL["resume"][0],
+                 "ok": ok})
+    assert ok, rows[-1]
+
+
+def shard_pipeline(rows, rank):
+    """Four stages, each one of hymba-1.5b's first four blocks at full
+    width (bf16, as served, the kernels on), over SHARD_MICRO microbatches
+    of 1 x TRAIN[1]: B5 and B6 launch SHARD_MICRO times a rank; rank 0
+    holds the output bitwise to the four blocks run in order."""
+    import torch.func
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed.pipeline_parallel import (
+        pipeline_forward, stack_stage_params)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import reduce_config
+    from repro_torch.models import model_zoo
+
+    cfg = reduce_config(registry.get_config("hymba-1.5b"),
+                        layers=SHARD_LAYERS)
+    pmesh = make_mesh((SHARD_LAYERS,), ("stage",), device_type="cuda")
+    sid = pmesh.get_local_rank("stage")
+    model = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    tokens = make_batch(cfg, DataConfig(vocab=cfg.vocab,
+                                        global_batch=SHARD_MICRO,
+                                        seq_len=TRAIN[1], seed=SEED), 0,
+                        device="cuda")["tokens"]
+    with torch.no_grad():
+        x = model._embed(tokens)[:, None]            # (M, 1, S, d)
+        positions = model._positions(x[0])
+        blk = model.blocks[sid]
+        stacked = stack_stage_params([
+            {n: p.detach() for n, p in b.named_parameters()}
+            for b in model.blocks])
+        run = pipeline_forward(lambda p, h: torch.func.functional_call(
+            blk, p, (h, positions), {"use_kernels": True})[0], pmesh)
+        counts = zero_launches()
+        mesh_barrier()
+        y, secs = sync_time(lambda: run(stacked, x))
+        launches = {k: w.launches for k, w in counts.items() if w.launches}
+        row = {"leg": f"pipeline: {SHARD_LAYERS} stages, hymba-1.5b blocks "
+                      f"0-{SHARD_LAYERS - 1} at full width (bf16, kernels), "
+                      f"{SHARD_MICRO} microbatches of 1 x {TRAIN[1]}",
+               "stage": sid, "wall_s": secs, "launches": launches}
+        assert launches == {"attention": SHARD_MICRO,
+                            "ssd_scan": SHARD_MICRO}, launches
+        if rank == 0:
+            want = torch.empty_like(x)
+            for mb in range(SHARD_MICRO):
+                h = x[mb]
+                for b in model.blocks:
+                    h = b(h, positions, use_kernels=True)[0]
+                want[mb] = h
+            row["bitwise_in_order"] = bool(torch.equal(y, want))
+            assert row["bitwise_in_order"], "the pipeline is not the blocks"
+    rows.append(row)
+    del model, stacked, x, y
+    torch.cuda.empty_cache()
+
+
+def shard_decode(rows, mesh):
+    """The 4-layer model (f32) decoding SHARD_DECODE's tokens with its
+    parameters at params_specs and f32 caches at cache_specs, against the
+    same model's one-device decode."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model_zoo
+    from repro_torch.obs import counters
+
+    cfg = shard_cfg()
+    b, n, max_len = SHARD_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    model = model_zoo.init(cfg, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab, (b, n), generator=gen, device="cuda")
+    caches = model_zoo.init_caches(model, cfg, b, max_len,
+                                   dtype=torch.float32)
+    scaches = sh.place_caches(model_zoo.init_caches(
+        model, cfg, b, max_len, dtype=torch.float32), mesh)
+    want = [model_zoo.decode_step(model, toks[:, i:i + 1], cfg, caches, i)[0]
+            for i in range(n)]
+    sh.shard_model(model, mesh)
+    got, secs, ctr = [], [], {}
+    for i in range(n):
+        mesh_barrier()
+        before = counters.snapshot()
+        (logits, _), s = sync_time(lambda: sh.decode_step(
+            model, toks[:, i:i + 1], cfg, scaches, i))
+        ctr = counters.delta(before)
+        got.append(logits)
+        secs.append(s)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    ok = err <= SHARD_DECODE_TOL[0] and all(
+        bool(torch.isfinite(g).all()) for g in got)
+    rows.append({"leg": f"sharded decode hymba-1.5b {SHARD_LAYERS} layers "
+                        f"(f32) batch {b}, {n} tokens, f32 caches of "
+                        f"{max_len} at cache_specs", "max_abs_err": err,
+                 "tol": SHARD_DECODE_TOL[0], "reason": SHARD_DECODE_TOL[1],
+                 "step_s": statistics.median(secs[1:]),
+                 "last_step_collective_bytes": ctr.get("collective.bytes", 0),
+                 "last_step_redistribute_bytes": ctr.get(
+                     "shard.redistribute_bytes", 0), "ok": ok})
+    assert ok, rows[-1]
+
+
+def phase_shard(smi):
+    """The trainer on a mesh (phase 11): hymba-1.5b cut to SHARD_LAYERS
+    layers at full width, first TRAIN_AGREE_STEPS steps on one device in
+    this process, then four spawned gloo ranks sharing the card on a
+    (data, model) = SHARD_MESH mesh: the probe, the sharded steps held to
+    one device, elastic restores, a train_loop restart, the pipeline and a
+    sharded decode. Every row names the card and its power limit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.train import optimizer
+
+    t0 = time.perf_counter()
+    cfg = shard_cfg()
+    opt_cfg = optimizer.AdamWConfig(eight_bit=cfg.opt_8bit, **TRAIN_OPT)
+    top = tempfile.mkdtemp(prefix="shard-")
+    try:
+        one = shard_one_device(cfg, opt_cfg, os.path.join(top,
+                                                          "one_device.pt"))
+        emit(phase="shard", card=smi, reduced=SHARD_REDUCED,
+             config={"arch": "hymba-1.5b", "n_layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                     "n_kv": cfg.n_kv, "vocab": cfg.vocab,
+                     "dtype": cfg.dtype, "params": one["params"]},
+             one_device_steps=one["metrics"],
+             one_device_state_bytes=one["state_bytes"],
+             one_device_last_update_max_abs=one["last_update_max_abs"],
+             params_tol=SHARD_PARAM_TOL[0])
+        assert SHARD_PARAM_TOL[0] <= \
+            one["last_update_max_abs"]["median_over_leaves"] / 5, one
+        world = SHARD_MESH[0] * SHARD_MESH[1]
+        emit(phase="shard", card=smi, probe=shard_probe(world, top),
+             route="zero3: each block's parameters all-gathered before it "
+                   "runs (again in remat's recompute), gradients "
+                   "reduce-scattered over data, on collectives.py's "
+                   "transport (gloo, staged through pinned host memory)")
+        ranks = run_ranks(world, "gloo", os.path.join(top, "gloo4"),
+                          target=shard_rank, timeout_s=SHARD_TIMEOUT_S)
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    for rank, rank_rows in enumerate(ranks):
+        for row in rank_rows:
+            emit(phase="shard", rank=rank, card=smi,
+                 **({"note": SHARD_NOTE} if "wall_s" in row or "steps" in
+                    row or "step_s" in row else {}), **row)
+    # the agreement, held here: every rank's metrics and parameter blocks
+    agree = []
+    for rank, rank_rows in enumerate(ranks):
+        train = next(r for r in rank_rows if "steps" in r)
+        for i, want in enumerate(one["metrics"]):
+            got = train["steps"][i]
+            agree.append({k: abs(got[k] - want[k]) / abs(want[k])
+                          for k in ("loss", "grad_norm", "lr")})
+        agree[-1]["params_max_abs"] = train["params_max_abs_after_agree"]
+    ok = all(a["loss"] <= TRAIN_TOL["loss"][0]
+             and a["grad_norm"] <= TRAIN_TOL["grad_norm"][0]
+             and a["lr"] <= TRAIN_TOL["lr"][0] for a in agree) and all(
+        a.get("params_max_abs", 0) <= SHARD_PARAM_TOL[0] for a in agree)
+    emit(phase="shard", check=f"{SHARD_MESH} mesh against one device: "
+                              f"{TRAIN_AGREE_STEPS} steps, every rank",
+         per_rank_step_rel=agree, card=smi,
+         tol={**{k: TRAIN_TOL[k][0] for k in ("loss", "grad_norm", "lr")},
+              "params": SHARD_PARAM_TOL[0]},
+         params_reason=SHARD_PARAM_TOL[1], ok=ok)
+    assert ok, agree
+    emit(phase="shard", wall_s=time.perf_counter() - t0, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -3428,6 +4014,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_mesh(smi)
     emit(phase_done="mesh", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_shard(smi)
+    emit(phase_done="shard", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     rows = phase_times(gen, launches) + model_rows(gen, model_launches) \
         + [paper_row] + family_rows(gen, family_b5)

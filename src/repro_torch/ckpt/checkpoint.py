@@ -23,21 +23,40 @@ other's train state until
 
 ``restore`` fills the structure of ``like``: a module's parameters are
 copied into it in place (a module cannot be rebuilt from a tree), a tensor
-leaf comes back on that tensor's device with the file's dtype. The
-reference's ``shardings`` (elastic re-placement on a mesh) are left out
-until the trainer's sharding (ROADMAP.md A.7b).
+leaf comes back on that tensor's device with the file's dtype.
+
+**On a mesh** (a tree holding DTensors, ``distributed.sharding``): the
+files hold the full logical arrays all the same, so a checkpoint written
+on one mesh restores on any other, on one device, and in the other
+package (through ``models.convert``). Every rank of the mesh calls
+``save``: each leaf is all-gathered in key order (a collective, not
+counted under the step's counters), and only the mesh's first rank keeps
+the arrays and writes them, by the same atomic rename; the other ranks
+wait at a barrier over the mesh until the rename is done, so no rank can
+read a step before it exists or a half-written one. ``restore(...,
+shardings=)`` (the tree of ``sharding.to_shardings``) reads on each rank
+only its block of each leaf, through a memory map of the leaf inside
+``arrays.npz`` (stored uncompressed), and returns DTensors at those
+placements; a module's parameters become ``nn.Parameter(DTensor)`` and
+its blocks take the gather hooks (``sharding.shard_model``). ``like``
+may then be built on the ``meta`` device.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import struct
 import tempfile
+import zipfile
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from repro_torch.distributed import sharding as sh
 
 _SEP = "/"
 
@@ -76,10 +95,32 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(directory: str, step: int, tree, keep: Optional[int] = None) -> str:
-    """Atomically write ``tree`` as step ``step``. Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomically write ``tree`` as step ``step``. Returns the final path.
+    A tree on a mesh is saved by every rank of it together (module
+    docstring)."""
     final = os.path.join(directory, f"step_{step:010d}")
-    flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    flat = _flatten(tree)
+    mesh = sh.tree_mesh(list(flat.values()))
+    if mesh is None:
+        return _write(directory, step, final,
+                      {k: _to_numpy(v) for k, v in flat.items()}, keep)
+    writer = dist.get_rank() == int(mesh.mesh.min())
+    arrays = {}
+    for k, v in flat.items():
+        full = sh.full_tensor(v)
+        if writer:
+            arrays[k] = _to_numpy(full)
+        del full
+    if writer:
+        _write(directory, step, final, arrays, keep)
+    del arrays
+    sh.mesh_barrier(mesh)
+    return final
+
+
+def _write(directory: str, step: int, final: str, flat: Dict[str, np.ndarray],
+           keep: Optional[int]) -> str:
+    os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_save_")
     try:
         np.savez(os.path.join(tmp, "arrays.npz"), **flat)
@@ -122,24 +163,37 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _fill(like, data, prefix: str = ""):
-    """``like``'s structure with the arrays of ``data`` under its keys."""
+def _fill(like, data, prefix: str = "", shardings=None):
+    """``like``'s structure with the arrays of ``data`` under its keys;
+    the keys in ``shardings`` (flat) come back as DTensors at them, read
+    from ``data`` (an :class:`_Members`) block by block."""
     if isinstance(like, nn.Module):
+        placed = False
         with torch.no_grad():
             for key, p in _children(like):
-                arr = torch.from_numpy(data[f"{prefix}{_SEP}{key}"
-                                            if prefix else key])
+                full = f"{prefix}{_SEP}{key}" if prefix else key
+                if shardings and full in shardings:
+                    sh.set_param(like, key, data.block(
+                        full, shardings[full]))
+                    placed = True
+                    continue
+                arr = torch.from_numpy(data[full])
                 if arr.shape != p.shape or arr.dtype != p.dtype:
                     raise ValueError(f"{prefix}/{key}: checkpoint holds "
                                      f"{tuple(arr.shape)} {arr.dtype}, the "
                                      f"module {tuple(p.shape)} {p.dtype}")
                 p.copy_(arr)
+        if placed:
+            sh.hook_model(like)
         return like
     kids = _children(like)
     if kids is None:
+        if shardings and prefix in shardings:
+            return data.block(prefix, shardings[prefix])
         arr = torch.from_numpy(np.array(data[prefix]))
         return arr.to(like.device) if isinstance(like, torch.Tensor) else arr
-    vals = [_fill(child, data, f"{prefix}{_SEP}{key}" if prefix else key)
+    vals = [_fill(child, data, f"{prefix}{_SEP}{key}" if prefix else key,
+                  shardings)
             for key, child in kids]
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         return type(like)(*vals)
@@ -148,8 +202,11 @@ def _fill(like, data, prefix: str = ""):
     return type(like)(vals)
 
 
-def restore(directory: str, like, step: Optional[int] = None):
-    """Restore into the structure of ``like`` (see the module docstring).
+def restore(directory: str, like, step: Optional[int] = None,
+            shardings=None):
+    """Restore into the structure of ``like`` (see the module docstring);
+    ``shardings``: a tree of ``distributed.sharding.NamedSharding`` over
+    the same keys (some or all), to restore those leaves onto a mesh.
     Returns (tree, step)."""
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -161,5 +218,47 @@ def restore(directory: str, like, step: Optional[int] = None):
     if missing:
         raise KeyError(f"checkpoint at step {step} missing keys: "
                        f"{missing[:5]}")
+    if shardings is not None:
+        members = _Members(os.path.join(path, "arrays.npz"))
+        flat = {k: v for k, v in _flatten(shardings).items()}
+        return _fill(like, members, shardings=flat), step
     with np.load(os.path.join(path, "arrays.npz")) as data:
         return _fill(like, data), step
+
+
+class _Members:
+    """The arrays of an uncompressed ``.npz`` as memory maps: ``m[key]``
+    maps a whole leaf, ``m.block(key, sharding)`` reads this rank's block
+    of it only."""
+
+    def __init__(self, path: str):
+        self.path, self.index = path, {}
+        with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+            for info in z.infolist():
+                if info.compress_type != zipfile.ZIP_STORED:
+                    raise ValueError(f"{path}: {info.filename} is "
+                                     f"compressed; a map needs it stored")
+                f.seek(info.header_offset)
+                local = f.read(30)
+                name_len, extra_len = struct.unpack("<HH", local[26:30])
+                f.seek(info.header_offset + 30 + name_len + extra_len)
+                version = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0
+                        if version == (1, 0)
+                        else np.lib.format.read_array_header_2_0)
+                shape, fortran, dtype = read(f)
+                self.index[info.filename[:-len(".npy")]] = (
+                    f.tell(), tuple(shape), fortran, dtype)
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        offset, shape, fortran, dtype = self.index[key]
+        mm = np.memmap(self.path, dtype=dtype, mode="r", offset=offset,
+                       shape=shape or (1,), order="F" if fortran else "C")
+        return mm.reshape(shape)
+
+    def block(self, key: str, sharding):
+        """This rank's block of leaf ``key`` at ``sharding``, a DTensor."""
+        leaf = self[key]
+        idx = sh.local_index(leaf.shape, sharding.placements, sharding.mesh)
+        return sh.wrap(torch.from_numpy(np.array(leaf[idx])), sharding,
+                       leaf.shape)

@@ -23,8 +23,9 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         return checkpoint.latest_step(self.directory)
 
-    def restore_latest(self, like):
-        """Returns (state, step) or (None, -1) if no checkpoint exists."""
+    def restore_latest(self, like, shardings=None):
+        """Returns (state, step) or (None, -1) if no checkpoint exists;
+        ``shardings`` as :func:`checkpoint.restore`'s."""
         if self.latest_step() is None:
             return None, -1
-        return checkpoint.restore(self.directory, like)
+        return checkpoint.restore(self.directory, like, shardings=shardings)

@@ -12,8 +12,12 @@ The frontend families' embeddings differ: the reference draws them from
 ``jax.random`` keyed by (seed, step); here they come from a CPU
 ``torch.Generator`` seeded by the same hash of (seed, step), the same
 distribution (0.02 N(0, 1) in bf16) and the same values on every device.
-``global_batch`` and ``make_batch``'s ``sharding`` (an array sharded over a
-mesh) are left out until the trainer's sharding (ROADMAP.md A.7b).
+
+On a mesh, :meth:`SyntheticDataset.global_batch` and ``make_batch(...,
+sharding=)`` give a DTensor at the sharding's placements
+(``distributed.sharding.batch_specs``): each rank materializes only its
+own rows and columns from the counter hash (``tokens_slice``), where the
+reference's ``make_array_from_callback`` calls back per device.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import frontend_tokens, synthetic_frontend
 
@@ -73,6 +78,22 @@ class SyntheticDataset:
     def local_batch(self, step: int) -> np.ndarray:
         return self.tokens_slice(step, 0, self.cfg.global_batch)
 
+    def global_batch(self, step: int, sharding, accum: int = 1):
+        """The step's (B, S) tokens, or (accum, B / accum, S), as a
+        DTensor at ``sharding`` (a ``distributed.sharding.NamedSharding``):
+        this rank's block only, generated from the counter hash."""
+        c = self.cfg
+        b = c.global_batch // accum
+        shape = (b, c.seq_len) if accum == 1 else (accum, b, c.seq_len)
+        idx = sh.local_index(shape, sharding.placements, sharding.mesh)
+        micro, rows, cols = (slice(0, 1),) * (accum == 1) + idx
+        block = np.stack([self.tokens_slice(step, a * b + rows.start,
+                                            a * b + rows.stop, cols.start,
+                                            cols.stop)
+                          for a in range(micro.start, micro.stop)])
+        return sh.wrap(torch.from_numpy(block.reshape(
+            [s.stop - s.start for s in idx])), sharding, shape)
+
     def frontend_generator(self, step: int) -> torch.Generator:
         """A CPU generator seeded by the hash of (seed, step)."""
         seed = int(_splitmix64(np.array([self._base(step)], np.uint64))[0])
@@ -80,19 +101,37 @@ class SyntheticDataset:
 
 
 def make_batch(cfg: ModelConfig, data: DataConfig, step: int,
-               accum: int = 1, device="cuda") -> dict:
+               accum: int = 1, device="cuda", sharding=None) -> dict:
     """The model-facing batch dict on ``device`` (the card unless the
     caller asks for the CPU): {"tokens": int32 (B, S)} and, for the
     frontend families, {"frames" | "patches": bf16 (B, P, d)}; with
-    ``accum`` > 1 each is reshaped to (accum, B / accum, ...)."""
+    ``accum`` > 1 each is reshaped to (accum, B / accum, ...).
+
+    With ``sharding`` (the tokens' ``NamedSharding`` on a mesh, from
+    ``batch_specs``) every entry is a DTensor on the mesh's device, this
+    rank holding its rows (of each microbatch): the tokens generated for
+    those rows only, the frontend embeddings cut from the whole."""
     ds = SyntheticDataset(data)
-    batch = {"tokens": torch.from_numpy(ds.local_batch(step))}
+    batch = {"tokens": torch.from_numpy(ds.local_batch(step))
+             if sharding is None else ds.global_batch(step, sharding, accum)}
     if frontend_tokens(cfg):
         emb = synthetic_frontend(ds.frontend_generator(step), cfg,
                                  data.global_batch)
         batch["frames" if cfg.frontend == "audio" else "patches"] = emb
     if accum > 1:
         b = data.global_batch // accum
-        batch = {k: t.reshape(accum, b, *t.shape[1:])
+        batch = {k: t if k == "tokens" and sharding is not None
+                 else t.reshape(accum, b, *t.shape[1:])
                  for k, t in batch.items()}
-    return {k: t.to(device) for k, t in batch.items()}
+    if sharding is None:
+        return {k: t.to(device) for k, t in batch.items()}
+    return {k: t if isinstance(t, sh.DTensor) else sh.distribute(
+        t, sh.NamedSharding(sharding.mesh, _rows_spec(sharding.spec,
+                                                      t.ndim)))
+            for k, t in batch.items()}
+
+
+def _rows_spec(spec, ndim: int):
+    """The tokens' spec applied to another entry of the batch: the same
+    batch entries, the trailing dims whole."""
+    return type(spec)(*(list(spec[:2]) + [None] * ndim)[:ndim])

@@ -1,5 +1,6 @@
-"""repro_torch.distributed - the manual collectives on torch.distributed
-(port of ``repro.distributed``: ``collectives``). The trainer's sharding
-rules, pipeline parallelism and elastic restarts (``sharding``,
-``pipeline_parallel``, ``elastic``) wait for ROADMAP.md A.7b."""
-from repro_torch.distributed import collectives
+"""repro_torch.distributed - the port of ``repro.distributed`` on
+torch.distributed: the manual collectives (``collectives``), the trainer's
+DP x TP x ZeRO sharding rules and state on DTensor (``sharding``),
+pipeline parallelism (``pipeline_parallel``) and elastic restarts
+(``elastic``)."""
+from repro_torch.distributed import collectives, sharding

@@ -149,6 +149,21 @@ def all_gather_cat(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return out if dim == 0 else torch.cat(out.chunk(size, 0), dim)
 
 
+def reduce_scatter_chunk(t: torch.Tensor, mesh, axis: str,
+                         dim: int) -> torch.Tensor:
+    """``t`` summed over mesh ``axis``, this rank's chunk of it along
+    tensor dim ``dim`` (the axis's ranks take the chunks in axis order;
+    one ``reduce_scatter_tensor``)."""
+    group, size, _ = axis_group(mesh, axis)
+    if size == 1:
+        return t
+    chunks = torch.stack(t.chunk(size, dim))          # (size, *chunk)
+    out = _wire_empty(group, t, (chunks[0].numel(),))
+    dist.reduce_scatter_tensor(out, _wire(group, chunks.reshape(-1)),
+                               group=group)
+    return _back(out, t).reshape(chunks.shape[1:])
+
+
 def all_reduce(t: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
     """``t`` reduced with ``op`` over mesh ``axis`` (a new tensor)."""
     group, size, _ = axis_group(mesh, axis)

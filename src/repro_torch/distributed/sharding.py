@@ -1,0 +1,1000 @@
+"""Sharding rules and the trainer's DP x TP x ZeRO state on DTensor (port of
+``repro.distributed.sharding``).
+
+**The rules** are the reference's, leaf for leaf:
+
+* batch over ``("pod", "data")`` (:func:`batch_axes`),
+* Megatron TP over ``"model"``: column-parallel in-projections
+  (``wq wk wv w_in w_gate in_proj router``), row-parallel out-projections
+  (``wo w_out out_proj``), vocab-sharded ``table`` and ``head``, MoE experts
+  over ``"model"`` in E, ``frontend_proj`` column-parallel,
+* ZeRO: the largest still-replicated dim goes over the DP axes,
+* a dim that does not divide its axes stays replicated, so one rule set
+  serves every (arch x shape x mesh) cell,
+* f32 moments follow their parameter; an 8-bit moment's codes shard their
+  block dim over the DP axes, its scales stay replicated,
+* caches: batch over DP, ``k v cross_k cross_v`` sequence over ``"model"``,
+  SSM ``state`` heads over ``"model"``.
+
+A spec is a :class:`P`: a tuple whose entries are ``None``, an axis name or
+a tuple of axis names (``P(None, ("pod", "data"))``). A mesh is a
+:class:`~torch.distributed.device_mesh.DeviceMesh` or a plain ``{axis:
+size}`` mapping; the rules need only the sizes, so a dry run prices a 256-
+or 512-rank mesh with no process group. The port keys each layer
+(``blocks/3/attn/wq``) where the reference stacks them
+(``blocks/attn/wq``, shape (L, ...)): a port leaf's spec is the
+reference's without its leading layer ``None``. 8-bit moments differ
+more: the port quantizes one layer's parameter, the reference the stack,
+so the block counts (and whether they divide the DP size) differ; the
+rule is the same on each side's own shape.
+
+**Placement.** :func:`to_shardings` turns a spec into DTensor placements:
+an axis named in entry ``i`` is ``Shard(i)`` on that mesh dim, a tuple
+entry ``("pod", "data")`` is ``Shard(i)`` on both, in mesh order (jax's
+major-to-minor), every other mesh dim ``Replicate()``. The state is SPMD,
+as the port's mesh routines are: every rank builds the same full tensors
+from the same seed and keeps its own block (:func:`distribute`, by
+``DTensor.from_local``, no communication), so each rank's local ``numel``
+is the global one over the sizes of the axes the spec names.
+
+**Compute** (the ZeRO-3 route): the DTensors hold the state; the model
+runs on plain tensors. Each rank runs the forward and backward on its own
+rows of the batch (batch over the DP axes). A block's parameters are
+gathered to full tensors when the block starts (a forward pre-hook, as
+FSDP's unshard; again in the backward when remat recomputes it), and a
+parameter's gradient is sliced over the other axes (no bytes: their
+ranks ran the same rows) and reduce-scattered over the DP axes (summed,
+then divided by their size: the mean over the global batch), back to the
+parameter's placements. The transport is
+:mod:`repro_torch.distributed.collectives`' (through pinned host memory
+for gloo on the card). Every rank of a "model" group runs the same rows:
+the TP placements shard storage, not compute (TP compute waits for
+ROADMAP.md A.7c).
+
+**Where the layout is not kept sharded**, each counted under the counter
+``shard.redistribute_bytes`` (the bytes that reach this rank over the
+non-DP axes) with an obs event ``shard.redistribute`` naming the op:
+
+1. every block's parameters, gathered over ``"model"`` before the block
+   runs (``<path> parameters``; the TP split of ``wq``, ``w_in``, ...
+   and the experts' E split are not carried into the products: this is
+   where TP compute is lost, hymba-1.5b's 25-head cut inside ``wq``
+   included);
+2. the parameters outside the blocks (``embed``, norms, ``head``,
+   ``frontend_proj``), gathered over ``"model"`` for the whole forward by
+   the root module's hook (``model parameters``);
+3. decode: each cache leaf gathered over ``"model"`` (sequence and SSM
+   heads) before the step and cut back after (``decode caches``);
+4. an 8-bit moment's update, which gathers its parameter, gradient and
+   codes (``8-bit moment <path>``).
+
+The DP-axis gathers and reduce-scatters are ZeRO's own traffic, counted
+under ``collective.bytes``, as are the moe FFN's sums over the DP ranks. No error is caught to fall back anywhere.
+
+:func:`make_shard_fn` is the models' ``shard_fn(x, name)`` hook (a
+:class:`ShardFn`). The port's activations are each rank's rows already
+(the batch reaches the model as this rank's shard), so the
+``"residual"`` constraint holds by construction and the hook returns
+``x``; ``model_axis_residual`` (d over ``"model"``) would split what every
+rank's blocks compute whole, and raises where it would apply. The hook
+also answers the moe FFN, whose flat dispatch must see the global batch
+as the reference's does: ``row_shares`` (the DP size where the rows are
+split over it, else 1) scales the token count that sets the capacity,
+``"dp_sum"`` sums the router's statistics over the DP ranks (its backward
+sums the gradients back), and ``"dp_cumsum"`` gives each expert's count
+up to and including this rank's rows, so an assignment keeps the slot
+its global position gives it. The identity hook of one device is all
+three with one share.
+
+The model's own entry points stay mesh-agnostic: :func:`shard_model`
+hooks the blocks and the root module, so ``model_zoo.forward`` runs a
+sharded model as it runs a plain one; decode on a mesh is
+:func:`decode_step` here, ``model_zoo.decode_step``'s counterpart.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils import _pytree as pytree
+
+from repro_torch import obs as _obs
+from repro_torch.distributed import collectives as coll
+from repro_torch.obs import counters as _counters
+from repro_torch._state import _Moment, named_parameters
+
+DP_AXES = ("pod", "data")
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dim, each ``None``, a mesh
+    axis name, or a tuple of axis names (sharded over all, major first);
+    a one-name tuple is kept as the name, as jax's ``PartitionSpec``
+    keeps it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+# ---------------------------------------------------------------------------
+# the rules
+# ---------------------------------------------------------------------------
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{axis: size} of a DeviceMesh or of a plain mapping, in mesh order."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    axes = mesh_axes(mesh)
+    return tuple(a for a in DP_AXES if a in axes)
+
+
+def _axsize(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = mesh_axes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+def dp_size(mesh) -> int:
+    """The product of the DP axes' sizes."""
+    return _axsize(mesh, batch_axes(mesh))
+
+
+def _fits(dim: int, mesh, axes) -> bool:
+    s = _axsize(mesh, axes)
+    return s > 1 and dim % s == 0
+
+
+_COL = ("wq", "wk", "wv", "w_in", "w_gate", "in_proj", "router")
+_ROW = ("wo", "w_out", "out_proj")
+
+
+def _rule_for(path: str, shape, mesh) -> List:
+    """The TP spec of a leaf (one layer's, in the port)."""
+    name = path.split("/")[-1]
+    nd = len(shape)
+    if name == "table":                                   # embedding (V, d)
+        return ["model" if _fits(shape[0], mesh, "model") else None, None]
+    if name == "head" or path.endswith("head"):           # (d, V)
+        return [None, "model" if _fits(shape[1], mesh, "model") else None]
+    if name in ("w_in", "w_gate", "w_out") and nd == 3:   # MoE (E, ., .)
+        return ["model" if _fits(shape[0], mesh, "model") else None,
+                None, None]
+    if name in _COL and nd == 2:
+        return [None, "model" if _fits(shape[1], mesh, "model") else None]
+    if name in _ROW and nd == 2:
+        return ["model" if _fits(shape[0], mesh, "model") else None, None]
+    if name == "frontend_proj":
+        return [None, "model" if _fits(shape[1], mesh, "model") else None]
+    return [None] * nd
+
+
+def param_spec(path: str, leaf, mesh, fsdp: bool = True) -> P:
+    """The spec of the parameter at ``path`` (module path, ``/``
+    separators) of shape ``leaf.shape`` (or ``leaf`` itself, a shape)."""
+    shape = tuple(getattr(leaf, "shape", leaf))
+    spec = _rule_for(path, shape, mesh)
+    if fsdp:
+        dp = batch_axes(mesh)
+        if dp:
+            # ZeRO: shard the largest still-replicated dim over DP
+            for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+                if spec[i] is None and _fits(shape[i], mesh, dp):
+                    spec[i] = dp
+                    break
+    return P(*spec)
+
+
+def named_shapes(params) -> Dict[str, tuple]:
+    """{module path: shape} of a module (its parameters, registration
+    order) or of a mapping of path -> tensor / shape."""
+    if isinstance(params, nn.Module):
+        params = named_parameters(params)
+    return {k: tuple(getattr(v, "shape", v)) for k, v in params.items()}
+
+
+def params_specs(params, mesh, fsdp: bool = True) -> Dict[str, P]:
+    """{module path: spec} of a module's parameters (or of a mapping of
+    path -> tensor / shape)."""
+    return {k: param_spec(k, s, mesh, fsdp=fsdp)
+            for k, s in named_shapes(params).items()}
+
+
+def _moment_spec(m, ps: P, mesh):
+    if isinstance(m, _Moment):                 # 8-bit: codes' block dim
+        dp = batch_axes(mesh)
+        qdim = m.q.shape[0]
+        return _Moment(P(dp if dp and _fits(qdim, mesh, dp) else None, None),
+                       P(None, None))
+    return ps
+
+
+def state_specs(state, mesh, fsdp: bool = True) -> dict:
+    """Specs for the train state ``{"params": model, "opt": {"step", "m",
+    "v"}}``: the parameters', the moments' (f32: the parameter's; 8-bit:
+    :class:`_Moment` of the codes' and the scales' specs) and ``P()`` for
+    the step."""
+    pspecs = params_specs(state["params"], mesh, fsdp=fsdp)
+    opt = state["opt"]
+    return {"params": pspecs,
+            "opt": {"step": P(),
+                    "m": {k: _moment_spec(m, pspecs[k], mesh)
+                          for k, m in opt["m"].items()},
+                    "v": {k: _moment_spec(v, pspecs[k], mesh)
+                          for k, v in opt["v"].items()}}}
+
+
+def batch_specs(batch_shapes, mesh, accum: int = 1):
+    """Input specs: tokens (B, S), or (accum, B / accum, S) with ``accum``
+    > 1, batch over the DP axes where it divides. ``batch_shapes`` maps
+    names to tensors or shapes."""
+    dp = batch_axes(mesh)
+
+    def spec_of(shape):
+        nd = len(shape)
+        bdim = 1 if accum > 1 else 0
+        sb = dp if dp and shape[bdim] % _axsize(mesh, dp) == 0 else None
+        spec = [None] * nd
+        spec[bdim] = sb
+        return P(*spec)
+
+    return {k: spec_of(tuple(getattr(v, "shape", v)))
+            for k, v in batch_shapes.items()}
+
+
+# the unstacked rank of each cache leaf; a leading layer dim may precede it
+_CACHE_RANK = {"k": 4, "v": 4, "cross_k": 4, "cross_v": 4, "state": 4,
+               "conv": 3}
+
+
+def _cache_leaf_spec(name: str, shape, mesh, seq_shard: bool) -> P:
+    dp = batch_axes(mesh)
+    nd = len(shape)
+    spec = [None] * nd
+    br = _CACHE_RANK.get(name)
+    if br is None or nd < br:
+        return P(*spec)
+    off = nd - br
+    if dp and shape[off] % _axsize(mesh, dp) == 0:
+        spec[off] = dp
+    if name in ("k", "v", "cross_k", "cross_v"):             # (B, S, H, hd)
+        if seq_shard and _fits(shape[off + 1], mesh, "model"):
+            spec[off + 1] = "model"
+    if name == "state":                                      # (B, H, P, N)
+        if _fits(shape[off + 1], mesh, "model"):
+            spec[off + 1] = "model"
+    return P(*spec)
+
+
+def cache_specs(caches, mesh, seq_shard: bool = True):
+    """Decode-cache specs, the same structure as ``caches`` (mappings and
+    lists of tensors): batch over DP; the sequence of ``k v cross_k
+    cross_v`` over ``"model"`` (flash-decoding's split) and the SSM
+    ``state`` heads over ``"model"``, each where it divides."""
+    def walk(tree, name):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, str(k)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, name) for v in tree)
+        return _cache_leaf_spec(name, tuple(tree.shape), mesh, seq_shard)
+    return walk(caches, "")
+
+
+class ShardFn:
+    """The models' ``shard_fn(x, name)`` hook on ``mesh`` (module
+    docstring). ``split_rows``: the activations' rows are this rank's
+    share of the batch over the DP axes (else every rank holds them
+    all)."""
+
+    def __init__(self, mesh, model_axis_residual: bool = False,
+                 split_rows: bool = True):
+        self.mesh = mesh
+        self.model_axis_residual = model_axis_residual
+        self.split_rows = split_rows
+
+    @property
+    def row_shares(self) -> int:
+        """Into how many equal shares the batch's rows are split."""
+        return dp_size(self.mesh) if self.split_rows else 1
+
+    def rows(self, split: bool) -> "ShardFn":
+        return ShardFn(self.mesh, self.model_axis_residual, split)
+
+    def __call__(self, x, name):
+        if name == "residual":
+            if (self.model_axis_residual and x.ndim >= 2
+                    and _fits(x.shape[-1], self.mesh, "model")):
+                raise ValueError(
+                    "model_axis_residual: the port runs each block on the "
+                    "whole d on every rank of a model group (the ZeRO-3 "
+                    "route of repro_torch.distributed.sharding), so the "
+                    "residual cannot stay split over 'model' between blocks")
+            return x
+        if self.row_shares == 1:
+            return x
+        if name == "dp_sum":
+            return _DPSum.apply(x, self.mesh)
+        if name == "dp_cumsum":
+            return dp_cumsum(x, self.mesh)
+        return x
+
+
+def make_shard_fn(mesh, model_axis_residual: bool = False) -> ShardFn:
+    """The models' ``shard_fn(x, name)`` hook for ``mesh``, the rows split
+    over the DP axes (:class:`ShardFn`)."""
+    return ShardFn(mesh, model_axis_residual)
+
+
+def rows_split(tokens, mesh) -> bool:
+    """Are a batch leaf's rows split over the DP axes (a DTensor at
+    :func:`batch_specs`' placements whose batch divides), or does every
+    rank hold them all?"""
+    return isinstance(tokens, DTensor) and any(
+        isinstance(pl, Shard) and name in DP_AXES and int(size) > 1
+        for pl, name, size in zip(tokens.placements, mesh.mesh_dim_names,
+                                  mesh.shape))
+
+
+def rows_hook(shard_fn, split: bool):
+    """``shard_fn`` for a forward whose rows are split over the DP axes
+    (``split``) or whole on every rank: a :class:`ShardFn` told which;
+    another callable as it is."""
+    return shard_fn.rows(split) if isinstance(shard_fn, ShardFn) else shard_fn
+
+
+# ---------------------------------------------------------------------------
+# placements
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a DeviceMesh (jax's ``NamedSharding``)."""
+    mesh: object
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        return spec_placements(self.spec, self.mesh)
+
+
+def spec_placements(spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``'s dims."""
+    names = list(mesh_axes(mesh))
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry!r} lists mesh axes out of "
+                             f"the mesh's order {names}")
+        for d in dims:
+            if out[d] != Replicate():
+                raise ValueError(f"mesh axis {names[d]!r} shards two dims "
+                                 f"in {spec!r}")
+            out[d] = Shard(i)
+    return tuple(out)
+
+
+def to_shardings(specs, mesh):
+    """The tree of :class:`NamedSharding` of a tree of specs (mappings and
+    :class:`_Moment` pairs of :class:`P`)."""
+    if isinstance(specs, P):
+        return NamedSharding(mesh, specs)
+    if isinstance(specs, _Moment):
+        return _Moment(*(to_shardings(s, mesh) for s in specs))
+    if isinstance(specs, Mapping):
+        return {k: to_shardings(v, mesh) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(to_shardings(v, mesh) for v in specs)
+    raise TypeError(f"not a spec tree: {type(specs).__name__}")
+
+
+def mesh_device(mesh) -> torch.device:
+    """Where a mesh's shards live: its device type (the current card for
+    "cuda")."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _coordinate(mesh) -> List[int]:
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} holds no coordinate in the "
+                         f"mesh {mesh_axes(mesh)}")
+    return list(coord)
+
+
+def local_index(shape, placements, mesh) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of ``shape`` under ``placements``:
+    the slices per dim (a dim sharded over several mesh dims splits over
+    them row-major, the first mesh dim major)."""
+    coord = _coordinate(mesh)
+    sizes = list(int(s) for s in mesh.shape)
+    idx, parts = [0] * len(shape), [1] * len(shape)
+    for m, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            idx[pl.dim] = idx[pl.dim] * sizes[m] + coord[m]
+            parts[pl.dim] *= sizes[m]
+    out = []
+    for n, i, k in zip(shape, idx, parts):
+        if n % k:
+            raise ValueError(f"dim {n} of {tuple(shape)} does not divide "
+                             f"over {k} ranks ({placements})")
+        out.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return tuple(out)
+
+
+def _wrap(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= int(n)
+    return tuple(reversed(stride))
+
+
+def wrap(block: torch.Tensor, sharding, shape) -> DTensor:
+    """This rank's ``block`` of a tensor of ``shape`` at ``sharding``, as
+    a DTensor on the mesh's device."""
+    return _wrap(block.to(mesh_device(sharding.mesh)), sharding.mesh,
+                 sharding.placements, shape)
+
+
+def distribute(full: torch.Tensor, sharding: NamedSharding) -> DTensor:
+    """``full`` (the same on every rank) as a DTensor at ``sharding``: this
+    rank keeps a copy of its block, on the mesh's device."""
+    return _distribute(full, sharding.mesh, sharding.placements)
+
+
+def _distribute(full: torch.Tensor, mesh, pl) -> DTensor:
+    block = full.detach()[local_index(full.shape, pl, mesh)]
+    local = block.to(mesh_device(mesh), copy=True,
+                     memory_format=torch.contiguous_format)
+    return _wrap(local, mesh, pl, full.shape)
+
+
+def local(t):
+    """A DTensor's local shard (its storage, under ``no_grad``); any other
+    value as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _count(axis_bytes: Dict[str, int], what: str) -> None:
+    """Count gathered bytes: DP axes under ``collective.bytes``, the rest
+    under ``shard.redistribute_bytes`` with an obs event naming ``what``."""
+    dp = sum(b for a, b in axis_bytes.items() if a in DP_AXES)
+    other = sum(b for a, b in axis_bytes.items() if a not in DP_AXES)
+    if dp:
+        _counters.inc("collective.bytes", dp)
+    if other:
+        _counters.inc("shard.redistribute_bytes", other)
+        if _obs.enabled():
+            _obs.event("shard.redistribute", cat="collective", op=what,
+                       bytes=other, axes=sorted(a for a in axis_bytes
+                                                if a not in DP_AXES))
+
+
+def _gather(t: DTensor, axis_bytes: Dict[str, int],
+            keep=()) -> torch.Tensor:
+    """The full tensor of ``t``: its shards all-gathered over each mesh
+    dim that shards it, innermost first, but the axes in ``keep``; the
+    bytes that reached this rank are added to ``axis_bytes`` per axis.
+    Not recorded by autograd (:class:`_Gather` is)."""
+    with torch.no_grad():
+        mesh, out = t.device_mesh, t.to_local()
+    names = mesh.mesh_dim_names
+    for m in reversed(range(len(t.placements))):
+        pl = t.placements[m]
+        if isinstance(pl, Shard) and names[m] not in keep:
+            size = int(mesh.shape[m])
+            axis_bytes[names[m]] = axis_bytes.get(names[m], 0) + (
+                size - 1) * out.numel() * out.element_size()
+            out = coll.all_gather_cat(out, mesh, names[m], pl.dim)
+    return out
+
+
+def full_tensor(t, what: Optional[str] = None) -> torch.Tensor:
+    """A DTensor's full value on every rank (a collective over its mesh),
+    counted as :func:`_count` counts under the op ``what`` where one is
+    named (a checkpoint's or a re-placement's gather is not a step's);
+    any other tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    axis_bytes: Dict[str, int] = {}
+    out = _gather(t, axis_bytes)
+    if what is not None:
+        _count(axis_bytes, what)
+    return out
+
+
+def shard_grad(g: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """A full gradient from this rank's rows -> the mean over the DP
+    axes, at ``placements``: first sliced over the other axes (their
+    ranks ran the same rows, so no bytes move), where those shard a
+    tensor dim of their own, then reduce-scattered (or, where the
+    parameter is replicated over a DP axis, all-reduced) over the DP axes
+    and divided by their size."""
+    names = mesh.mesh_dim_names
+    coord = _coordinate(mesh)
+    dp_dims = {pl.dim for m, pl in enumerate(placements)
+               if isinstance(pl, Shard) and names[m] in DP_AXES}
+    first = [m for m, pl in enumerate(placements) if names[m] not in DP_AXES
+             and isinstance(pl, Shard) and pl.dim not in dp_dims]
+    out, ndp = g, 1
+    for m in first + [m for m in range(len(placements)) if m not in first]:
+        pl, axis, size = placements[m], names[m], int(mesh.shape[m])
+        if size == 1:
+            continue
+        if axis in DP_AXES:
+            ndp *= size
+            # bytes that reach this rank: the other ranks' partial chunks
+            # (a ring all-reduce is a reduce-scatter and an all-gather)
+            chunk = out.numel() * out.element_size() // size
+            if isinstance(pl, Shard):
+                out = coll.reduce_scatter_chunk(out, mesh, axis, pl.dim)
+                _counters.inc("collective.bytes", (size - 1) * chunk)
+            else:
+                out = coll.all_reduce(out, mesh, axis, dist.ReduceOp.SUM)
+                _counters.inc("collective.bytes", 2 * (size - 1) * chunk)
+        elif isinstance(pl, Shard):
+            out = out.chunk(size, pl.dim)[coord[m]]
+    if ndp > 1:
+        out = out / ndp
+    return _wrap(out.contiguous(), mesh, placements, shape)
+
+
+class _Gather(torch.autograd.Function):
+    """Full value of a DTensor parameter for the forward; its gradient
+    back to the parameter's placements (:func:`shard_grad`)."""
+
+    @staticmethod
+    def forward(ctx, p, axis_bytes):
+        ctx.mesh, ctx.placements, ctx.shape = (p.device_mesh, p.placements,
+                                               p.shape)
+        return _gather(p, axis_bytes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shard_grad(g, ctx.mesh, ctx.placements, ctx.shape), None
+
+
+# ---------------------------------------------------------------------------
+# the model on a mesh: parameters as DTensors, gathered per block
+# ---------------------------------------------------------------------------
+
+def _owners(module: nn.Module):
+    """(owner module, attribute name) of each parameter."""
+    return [(mod, name) for mod in module.modules()
+            for name, p in mod._parameters.items() if p is not None]
+
+
+def _block_modules(model: nn.Module):
+    """(path, block) of every layer of the model's layer stacks."""
+    for name in STACKS:
+        stack = getattr(model, name, None)
+        if isinstance(stack, nn.ModuleList):
+            for i, blk in enumerate(stack):
+                yield f"{name}/{i}", blk
+
+
+def _swap_in(params, what: str) -> list:
+    """Replace each DTensor parameter of ``params`` ((owner, name) pairs)
+    by its full value (recorded for autograd while grad mode is on);
+    returns what to put back. Counted as one ``what``."""
+    swapped, axis_bytes = [], {}
+    for owner, name in params:
+        p = owner._parameters[name]
+        if isinstance(p, DTensor):
+            if torch.is_grad_enabled() and p.requires_grad:
+                full = _Gather.apply(p, axis_bytes)
+            else:
+                full = _gather(p, axis_bytes)
+            owner._parameters[name] = full
+            swapped.append((owner, name, p))
+    _count(axis_bytes, what)
+    return swapped
+
+
+def _swap_out(swapped) -> None:
+    for owner, name, p in swapped:
+        owner._parameters[name] = p
+
+
+def _hook_block(path: str, blk: nn.Module) -> None:
+    """FSDP's unshard around a block's forward: its parameters gathered
+    when it starts (again when remat recomputes it), put back when it
+    returns."""
+    if getattr(blk, "_repro_shard_hooks", False):
+        return
+    params = _owners(blk)
+    stack: List[list] = []
+
+    def pre(module, args):
+        stack.append(_swap_in(params, f"{path} parameters"))
+
+    def post(module, args, output):
+        _swap_out(stack.pop())
+
+    blk.register_forward_pre_hook(pre)
+    blk.register_forward_hook(post, always_call=True)
+    blk._repro_shard_hooks = True
+
+
+def model_mesh(model: nn.Module):
+    """The mesh of a model's DTensor parameters, or None (one device)."""
+    for p in model.parameters():
+        if isinstance(p, DTensor):
+            return p.device_mesh
+    return None
+
+
+def set_param(model: nn.Module, path: str, value: torch.Tensor) -> None:
+    """Replace the parameter at ``path`` by ``value`` (a DTensor or a
+    tensor), keeping its ``requires_grad``."""
+    *mods, name = path.split("/")
+    owner = model
+    for m in mods:
+        owner = getattr(owner, m)
+    old = owner._parameters[name]
+    owner._parameters[name] = nn.Parameter(value, requires_grad=bool(
+        old is not None and old.requires_grad))
+
+
+def _outside_blocks(model: nn.Module):
+    """(owner, name) of the parameters outside the layer stacks."""
+    inner = {id(m) for _, b in _block_modules(model) for m in b.modules()}
+    return [(o, n) for o, n in _owners(model) if id(o) not in inner]
+
+
+def _hook_root(model: nn.Module) -> None:
+    """The parameters outside the layer stacks gathered for the model's
+    whole forward (the blocks gather their own)."""
+    if getattr(model, "_repro_shard_hooks", False):
+        return
+    params = _outside_blocks(model)
+    stack: List[list] = []
+
+    def pre(module, args):
+        stack.append(_swap_in(params, "model parameters"))
+
+    def post(module, args, output):
+        _swap_out(stack.pop())
+
+    model.register_forward_pre_hook(pre)
+    model.register_forward_hook(post, always_call=True)
+    model._repro_shard_hooks = True
+
+
+def hook_model(model: nn.Module) -> None:
+    """Hook the blocks and the root of a model whose parameters are
+    DTensors (:func:`shard_model` does it; a model filled with DTensors
+    otherwise, as a restore fills it, calls it itself)."""
+    for path, blk in _block_modules(model):
+        _hook_block(path, blk)
+    _hook_root(model)
+
+
+def shard_model(model: nn.Module, mesh, specs=None,
+                fsdp: bool = True) -> nn.Module:
+    """Put every parameter of ``model`` (the same values on every rank) on
+    ``mesh`` at ``specs`` (default :func:`params_specs`), in place, and
+    hook its blocks and its root, so that its forward runs on this rank's
+    rows as a plain model's does; with ``mesh=None``, gather them back to
+    plain tensors (one device)."""
+    if mesh is None:
+        for path, p in list(named_parameters(model).items()):
+            set_param(model, path, full_tensor(p).detach().clone())
+        return model
+    specs = params_specs(model, mesh, fsdp=fsdp) if specs is None else specs
+    for path, p in list(named_parameters(model).items()):
+        set_param(model, path, distribute(full_tensor(p),
+                                          NamedSharding(mesh, specs[path])))
+    hook_model(model)
+    return model
+
+
+@contextlib.contextmanager
+def _unsharded(model: nn.Module) -> Iterator[None]:
+    """Within the scope every DTensor parameter of the model is its full
+    tensor (for the methods that bypass the modules' hooks)."""
+    swapped = _swap_in(_owners(model), "model parameters")
+    try:
+        yield
+    finally:
+        _swap_out(swapped)
+
+
+# ---------------------------------------------------------------------------
+# the train state on a mesh
+# ---------------------------------------------------------------------------
+
+def _place_moment(m, shardings, mesh):
+    if mesh is None:
+        if isinstance(m, _Moment):
+            return _Moment(*(full_tensor(t) for t in m))
+        return full_tensor(m)
+    if isinstance(m, _Moment):
+        return _Moment(*(distribute(full_tensor(t), s)
+                         for t, s in zip(m, shardings)))
+    return distribute(full_tensor(m), shardings)
+
+
+def place_state(state: dict, mesh, fsdp: bool = True) -> dict:
+    """The train state on ``mesh`` at :func:`state_specs` (the model's
+    parameters replaced in place), from a state that every rank holds
+    whole or from one on another mesh; ``mesh=None`` gathers it back to
+    one device."""
+    model = state["params"]
+    if mesh is None:
+        shard_model(model, None)
+        sh = None
+    else:
+        sh = to_shardings(state_specs(state_shapes(state), mesh, fsdp),
+                          mesh)
+        shard_model(model, mesh, {k: s.spec for k, s in sh["params"].items()})
+    opt = state["opt"]
+    new = {"step": _place_moment(opt["step"], sh and sh["opt"]["step"],
+                                 mesh)}
+    for mom in ("m", "v"):
+        new[mom] = {k: _place_moment(v, sh and sh["opt"][mom][k], mesh)
+                    for k, v in opt[mom].items()}
+    return {"params": model, "opt": new}
+
+
+def state_shapes(state: dict) -> dict:
+    """The state's shapes as :func:`state_specs` reads them."""
+    return {"params": named_shapes(state["params"]), "opt": state["opt"]}
+
+
+def local_bytes(tree) -> int:
+    """Bytes this rank holds of a state (its shards)."""
+    if isinstance(tree, nn.Module):
+        return sum(local_bytes(p) for p in tree.parameters())
+    if isinstance(tree, Mapping):
+        return sum(local_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(local_bytes(v) for v in tree)
+    t = local(tree)
+    return t.numel() * t.element_size()
+
+
+def spec_bytes(state: dict, mesh, fsdp: bool = True) -> int:
+    """Bytes one rank holds of ``state`` under :func:`state_specs`: each
+    leaf's global bytes over the sizes of the axes its spec names."""
+    specs = state_specs(state_shapes(state), mesh, fsdp)
+    shapes = named_shapes(state["params"])
+    total = 0
+
+    def leaf(t, spec, shape=None, itemsize=None):
+        shape = tuple(t.shape) if shape is None else shape
+        itemsize = t.element_size() if itemsize is None else itemsize
+        n = math.prod(shape) * itemsize
+        return n // math.prod(_axsize(mesh, e) for e in spec)
+
+    for k, spec in specs["params"].items():
+        total += leaf(None, spec, shapes[k], 4)
+    total += leaf(state["opt"]["step"], specs["opt"]["step"])
+    for mom in ("m", "v"):
+        for k, spec in specs["opt"][mom].items():
+            m = state["opt"][mom][k]
+            if isinstance(m, _Moment):
+                total += sum(leaf(t, s) for t, s in zip(m, spec))
+            else:
+                total += leaf(m, spec)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# reductions over the mesh
+# ---------------------------------------------------------------------------
+
+def mesh_sum(t: torch.Tensor, mesh, axes=None) -> torch.Tensor:
+    """``t`` summed over ``axes`` of ``mesh`` (every axis by default)."""
+    for a in (mesh.mesh_dim_names if axes is None else axes):
+        t = coll.all_reduce(t, mesh, a, dist.ReduceOp.SUM)
+    return t
+
+
+def _dp_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the DP axes, counted under ``collective.bytes``
+    as :func:`shard_grad` counts an all-reduce."""
+    n = dp_size(mesh)
+    _counters.inc("collective.bytes",
+                  2 * (n - 1) * x.numel() * x.element_size() // n)
+    return mesh_sum(x, mesh, batch_axes(mesh))
+
+
+class _DPSum(torch.autograd.Function):
+    """``x`` summed over the DP axes; the gradient summed back over them
+    (every rank's loss reads the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _dp_all_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dp_all_reduce(g.contiguous(), ctx.mesh), None
+
+
+def dp_cumsum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over this rank and the DP ranks before it (the rows'
+    order: :func:`dp_rows`), gathered over the DP axes (counted under
+    ``collective.bytes``)."""
+    dp = batch_axes(mesh)
+    i, n = coll.flat_index(mesh, dp)
+    _counters.inc("collective.bytes", (n - 1) * x.numel() * x.element_size())
+    every = x[None]
+    for a in reversed(dp):
+        every = coll.all_gather_cat(every, mesh, a, 0)
+    return every[:i + 1].sum(0)
+
+
+def owned_sumsq(t) -> torch.Tensor:
+    """The f32 sum of squares of a DTensor's shard where this rank owns it
+    (coordinate 0 on every mesh dim that replicates it), else 0; summed
+    over the mesh this is the full tensor's once. A plain tensor's own."""
+    if not isinstance(t, DTensor):
+        return torch.sum(torch.square(t.float()))
+    s = torch.sum(torch.square(t.to_local().float()))
+    coord = _coordinate(t.device_mesh)
+    owner = all(c == 0 for c, pl in zip(coord, t.placements)
+                if not isinstance(pl, Shard))
+    return s if owner else torch.zeros_like(s)
+
+
+def global_norm(leaves, mesh) -> torch.Tensor:
+    """The f32 global norm of DTensor leaves on ``mesh``: each shard's
+    squares counted once over the mesh (:func:`owned_sumsq`)."""
+    return torch.sqrt(mesh_sum(sum(owned_sumsq(t) for t in leaves), mesh))
+
+
+def update_leaf(fn, p: DTensor, g: DTensor, m, v, args, what: str):
+    """A sharded leaf's optimizer update: ``fn(p, g, m, v, *args)`` (which
+    writes ``p`` in place and returns the new (m, v)) on this rank's
+    shards, f32 moments written in place. An 8-bit moment's blocks run
+    over the whole parameter: the parameter, gradient and codes are
+    gathered (counted under ``what``), ``fn`` runs whole on every rank,
+    and each keeps its blocks."""
+    if not isinstance(m, _Moment):
+        fn(local(p), local(g), local(m), local(v), *args)
+        return m, v
+    full = lambda t: full_tensor(t, what)                    # noqa: E731
+    pf = full(p).clone()
+    nm, nv = fn(pf, full(g), _Moment(*map(full, m)), _Moment(*map(full, v)),
+                *args)
+    local(p).copy_(pf[local_index(pf.shape, p.placements, p.device_mesh)])
+    return _Moment(*map(like, nm, m)), _Moment(*map(like, nv, v))
+
+
+def mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` reaches this point before any leaves it."""
+    mesh_sum(torch.zeros(1, device=mesh_device(mesh)), mesh)
+
+
+def dp_rows(n: int, mesh) -> slice:
+    """This rank's rows of a batch of ``n`` under :func:`batch_specs`' rule
+    (all of them where ``n`` does not divide the DP size)."""
+    dp = batch_axes(mesh)
+    ndp = _axsize(mesh, dp)
+    if not dp or n % ndp:
+        return slice(0, n)
+    i, _ = coll.flat_index(mesh, dp)
+    return slice(i * (n // ndp), (i + 1) * (n // ndp))
+
+
+def gather_rows(t: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """The inverse of :func:`dp_rows`: every rank's rows, all ranks."""
+    dp = batch_axes(mesh)
+    if not dp or n % _axsize(mesh, dp):
+        return t
+    for a in reversed(dp):
+        t = coll.all_gather_cat(t, mesh, a, 0)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# decode on a mesh
+# ---------------------------------------------------------------------------
+
+def place_caches(caches, mesh, seq_shard: bool = True):
+    """Decode caches (the same on every rank) as DTensors at
+    :func:`cache_specs`' placements on ``mesh``."""
+    leaves, tree = pytree.tree_flatten(caches)
+    specs = pytree.tree_leaves(cache_specs(caches, mesh, seq_shard),
+                               is_leaf=lambda x: isinstance(x, P))
+    return pytree.tree_unflatten([distribute(t, NamedSharding(mesh, s))
+                                  for t, s in zip(leaves, specs)], tree)
+
+
+def tree_mesh(tree):
+    """The mesh of the first DTensor among a tree's leaves, or None."""
+    return next((t.device_mesh for t in pytree.tree_leaves(tree)
+                 if isinstance(t, DTensor)), None)
+
+
+def _nondp_cut(full: torch.Tensor, t: DTensor) -> torch.Tensor:
+    """This rank's block of ``full`` over ``t``'s non-DP axes (the
+    inverse of ``_gather(t, ..., keep=DP_AXES)``)."""
+    coord = _coordinate(t.device_mesh)
+    names = t.device_mesh.mesh_dim_names
+    out = full
+    for m, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and names[m] not in DP_AXES:
+            out = out.chunk(int(t.device_mesh.shape[m]), pl.dim)[coord[m]]
+    return out
+
+
+def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
+                cache_index: int, shard_fn=None):
+    """``model_zoo.decode_step`` on a mesh (the same arguments): every rank
+    passes the whole token batch (B, 1), the model at :func:`shard_model`'s
+    placements and the caches at :func:`place_caches`' (or plain caches,
+    whole on every rank). The rank decodes its DP rows: the parameters
+    gathered (``model parameters``), each cache leaf gathered over its
+    non-DP axes (``decode caches``), the step run, the caches' blocks
+    written back in place; the logits' rows are gathered, so every rank
+    returns all (B, 1, V) of them. ``shard_fn``: the models' hook (default
+    :func:`make_shard_fn`)."""
+    mesh = model_mesh(model) or tree_mesh(caches)
+    token = full_tensor(token)
+    n = token.shape[0]
+    ndp = dp_size(mesh)
+    split = tree_mesh(caches) is not None and ndp > 1 and n % ndp == 0
+    rows = dp_rows(n, mesh) if split else slice(0, n)
+    hook = rows_hook(make_shard_fn(mesh) if shard_fn is None else shard_fn,
+                     split)
+    axis_bytes: Dict[str, int] = {}
+    work = pytree.tree_map(lambda t: _gather(t, axis_bytes, keep=DP_AXES)
+                           if isinstance(t, DTensor) else t, caches)
+    _count(axis_bytes, "decode caches")
+    with _unsharded(model):
+        logits, work = model.decode_step(token[rows], work, cache_index,
+                                         shard_fn=hook)
+
+    def put_back(old, new):
+        if isinstance(old, Mapping):
+            for k in old:
+                old[k] = put_back(old[k], new[k])
+            return old
+        if isinstance(old, list):
+            for i in range(len(old)):
+                old[i] = put_back(old[i], new[i])
+            return old
+        if isinstance(old, DTensor):
+            old.to_local().copy_(_nondp_cut(new, old))
+            return old
+        return new
+
+    put_back(caches, work)
+    return (gather_rows(logits, mesh, n) if split else logits), caches
+
+
+def like(full: torch.Tensor, t: DTensor) -> DTensor:
+    """``full`` (the same on every rank) at ``t``'s mesh and placements."""
+    return _distribute(full, t.device_mesh, t.placements)

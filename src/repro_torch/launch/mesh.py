@@ -47,10 +47,13 @@ def mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _make_mesh(shape, axes) -> DeviceMesh:
+def make_mesh(shape, axes, device_type=None) -> DeviceMesh:
+    """A mesh of exactly the world's ranks. ``device_type`` (default
+    :func:`mesh_device_type`) is where DTensors on it live: "cuda" for a
+    trainer's state on the card, also over gloo ranks sharing it."""
     world_ranks(math.prod(shape), f"a {'x'.join(map(str, shape))} {axes} "
                                   f"mesh")
-    return init_device_mesh(mesh_device_type(), tuple(shape),
+    return init_device_mesh(device_type or mesh_device_type(), tuple(shape),
                             mesh_dim_names=tuple(axes))
 
 
@@ -65,17 +68,20 @@ def sub_mesh(shape, axes) -> DeviceMesh:
                       mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type=None) -> DeviceMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type)
 
 
-def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 0) -> DeviceMesh:
+def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 0,
+                    device_type=None) -> DeviceMesh:
     """Small mesh for tests; the world must hold exactly its ranks."""
     if pod:
-        return _make_mesh((pod, data, model), ("pod", "data", "model"))
-    return _make_mesh((data, model), ("data", "model"))
+        return make_mesh((pod, data, model), ("pod", "data", "model"),
+                         device_type)
+    return make_mesh((data, model), ("data", "model"), device_type)
 
 
 def mesh_shape(mesh: DeviceMesh) -> dict:

@@ -25,7 +25,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (FFN, Embedding, RMSNorm, param,
                                        sinusoidal_positions,
                                        truncated_normal_)
-from repro_torch.models.transformer import maybe_remat
+from repro_torch.models.transformer import identity_shard, maybe_remat
 
 
 class EncBlock(nn.Module):
@@ -100,36 +100,42 @@ class EncDec(nn.Module):
         return table, pos
 
     def encode(self, frames: torch.Tensor,
-               use_kernels: Optional[bool] = None) -> torch.Tensor:
+               use_kernels: Optional[bool] = None,
+               shard_fn=identity_shard) -> torch.Tensor:
         """frames (B, S_enc, d), the stub frontend's embeddings -> memory
         (B, S_enc, d). Each block under ``maybe_remat`` (the reference's
-        remat of the encoder scan)."""
+        remat of the encoder scan); ``shard_fn(x, "residual")`` at the
+        reference's places."""
         table, positions = self._positions(frames)
-        x = frames.to(self.dtype) + table[None]
+        x = shard_fn(frames.to(self.dtype) + table[None], "residual")
         for blk in self.enc_blocks:
-            x = maybe_remat(blk, self.cfg, x, positions,
-                            use_kernels=use_kernels)
+            x = shard_fn(maybe_remat(blk, self.cfg, x, positions,
+                                     use_kernels=use_kernels), "residual")
         return self.enc_norm(x)
 
     def decode_train(self, tokens: torch.Tensor, memory: torch.Tensor,
-                     use_kernels: Optional[bool] = None) -> torch.Tensor:
+                     use_kernels: Optional[bool] = None,
+                     shard_fn=identity_shard) -> torch.Tensor:
         """Teacher-forced decoder pass: tokens (B, S) and the memory ->
         logits (B, S, V), each block under ``maybe_remat``."""
         table, positions = self._positions(tokens)
-        x = self.embed(tokens, self.dtype) + table[None]
+        x = shard_fn(self.embed(tokens, self.dtype) + table[None],
+                     "residual")
         for blk in self.dec_blocks:
-            x = maybe_remat(blk, self.cfg, x, positions, memory,
-                            use_kernels=use_kernels)
+            x = shard_fn(maybe_remat(blk, self.cfg, x, positions, memory,
+                                     use_kernels=use_kernels), "residual")
         return self._logits(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.dec_norm(x) @ self.head.to(x.dtype)
 
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor,
-                use_kernels: Optional[bool] = None):
+                use_kernels: Optional[bool] = None, shard_fn=identity_shard):
         """(logits, aux): the aux loss is a float32 zero."""
-        memory = self.encode(frames, use_kernels=use_kernels)
-        logits = self.decode_train(tokens, memory, use_kernels=use_kernels)
+        memory = self.encode(frames, use_kernels=use_kernels,
+                             shard_fn=shard_fn)
+        logits = self.decode_train(tokens, memory, use_kernels=use_kernels,
+                                   shard_fn=shard_fn)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
 
@@ -154,7 +160,7 @@ class EncDec(nn.Module):
                 "cross_k": torch.stack(ks), "cross_v": torch.stack(vs)}
 
     def decode_step(self, token: torch.Tensor, caches: Dict,
-                    cache_index: int):
+                    cache_index: int, shard_fn=identity_shard):
         """One decoder token (B, 1) against the cached self and cross KV ->
         (logits (B, 1, V), caches updated in place)."""
         cfg, dtype = self.cfg, self.dtype
@@ -164,7 +170,8 @@ class EncDec(nn.Module):
         smax = caches["self"]["k"].shape[2]
         # the reference's dynamic_slice clamps a start past the table
         table = sinusoidal_positions(smax, cfg.d_model, dtype, token.device)
-        x = self.embed(token, dtype) + table[min(cache_index, smax - 1)]
+        x = shard_fn(self.embed(token, dtype)
+                     + table[min(cache_index, smax - 1)], "residual")
         kv_len = min(cache_index + 1, smax)
         for i, blk in enumerate(self.dec_blocks):
             self_cache = {k: v[i] for k, v in caches["self"].items()}

@@ -17,6 +17,13 @@ backward (nor have the reference's): a forward that records on the card
 passes ``use_kernels=False`` (the reference's ``use_pallas=False``) and
 takes the plain oracles; with the kernels it raises. The ``cfg`` arguments
 mirror the reference's signatures; the model carries its own.
+
+``shard_fn(x, name)`` is the reference's activation hook (identity by
+default; :func:`repro_torch.distributed.sharding.make_shard_fn` on a
+mesh). Nothing here knows of a mesh: a model that
+``sharding.shard_model`` put on one runs through :func:`forward` as it
+is (its own hooks gather its parameters), and decodes through
+``sharding.decode_step``.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import EncDec
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, identity_shard
 
 Model = Union[LM, EncDec]
 
@@ -61,29 +68,32 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def forward(model: Model, batch: dict, cfg: ModelConfig,
-            use_kernels: Optional[bool] = None):
+            use_kernels: Optional[bool] = None, shard_fn=identity_shard):
     """batch: {'tokens': (B, S)} and, for the frontend families,
     {'frames' | 'patches': (B, P, d)}. Returns (logits, aux). Runs in the
     caller's grad mode; ``use_kernels`` as :func:`repro_torch.kernels.ops.
     attention`'s (``None``: the device decides)."""
     if cfg.family == "encdec":
         return model(batch["frames"], batch["tokens"],
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, shard_fn=shard_fn)
     return model(batch["tokens"], batch.get("patches"),
-                 use_kernels=use_kernels)
+                 use_kernels=use_kernels, shard_fn=shard_fn)
 
 
 @torch.no_grad()
-def prefill(model: Model, batch: dict, cfg: ModelConfig):
+def prefill(model: Model, batch: dict, cfg: ModelConfig,
+            shard_fn=identity_shard):
     """Returns (logits, aux, caches): the stacked per-layer KV of the
     attention families, None for ssm and hybrid, the encoder's memory for
     the encoder-decoder (as in the reference)."""
     if cfg.family == "encdec":
-        memory = model.encode(batch["frames"])
-        logits = model.decode_train(batch["tokens"], memory)
+        memory = model.encode(batch["frames"], shard_fn=shard_fn)
+        logits = model.decode_train(batch["tokens"], memory,
+                                    shard_fn=shard_fn)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device), memory
-    return model.prefill(batch["tokens"], batch.get("patches"))
+    return model.prefill(batch["tokens"], batch.get("patches"),
+                         shard_fn=shard_fn)
 
 
 def init_caches(model: Model, cfg: ModelConfig, batch: int, max_len: int,
@@ -97,9 +107,9 @@ def init_caches(model: Model, cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def decode_step(model: Model, token: torch.Tensor, cfg: ModelConfig, caches,
-                cache_index: int):
+                cache_index: int, shard_fn=identity_shard):
     """token (B, 1) -> (logits (B, 1, V), caches updated in place)."""
-    return model.decode_step(token, caches, cache_index)
+    return model.decode_step(token, caches, cache_index, shard_fn=shard_fn)
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -22,6 +22,18 @@ bitwise equal.
 ``cfg.moe_grouped`` dispatches per batch row (group = one sequence, aux
 meaned over the rows). Every group is handled in one pass: the groups'
 (E, cap, d) buffers are laid side by side as (E, G * cap, d).
+
+On a mesh each rank holds a share of the batch's rows, and the flat
+dispatch still sees the global batch, as the reference's does under
+``jit``: the models' ``shard_fn`` hook tells how many equal shares there
+are (``row_shares``; 1, and no collective, on one device). The capacity
+comes from the global token count; the aux loss from the router's
+statistics summed over the shares (``"dp_sum"``); an assignment's
+position inside its expert counts the assignments of the shares before
+this one (``"dp_cumsum"`` of the counts), so exactly the reference's
+assignments are dropped. A rank's buffer holds its own kept tokens in the
+first slots of each expert's global capacity. Grouped dispatch needs
+none of it: its groups are whole rows.
 """
 from __future__ import annotations
 
@@ -64,24 +76,28 @@ class MoE(nn.Module):
         if self.w_gate is not None:
             truncated_normal_(self.w_gate, d ** -0.5, generator)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B, S, d) -> (y (B, S, d), aux: float32 scalar)."""
+    def forward(self, x: torch.Tensor, shard_fn=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, d) -> (y (B, S, d), aux: float32 scalar). ``shard_fn``:
+        the models' hook on a mesh (module docstring)."""
         b, s, d = x.shape
         if self.cfg.moe_grouped:
             y, aux = self._dispatch(x)
             return y, aux.mean()
-        y, aux = self._dispatch(x.reshape(1, b * s, d))
+        y, aux = self._dispatch(x.reshape(1, b * s, d), shard_fn)
         return y.reshape(b, s, d), aux[0]
 
-    def _dispatch(self, xt: torch.Tensor
+    def _dispatch(self, xt: torch.Tensor, shard_fn=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sort-based dispatch over G token groups xt (G, T, d); returns
-        y (G, T, d) and each group's aux (G,)."""
+        y (G, T, d) and each group's aux (G,). With ``shard_fn``'s
+        ``row_shares`` > 1 the one group is a share of the global one."""
         cfg = self.cfg
         dtype, dev = xt.dtype, xt.device
         g, t, d = xt.shape
         k, e = cfg.top_k, cfg.n_experts
-        cap = capacity(t, cfg)
+        shares = getattr(shard_fn, "row_shares", 1)
+        cap = capacity(t * shares, cfg)
 
         logits = xt.float() @ self.router.float()                 # (G, T, E)
         probs = torch.softmax(logits, dim=-1)
@@ -89,8 +105,13 @@ class MoE(nn.Module):
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
         # ---- load-balancing aux loss (Switch-style) ----
-        me = probs.mean(1)                                        # mean prob
-        ce = F.one_hot(expert_ids[..., 0], e).float().mean(1)     # top-1 share
+        top1 = F.one_hot(expert_ids[..., 0], e).float()
+        if shares == 1:
+            me = probs.mean(1)                                    # mean prob
+            ce = top1.mean(1)                                     # top-1 share
+        else:                                   # over the global batch
+            me = shard_fn(probs.sum(1), "dp_sum") / (t * shares)
+            ce = shard_fn(top1.sum(1), "dp_sum") / (t * shares)
         aux = cfg.router_aux_coef * e * (me * ce).sum(-1)
 
         # ---- sort-based dispatch ----
@@ -101,7 +122,11 @@ class MoE(nn.Module):
         counts = F.one_hot(flat_e, e).sum(1)                      # (G, E)
         starts = counts.cumsum(-1) - counts                       # exclusive
         pos = torch.arange(t * k, device=dev) - starts.gather(1, se)
-        dest = torch.where(pos < cap, se * cap + pos,
+        kept = pos < cap
+        if shares > 1:      # behind the earlier shares' assignments
+            before = shard_fn(counts, "dp_cumsum") - counts
+            kept = pos + before.gather(1, se) < cap
+        dest = torch.where(kept, se * cap + pos,
                            torch.full_like(se, e * cap))          # drop slot
 
         rows = torch.arange(g, device=dev)[:, None]

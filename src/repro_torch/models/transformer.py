@@ -37,6 +37,11 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 Caches = Union[List[Dict], Dict[str, torch.Tensor]]
 
 
+def identity_shard(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The default ``shard_fn``: no constraint (one device)."""
+    return x
+
+
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
@@ -104,29 +109,35 @@ class Block(nn.Module):
         elif has_ffn:
             self.ffn = FFN(d, cfg.d_ff, cfg.glu, cfg.act, device=device)
 
-    def _ffn(self, x: torch.Tensor):
+    def _ffn(self, x: torch.Tensor, shard_fn=identity_shard):
         """x plus the FFN's output, and the aux loss (moe) or None."""
         if self.moe is not None:
-            y, aux = self.moe(self.ln2(x))
+            y, aux = self.moe(self.ln2(x), shard_fn)
             return x + y, aux
         if self.ffn is None:
             return x, None
         return x + self.ffn(self.ln2(x)), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                use_kernels: Optional[bool] = None):
-        """(x, aux): aux is the moe FFN's float32 loss, else None."""
+                use_kernels: Optional[bool] = None, shard_fn=identity_shard):
+        """(x, aux): aux is the moe FFN's float32 loss, else None.
+        ``shard_fn(x, "residual")`` constrains the residual where the
+        reference's ``apply_block`` does."""
         h = self.ln1(x)
         if self.ssm is not None:
-            x = x + self.ssm(h, use_kernels=use_kernels)
-        elif self.mix is not None:
+            x, aux = self._ffn(x + self.ssm(h, use_kernels=use_kernels),
+                               shard_fn)
+            return shard_fn(x, "residual"), aux
+        if self.mix is not None:
             x = x + self.mix(h, positions, use_kernels=use_kernels)
         else:
             x = x + self.attn(h, positions, window=self.cfg.window,
                               use_kernels=use_kernels)
-        return self._ffn(x)
+        x, aux = self._ffn(shard_fn(x, "residual"), shard_fn)
+        return shard_fn(x, "residual"), aux
 
-    def decode(self, x: torch.Tensor, cache: Dict, cache_index: int):
+    def decode(self, x: torch.Tensor, cache: Dict, cache_index: int,
+               shard_fn=identity_shard):
         """(x, aux, cache) for one token, the cache updated in place."""
         h = self.ln1(x)
         if self.ssm is not None:
@@ -137,7 +148,7 @@ class Block(nn.Module):
             smax = cache["k"].shape[1]
             y, nc = self.attn.decode(h, cache, cache_index % smax,
                                      cache_index, min(cache_index + 1, smax))
-        x, aux = self._ffn(x + y)
+        x, aux = self._ffn(x + y, shard_fn)
         return x, aux, nc
 
 
@@ -193,23 +204,25 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,
-                use_kernels: Optional[bool] = None):
+                use_kernels: Optional[bool] = None, shard_fn=identity_shard):
         """Training / prefill forward: tokens (B, S) (after prefix_embeds
         (B, P, d) when given) -> (logits (B, P + S, V), aux), aux the
         float32 sum of the moe layers' losses (0 without them)."""
         return self._run(tokens, prefix_embeds, collect_kv=False,
-                         use_kernels=use_kernels)[:2]
+                         use_kernels=use_kernels, shard_fn=shard_fn)[:2]
 
     def prefill(self, tokens: torch.Tensor,
-                prefix_embeds: Optional[torch.Tensor] = None):
+                prefix_embeds: Optional[torch.Tensor] = None,
+                shard_fn=identity_shard):
         """Forward plus the per-layer KV of the attention families (dense,
         moe, vlm: stacked (n_layers, B, S, Hkv, hd)); ssm and hybrid
         models return None. Returns (logits, aux, kv)."""
-        return self._run(tokens, prefix_embeds, collect_kv=True)
+        return self._run(tokens, prefix_embeds, collect_kv=True,
+                         shard_fn=shard_fn)
 
     def _run(self, tokens, prefix_embeds, collect_kv: bool,
-             use_kernels: Optional[bool] = None):
-        x = self._embed(tokens, prefix_embeds)
+             use_kernels: Optional[bool] = None, shard_fn=identity_shard):
+        x = shard_fn(self._embed(tokens, prefix_embeds), "residual")
         positions = self._positions(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ks, vs = [], []
@@ -219,7 +232,7 @@ class LM(nn.Module):
                 ks.append(k)
                 vs.append(v)
             x, a = maybe_remat(blk, self.cfg, x, positions,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels, shard_fn=shard_fn)
             if a is not None:
                 aux = aux + a
         kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
@@ -241,17 +254,19 @@ class LM(nn.Module):
         return {k: torch.stack([v] * cfg.n_layers) for k, v in one.items()}
 
     def decode_step(self, token: torch.Tensor, caches: Caches,
-                    cache_index: int):
+                    cache_index: int, shard_fn=identity_shard):
         """One serving step: token (B, 1) -> (logits (B, 1, V), caches)."""
-        x = self._embed(token)
+        x = shard_fn(self._embed(token), "residual")
         cache_index = int(cache_index)
         for i, blk in enumerate(self.blocks):
             if isinstance(caches, list):
-                x, _, caches[i] = blk.decode(x, caches[i], cache_index)
-                continue
-            views = {k: v[i] for k, v in caches.items()}
-            x, _, nc = blk.decode(x, dict(views), cache_index)
-            for k, v in nc.items():
-                if v is not views[k]:          # replaced, not written in place
-                    caches[k][i].copy_(v)
+                x, _, caches[i] = blk.decode(x, caches[i], cache_index,
+                                             shard_fn)
+            else:
+                views = {k: v[i] for k, v in caches.items()}
+                x, _, nc = blk.decode(x, dict(views), cache_index, shard_fn)
+                for k, v in nc.items():
+                    if v is not views[k]:      # replaced, not written in place
+                        caches[k][i].copy_(v)
+            x = shard_fn(x, "residual")
         return self._logits(x), caches

@@ -28,7 +28,13 @@ The names below are the reference's frozen vocabulary, kept unchanged:
 ``collective.hops`` / ``collective.bytes``
     Ring-broadcast hops and on-wire bytes
     (:func:`repro_torch.distributed.collectives.ring_bcast`, once per
-    call).
+    call); the trainer's sharding adds the bytes its ZeRO gathers and
+    reduce-scatters over the DP axes bring to a rank.
+
+One name is the port's own, outside the frozen tuple:
+``shard.redistribute_bytes``, the bytes that reach a rank where
+:mod:`repro_torch.distributed.sharding` gathers a sharded layout over a
+non-DP axis (its docstring lists the places).
 """
 from __future__ import annotations
 

@@ -23,11 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Optional, Union
+from typing import Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
-from torch import nn
+
+from repro_torch._state import _Moment, named_parameters  # noqa: F401
+from repro_torch.distributed import sharding
 
 Q_BLOCK = 256
 
@@ -44,12 +46,6 @@ class AdamWConfig:
     warmup_steps: int = 100
     decay_steps: int = 10_000
     min_lr_ratio: float = 0.1
-
-
-def named_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
-    """``model``'s parameters keyed by module path with ``/`` separators,
-    in registration order."""
-    return {n.replace(".", "/"): p for n, p in model.named_parameters()}
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -98,11 +94,6 @@ def _dq8_sqrt(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     return (s * s).reshape(-1)[:math.prod(shape)].reshape(shape)
 
 
-class _Moment(NamedTuple):
-    q: torch.Tensor
-    scale: torch.Tensor
-
-
 Moment = Union[torch.Tensor, _Moment]
 
 
@@ -134,6 +125,25 @@ def global_norm(tree) -> torch.Tensor:
                           for t in leaves))
 
 
+def _adamw(p: torch.Tensor, g: torch.Tensor, m: Moment, v: Moment, clip,
+           lr, bc1, bc2, decay, cfg: AdamWConfig):
+    """One leaf's AdamW update: ``p`` written in place; returns the new
+    (m, v) (f32 moments updated in place)."""
+    g = g.float() * clip
+    quantized = isinstance(m, _Moment)
+    mf = _dq8(m.q, m.scale, p.shape) if quantized else m
+    vf = _dq8_sqrt(v.q, v.scale, p.shape) if quantized else v
+    # in place on the f32 moments: cfg.b1 * mf + (1 - cfg.b1) * g
+    mf = mf.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    vf = vf.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    upd = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+    newp = p.float() * decay - lr * upd
+    p.copy_(newp)
+    if quantized:
+        return _Moment(*_q8(mf)), _Moment(*_q8_sqrt(vf))
+    return mf, vf
+
+
 @torch.no_grad()
 def update(grads: Mapping[str, torch.Tensor], state: dict,
            params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
@@ -141,30 +151,35 @@ def update(grads: Mapping[str, torch.Tensor], state: dict,
     """One AdamW step over ``params`` (path -> tensor) with ``grads`` of
     the same paths. Returns (params, new_state, stats): the parameters
     updated in place, the state with the new step and moments, and
-    {"grad_norm", "lr"} as f32 scalars on the device."""
-    step = state["step"] + 1
-    gnorm = global_norm([grads[k] for k in params])
+    {"grad_norm", "lr"} as f32 scalars on the device.
+
+    Sharded leaves (DTensors at ``distributed.sharding.state_specs``'
+    placements, the state of a mesh) run the same update through
+    :func:`repro_torch.distributed.sharding.update_leaf` (each rank on its
+    shards; an 8-bit moment's on the gathered parameter), with the norm
+    over the mesh (``sharding.global_norm``)."""
+    mesh = sharding.tree_mesh(list(params.values()))
+    if mesh is None:
+        step = state["step"] + 1
+        gnorm = global_norm([grads[k] for k in params])
+    else:
+        step = sharding.local(state["step"]) + 1
+        gnorm = sharding.global_norm([grads[k] for k in params], mesh)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step) if lr is None else lr
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
     decay = 1 - lr * cfg.weight_decay
+    args = (clip, lr, bc1, bc2, decay, cfg)
     new_m, new_v = {}, {}
     for k, p in params.items():
-        g = grads[k].float() * clip
         m, v = state["m"][k], state["v"][k]
-        quantized = isinstance(m, _Moment)
-        mf = _dq8(m.q, m.scale, p.shape) if quantized else m
-        vf = _dq8_sqrt(v.q, v.scale, p.shape) if quantized else v
-        # in place on the f32 moments: cfg.b1 * mf + (1 - cfg.b1) * g
-        mf = mf.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        vf = vf.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        upd = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
-        newp = p.float() * decay - lr * upd
-        p.copy_(newp)
-        if quantized:
-            new_m[k], new_v[k] = _Moment(*_q8(mf)), _Moment(*_q8_sqrt(vf))
+        if mesh is None:
+            new_m[k], new_v[k] = _adamw(p, grads[k], m, v, *args)
         else:
-            new_m[k], new_v[k] = mf, vf
+            new_m[k], new_v[k] = sharding.update_leaf(
+                _adamw, p, grads[k], m, v, args, f"8-bit moment {k}")
+    if mesh is not None:
+        step = sharding.like(step, state["step"])
     stats = {"grad_norm": gnorm, "lr": lr}
     return params, {"step": step, "m": new_m, "v": new_v}, stats

@@ -1,0 +1,344 @@
+"""One rank of the port's sharded-trainer tests: run as a script, one
+process per rank of a gloo process group on the CPU (``python
+tests/test_torch_shard_worker.py RANK WORLD DIR``); it holds no tests of its
+own and imports no jax (the JAX package's side runs in a subprocess of its
+own, ``tests/test_torch_shard.py``).
+
+``DIR`` holds ``spec.json`` (configs, optimizer, data, step counts) and
+``inputs.npz`` (the reference's initial parameters, ``init/<path>`` and
+``decode/<path>``, and the other operands, drawn by the test from numpy
+seeds); the rendezvous file is ``DIR/rdv``. Each rank writes
+``DIR/rank<R>.npz`` (outputs) and ``DIR/rank<R>.json`` (per-rank facts:
+state bytes, placements, counters). Two cases meet the reference's
+subprocess half way through files: the port's checkpoint written on the
+mesh for the reference to restore (``port_ckpt_jax``), and the
+reference's checkpoint and its ``train_loop``'s for the port to restore
+(``ref_ckpt``, ``ref_loop``); each side writes its own before it waits for
+the other's.
+"""
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+WAIT_S = 600
+
+
+def _nested(flat, prefix):
+    """{"a/b/c": x} under ``prefix`` -> {"a": {"b": {"c": x}}}."""
+    out = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix + "/"):
+            continue
+        node = out
+        *path, leaf = k[len(prefix) + 1:].split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _wait_for(path):
+    deadline = time.monotonic() + WAIT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"nothing at {path} after {WAIT_S} s")
+        time.sleep(0.2)
+
+
+def _flat_state(state):
+    """The gathered state as a flat {key: numpy} map, the checkpoint's
+    keys (every rank calls: the gathers are collective)."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.distributed import sharding as sh
+    return {k: sh.full_tensor(v).detach().cpu().numpy()
+            for k, v in ck._flatten(state).items()}
+
+
+def _placements_ok(state, mesh):
+    """Does every leaf sit at ``state_specs``' placements on ``mesh``?"""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.distributed import sharding as sh
+    want = ck._flatten(sh.to_shardings(sh.state_specs(
+        sh.state_shapes(state), mesh), mesh))
+    got = ck._flatten(state)
+    return sorted(want) == sorted(got) and all(
+        got[k].device_mesh is mesh and
+        tuple(got[k].placements) == want[k].placements for k in want)
+
+
+def _moe_dropped(moe, x):
+    """How many of a flat-dispatch moe layer's (token, k) assignments on
+    the input ``x`` (B, S, d) land past its expert's capacity."""
+    from repro_torch.models.moe import capacity
+    cfg = moe.cfg
+    with torch.no_grad():
+        xt = x.reshape(-1, x.shape[-1]).float()
+        ids = torch.topk(torch.softmax(xt @ moe.router.float(), -1),
+                         cfg.top_k, -1).indices
+        counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+        return int((counts - capacity(xt.shape[0], cfg)).clamp(min=0).sum())
+
+
+def run(rank, world, d):
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset, \
+        make_batch
+    from repro_torch.distributed import elastic, sharding as sh
+    from repro_torch.distributed.pipeline_parallel import \
+        pipeline_forward, stack_stage_params
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import convert, model_zoo
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.obs import counters
+    from repro_torch.runtime.fault_tolerance import run_with_restarts
+    from repro_torch.train import train_state as ts
+    from repro_torch.train.optimizer import AdamWConfig
+
+    spec = json.load(open(os.path.join(d, "spec.json")))
+    x = dict(np.load(os.path.join(d, "inputs.npz")))
+    out, meta = {}, {}
+    # every rank makes every mesh, in one order
+    mesh24 = make_debug_mesh(data=2, model=4)
+    mesh42 = make_debug_mesh(data=4, model=2)
+    pipe = make_mesh((2, 4), ("data", "stage"))
+    meta["coord24"] = list(mesh24.get_coordinate())
+    cfg = ModelConfig(**spec["cfg"])
+    data = DataConfig(**spec["data"])
+    init = _nested(x, "init")
+    bshape = (data.global_batch, data.seq_len)
+    tokens_sharding = sh.NamedSharding(mesh24, sh.batch_specs(
+        {"tokens": bshape}, mesh24)["tokens"])
+
+    # 1. the sharded train step on 2 x 4 (f32 and 8-bit moments) and the
+    #    port's one-device step from the same state
+    for tag, eight in (("f32", False), ("8bit", True)):
+        opt = AdamWConfig(eight_bit=eight, **spec["opt"])
+        state = sh.place_state(ts.state_for(convert.from_jax_params(
+            init, cfg, "cpu"), opt), mesh24)
+        one = ts.state_for(convert.from_jax_params(init, cfg, "cpu"), opt)
+        meta[f"{tag}/bytes"] = [sh.local_bytes(state),
+                                sh.spec_bytes(state, mesh24)]
+        meta[f"{tag}/placed"] = _placements_ok(state, mesh24)
+        step_fn = ts.make_train_step(cfg, opt, sh.make_shard_fn(mesh24))
+        one_fn = ts.make_train_step(cfg, opt)
+        for i in range(spec["steps"]):
+            before = counters.snapshot()
+            state, m = step_fn(state, make_batch(
+                cfg, data, i, device="cpu", sharding=tokens_sharding))
+            meta[f"{tag}/counters{i}"] = counters.delta(before)
+            one, m1 = one_fn(one, make_batch(cfg, data, i, device="cpu"))
+            for k in ("loss", "grad_norm", "lr"):
+                out[f"{tag}/{k}{i}"] = m[k].numpy()
+                out[f"{tag}/one/{k}{i}"] = m1[k].numpy()
+        meta[f"{tag}/placed_after"] = _placements_ok(state, mesh24)
+        for k, v in _flat_state(state).items():
+            out[f"{tag}/state/{k}"] = v
+        for k, v in _flat_state(one).items():
+            out[f"{tag}/one/state/{k}"] = v
+        if tag == "f32":
+            # a checkpoint written on the mesh, for the reference to read
+            path = ck.save(os.path.join(d, "port_ckpt"), spec["steps"],
+                           state)
+            if rank == 0:
+                with np.load(os.path.join(path, "arrays.npz")) as f:
+                    flat = convert.train_state_to_jax(dict(f))
+                ck.save(os.path.join(d, "port_ckpt_jax"), spec["steps"],
+                        flat)
+
+    # 2. global_batch: this rank's block of the step's tokens, and of the
+    #    microbatches with accum 2
+    ds = SyntheticDataset(data)
+    out["gb/tokens"] = sh.local(ds.global_batch(
+        3, tokens_sharding)).numpy()
+    acc_sharding = sh.NamedSharding(mesh24, sh.batch_specs(
+        {"tokens": (2, data.global_batch // 2, data.seq_len)}, mesh24,
+        accum=2)["tokens"])
+    out["gb/accum2"] = sh.local(make_batch(
+        cfg, data, 3, accum=2, device="cpu",
+        sharding=acc_sharding)["tokens"]).numpy()
+    meta["gb/index"] = [[s.start, s.stop] for s in sh.local_index(
+        bshape, tokens_sharding.placements, mesh24)]
+    meta["gb/accum2_index"] = [[s.start, s.stop] for s in sh.local_index(
+        (2, data.global_batch // 2, data.seq_len), acc_sharding.placements,
+        mesh24)]
+
+    # 3. sharded decode on 2 x 4: parameters at params_specs, f32 caches
+    #    at cache_specs, against the one-device decode
+    dcfg = ModelConfig(**spec["cfg_decode"])
+    dparams = _nested(x, "decode")
+    b, s = spec["decode_batch"], spec["decode_len"]
+    model = convert.from_jax_params(dparams, dcfg, "cpu")
+    smodel = sh.shard_model(convert.from_jax_params(dparams, dcfg, "cpu"),
+                            mesh24)
+    caches = model_zoo.init_caches(model, dcfg, b, s, dtype=torch.float32)
+    cspecs = sh.cache_specs(caches, mesh24)
+    scaches = {k: sh.distribute(v, sh.NamedSharding(mesh24, cspecs[k]))
+               for k, v in model_zoo.init_caches(
+                   model, dcfg, b, s, dtype=torch.float32).items()}
+    meta["decode/cache_local"] = [list(sh.local(v).shape)
+                                  for v in scaches.values()]
+    toks = torch.from_numpy(x["decode_tokens"])
+    for i in range(toks.shape[1]):
+        want, _ = model_zoo.decode_step(model, toks[:, i:i + 1], dcfg,
+                                        caches, i)
+        before = counters.snapshot()
+        got, _ = sh.decode_step(smodel, toks[:, i:i + 1], dcfg, scaches,
+                                i)
+        meta[f"decode/counters{i}"] = counters.delta(before)
+        out[f"decode/logits{i}"] = got.numpy()
+        out[f"decode/one/logits{i}"] = want.numpy()
+    for k, v in scaches.items():
+        out[f"decode/cache/{k}"] = sh.full_tensor(v).numpy()
+        out[f"decode/one/cache/{k}"] = caches[k].numpy()
+
+    # 3b. a moe model (capacity factor 1.25, as registered) with its
+    #     experts sharded over "model" in E: each rank's rows of a forward
+    #     against the one-device forward's, and two train steps against
+    #     the one-device steps (the reference's sharded ones are the
+    #     test's), the dispatch over the global batch on both
+    mcfg = ModelConfig(**spec["cfg_moe"])
+    minit = _nested(x, "moe_init")
+    moe = convert.from_jax_params(minit, mcfg, "cpu")
+    mtok = torch.from_numpy(x["moe_tokens"])
+    with torch.no_grad():
+        want, want_aux = model_zoo.forward(moe, {"tokens": mtok}, mcfg)
+        smoe = sh.shard_model(convert.from_jax_params(minit, mcfg, "cpu"),
+                              mesh24)
+        meta["moe/experts_local"] = list(sh.local(
+            smoe.blocks[0].moe.w_in).shape)
+        rows = sh.dp_rows(mtok.shape[0], mesh24)
+        got, got_aux = model_zoo.forward(smoe, {"tokens": mtok[rows]}, mcfg,
+                                         shard_fn=sh.make_shard_fn(mesh24))
+    out["moe/logits"], out["moe/one/logits"] = got.numpy(), \
+        want[rows].numpy()
+    out["moe/aux"], out["moe/one/aux"] = got_aux.numpy(), want_aux.numpy()
+    opt = AdamWConfig(**spec["opt"])
+    state = sh.place_state(ts.state_for(convert.from_jax_params(
+        minit, mcfg, "cpu"), opt), mesh24)
+    one = ts.state_for(convert.from_jax_params(minit, mcfg, "cpu"), opt)
+    dropped = []
+    for blk in one["params"].blocks:
+        blk.moe.register_forward_hook(
+            lambda mod, args, _out: dropped.append(_moe_dropped(mod,
+                                                                args[0])))
+    step_fn = ts.make_train_step(mcfg, opt, sh.make_shard_fn(mesh24))
+    one_fn = ts.make_train_step(mcfg, opt)
+    for i in range(spec["steps"]):
+        state, m = step_fn(state, make_batch(mcfg, data, i, device="cpu",
+                                             sharding=tokens_sharding))
+        one, m1 = one_fn(one, make_batch(mcfg, data, i, device="cpu"))
+        for k in ("loss", "grad_norm", "lr"):
+            out[f"moe/{k}{i}"] = m[k].numpy()
+            out[f"moe/one/{k}{i}"] = m1[k].numpy()
+    meta["moe/dropped_step0"] = dropped[:mcfg.n_layers]
+    for k, v in _flat_state(state).items():
+        out[f"moe/state/{k}"] = v
+    for k, v in _flat_state(one).items():
+        out[f"moe/one/state/{k}"] = v
+
+    # 4. the pipeline over the 4 stages of each data row
+    per_stage = [{"w": torch.from_numpy(x[f"pipe/w{i}"]),
+                  "b": torch.from_numpy(x[f"pipe/b{i}"])} for i in range(4)]
+    stage_fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])     # noqa: E731
+    xm = torch.from_numpy(x["pipe/x"])
+    out["pipe/y"] = pipeline_forward(stage_fn, pipe)(
+        stack_stage_params(per_stage), xm).numpy()
+    seq = xm
+    for p in per_stage:
+        seq = stage_fn(p, seq)
+    out["pipe/seq"] = seq.numpy()
+
+    # 5. elastic: a one-device checkpoint restored onto 4 x 2 (bitwise,
+    #    at its specs), re-placed in memory onto 2 x 4, and back onto one
+    #    device
+    opt = AdamWConfig(eight_bit=False, **spec["opt"])
+    plain = ts.state_for(convert.from_jax_params(init, cfg, "cpu"), opt)
+    saved = _flat_state(plain)
+    edir = os.path.join(d, "elastic")
+    if rank == 0:
+        ck.save(edir, 3, plain)
+    dist.barrier()
+    like = ts.state_for(model_zoo.build(cfg, "meta"), opt)
+    got, step = elastic.elastic_restore(edir, like, mesh42)
+    meta["elastic/step"] = step
+    meta["elastic/placed42"] = _placements_ok(got, mesh42)
+    meta["elastic/bitwise42"] = all(
+        np.array_equal(v, saved[k]) for k, v in _flat_state(got).items())
+    got = elastic.reshard_state(got, mesh24)
+    meta["elastic/placed24"] = _placements_ok(got, mesh24)
+    meta["elastic/bitwise24"] = all(
+        np.array_equal(v, saved[k]) for k, v in _flat_state(got).items())
+    back, _ = elastic.elastic_restore(edir, ts.state_for(
+        model_zoo.build(cfg, "cpu"), opt), None)
+    meta["elastic/bitwise1"] = all(
+        np.array_equal(v, saved[k]) for k, v in _flat_state(back).items())
+
+    # 6. the reference's sharded checkpoint restored on the port's mesh
+    ref_ckpt = os.path.join(d, "ref_ckpt")
+    _wait_for(os.path.join(ref_ckpt, "done"))
+    if rank == 0:
+        with np.load(os.path.join(ref_ckpt, f"step_{spec['steps']:010d}",
+                                  "arrays.npz")) as f:
+            ck.save(os.path.join(d, "ref_ckpt_port"), spec["steps"],
+                    convert.train_state_from_jax(dict(f)))
+    dist.barrier()
+    like = ts.state_for(model_zoo.build(cfg, "meta"), opt)
+    got, _ = ck.restore(os.path.join(d, "ref_ckpt_port"), like,
+                        shardings=sh.to_shardings(sh.state_specs(
+                            sh.state_shapes(like), mesh24), mesh24))
+    meta["xref/placed"] = _placements_ok(got, mesh24)
+    for k, v in _flat_state(got).items():
+        out[f"xref/{k}"] = v
+
+    # 7. train_loop on 2 x 4 from the reference's loop's step-2
+    #    checkpoint: uninterrupted, and failed at step 5 then restarted
+    loop_src = os.path.join(d, "ref_loop")
+    _wait_for(os.path.join(loop_src, "done"))
+    runs = {}
+    for name in ("straight", "restarted"):
+        cdir = os.path.join(d, f"loop_{name}")
+        if rank == 0:
+            with np.load(os.path.join(loop_src, "step_0000000002",
+                                      "arrays.npz")) as f:
+                ck.save(cdir, 2, convert.train_state_from_jax(dict(f)))
+        dist.barrier()
+        calls, hist = [], []
+
+        def loop(resume, cdir=cdir, name=name, calls=calls, hist=hist):
+            calls.append(resume)
+            fail = 5 if name == "restarted" and len(calls) == 1 else -1
+            hist[:] = train_loop(
+                cfg, AdamWConfig(**spec["opt"]), data, mesh24,
+                steps=spec["loop_steps"], ckpt_dir=cdir, save_interval=2,
+                log_every=100, fail_at_step=fail)[1]
+            return spec["loop_steps"]
+
+        report = run_with_restarts(loop, max_restarts=2)
+        runs[name] = {"losses": hist, "restarts": report.restarts,
+                      "completed": report.completed,
+                      "saved": ck.all_steps(cdir)}
+    meta["loop"] = runs
+
+    np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def main(rank: int, world: int, d: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        run(rank, world, d)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

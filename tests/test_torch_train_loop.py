@@ -315,9 +315,17 @@ def test_eval_step_matches_reference():
 
 
 def test_mesh_waits_for_distributed():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        train_loop(CFG, OPT, DATA, object(), steps=1, ckpt_dir="unused",
-                   device="cpu")
+    """A mesh is made of torch.distributed ranks: without a process group
+    ``--mesh debug`` trains on one device, ``--mesh pod`` raises, and so
+    does a mesh asked for directly (``tests/test_torch_shard.py`` runs
+    ``train_loop(mesh=...)`` on ranks)."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    assert launch_train.make_mesh("debug") is None
+    assert launch_train.make_mesh("none") is None
+    with pytest.raises(RuntimeError, match="pod"):
+        launch_train.make_mesh("pod")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_debug_mesh(data=2, model=2)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -340,6 +348,6 @@ def test_main_runs_in_process(capsys):
     assert np.isfinite(last["first_loss"]) and np.isfinite(last["last_loss"])
     assert saved == [5]
     assert any(line.startswith("[train] step     5") for line in out)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(RuntimeError, match="pod"):
         launch_train.main(["--arch", "hymba-1.5b", "--mesh", "pod",
                            "--device", "cpu"])
