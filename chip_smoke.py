@@ -161,7 +161,21 @@ each printing JSON lines with its wall time:
    ``params_specs`` and f32 caches at ``cache_specs`` within
    ``SHARD_DECODE_TOL`` of one device. Rows
    carry ``SHARD_NOTE``: not a scaling number.
-12. ``times``: each kernel at its path's shapes against its plain version,
+12. ``analysis``: ``repro_torch.analysis`` on the card. The Python
+   counterparts of what a launch asks the card - the SM count, B2's
+   co-resident CTAs at every shared-memory size its plans take, B4's
+   resident CTAs per SM, B6's shared memory per pass - held to the card's
+   and the C functions' answers, exactly. ``gemm`` 8192^3 f32, ``cholesky``
+   8192 f32, ``qr`` 4096 f32 and one hymba-1.5b prefill (``PREFILL``) run
+   for real under ``record_launches`` and traced on fake CUDA tensors (the
+   two large fake traces in the worker pool); the records must agree
+   kernel by kernel (variant, tile, grid, shared memory). Then the whole
+   surface grid on the card route (``ANALYSIS_WORKERS`` processes for the
+   fake-traced no-mesh legs, 8 gloo ranks on the card for the mesh legs
+   and ``pdgemm`` / ``pdtrsm``) and the BY001 lint, with the committed
+   allowlists: no unsuppressed error; its seconds and its counts of
+   cases, findings and suppressions.
+13. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
@@ -369,6 +383,13 @@ SHARD_TIMEOUT_S = 900
 SHARD_NOTE = ("four ranks share one card over gloo (host loopback, each "
               "buffer staged through pinned host memory), and every rank of "
               "a model group runs the same rows: not a scaling number")
+# the analysis phase: processes for the fake-traced no-mesh legs of the
+# surface grid (and the two large fake traces; its mesh legs take as many
+# gloo ranks as the largest mesh), and the calls whose real and fake
+# launch records must agree
+ANALYSIS_WORKERS = 8
+ANALYSIS_TIMEOUT_S = 600
+ANALYSIS_CALLS = (("gemm", N), ("cholesky", N), ("qr", 4096))
 SHARD_REDUCED = {
     "n_layers": f"32 -> {SHARD_LAYERS}: every step moves each parameter "
                 f"three times over gloo's host loopback (gathered, gathered "
@@ -3972,6 +3993,206 @@ def phase_shard(smi):
     emit(phase="shard", wall_s=time.perf_counter() - t0, card=smi)
 
 
+def analysis_fake_keys(routine, n):
+    """The launch records' keys of ``routine`` on an n x n f32 operand (n^3
+    for ``gemm``) traced on fake CUDA tensors (a worker of the analysis
+    phase's pool, or for ``gemm`` this process; no value is computed,
+    nothing launches)."""
+    from repro_torch import linalg
+    from repro_torch.analysis import fake_card
+    from repro_torch.kernels import launch_record as lr
+
+    def build():
+        a = torch.empty((n, n), dtype=torch.float32, device="cuda")
+        fn = getattr(linalg, routine)
+        return fn, ((a, a) if routine == "gemm" else (a,)), {}
+    with linalg.use(policy="model"):
+        tr = fake_card.run(build, torch.device("cuda"))
+    return [lr.key(r) for r in tr.launches]
+
+
+def analysis_counterparts(smi):
+    """The Python counterparts of the card's answers, exactly."""
+    from repro_torch.arch import H100
+    from repro_torch.kernels import _build, dotp as dk, fused as fk
+    from repro_torch.kernels import ssd_scan as sk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert sms == H100.pe.sm_count, (sms, H100.pe.sm_count)
+    lib = _build.library("trsm_gemm")
+    co = {}
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        for nb in range(8, 513, 8):
+            for form in ("lu", "syrk"):
+                try:
+                    plan = fk.trsm_gemm_plan(dtype, nb, form)
+                except ValueError:
+                    continue
+                co[dtype, plan.smem_bytes] = (
+                    fk.co_resident_ctas(dtype, plan.smem_bytes, sms),
+                    lib.repro_trsm_gemm_co_resident(
+                        fk.DTYPE_CODES[dtype], plan.smem_bytes))
+    bad_co = {f"{d} {s}": v for (d, s), v in co.items() if v[0] != v[1]}
+    dl = _build.library("dotp")
+    per_sm = {(d, v): dl.repro_dotp_blocks_per_sm(dk.DTYPE_CODES[d], int(v))
+              for d, v in dk.BLOCKS_PER_SM}
+    bad_dotp = {f"{d} {v}": (dk.BLOCKS_PER_SM[d, v], got)
+                for (d, v), got in per_sm.items()
+                if got != dk.BLOCKS_PER_SM[d, v]}
+    sl = _build.library("ssd_scan")
+    ssd, bad_ssd = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in (16, 32, 64, 96, 128):
+            for n in (8, 16, 32, 64, 128):
+                for chunk in (8, 64, 128, 256):
+                    try:
+                        plan = sk.ssd_scan_plan(1, 1, 4096, p, n, chunk,
+                                                dtype)
+                    except ValueError:
+                        continue
+                    got = tuple(sl.repro_ssd_scan_smem_bytes(
+                        sk.DTYPE_CODES[dtype], p, n, chunk, q)
+                        for q in (1, 3))
+                    ssd += 1
+                    if got != (plan.smem_bytes[0], plan.smem_bytes[2]):
+                        bad_ssd[f"{dtype} {p} {n} {chunk}"] = (
+                            plan.smem_bytes, got)
+    emit(phase="analysis", check="python counterparts of the card's "
+         "answers", card=smi, sm_count=sms, b2_co_resident_sizes=len(co),
+         b2_co_resident_mismatch=bad_co, b4_blocks_per_sm=len(per_sm),
+         b4_mismatch=bad_dotp, b6_smem_shapes=ssd, b6_mismatch=bad_ssd)
+    assert not bad_co and not bad_dotp and not bad_ssd and ssd > 0
+
+
+def analysis_real_keys(routine, n, gen):
+    """The launch records' keys of one real call on the card."""
+    from repro_torch import linalg
+    from repro_torch.kernels import launch_record as lr
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    if routine == "cholesky":
+        a = a @ a.T / n + torch.eye(n, device="cuda")
+    counts = zero_launches()
+    with linalg.use(policy="model"), lr.record_launches() as rec:
+        getattr(linalg, routine)(*((a, a) if routine == "gemm" else (a,)))
+    torch.cuda.synchronize()
+    launched = sum(w.launches for w in counts.values())
+    assert len(rec) == launched and not any(r["fake"] for r in rec), \
+        (len(rec), launched)
+    return [lr.key(r) for r in rec]
+
+
+def analysis_prefill_keys(gen):
+    """hymba-1.5b's prefill (``PREFILL``), real on the card and fake: the
+    launch records' keys of both."""
+    from repro_torch.analysis import fake_card
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_record as lr
+    from repro_torch.models import model_zoo
+    cfg = registry.get_config("hymba-1.5b")
+    model = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    tokens = torch.randint(0, cfg.vocab, PREFILL, generator=gen,
+                           device="cuda")
+    with lr.record_launches() as rec:
+        model_zoo.prefill(model, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    del model
+    torch.cuda.empty_cache()
+
+    def build():
+        m = model_zoo.build(cfg, device="cuda")
+        t = torch.empty(PREFILL, dtype=torch.int64, device="cuda")
+        return (lambda m_, t_: model_zoo.prefill(m_, {"tokens": t_}, cfg)), \
+            (m, t), {}
+    fake = fake_card.run(build, torch.device("cuda"))
+    return [lr.key(r) for r in rec], [lr.key(r) for r in fake.launches]
+
+
+def analysis_agree(name, real, fake):
+    """Hold a real call's launch records to its fake trace's, kernel by
+    kernel; one line."""
+    kinds = {}
+    for k in real:
+        kinds[f"{k[0]}/{k[1]}"] = kinds.get(f"{k[0]}/{k[1]}", 0) + 1
+    first = next((i for i, (r, f) in enumerate(zip(real, fake)) if r != f),
+                 None)
+    ok = real == fake
+    emit(phase="analysis", check=f"{name}: real launch records against the "
+         f"fake trace's (variant, tile, grid, shared memory)",
+         launches=len(real), fake_launches=len(fake), kinds=kinds, ok=ok,
+         first_difference=None if first is None else
+         {"real": list(map(str, real[first])),
+          "fake": list(map(str, fake[first]))})
+    assert ok and real, name
+
+
+def phase_analysis(smi):
+    """repro_torch.analysis on the card (phase 12): the Python counterparts
+    of the card's answers, real launch records against fake traces, then
+    the whole surface grid on the card route with no unsuppressed error."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    from repro_torch.analysis import bypass_lint, report, sweep
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    analysis_counterparts(smi)
+    # each worker pins one intra-op thread (the traces are CPU-bound and
+    # the pool fills the cores); this process keeps its own count
+    pool = cf.ProcessPoolExecutor(ANALYSIS_WORKERS,
+                                  mp_context=mp.get_context("spawn"),
+                                  initializer=torch.set_num_threads,
+                                  initargs=(1,))
+    try:
+        # the two large fake traces first (the longest tasks), then the
+        # surface's no-mesh legs, one (routine, dtype) a task
+        big = {r: pool.submit(analysis_fake_keys, r, n)
+               for r, n in ANALYSIS_CALLS if r != "gemm"}
+        t_base = time.perf_counter()
+        base = sweep.submit_base_legs(pool, device="cuda")
+        # meanwhile, here: the real calls on the card and the small traces
+        for routine, n in ANALYSIS_CALLS:
+            real = analysis_real_keys(routine, n, gen)
+            fake = analysis_fake_keys(routine, n) if routine == "gemm" \
+                else big[routine].result(timeout=ANALYSIS_TIMEOUT_S)
+            analysis_agree(f"{routine} {n} f32", real, fake)
+        real, fake = analysis_prefill_keys(gen)
+        analysis_agree(f"hymba-1.5b prefill {PREFILL[0]}x{PREFILL[1]}",
+                       real, fake)
+        t_by = time.perf_counter()
+        by = bypass_lint.lint_bypass()
+        by_s = time.perf_counter() - t_by
+        base_rep = report.merge_reports(
+            [f.result(timeout=ANALYSIS_TIMEOUT_S) for f in base],
+            target="linalg-surface")
+        base_s = time.perf_counter() - t_base
+    finally:
+        pool.shutdown(cancel_futures=True)
+    t_mesh = time.perf_counter()
+    mesh_rep = sweep.mesh_legs(device="cuda", timeout_s=ANALYSIS_TIMEOUT_S)
+    mesh_s = time.perf_counter() - t_mesh
+    rep = report.merge_reports([base_rep, mesh_rep, by],
+                               target="linalg-surface")
+    rules = {}
+    for f in rep.suppressed:
+        key = f"{f.rule} {f.location or f.routine}"
+        rules[key] = rules.get(key, 0) + 1
+    emit(phase="analysis", check="check_surface() on the card route, full "
+         "grid, and the BY001 lint, with the committed allowlists",
+         card=smi, cases=len(rep.cases),
+         skipped=sum("skipped" in c for c in rep.cases),
+         base_cases=len(base_rep.cases), mesh_cases=len(mesh_rep.cases),
+         errors=len(rep.errors), warnings=len(rep.warnings),
+         findings=len(rep.findings), suppressed=len(rep.suppressed),
+         suppressed_by_rule=rules, base_s=base_s, mesh_s=mesh_s,
+         bypass_s=by_s, workers=ANALYSIS_WORKERS,
+         ranks=max(px * py for px, py in report.SURFACE_MESHES),
+         ok=rep.ok, summary=rep.summary().splitlines()[0])
+    assert rep.ok and not any("skipped" in c for c in rep.cases), \
+        rep.summary()
+    emit(phase="analysis", wall_s=time.perf_counter() - t0, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -4017,6 +4238,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_shard(smi)
     emit(phase_done="shard", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_analysis(smi)
+    emit(phase_done="analysis", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     rows = phase_times(gen, launches) + model_rows(gen, model_launches) \
         + [paper_row] + family_rows(gen, family_b5)

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 from repro_torch import _dtype
 from repro_torch.distributed.collectives import (CollectiveRecord,
                                                  all_gather_cat, axis_group,
-                                                 emit_record, ring_bcast)
+                                                 emit_partition, emit_record,
+                                                 ring_bcast)
 from repro_torch.launch.mesh import mesh_shape, sub_mesh
 
 MESH_AXES = ("x", "y")
@@ -126,9 +127,13 @@ def pdgemm(a: torch.Tensor, b: torch.Tensor, mesh,
         kind="pdgemm", size=steps,
         info={"m": m, "n": n, "k": k, "px": px, "py": py, "kf": kf,
               "itemsize": a.element_size(), "dtype": _dtype.name(a.dtype)}))
-    acc = _summa_inner(_block(a_p, i, j, px, py), _block(b_p, i, j, px, py),
-                       mesh, px=px, py=py, kf=kf, res=res)
-    out = all_gather_cat(all_gather_cat(acc, mesh, "y", 1), mesh, "x", 0)
+    a_s, b_s = _block(a_p, i, j, px, py), _block(b_p, i, j, px, py)
+    spec = {0: ("x",), 1: ("y",)}       # the reference's P("x", "y")
+    emit_partition("pdgemm", "a", a.shape, a_p.shape, spec, a_s.shape, mesh)
+    emit_partition("pdgemm", "b", b.shape, b_p.shape, spec, b_s.shape, mesh)
+    acc = _summa_inner(a_s, b_s, mesh, px=px, py=py, kf=kf, res=res)
+    out = all_gather_cat(all_gather_cat(acc, mesh, "y", 1, tag="result"),
+                         mesh, "x", 0, tag="result")
     out = alpha * out[:m, :n]
     if c is not None:
         out = out + beta * c
@@ -177,9 +182,13 @@ def pdtrsm(a: torch.Tensor, b: torch.Tensor, mesh, lower: bool = True,
     rhs = b[:, None] if vec else b
     nrhs = rhs.shape[1]
     rhs_p = _pad2(rhs, 1, px * py)
-    x = trsm(a, _block(rhs_p, 0, i * py + j, 1, px * py), lower=lower,
-             unit_diag=unit_diag, left=True, block=block, policy=policy,
-             registry=registry)
-    x = all_gather_cat(all_gather_cat(x, mesh, "y", 1), mesh, "x", 1)
+    slab = _block(rhs_p, 0, i * py + j, 1, px * py)
+    emit_partition("pdtrsm", "t", a.shape, a.shape, {}, a.shape, mesh)
+    emit_partition("pdtrsm", "b", rhs.shape, rhs_p.shape, {1: ("x", "y")},
+                   slab.shape, mesh)
+    x = trsm(a, slab, lower=lower, unit_diag=unit_diag, left=True,
+             block=block, policy=policy, registry=registry)
+    x = all_gather_cat(all_gather_cat(x, mesh, "y", 1, tag="result"), mesh,
+                       "x", 1, tag="result")
     x = x[:, :nrhs]
     return x[:, 0] if vec else x

@@ -105,7 +105,7 @@ _FUSED = {"mean": ("add", "div"), "silu": ("exp", "mul")}
 
 _aten = torch.ops.aten
 # composite ops traced into their parts by PyTorch's decompositions
-_DECOMPOSE = (_aten._softmax, _aten._log_softmax, _aten.gelu)
+DECOMPOSE = (_aten._softmax, _aten._log_softmax, _aten.gelu)
 
 
 def _size(node) -> float:
@@ -307,14 +307,20 @@ def _trace(fn: Callable, args, kwargs) -> torch.fx.GraphModule:
     with mode:
         return make_fx(flat_fn, tracing_mode="real",
                        decomposition_table=get_decompositions(
-                           list(_DECOMPOSE)))(*tensors)
+                           list(DECOMPOSE)))(*tensors)
 
 
 def census_of(fn: Callable, *args, name: str | None = None, **kwargs) -> Census:
     """Trace ``fn`` (abstractly - meta tensors fine) and census it."""
-    gm = _trace(fn, args, kwargs)
-    acc = Census(name or getattr(fn, "__name__", "fn"),
-                 {k: 0.0 for k in CLASSES}, {k: 0.0 for k in CLASSES},
+    return census_of_graph(_trace(fn, args, kwargs),
+                           name or getattr(fn, "__name__", "fn"))
+
+
+def census_of_graph(gm: torch.fx.GraphModule, name: str = "fn") -> Census:
+    """The census of an aten graph traced elsewhere (with the
+    decompositions of :data:`DECOMPOSE` applied, as :func:`census_of`
+    traces)."""
+    acc = Census(name, {k: 0.0 for k in CLASSES}, {k: 0.0 for k in CLASSES},
                  0.0, 0.0, 0)
     acc.critical_path = _walk(gm.graph, acc)
     # hazards can't exceed instructions in any class

@@ -27,6 +27,11 @@ Records and counters (:class:`CollectiveRecord`, ``collective.hops`` /
 ``collective.bytes``, the ``collective.ring_bcast`` event) are emitted at
 run time, once per call, where the reference emits them once per traced
 schedule; one call's list equals one reference trace's, field for field.
+A second stream, :func:`record_transport`, holds what each rank actually
+did (:class:`TransportRecord`): the (send-to, receive-from) pair and the
+hops of each ``ring_bcast`` loop, every ``all_gather_cat`` (the routines'
+final result gathers tagged ``"result"``) and the operand partition each
+mesh routine takes; the static analyzer's CC and SH rules read it.
 
 Transport follows the group's backend, never a caught error: NCCL moves
 tensors on the card; gloo moves host memory, so a tensor on the card is
@@ -96,6 +101,73 @@ def emit_record(rec: CollectiveRecord) -> None:
         lst.append(rec)
 
 
+@dataclasses.dataclass(frozen=True)
+class TransportRecord:
+    """What one rank did, kind-tagged: ``"hop"`` (one ``ring_bcast`` loop:
+    the global ranks it sent to and took from, the hops it made and the
+    bytes it sent), ``"all_gather"`` (one gather over ``axis``: ``bytes``
+    of this rank's shard; ``tag`` ``"result"`` for a routine's final result
+    gather, else ``"body"``), ``"partition"`` (one operand's split over the
+    mesh: ``info`` carries the routine, operand, global and padded shapes,
+    the spec {dim: axes}, the mesh's {axis: size} and the block taken).
+    ``group`` is the axis group's global ranks in axis order, ``index``
+    this rank's place in it."""
+
+    kind: str
+    rank: int = 0
+    axis: Optional[str] = None
+    group: Tuple[int, ...] = ()
+    index: int = 0
+    send_to: Optional[int] = None
+    recv_from: Optional[int] = None
+    hops: int = 0
+    bytes: int = 0
+    tag: Optional[str] = None
+    info: Optional[Dict] = None
+
+
+_TRANSPORT: "ContextVar[Optional[List[TransportRecord]]]" = ContextVar(
+    "repro_torch_transport_record", default=None)
+
+
+@contextlib.contextmanager
+def record_transport():
+    """Collect every TransportRecord this rank emits inside the scope."""
+    rec: List[TransportRecord] = []
+    token = _TRANSPORT.set(rec)
+    try:
+        yield rec
+    finally:
+        _TRANSPORT.reset(token)
+
+
+def _transport(group, axis: str, idx: int, **fields) -> None:
+    lst = _TRANSPORT.get()
+    if lst is not None:
+        lst.append(TransportRecord(
+            rank=dist.get_rank(), axis=str(axis),
+            group=tuple(dist.get_process_group_ranks(group)), index=int(idx),
+            **fields))
+
+
+def emit_partition(routine: str, operand: str, shape, padded, spec: Dict,
+                   block, mesh) -> None:
+    """Record one operand's split over ``mesh`` (a ``"partition"``
+    TransportRecord): its global and padded shapes, the spec {dim: mesh
+    axes} and the block this rank took."""
+    lst = _TRANSPORT.get()
+    if lst is not None:
+        lst.append(TransportRecord(
+            kind="partition", rank=dist.get_rank(), info={
+                "routine": routine, "operand": operand,
+                "shape": [int(d) for d in shape],
+                "padded": [int(d) for d in padded],
+                "spec": {int(d): list(a) for d, a in spec.items()},
+                "mesh": {str(a): int(n) for a, n in
+                         zip(mesh.mesh_dim_names, mesh.shape)},
+                "block": [int(d) for d in block]}))
+
+
 # ---------------------------------------------------------------------------
 # mesh axes and transport
 # ---------------------------------------------------------------------------
@@ -137,10 +209,15 @@ def _back(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return buf if buf.device == like.device else buf.to(like.device)
 
 
-def all_gather_cat(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def all_gather_cat(t: torch.Tensor, mesh, axis: str, dim: int,
+                   tag: str = "body") -> torch.Tensor:
     """The shards of ``t`` along mesh ``axis``, concatenated along tensor
-    dim ``dim`` in axis order (one ``all_gather_into_tensor``)."""
-    group, size, _ = axis_group(mesh, axis)
+    dim ``dim`` in axis order (one ``all_gather_into_tensor``); ``tag``
+    (``"result"`` for a routine's final result gather) goes to the
+    ``"all_gather"`` TransportRecord."""
+    group, size, idx = axis_group(mesh, axis)
+    _transport(group, axis, idx, kind="all_gather", tag=tag,
+               bytes=t.numel() * t.element_size() if size > 1 else 0)
     if size == 1:
         return t
     out = _wire_empty(group, t, (size * t.shape[0],) + tuple(t.shape[1:]))
@@ -202,6 +279,7 @@ def ring_bcast(val: torch.Tensor, mesh, axis_name: str,
     if size <= 1:
         emit_record(CollectiveRecord(kind="ring_bcast", axis=str(axis_name),
                                      size=int(size), src=int(src)))
+        _transport(group, axis_name, idx, kind="hop")
         return val
     hops = size - 1
     dtype_name = _dtype.name(val.dtype)
@@ -228,6 +306,7 @@ def ring_bcast(val: torch.Tensor, mesh, axis_name: str,
     succ = dist.get_global_rank(group, (idx + 1) % size)
     pred = dist.get_global_rank(group, (idx - 1) % size)
     buf = _wire(group, val)
+    done = 0
     for step in range(hops):
         nxt = _wire_empty(group, val, val.shape)
         reqs = dist.batch_isend_irecv([
@@ -235,8 +314,11 @@ def ring_bcast(val: torch.Tensor, mesh, axis_name: str,
             dist.P2POp(dist.irecv, nxt, pred, group)])
         for r in reqs:
             r.wait()
+        done += 1
         if idx == (src + step + 1) % size:
             buf = nxt
+    _transport(group, axis_name, idx, kind="hop", send_to=succ,
+               recv_from=pred, hops=done, bytes=done * panel_bytes)
     return val if idx == src else _back(buf, val)
 
 

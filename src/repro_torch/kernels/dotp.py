@@ -30,10 +30,18 @@ import torch
 
 from repro_torch.core.codesign import optimal_accumulators
 from repro_torch.kernels import _build
+from repro_torch.kernels import launch_record as _rec
 
 # csrc/dotp.cu's launch shape; a wave holds at most CTAS_PER_SM CTAs on
 # each SM (fewer when the occupancy query says fewer fit)
 THREADS, ILP, CTAS_PER_SM = 256, 4, 4
+# the first pass's resident CTAs per SM on an H100 by (dtype, 16-byte
+# loads), the occupancy query's answers (repro_dotp_blocks_per_sm): what a
+# fake launch, which asks no card, takes; chip_smoke.py holds them to the
+# card's
+BLOCKS_PER_SM = {(torch.float32, False): 8, (torch.float32, True): 6,
+                 (torch.float64, False): 8, (torch.float64, True): 6,
+                 (torch.bfloat16, False): 8, (torch.bfloat16, True): 8}
 VECTOR_BYTES = 16
 # dtype codes of csrc/common.cuh (repro::DType)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
@@ -48,7 +56,7 @@ def vector_loads(x: torch.Tensor, y: torch.Tensor) -> bool:
     """Whether the kernel reads x and y as 16-byte vectors: both of stride
     1 with 16-byte aligned starts."""
     return x.stride(0) == 1 and y.stride(0) == 1 \
-        and (x.data_ptr() | y.data_ptr()) % VECTOR_BYTES == 0
+        and (_rec.address(x) | _rec.address(y)) % VECTOR_BYTES == 0
 
 
 def dotp_grid(n: int, sms: int, per_sm: int, itemsize: int,
@@ -129,11 +137,24 @@ def dotp(x: torch.Tensor, y: torch.Tensor,
     n = x.shape[0]
     if n == 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
+    vec = vector_loads(x, y)
+    recording = _rec.active()
+    fake = recording and _rec.is_fake(x)
+    if fake:
+        # the analyzer's trace: the h100's answers in place of the card's
+        # queries; nothing is built or launched
+        sms, per_sm = _rec.h100().pe.sm_count, BLOCKS_PER_SM[x.dtype, vec]
+        blocks = dotp_grid(n, sms, per_sm, x.element_size(), vec)
+        buf = torch.empty(blocks + 1, dtype=torch.float32, device=dev)
+        ptr = _rec.address(buf)
+        _record((DTYPE_CODES[x.dtype], int(vec), _rec.address(x),
+                 x.stride(0), _rec.address(y), y.stride(0), n, blocks, ptr,
+                 0, ptr + 4 * blocks, None), vec, blocks, (x, y), True)
+        return buf[blocks]
     # this path's host time shows in back-to-back timings against
     # torch.dot: few tensor calls, cached launch shape, and the device
     # guard only when another device is current
     lib = _build.library("dotp")
-    vec = vector_loads(x, y)
     sms, per_sm = _wave(lib, dev, x.dtype, vec)
     blocks = dotp_grid(n, sms, per_sm, x.element_size(), vec)
     # the CTAs' partials, then the result, in one allocation
@@ -154,7 +175,15 @@ def dotp(x: torch.Tensor, y: torch.Tensor,
         "accumulators": accumulators or _accumulators(n),
         "blocks": blocks, "sms": sms, "blocks_per_sm": per_sm,
         "vector_loads": vec, "threads": THREADS, "ilp": ILP, "n": n}
+    if recording:
+        _record(args, vec, blocks, (x, y), False)
     return buf[blocks]
+
+
+def _record(args, vec, blocks, operands, fake):
+    _rec.emit(__name__, "dotp", "dotp", "repro_dotp", args,
+              variant="vector" if vec else "scalar", tile=(THREADS, ILP),
+              grid=(blocks,), smem_bytes=0, operands=operands, fake=fake)
 
 
 dotp.launches = 0

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core.codesign import AttentionPlan, plan_attention
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import launch_record as _rec
 
 VARIANTS = ("ffma", "wgmma")       # index = the csrc variant code
 MAX_HEAD_DIM = 256                 # "ffma"
@@ -56,11 +57,25 @@ def tile(variant: str, head_dim: int) -> tuple:
     return 64, 32 if head_dim > 128 else 64
 
 
+def smem_bytes(variant: str, head_dim: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/flash_attention.cu: the
+    ``"ffma"`` Tile's floats at the head dim padded to 32 / 64 / 128 / 256;
+    ``"wgmma"``'s Layout at 64 / 128: Q, three K+V stages, the mbarriers and
+    the 1024-byte alignment)."""
+    if variant == "wgmma":
+        ch = (64 if head_dim <= 64 else 128) // 64
+        return ch * 128 * 128 * 7 + 7 * 8 + 1024
+    dp = next(w for w in (32, 64, 128, 256) if head_dim <= w)
+    bq, bk = 64, 32 if dp > 128 else 64
+    return 4 * (bq * (dp + 1) + bk * (dp + 1) + bk * dp + bq * (bk + 1)
+                + 3 * bq)
+
+
 def tma_readable(t: torch.Tensor) -> bool:
     """Can a TMA tensor map read this (B, H, S, D) bf16 operand: unit dim
     stride, base and every stride of an axis longer than 1 multiples of 16
     bytes?"""
-    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+    return (t.stride(3) == 1 and _rec.address(t) % 16 == 0
             and all(size == 1 or (st > 0 and st * t.element_size() % 16 == 0)
                     for size, st in zip(t.shape[:3], t.stride()[:3])))
 
@@ -149,24 +164,46 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         plan = plan_attention(sq, sk, d)   # the reference's call
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    grid = ((-(-sq // bq) * hq * b,) if variant == "wgmma"
+            else (-(-sq // bq), hq, b))
+    recording = _rec.active()
+    fake = recording and _rec.is_fake(q)
+    ptr = _rec.address if fake else torch.Tensor.data_ptr
+    shape = (b, hq, hkv, sq, sk, d, float(scale), int(bool(causal)),
+             int(q_offset), -1 if window is None else int(window), n)
+    if fake:
+        _record(_args(variant, q, k, v, o, shape, ptr, None), variant, d,
+                grid, (q, k, v, o), True)
+        return o
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
-        err = lib.repro_attention(
-            VARIANTS.index(variant), DTYPE_CODES[q.dtype],
-            q.data_ptr(), *q.stride(),
-            k.data_ptr(), *k.stride(), v.data_ptr(), *v.stride(),
-            o.data_ptr(), *o.stride(), b, hq, hkv, sq, sk, d, float(scale),
-            int(bool(causal)), int(q_offset),
-            -1 if window is None else int(window), n,
-            torch.cuda.current_stream().cuda_stream)
+        call = _args(variant, q, k, v, o, shape, ptr,
+                     torch.cuda.current_stream().cuda_stream)
+        err = lib.repro_attention(*call)
     _build.check(err, "repro_attention")
     attention.launches += 1
     attention.variant_launches[variant] += 1
     attention.last_launch = {
         "plan": plan, "variant": variant, "tile": tile(variant, d),
-        "grid": ((-(-sq // bq) * hq * b,) if variant == "wgmma"
-                 else (-(-sq // bq), hq, b))}
+        "grid": grid}
+    if recording:
+        _record(call, variant, d, grid, (q, k, v, o), False)
     return o
+
+
+def _args(variant, q, k, v, o, shape, ptr, stream) -> tuple:
+    """The C call's arguments of one launch (``shape``: the sizes and
+    options after the operands; ``ptr`` reads each operand's address)."""
+    return (VARIANTS.index(variant), DTYPE_CODES[q.dtype],
+            ptr(q), *q.stride(), ptr(k), *k.stride(), ptr(v), *v.stride(),
+            ptr(o), *o.stride(), *shape, stream)
+
+
+def _record(call, variant, d, grid, operands, fake):
+    _rec.emit(__name__, "attention", "flash_attention", "repro_attention",
+              call, variant=variant, tile=tile(variant, d), grid=grid,
+              smem_bytes=smem_bytes(variant, d), operands=operands,
+              fake=fake)
 
 
 def reset_launches() -> None:

@@ -47,6 +47,7 @@ from repro_torch.core.codesign import (TRSM_GEMM_TILE, TRSM_GEMM_TT,
                                        TRSM_GEMM_WIDTHS, GemmPlan,
                                        trsm_gemm_footprint)
 from repro_torch.kernels import _build
+from repro_torch.kernels import launch_record as _rec
 from repro_torch.kernels.gemm import (DTYPE_CODES, accumulator_dtype,
                                       check_operands, default_plan,
                                       gemm_plain, gemm_variant, launch,
@@ -127,7 +128,7 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     bias = None if bias is None else bias.contiguous()   # held past launch
     launch(gemm_bias_act, "repro_gemm_bias_act", variant, tile, a, b, c,
-           None if bias is None else bias.data_ptr(),
+           None if bias is None else _rec.address(bias),
            EPILOGUES.index(epilogue))
     return c
 
@@ -201,6 +202,30 @@ def trsm_gemm_grid(co_resident: int, plan: TrsmGemmPlan, m: int, n: int,
     return max(1, min(co_resident, max(solve, update)))
 
 
+# registers per thread of csrc/trsm_gemm.cu's kernel (ptxas, sm_90a) and
+# the H100 SM's limits the occupancy query applies: what
+# co_resident_ctas, the query's Python counterpart, needs. chip_smoke.py's
+# analysis phase holds it to the card's answer.
+TRSM_GEMM_REGISTERS = {torch.float32: 128, torch.bfloat16: 128,
+                       torch.float64: 244}
+_SM_REGISTERS, _SM_SMEM, _SM_THREADS, _SM_CTAS = 65536, 233472, 2048, 32
+_REG_UNIT, _SMEM_RESERVED, _TRSM_THREADS = 256, 1024, 256
+
+
+def co_resident_ctas(dtype: torch.dtype, smem: int, sms: int) -> int:
+    """CTAs of B2 that fit on an H100 of ``sms`` SMs at once with ``smem``
+    bytes of dynamic shared memory: the occupancy query
+    (``repro_trsm_gemm_co_resident``) in Python, bounded per SM by
+    registers (allocated per warp in units of 256), shared memory (1 KB
+    reserved per CTA), threads and 32 CTAs."""
+    warp_regs = -(-TRSM_GEMM_REGISTERS[dtype] * 32 // _REG_UNIT) * _REG_UNIT
+    warps = _TRSM_THREADS // 32
+    per_sm = min(_SM_REGISTERS // (warp_regs * warps),
+                 _SM_SMEM // (smem + _SMEM_RESERVED),
+                 _SM_THREADS // _TRSM_THREADS, _SM_CTAS)
+    return sms * per_sm
+
+
 _co_resident = {}
 
 
@@ -259,33 +284,63 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
                              "device": c.device.type, "plan": plan}
     if c.device.type == "cpu":
         return trsm_gemm_plain(l11, a_panel, b_left, c, form, unit_diag)
+    recording = _rec.active()
+    fake = recording and _rec.is_fake(c)
+    ptr = _rec.address if fake else torch.Tensor.data_ptr
+    acc = accumulator_dtype(c.dtype)
+    pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
+    x = torch.empty((nb, n), dtype=c.dtype, device=c.device)
+    c_out = torch.empty((m, n), dtype=c.dtype, device=c.device)
+    xw = torch.empty((plan.nb_padded, pad(n)), dtype=acc, device=c.device)
+    blt = torch.empty((plan.nb_padded, pad(m)), dtype=acc,
+                      device=c.device) if form == "lu" and m else None
+    bl = c if b_left is None else b_left             # unread when syrk
+    ops = (l11, a_panel, bl, c, x, c_out, xw, blt)
+    if fake:
+        grid = trsm_gemm_grid(co_resident_ctas(
+            c.dtype, plan.smem_bytes, _rec.h100().pe.sm_count),
+            plan, m, n, form)
+        trsm_gemm.last_launch["grid"] = grid
+        _trsm_record(_trsm_args(plan, form, unit_diag, ops, grid, ptr, None),
+                     plan, grid, (l11, a_panel, b_left, c), True)
+        return x, c_out
     lib = _build.library("trsm_gemm")
     with torch.cuda.device(c.device):
         grid = trsm_gemm_grid(_trsm_co_resident(lib, c.device, c.dtype,
                                                 plan.smem_bytes),
                               plan, m, n, form)
         trsm_gemm.last_launch["grid"] = grid
-        acc = accumulator_dtype(c.dtype)
-        pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
-        x = torch.empty((nb, n), dtype=c.dtype, device=c.device)
-        c_out = torch.empty((m, n), dtype=c.dtype, device=c.device)
-        xw = torch.empty((plan.nb_padded, pad(n)), dtype=acc, device=c.device)
-        blt = torch.empty((plan.nb_padded, pad(m)), dtype=acc,
-                          device=c.device) if form == "lu" and m else None
-        bl = c if b_left is None else b_left             # unread when syrk
-        err = lib.repro_trsm_gemm(
-            DTYPE_CODES[c.dtype], int(form == "syrk"), int(unit_diag),
-            l11.data_ptr(), l11.stride(0), l11.stride(1),
-            a_panel.data_ptr(), a_panel.stride(0), a_panel.stride(1),
-            bl.data_ptr(), bl.stride(0), bl.stride(1),
-            c.data_ptr(), c.stride(0), c.stride(1),
-            x.data_ptr(), c_out.data_ptr(), xw.data_ptr(),
-            None if blt is None else blt.data_ptr(), nb, m, n, plan.width,
-            int(plan.l_in_smem), plan.smem_bytes, grid,
-            torch.cuda.current_stream().cuda_stream)
+        call = _trsm_args(plan, form, unit_diag, ops, grid, ptr,
+                          torch.cuda.current_stream().cuda_stream)
+        err = lib.repro_trsm_gemm(*call)
     _build.check(err, "repro_trsm_gemm")
     trsm_gemm.launches += 1
+    if recording:
+        _trsm_record(call, plan, grid, (l11, a_panel, b_left, c), False)
     return x, c_out
+
+
+def _trsm_args(plan, form, unit_diag, ops, grid, ptr, stream) -> tuple:
+    """The C call's arguments of one :func:`trsm_gemm` launch (``ops``:
+    L11, the panel, B_left, C, then the outputs and scratch; ``ptr`` reads
+    each one's address)."""
+    l11, a_panel, bl, c, x, c_out, xw, blt = ops
+    return (DTYPE_CODES[c.dtype], int(form == "syrk"), int(unit_diag),
+            ptr(l11), l11.stride(0), l11.stride(1),
+            ptr(a_panel), a_panel.stride(0), a_panel.stride(1),
+            ptr(bl), bl.stride(0), bl.stride(1),
+            ptr(c), c.stride(0), c.stride(1),
+            ptr(x), ptr(c_out), ptr(xw),
+            None if blt is None else ptr(blt), l11.shape[0], c.shape[0],
+            c.shape[1], plan.width, int(plan.l_in_smem), plan.smem_bytes,
+            grid, stream)
+
+
+def _trsm_record(call, plan, grid, operands, fake):
+    _rec.emit(__name__, "trsm_gemm", "trsm_gemm", "repro_trsm_gemm", call,
+              variant=plan.update, tile=TRSM_GEMM_TILE, grid=(grid,),
+              smem_bytes=plan.smem_bytes,
+              operands=[t for t in operands if t is not None], fake=fake)
 
 
 trsm_gemm.launches = 0

@@ -40,8 +40,10 @@ from typing import Optional
 import torch
 
 from repro_torch import arch as _arch
-from repro_torch.core.codesign import HOPPER_TILES, GemmPlan, plan_gemm
+from repro_torch.core.codesign import (HOPPER_TILES, GemmPlan, cta_smem_bytes,
+                                       plan_gemm)
 from repro_torch.kernels import _build
+from repro_torch.kernels import launch_record as _rec
 
 # csrc/gemm.cu's variants (index = repro::Variant code; "gemv" has its
 # own entry point) and the CTA tiles (BM, BN, BK) each is compiled for, the
@@ -104,7 +106,7 @@ def rows_aligned(t: torch.Tensor) -> bool:
     """Can TMA / 16-byte cp.async read ``t`` row by row: unit column
     stride, row stride and base address multiples of 16 bytes?"""
     return (t.stride(1) == 1 and t.stride(0) * t.element_size() % 16 == 0
-            and t.data_ptr() % 16 == 0)
+            and _rec.address(t) % 16 == 0)
 
 
 def gemm_variant(a: torch.Tensor, b: torch.Tensor) -> str:
@@ -171,6 +173,35 @@ def reset_launches(wrapper) -> None:
     wrapper.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
+def launch_grid(variant: str, tile: tuple, m: int, n: int,
+                split: Optional[tuple] = None) -> tuple:
+    """The grid csrc/gemm.cu launches ``variant`` with for an (m, n)
+    output: one CTA per ``tile`` of C (1-D) for the tiled variants, (column
+    blocks, row blocks) for ``"simt"``, (K segments, row groups) for
+    ``"gemv"`` (``split`` = :func:`gemv_split`'s, whose second pass sums the
+    segments when there is more than one)."""
+    if variant == "gemv":
+        return (split[0], -(-m // tile[0]))
+    if variant == "simt":
+        return (-(-n // tile[1]), -(-m // tile[0]))
+    return (-(-m // tile[0]) * -(-n // tile[1]),)
+
+
+def launch_smem(variant: str, tile: tuple, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA of ``variant`` at ``tile``
+    (:func:`repro_torch.core.codesign.cta_smem_bytes` at the tile's compiled
+    stages; ``"simt"`` and ``"gemv"`` use static shared memory only)."""
+    if variant in ("simt", "gemv"):
+        return 0
+    db = dtype.itemsize
+    for t in HOPPER_TILES[db][1]:
+        if tuple(t[:3]) == tuple(tile):
+            return cta_smem_bytes(db, *t[:4])
+    # a tile the variant is not compiled for (only a planted record):
+    # price it at the default tile's stages
+    return cta_smem_bytes(db, *tile, HOPPER_TILES[db][1][0][3])
+
+
 def launch(wrapper, entry: str, variant: str, tile: tuple, a: torch.Tensor,
            b: torch.Tensor, c: torch.Tensor, bias: Optional[int] = None,
            epilogue: int = 0) -> None:
@@ -180,42 +211,70 @@ def launch(wrapper, entry: str, variant: str, tile: tuple, a: torch.Tensor,
     ``repro_gemm_bias_act``); ``"gemv"`` goes to ``repro_gemv`` with its K
     split. Raises on a refused launch, and counts the launch in ``wrapper``
     (total and per variant) once it has gone through. The tiled variants
-    run ``tile`` (bm, bn, bk), the one :func:`record_call` returned."""
+    run ``tile`` (bm, bn, bk), the one :func:`record_call` returned.
+    Fake operands (the analyzer's trace) record the launch
+    (:mod:`repro_torch.kernels.launch_record`) and launch nothing."""
     m, k = a.shape
     n = b.shape[1]
     if variant == "simt" and -(-m // TILES["simt"][0]) > _MAX_ROW_BLOCKS:
         raise ValueError(f"gemm takes at most "
                          f"{_MAX_ROW_BLOCKS * TILES['simt'][0]} rows on the "
                          f"simt variant, got {m}")
+    recording = _rec.active()
+    fake = recording and _rec.is_fake(a)
+    ptr = _rec.address if fake else torch.Tensor.data_ptr
+    split = partials = None
+    if variant == "gemv":
+        sms = _rec.h100().pe.sm_count if fake else \
+            torch.cuda.get_device_properties(a.device).multi_processor_count
+        split = gemv_split(m, k, sms)
+        partials = torch.empty((split[0], m, n) if split[0] > 1 else (0,),
+                               dtype=accumulator_dtype(a.dtype),
+                               device=a.device)
+        wrapper.last_launch["split"] = split
+        entry = "repro_gemv"
+    if fake:
+        _record(wrapper, entry, variant, tile, a, b, c, split,
+                _args(entry, variant, tile, a, b, c, bias, epilogue, split,
+                      partials, ptr, None), True)
+        return
     lib = _build.library("gemm")
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if variant == "gemv":
-            segs, ks = gemv_split(m, k, torch.cuda.get_device_properties(
-                a.device).multi_processor_count)
-            partials = torch.empty((segs, m, n) if segs > 1 else (0,),
-                                   dtype=accumulator_dtype(a.dtype),
-                                   device=a.device)
-            wrapper.last_launch["split"] = (segs, ks)
-            err = lib.repro_gemv(
-                DTYPE_CODES[a.dtype], DTYPE_CODES[c.dtype],
-                a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-                b.stride(1), bias, epilogue,
-                partials.data_ptr() if segs > 1 else None, ks,
-                c.data_ptr(), c.stride(0), m, n, k, stream)
-            entry = "repro_gemv"
-        else:
-            err = getattr(lib, entry)(
-                VARIANTS.index(variant), *tile,
-                DTYPE_CODES[a.dtype],
-                DTYPE_CODES[c.dtype],
-                a.data_ptr(), a.stride(0), a.stride(1),
-                b.data_ptr(), b.stride(0), b.stride(1),
-                *(() if entry == "repro_gemm" else (bias, epilogue)),
-                c.data_ptr(), c.stride(0), m, n, k, stream)
+        call = _args(entry, variant, tile, a, b, c, bias, epilogue, split,
+                     partials, ptr, torch.cuda.current_stream().cuda_stream)
+        err = getattr(lib, entry)(*call)
     _build.check(err, entry)
     wrapper.launches += 1
     wrapper.variant_launches[variant] += 1
+    if recording:
+        _record(wrapper, entry, variant, tile, a, b, c, split, call, False)
+
+
+def _args(entry, variant, tile, a, b, c, bias, epilogue, split, partials,
+          ptr, stream) -> tuple:
+    """The C call's arguments of one :func:`launch` (``ptr`` reads each
+    operand's address)."""
+    m, k = a.shape
+    n = b.shape[1]
+    if variant == "gemv":
+        return (DTYPE_CODES[a.dtype], DTYPE_CODES[c.dtype],
+                ptr(a), a.stride(0), ptr(b), b.stride(0), b.stride(1),
+                bias, epilogue, ptr(partials) if split[0] > 1 else None,
+                split[1], ptr(c), c.stride(0), m, n, k, stream)
+    return (VARIANTS.index(variant), *tile, DTYPE_CODES[a.dtype],
+            DTYPE_CODES[c.dtype], ptr(a), a.stride(0), a.stride(1),
+            ptr(b), b.stride(0), b.stride(1),
+            *(() if entry == "repro_gemm" else (bias, epilogue)),
+            ptr(c), c.stride(0), m, n, k, stream)
+
+
+def _record(wrapper, entry, variant, tile, a, b, c, split, call, fake):
+    m, n = c.shape
+    _rec.emit(wrapper.__module__, wrapper.__name__, "gemm", entry, call,
+              variant=variant, tile=tile,
+              grid=launch_grid(variant, tile, m, n, split),
+              smem_bytes=launch_smem(variant, tile, a.dtype),
+              operands=(a, b, c), fake=fake)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,

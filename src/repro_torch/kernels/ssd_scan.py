@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core.codesign import SSDPlan, plan_ssd
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import launch_record as _rec
 
 MAX_HEAD_DIM = 128
 MAX_STATE = 128
@@ -184,7 +185,7 @@ def _vec(t: torch.Tensor) -> int:
     """1 when the kernels may read the operand's rows as 16-byte vectors:
     contiguous aligned rows whose length is a whole number of vectors."""
     per = 16 // t.element_size()
-    return int(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+    return int(t.stride(3) == 1 and _rec.address(t) % 16 == 0
                and t.shape[3] % per == 0
                and all(s % per == 0 for s in t.stride()[:3]))
 
@@ -225,7 +226,6 @@ def ssd_scan_kernel(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     plan = plan_ssd(L, h, p, n)          # the reference's call
     c = effective_chunk(L, chunk, plan)
     launch = ssd_scan_plan(bsz, h, L, p, n, c, x.dtype)
-    lib = _build.library("ssd_scan")
     a = a_log.float()
     nch = launch.n_chunks
     # one allocation for the four f32 scratch arrays
@@ -242,25 +242,52 @@ def ssd_scan_kernel(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     y = torch.empty((bsz, L, h, p), dtype=x.dtype,
                     device=x.device).movedim(2, 1)
 
-    def strides(t):   # (batch, seq, head, element) of a (B, H, L, E) view
-        return t.stride(0), t.stride(2), t.stride(1), t.stride(3)
-
+    recording = _rec.active()
+    fake = recording and _rec.is_fake(x)
+    ptr = _rec.address if fake else torch.Tensor.data_ptr
+    ops = (x, a, B, C, y, *(scratch[k] for k in
+                            ("cum", "states", "decay", "carried")))
+    dims = (int(p % 2 == 0), bsz, h, L, p, n, c)
+    if fake:
+        _record(_args(ops, dims, ptr, None), launch, c,
+                (x, a_log, B, C, y), True)
+        return y, scratch
+    lib = _build.library("ssd_scan")
     with torch.cuda.device(x.device):
-        err = lib.repro_ssd_scan(
-            DTYPE_CODES[x.dtype], x.data_ptr(), *strides(x), _vec(x),
-            a.data_ptr(), a.stride(0), a.stride(2), a.stride(1),
-            B.data_ptr(), *strides(B), _vec(B), C.data_ptr(), *strides(C),
-            _vec(C), y.data_ptr(), *strides(y), int(p % 2 == 0), bsz, h, L,
-            p, n, c, *(scratch[k].data_ptr() for k in
-                       ("cum", "states", "decay", "carried")),
-            torch.cuda.current_stream().cuda_stream)
+        call = _args(ops, dims, ptr, torch.cuda.current_stream().cuda_stream)
+        err = lib.repro_ssd_scan(*call)
     _build.check(err, "repro_ssd_scan")
     ssd_scan.launches += 1
     ssd_scan.last_launch = {"plan": plan, "chunk": c, "launch": launch,
                             "grids": launch.grids,
                             "smem_bytes": launch.smem_bytes,
                             "scratch_bytes": launch.scratch_bytes}
+    if recording:
+        _record(call, launch, c, (x, a_log, B, C, y), False)
     return y, scratch
+
+
+def _strides(t) -> tuple:
+    """(batch, seq, head, element) strides of a (B, H, L, E) view."""
+    return t.stride(0), t.stride(2), t.stride(1), t.stride(3)
+
+
+def _args(ops, dims, ptr, stream) -> tuple:
+    """The C call's arguments of one :func:`ssd_scan_kernel` launch
+    (``ops``: x, a (f32), B, C, y and the four scratch arrays; ``dims``:
+    the even-P flag, batch, heads, L, P, N and chunk; ``ptr`` reads each
+    operand's address)."""
+    x, a, B, C, y, *scratch = ops
+    return (DTYPE_CODES[x.dtype], ptr(x), *_strides(x), _vec(x),
+            ptr(a), a.stride(0), a.stride(2), a.stride(1),
+            ptr(B), *_strides(B), _vec(B), ptr(C), *_strides(C), _vec(C),
+            ptr(y), *_strides(y), *dims, *(ptr(t) for t in scratch), stream)
+
+
+def _record(call, launch, chunk, operands, fake):
+    _rec.emit(__name__, "ssd_scan", "ssd_scan", "repro_ssd_scan", call,
+              variant=launch.route, tile=(TILE, chunk), grid=launch.grids,
+              smem_bytes=launch.smem_bytes, operands=operands, fake=fake)
 
 
 def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,

@@ -21,7 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.distributed.collectives import (CollectiveRecord,
-                                                 all_gather_cat, emit_record,
+                                                 all_gather_cat,
+                                                 emit_partition, emit_record,
                                                  flat_index)
 from repro_torch.lapack import batched as _batched
 from repro_torch.lapack.batched import FactorizationResult
@@ -46,11 +47,15 @@ def _pad_batch(a: torch.Tensor, ndev: int) -> Tuple[torch.Tensor, int]:
     return torch.cat([a, eye.expand(pad, -1, -1)]), b
 
 
-def _slab(x: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's slab of the batch axis (row-major over the mesh axes)."""
+def _slab(x: torch.Tensor, mesh, operand: str = "a") -> torch.Tensor:
+    """This rank's slab of the batch axis (row-major over the mesh axes);
+    records the partition (``operand`` names it)."""
     idx, n = flat_index(mesh, mesh.mesh_dim_names)
     w = x.shape[0] // n
-    return x[idx * w:(idx + 1) * w]
+    slab = x[idx * w:(idx + 1) * w]
+    emit_partition("batched", operand, x.shape, x.shape,
+                   {0: tuple(mesh.mesh_dim_names)}, slab.shape, mesh)
+    return slab
 
 
 def _gather(x: Optional[torch.Tensor], mesh, b0: int):
@@ -58,7 +63,7 @@ def _gather(x: Optional[torch.Tensor], mesh, b0: int):
     if x is None:
         return None
     for ax in reversed(mesh.mesh_dim_names):
-        x = all_gather_cat(x, mesh, ax, 0)
+        x = all_gather_cat(x, mesh, ax, 0, tag="result")
     return x[:b0]
 
 

@@ -314,11 +314,30 @@ def resolved_device_name(ctx: ExecutionContext) -> torch.device:
     return torch.device("cuda" if ctx.device is UNSET else ctx.device)
 
 
+_fake_card: "contextvars.ContextVar[bool]" = contextvars.ContextVar(
+    "repro_torch_fake_card", default=False)
+
+
+@contextlib.contextmanager
+def fake_card():
+    """The static analyzer's trace scope: inside it a ``cuda`` context
+    needs no card, since its operands are fake CUDA tensors and the kernel
+    wrappers record their launches instead of making them
+    (:mod:`repro_torch.kernels.launch_record`)."""
+    token = _fake_card.set(True)
+    try:
+        yield
+    finally:
+        _fake_card.reset(token)
+
+
 def resolved_device(ctx: ExecutionContext) -> torch.device:
     """ctx.device as a torch.device; ``RuntimeError`` for ``cuda`` when no
-    card is present (the routine does not carry on on the CPU)."""
+    card is present (the routine does not carry on on the CPU), except
+    inside the analyzer's :func:`fake_card` scope."""
     dev = resolved_device_name(ctx)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() \
+            and not _fake_card.get():
         raise RuntimeError(
             "repro_torch.linalg runs on 'cuda' by default and no CUDA device "
             "is available; ask for the CPU explicitly with "

@@ -21,8 +21,10 @@ registry keys is the operands' device type: ``"cuda"`` on the card,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Tuple
+from contextvars import ContextVar
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -42,6 +44,21 @@ from repro_torch.tune.registry import Registry, default_registry
 OPS = ("gemm", "gemv", "trsm", "syrk", "pdgemm", "gemm+epilogue",
        "trsm+gemm")
 FUSED_OPS = ("gemm+epilogue", "trsm+gemm")
+
+# Resolution provenance for the dispatcher-bypass lint (BY001,
+# repro_torch.analysis.bypass_lint): every product whose innermost
+# repro_torch frame lies under one of these prefixes reached ``resolve()`` /
+# ``dispatch()`` by construction - the BLAS/LAPACK drivers and the kernels
+# this module launches are the governed set. A raw mm/bmm/addmm/baddbmm or
+# convolution anywhere else (models/, launch/, B5 and B6) bypassed the
+# dispatcher and must be on the committed burn-down allowlist.
+DISPATCHED_MODULES = (
+    "repro_torch/blas/", "repro_torch/lapack/", "repro_torch/linalg/",
+    "repro_torch/tune/", "repro_torch/core/",
+    "repro_torch/kernels/ops.py", "repro_torch/kernels/ref.py",
+    "repro_torch/kernels/gemm.py", "repro_torch/kernels/fused.py",
+    "repro_torch/kernels/dotp.py",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +96,30 @@ class Resolution:
         return d
 
 
+# scoped Resolution capture for the static analyzer: every plan a call
+# resolves inside the scope is recorded (repro_torch.analysis.kernel_lint
+# checks them against the ambient machine's budget)
+_RECORD: "ContextVar[Optional[List[Resolution]]]" = ContextVar(
+    "repro_torch_dispatch_resolution_record", default=None)
+
+
+@contextlib.contextmanager
+def record_resolutions():
+    """Collect every Resolution produced inside the scope."""
+    rec: List[Resolution] = []
+    token = _RECORD.set(rec)
+    try:
+        yield rec
+    finally:
+        _RECORD.reset(token)
+
+
 def _observed(res: Resolution) -> Resolution:
-    """Counters always; a ``tune.resolve`` provenance event when a trace
-    is capturing."""
+    """The scope's record, counters always; a ``tune.resolve`` provenance
+    event when a trace is capturing."""
+    rec = _RECORD.get()
+    if rec is not None:
+        rec.append(res)
     _counters.inc("dispatch.resolve")
     if res.policy == "tuned":
         _counters.inc("dispatch.registry_hit" if res.source == "registry"
