@@ -175,7 +175,19 @@ each printing JSON lines with its wall time:
    and ``pdgemm`` / ``pdtrsm``) and the BY001 lint, with the committed
    allowlists: no unsuppressed error; its seconds and its counts of
    cases, findings and suppressions.
-13. ``times``: each kernel at its path's shapes against its plain version,
+13. ``dryrun``: ``repro_torch.launch.dryrun`` (host only: fake tensors in
+   a fake world, no launch), three spawned children at once, each held to
+   what the card measured earlier in this run: (a) hymba-1.5b's
+   ``train_4k`` step cut to ``TRAIN``'s tokens on a (1, 1) fake world,
+   its peak within ``DRYRUN_MEM_TOL`` of the train phase's
+   ``max_memory_allocated`` and its flops at or above that phase's bound;
+   (b) the shard phase's cell (``shard_cfg()`` on (data 2, model 2)): rank
+   0's ``collective.bytes`` and ``shard.redistribute_bytes`` a step equal
+   to the live rank 0's, its state bytes to the live ``spec_bytes``, its
+   peak within ``DRYRUN_MEM_TOL`` of the live rank's; (c) hymba-1.5b
+   ``train_4k`` on the ``pod`` mesh (a fake world of 256): its row and
+   its trace seconds.
+14. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
    ``solve_triangular`` + ``addmm``, B1's "gemv" at the TRSM update in
@@ -390,6 +402,12 @@ SHARD_NOTE = ("four ranks share one card over gloo (host loopback, each "
 ANALYSIS_WORKERS = 8
 ANALYSIS_TIMEOUT_S = 600
 ANALYSIS_CALLS = (("gemm", N), ("cholesky", N), ("qr", 4096))
+# the dryrun phase: each child's deadline; a traced peak's distance from
+# the card's max_memory_allocated of the same step
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_MEM_TOL = (0.15, "relative: the trace counts the storages aten "
+                        "ops allocate; the card's allocator rounds blocks "
+                        "and adds library workspaces")
 SHARD_REDUCED = {
     "n_layers": f"32 -> {SHARD_LAYERS}: every step moves each parameter "
                 f"three times over gloo's host loopback (gathered, gathered "
@@ -2355,11 +2373,11 @@ def phase_train():
     flops = 8 * n_params * tokens + train_attention_flops(cfg, TRAIN[0],
                                                           seq)
     bound_s = flops / PEAK_FLOPS[torch.bfloat16]
+    peak = torch.cuda.max_memory_allocated()
     emit(call=f"train step hymba-1.5b {TRAIN[0]}x{seq} (1 untimed + "
               f"{TRAIN_TIMED} timed)", cut=cut, steps=steps,
          step_s=step_s, step_s_all=timed, tokens_per_s=tokens / step_s,
-         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-         peak_bytes=torch.cuda.max_memory_allocated(),
+         peak_gib=peak / 2 ** 30, peak_bytes=peak,
          launches=launches, bound_s=bound_s,
          bound="8 x params x tokens + attention's unmasked pairs (forward, "
                "remat recompute, backward) at 989 TFLOP/s bf16",
@@ -2374,6 +2392,7 @@ def phase_train():
     torch.cuda.empty_cache()
     train_agreement()
     train_restart()
+    return {"peak_bytes": peak, "bound_flops": flops, "seq": seq}
 
 
 def train_small_cfg(arch):
@@ -3991,6 +4010,7 @@ def phase_shard(smi):
          params_reason=SHARD_PARAM_TOL[1], ok=ok)
     assert ok, agree
     emit(phase="shard", wall_s=time.perf_counter() - t0, card=smi)
+    return ranks[0]
 
 
 def analysis_fake_keys(routine, n):
@@ -4193,6 +4213,125 @@ def phase_analysis(smi):
     emit(phase="analysis", wall_s=time.perf_counter() - t0, card=smi)
 
 
+def dryrun_child(out, world, mesh_shape, overrides, global_batch):
+    """One child of the dryrun phase (spawned): a fake world of ``world``
+    ranks, hymba-1.5b's ``train_4k`` cell on ``mesh_shape`` (None: the
+    pod mesh) traced once, its row and counts to ``out``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+
+    torch.set_num_threads(1)
+    dryrun.init_fake_world(world)
+    dev = dryrun.trace_device().type
+    mesh = make_production_mesh(device_type=dev) if mesh_shape is None \
+        else make_debug_mesh(*mesh_shape, device_type=dev)
+    trace, row = dryrun.lower_cell("hymba-1.5b", "train_4k", mesh,
+                                   overrides=overrides,
+                                   global_batch=global_batch)
+    with open(out, "w") as f:
+        json.dump({"row": row.to_dict(), "counters": trace.counters,
+                   "launches": len(trace.launches),
+                   "state_bytes": trace.state_bytes,
+                   "trace_s": trace.trace_s}, f)
+
+
+def dryrun_spawn(top, cells):
+    """Every cell's :func:`dryrun_child` at once; their results by name
+    (raises if one failed or passed ``DRYRUN_TIMEOUT_S``)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = {name: ctx.Process(target=dryrun_child,
+                               args=(os.path.join(top, name + ".json"),
+                                     *args))
+             for name, args in cells.items()}
+    for p in procs.values():
+        p.start()
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    try:
+        for p in procs.values():
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    bad = {n: p.exitcode for n, p in procs.items() if p.exitcode != 0}
+    assert not bad, f"dry-run children failed (exit codes {bad})"
+    out = {}
+    for name in cells:
+        with open(os.path.join(top, name + ".json")) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def phase_dryrun(smi, train, shard):
+    """The dry run held to the card (phase 13): ``train`` is the train
+    phase's reading, ``shard`` the shard phase's rank 0 rows."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import registry
+
+    t0 = time.perf_counter()
+    base, cfg = registry.get_config("hymba-1.5b"), shard_cfg()
+    overrides = {f.name: getattr(cfg, f.name)
+                 for f in dataclasses.fields(cfg)
+                 if getattr(cfg, f.name) != getattr(base, f.name)}
+    assert train["seq"] == TRAIN[1], train
+    top = tempfile.mkdtemp(prefix="dryrun-")
+    try:
+        got = dryrun_spawn(top, {
+            "one": (1, (1, 1), None, TRAIN[0]),
+            "shard": (SHARD_MESH[0] * SHARD_MESH[1], SHARD_MESH, overrides,
+                      TRAIN[0]),
+            "pod": (256, None, None, None)})
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    tol = DRYRUN_MEM_TOL[0]
+    # (a) one device: the train phase's step
+    one = got["one"]["row"]
+    mem = one["bytes_per_device"] / train["peak_bytes"]
+    flops = one["hlo_flops"] / train["bound_flops"]
+    ok_a = abs(mem - 1) <= tol and flops >= 1 and not got["one"]["launches"]
+    emit(phase="dryrun", check=f"(a) hymba-1.5b train_4k cut to "
+         f"{TRAIN[0]}x{TRAIN[1]} on a (1, 1) fake world against the train "
+         f"phase's step", card=smi, bytes_per_device=one["bytes_per_device"],
+         card_peak_bytes=train["peak_bytes"], peak_ratio=mem,
+         hlo_flops=one["hlo_flops"], bound_flops=train["bound_flops"],
+         flops_over_bound=flops, launches=got["one"]["launches"],
+         trace_s=got["one"]["trace_s"], mem_tol=DRYRUN_MEM_TOL, ok=ok_a)
+    # (b) the shard cell: rank 0's counters, state and peak
+    state = next(r for r in shard if r.get("leg") == "state on the mesh")
+    step = next(r for r in shard if "steps" in r)
+    live = {(s["collective_bytes"], s["redistribute_bytes"])
+            for s in step["steps"]}
+    dry = got["shard"]
+    ctr = (dry["counters"].get("collective.bytes", 0),
+           dry["counters"].get("shard.redistribute_bytes", 0))
+    peak = dry["row"]["bytes_per_device"] / step["peak_bytes"]
+    ok_b = live == {ctr} and dry["state_bytes"] == state["spec_bytes"] \
+        and abs(peak - 1) <= tol and not dry["launches"]
+    emit(phase="dryrun", check=f"(b) the shard cell ({SHARD_LAYERS} "
+         f"layers, f32, data x model {SHARD_MESH}, {TRAIN[0]}x{TRAIN[1]}) "
+         f"against the live rank 0", card=smi,
+         collective_bytes=ctr[0], redistribute_bytes=ctr[1],
+         live_per_step=sorted(live), state_bytes=dry["state_bytes"],
+         live_spec_bytes=state["spec_bytes"],
+         bytes_per_device=dry["row"]["bytes_per_device"],
+         live_peak_bytes=step["peak_bytes"], peak_ratio=peak,
+         trace_s=dry["trace_s"], ok=ok_b)
+    # (c) one production cell
+    pod = got["pod"]
+    emit(phase="dryrun", check="(c) hymba-1.5b train_4k on the pod mesh "
+         "(a fake world of 256)", card=smi, row=pod["row"],
+         trace_s=pod["trace_s"], launches=pod["launches"])
+    assert ok_a and ok_b and not pod["launches"], (ok_a, ok_b)
+    emit(phase="dryrun", wall_s=time.perf_counter() - t0, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -4226,7 +4365,7 @@ def main() -> int:
     family_b5 = phase_families(gen)
     emit(phase_done="families", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    phase_train()
+    train = phase_train()
     emit(phase_done="train", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     paper_row, paper_launches = phase_paper()
@@ -4236,11 +4375,14 @@ def main() -> int:
     phase_mesh(smi)
     emit(phase_done="mesh", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    phase_shard(smi)
+    shard = phase_shard(smi)
     emit(phase_done="shard", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     phase_analysis(smi)
     emit(phase_done="analysis", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_dryrun(smi, train, shard)
+    emit(phase_done="dryrun", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
     rows = phase_times(gen, launches) + model_rows(gen, model_launches) \
         + [paper_row] + family_rows(gen, family_b5)

@@ -58,19 +58,22 @@ def cell_supported(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
     return True, ""
 
 
-def input_specs(arch: str, shape_name: str, accum: Optional[int] = None):
+def input_specs(arch: str, shape_name: str, accum: Optional[int] = None,
+                global_batch: Optional[int] = None):
     """(shape, dtype) stand-ins for every model input of a cell.
 
     Returns (kind, specs dict). For 'train', tokens are (accum, B/accum, S)
     when accumulation is on. For 'decode', the specs cover the incoming
     token and the cache index; caches are built by ``init_caches``.
+    ``global_batch`` cuts the shape's batch B (a cell measured on one
+    card at a smaller batch).
     """
     cfg = get_config(arch)
     shape = SHAPE_BY_NAME[shape_name]
     ok, why = cell_supported(cfg, shape)
     if not ok:
         raise ValueError(f"cell ({arch}, {shape_name}) undefined: {why}")
-    b, s = shape.global_batch, shape.seq_len
+    b, s = global_batch or shape.global_batch, shape.seq_len
     i32, bf16 = torch.int32, torch.bfloat16
     nf = frontend_tokens(cfg)
     key = "frames" if cfg.frontend == "audio" else "patches"

@@ -4,12 +4,14 @@ Analytical pipeline-depth model (eqs 1-7), BLAS/LAPACK workload
 characterization, the instruction streams and the configurable-depth PE
 simulator (its scoreboard a card kernel), the synthesis model (Tables 1-2),
 the op-class census over aten graphs, and the codesign planners.
-``roofline`` (with ``Roofline``, ``collective_bytes``, ``from_compiled``)
-reads an XLA-compiled step and waits for ``launch/dryrun`` (ROADMAP.md
-A.11).
+The dry run is ported (``repro_torch.launch.dryrun``): ``aten_cost``
+prices a traced step's aten ops (the counterpart of ``hlo_cost``) and
+``roofline`` turns the counts into the reference's rows (``Roofline``,
+``from_trace`` in place of ``from_compiled``, ``collective_bytes``).
 """
-from repro_torch.core import characterization, codesign, fx_census, isa, pe
-from repro_torch.core import pipeline_model, synthesis
+from repro_torch.core import aten_cost, characterization, codesign
+from repro_torch.core import fx_census, isa, pe, pipeline_model, roofline
+from repro_torch.core import synthesis
 from repro_torch.core.characterization import (WorkloadProfile,
                                                characterize_ddot,
                                                characterize_dgemm,
@@ -21,3 +23,4 @@ from repro_torch.core.codesign import (optimal_accumulators, plan_attention,
                                        plan_gemm, plan_ssd)
 from repro_torch.core.fx_census import census_of
 from repro_torch.core.pipeline_model import PipeParams, p_opt, p_opt_int, tpi
+from repro_torch.core.roofline import Roofline, collective_bytes, from_trace

@@ -30,8 +30,10 @@ schedule; one call's list equals one reference trace's, field for field.
 A second stream, :func:`record_transport`, holds what each rank actually
 did (:class:`TransportRecord`): the (send-to, receive-from) pair and the
 hops of each ``ring_bcast`` loop, every ``all_gather_cat`` (the routines'
-final result gathers tagged ``"result"``) and the operand partition each
-mesh routine takes; the static analyzer's CC and SH rules read it.
+final result gathers tagged ``"result"``), every ``reduce_scatter_chunk``
+and ``all_reduce``, and the operand partition each mesh routine takes;
+the static analyzer's CC and SH rules read it, and the dry run holds its
+aten-level collective bytes to it.
 
 Transport follows the group's backend, never a caught error: NCCL moves
 tensors on the card; gloo moves host memory, so a tensor on the card is
@@ -107,8 +109,9 @@ class TransportRecord:
     the global ranks it sent to and took from, the hops it made and the
     bytes it sent), ``"all_gather"`` (one gather over ``axis``: ``bytes``
     of this rank's shard; ``tag`` ``"result"`` for a routine's final result
-    gather, else ``"body"``), ``"partition"`` (one operand's split over the
-    mesh: ``info`` carries the routine, operand, global and padded shapes,
+    gather, else ``"body"``), ``"reduce_scatter"`` / ``"all_reduce"`` (one
+    over ``axis``: ``bytes`` of the tensor this rank puts in),
+    ``"partition"`` (one operand's split over the mesh: ``info`` carries the routine, operand, global and padded shapes,
     the spec {dim: axes}, the mesh's {axis: size} and the block taken).
     ``group`` is the axis group's global ranks in axis order, ``index``
     this rank's place in it."""
@@ -231,7 +234,9 @@ def reduce_scatter_chunk(t: torch.Tensor, mesh, axis: str,
     """``t`` summed over mesh ``axis``, this rank's chunk of it along
     tensor dim ``dim`` (the axis's ranks take the chunks in axis order;
     one ``reduce_scatter_tensor``)."""
-    group, size, _ = axis_group(mesh, axis)
+    group, size, idx = axis_group(mesh, axis)
+    _transport(group, axis, idx, kind="reduce_scatter",
+               bytes=t.numel() * t.element_size() if size > 1 else 0)
     if size == 1:
         return t
     chunks = torch.stack(t.chunk(size, dim))          # (size, *chunk)
@@ -243,7 +248,9 @@ def reduce_scatter_chunk(t: torch.Tensor, mesh, axis: str,
 
 def all_reduce(t: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
     """``t`` reduced with ``op`` over mesh ``axis`` (a new tensor)."""
-    group, size, _ = axis_group(mesh, axis)
+    group, size, idx = axis_group(mesh, axis)
+    _transport(group, axis, idx, kind="all_reduce",
+               bytes=t.numel() * t.element_size() if size > 1 else 0)
     if size == 1:
         return t
     buf = _wire(group, t)

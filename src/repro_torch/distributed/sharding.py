@@ -718,7 +718,7 @@ def shard_model(model: nn.Module, mesh, specs=None,
 
 
 @contextlib.contextmanager
-def _unsharded(model: nn.Module) -> Iterator[None]:
+def unsharded(model: nn.Module) -> Iterator[None]:
     """Within the scope every DTensor parameter of the model is its full
     tensor (for the methods that bypass the modules' hooks)."""
     swapped = _swap_in(_owners(model), "model parameters")
@@ -973,7 +973,7 @@ def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
     work = pytree.tree_map(lambda t: _gather(t, axis_bytes, keep=DP_AXES)
                            if isinstance(t, DTensor) else t, caches)
     _count(axis_bytes, "decode caches")
-    with _unsharded(model):
+    with unsharded(model):
         logits, work = model.decode_step(token[rows], work, cache_index,
                                          shard_fn=hook)
 

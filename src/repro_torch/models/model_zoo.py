@@ -82,18 +82,22 @@ def forward(model: Model, batch: dict, cfg: ModelConfig,
 
 @torch.no_grad()
 def prefill(model: Model, batch: dict, cfg: ModelConfig,
-            shard_fn=identity_shard):
+            shard_fn=identity_shard, use_kernels: Optional[bool] = None):
     """Returns (logits, aux, caches): the stacked per-layer KV of the
     attention families, None for ssm and hybrid, the encoder's memory for
-    the encoder-decoder (as in the reference)."""
+    the encoder-decoder (as in the reference). ``use_kernels`` as
+    :func:`forward`'s (the reference's ``use_pallas``): ``False`` takes
+    the plain oracles on any device, as the dry run traces it."""
     if cfg.family == "encdec":
-        memory = model.encode(batch["frames"], shard_fn=shard_fn)
+        memory = model.encode(batch["frames"], use_kernels=use_kernels,
+                              shard_fn=shard_fn)
         logits = model.decode_train(batch["tokens"], memory,
+                                    use_kernels=use_kernels,
                                     shard_fn=shard_fn)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device), memory
     return model.prefill(batch["tokens"], batch.get("patches"),
-                         shard_fn=shard_fn)
+                         shard_fn=shard_fn, use_kernels=use_kernels)
 
 
 def init_caches(model: Model, cfg: ModelConfig, batch: int, max_len: int,

@@ -213,12 +213,12 @@ class LM(nn.Module):
 
     def prefill(self, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,
-                shard_fn=identity_shard):
+                shard_fn=identity_shard, use_kernels: Optional[bool] = None):
         """Forward plus the per-layer KV of the attention families (dense,
         moe, vlm: stacked (n_layers, B, S, Hkv, hd)); ssm and hybrid
         models return None. Returns (logits, aux, kv)."""
         return self._run(tokens, prefix_embeds, collect_kv=True,
-                         shard_fn=shard_fn)
+                         use_kernels=use_kernels, shard_fn=shard_fn)
 
     def _run(self, tokens, prefix_embeds, collect_kv: bool,
              use_kernels: Optional[bool] = None, shard_fn=identity_shard):

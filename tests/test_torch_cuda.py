@@ -668,3 +668,37 @@ def test_one_rank_nccl_pdgemm_is_gemm(card, tmp_path, dtype):
         assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-small"])
+def test_prefill_plain_route_launches_no_kernel(card, arch):
+    """``model_zoo.prefill(..., use_kernels=False)`` (the reference's
+    ``use_pallas=False``, the dry run's route) launches no B5 and no B6
+    on a reduced hymba and whisper, and gives the plain route's logits
+    (the CPU's, TF32 off) where the default route launches its kernels."""
+    from repro_torch.models import model_zoo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _reduced_train_cfg(arch)
+    model = model_zoo.init(cfg, device=card)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 256), generator=g,
+                                     device=card)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                      generator=g, device=card)
+    fa.attention.launches = sk.ssd_scan.launches = 0
+    model_zoo.prefill(model, batch, cfg)
+    torch.cuda.synchronize()
+    assert fa.attention.launches > 0
+    assert (sk.ssd_scan.launches > 0) == (cfg.family == "hybrid")
+    fa.attention.launches = sk.ssd_scan.launches = 0
+    plain = model_zoo.prefill(model, batch, cfg, use_kernels=False)[0]
+    torch.cuda.synchronize()
+    assert fa.attention.launches == 0 and sk.ssd_scan.launches == 0
+    cpu = model_zoo.build(cfg, "cpu")
+    cpu.load_state_dict(model.state_dict())
+    want = model_zoo.prefill(cpu, {k: v.cpu() for k, v in batch.items()},
+                             cfg)[0]
+    _close(plain, want, "float32", 10.0)

@@ -1,0 +1,413 @@
+"""repro_torch.launch.dryrun held to repro.launch.dryrun: tiny cells (2
+layers, d_model 128) of hymba-1.5b, minitron-8b and qwen3-moe-235b-a22b
+at train_4k, prefill_32k and decode_32k on the debug meshes (data 4,
+model 1) and (data 2, model 2). Each side runs in its own subprocesses:
+the reference's ``lower_cell`` on XLA host devices (its import asks for
+512), the port's on a fake world of 4 ranks.
+
+Per-chip flops are compared net of three documented differences, each
+asserted on its own:
+
+* **converts**: XLA's fused HLO holds a dtype ``convert`` once in every
+  fusion that reads it, and the reference's ``hlo_cost`` counts each
+  (decode reads the bf16 cache as f32 in several fusions); the port
+  counts one ``_to_copy`` per cast. Both sides' converts are taken out.
+* **the hybrid's conditional**: ``hlo_cost`` prices a ``conditional`` by
+  its first branch, the windowed attention, so the reference counts
+  hymba's global layer (layer 0 here) as windowed in train and prefill;
+  the port's layer knows it is global and runs the blocked oracle over
+  all pairs. At (data 4, model 1) the port is also traced at
+  ``global_layers=()``, and the products' difference is asserted to be
+  the global layer's extra pairs exactly. Those cells are compared net of
+  the whole difference measured there; at (data 2, model 2) net of twice
+  it, since a rank there runs twice the rows.
+* **the moe's global capacity**: on a mesh the port's expert buffers hold
+  the global batch's capacity on every DP rank (``models/moe.py``: the
+  dispatch sees the global batch), so each rank multiplies all E x C
+  slots where the reference's partitioner splits them: the port does
+  (1 - 1/DP) x its expert products more. The port's expert products are
+  asserted to be E x C_global x d x d_expert x 2 x products x passes
+  exactly, on both meshes.
+
+At model 2 TP splits storage, not compute (ROADMAP.md A.7c), so the port
+does 1.6-2.1x the reference's flops a chip; hymba's 25 heads do not
+divide the model axis, so there the reference splits little and the
+ratio is 2 x ref(data 4) / ref(data 2, model 2) instead.
+
+The reference compiles at LLVM optimization level 0 on 8 host devices:
+``hlo_cost`` reads the optimized HLO, which XLA's HLO passes make before
+the LLVM backend runs (the rows are the same at the default level), and
+the compile then takes about half the CPU time.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ARCHS = ("hymba-1.5b", "minitron-8b", "qwen3-moe-235b-a22b")
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+MESHES = ((4, 1), (2, 2))
+OVERRIDES = {"n_layers": 2, "d_model": 128}
+WINDOWED = {"global_layers": ()}
+PRODUCTS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+KINDS = {"all_gather": "all-gather", "reduce_scatter": "reduce-scatter",
+         "all_reduce": "all-reduce"}
+
+_REFERENCE = textwrap.dedent("""
+    import json, os, re, sys
+    from repro.launch import dryrun
+    # after the import, which asks for 512 devices; before jax starts
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                               "--xla_backend_optimization_level=0")
+    from repro.launch.mesh import make_debug_mesh
+    from repro.core import hlo_cost as hc
+
+    def converts(text):
+        comps = hc.parse_module(text)
+        def walk(name, scale, depth=0):
+            total = 0.0
+            for rec in comps.get(name, {}).values():
+                k = rec.kind
+                if depth > 32:
+                    break
+                if k == "while":
+                    cond = comps.get(hc._attr(rec.line, "condition"), {})
+                    total += walk(hc._attr(rec.line, "body"),
+                                  scale * hc._trip_count(cond), depth + 1)
+                elif k == "conditional":
+                    br = re.findall(r"%([\\w.\\-]+)",
+                                    rec.line.split("branch", 1)[-1]) \\
+                        if "branch" in rec.line else []
+                    if br:
+                        total += walk(br[0], scale, depth + 1)
+                elif k in ("call", "async-start", "fusion"):
+                    callee = hc._attr(rec.line, "to_apply") or \\
+                        hc._attr(rec.line, "calls")
+                    if callee:
+                        total += walk(callee, scale, depth + 1)
+                elif k == "convert":
+                    n = 1
+                    for d in rec.dims:
+                        n *= d
+                    total += scale * n
+            return total
+        return walk("ENTRY", 1.0)
+
+    arch = sys.argv[1]
+    out = {}
+    for data, model in ((4, 1), (2, 2)):
+        mesh = make_debug_mesh(data, model)
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            c, row = dryrun.lower_cell(arch, shape, mesh,
+                                       overrides=json.loads(sys.argv[2]))
+            out[f"{data}x{model}/{shape}"] = {
+                "kind": row.extra["kind"], "n_params": row.extra["n_params"],
+                "n_active": row.extra["n_active"],
+                "model_flops": row.model_flops, "flops": row.hlo_flops,
+                "convert": converts(c.as_text())}
+    print(json.dumps(out))
+""")
+
+_PORT = textwrap.dedent("""
+    import dataclasses, json, sys
+    from repro_torch.configs import registry
+    from repro_torch.core import aten_cost
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    data, model, jobs = int(sys.argv[1]), int(sys.argv[2]), json.loads(
+        sys.argv[3])
+    dryrun.init_fake_world(4)
+    mesh = make_debug_mesh(data, model, device_type="cpu")
+
+    # the moe's expert products: the bmm over (E, ., .) operands that hold
+    # both d and d_expert (forward, recompute and both gradients)
+    expert, dims = [0.0], [None]
+    op_cost = aten_cost.op_cost
+    def counting(func, args, kwargs, out):
+        c = op_cost(func, args, kwargs, out)
+        if dims[0] and aten_cost.base_name(func) == "bmm":
+            x, y = (aten_cost._local(t) for t in args[:2])
+            e, need = dims[0]
+            if x.shape[0] == y.shape[0] == e and need <= {
+                    *x.shape[1:], *y.shape[1:]}:
+                expert[0] += c.flops
+        return c
+    aten_cost.op_cost = counting
+
+    out = {}
+    for label, arch, overrides, shapes in jobs:
+        cfg = dataclasses.replace(registry.get_config(arch), **overrides)
+        dims[0] = cfg.n_experts and (cfg.n_experts, {
+            cfg.d_model, cfg.d_expert or cfg.d_ff})
+        for shape in shapes:
+            expert[0] = 0.0
+            trace, row = dryrun.lower_cell(arch, shape, mesh,
+                                           overrides=overrides)
+            records = {}
+            for t in trace.transport:
+                records[t.kind] = records.get(t.kind, 0) + t.bytes
+            out.setdefault(label, {})[f"{data}x{model}/{shape}"] = {
+                "kind": row.extra["kind"], "n_params": row.extra["n_params"],
+                "n_active": row.extra["n_active"],
+                "model_flops": row.model_flops, "flops": row.hlo_flops,
+                "convert": sum(v[1] for k, v in trace.ops.items()
+                               if k.startswith("aten::_to_copy")),
+                "products": sum(v[1] for k, v in trace.ops.items()
+                                if k in %r),
+                "expert": expert[0],
+                "coll": row.coll_breakdown, "records": records,
+                "bytes_per_device": row.bytes_per_device,
+                "state_bytes": trace.state_bytes,
+                "spec_bytes": row.extra.get("spec_bytes"),
+                "launches": len(trace.launches)}
+    print(json.dumps(out))
+""" % (PRODUCTS,))
+
+
+def _start(code, *argv):
+    return subprocess.Popen([sys.executable, "-c", code, *map(str, argv)],
+                            env=dict(os.environ, PYTHONPATH="src",
+                                     JAX_PLATFORMS="cpu"),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _read(proc, what):
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, f"{what}: {err[-3000:]}"
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def sides():
+    """{"ref": {arch: {cell: ...}}, "port": {...}, "windowed": {...}}: a
+    reference subprocess an arch and a port one an (arch, mesh), started
+    at once; hymba's at (data 4, model 1) also traces it windowed."""
+    procs = {("ref", a): _start(_REFERENCE, a, json.dumps(OVERRIDES))
+             for a in ARCHS}
+    for a in ARCHS:
+        for d, m in MESHES:
+            jobs = [("port", a, OVERRIDES, SHAPES)]
+            if a == "hymba-1.5b" and m == 1:
+                jobs.append(("windowed", a, {**OVERRIDES, **WINDOWED},
+                             ("train_4k", "prefill_32k")))
+            procs[("port", a, d, m)] = _start(_PORT, d, m, json.dumps(jobs))
+    out = {"ref": {}, "port": {}, "windowed": {}}
+    for key, p in procs.items():
+        got = _read(p, str(key))
+        if key[0] == "ref":
+            out["ref"][key[1]] = got
+            continue
+        for label, cells in got.items():
+            out[label].setdefault(key[1], {}).update(cells)
+    return out
+
+
+def _cfg(arch):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config(arch), **OVERRIDES)
+
+
+def _expert_products(arch, shape):
+    """The flops of every expert product of a step at the global batch's
+    capacity: E x C x d x d_expert x 2 a product, 3 products with a glu
+    (2 without), each run forward, recomputed and twice in the backward
+    when training, a layer and a microbatch."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    cfg = _cfg(arch)
+    spec = registry.SHAPE_BY_NAME[shape]
+    kind = spec.kind
+    accum = max(cfg.accum_steps, 1) if kind == "train" else 1
+    tokens = spec.global_batch * (spec.seq_len if kind != "decode" else 1)
+    cap = moe.capacity(tokens // accum, cfg)
+    per = 2 * cfg.n_experts * cap * cfg.d_model * (cfg.d_expert or cfg.d_ff)
+    passes = 4 if kind == "train" else 1     # forward, remat, backward x 2
+    mats = 3 if cfg.glu else 2
+    return per * mats * cfg.n_layers * passes * accum
+
+
+def _moe_excess(arch, shape, data):
+    """The port's expert products beyond the reference's a DP rank: (1 -
+    1/DP) x every expert product at the global capacity (module doc)."""
+    if _cfg(arch).family != "moe":
+        return 0.0
+    return (1 - 1 / data) * _expert_products(arch, shape)
+
+
+def _global_extra(arch, shape, data):
+    """The global layers' products beyond the windowed ones on a rank: the
+    blocked oracle's S x S pairs against the banded one's S x 2w."""
+    from repro_torch.configs import registry
+    cfg = _cfg(arch)
+    spec = registry.SHAPE_BY_NAME[shape]
+    rows = spec.global_batch // data
+    s, w = spec.seq_len, cfg.window
+    n_global = sum(1 for i in cfg.global_layers if i < cfg.n_layers)
+    passes = 4 if spec.kind == "train" else 1
+    return 4 * rows * cfg.n_heads * cfg.hd * s * (s - 2 * w) * n_global \
+        * passes
+
+
+def _net(sides, arch, shape, data):
+    """The port's flops on a (data, 4 / data) mesh less its converts, the
+    moe's excess and, for hymba's train and prefill, the global layer's
+    extra flops: the module docstring's three differences."""
+    cell = sides["port"][arch][f"{data}x{4 // data}/{shape}"]
+    net = cell["flops"] - cell["convert"] - _moe_excess(arch, shape, data)
+    if arch == "hymba-1.5b" and shape != "decode_32k":
+        full, windowed = (sides[s][arch][f"4x1/{shape}"]
+                          for s in ("port", "windowed"))
+        net -= (full["flops"] - windowed["flops"]) * 4 / data
+    return net
+
+
+CELLS = [(a, s) for a in ARCHS for s in SHAPES]
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_exact_fields(sides, arch, shape, mesh):
+    key = f"{mesh[0]}x{mesh[1]}/{shape}"
+    mine, theirs = sides["port"][arch][key], sides["ref"][arch][key]
+    for k in ("kind", "n_params", "n_active", "model_flops"):
+        assert mine[k] == theirs[k], (k, mine[k], theirs[k])
+    assert mine["launches"] == 0
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_flops_at_model_1(sides, arch, shape):
+    theirs = sides["ref"][arch][f"4x1/{shape}"]
+    ratio = _net(sides, arch, shape, 4) / (theirs["flops"] - theirs["convert"])
+    assert 0.9 <= ratio <= 1.1, ratio
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_flops_at_model_2(sides, arch, shape):
+    theirs = sides["ref"][arch][f"2x2/{shape}"]
+    ratio = _net(sides, arch, shape, 2) / (theirs["flops"] - theirs["convert"])
+    if arch == "hymba-1.5b" and shape != "decode_32k":
+        one = sides["ref"][arch][f"4x1/{shape}"]
+        want = 2 * (one["flops"] - one["convert"]) / (
+            theirs["flops"] - theirs["convert"])
+        assert want < 1.6 and ratio == pytest.approx(want, rel=0.1), \
+            (ratio, want)
+    else:
+        assert 1.6 <= ratio <= 2.1, ratio
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_hybrid_conditional_difference(sides, shape):
+    """The size of the conditional's difference: the port's products at
+    hymba's own global layers less those at none are the global layer's
+    S x (S - 2w) extra pairs, exactly."""
+    key = f"4x1/{shape}"
+    full = sides["port"]["hymba-1.5b"][key]
+    windowed = sides["windowed"]["hymba-1.5b"][key]
+    want = _global_extra("hymba-1.5b", shape, 4)
+    assert full["products"] - windowed["products"] == \
+        pytest.approx(want, rel=1e-9)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("shape", SHAPES)
+def test_moe_global_capacity_difference(sides, shape, mesh):
+    """The size of the moe's difference: on every DP rank the port's
+    expert products are all E x C_global slots' (the reference's rank does
+    1/DP of them), exactly."""
+    arch = "qwen3-moe-235b-a22b"
+    cell = sides["port"][arch][f"{mesh[0]}x{mesh[1]}/{shape}"]
+    want = _expert_products(arch, shape)
+    assert cell["expert"] == pytest.approx(want, rel=1e-9), \
+        (cell["expert"], want)
+    assert 0 < cell["expert"] < cell["products"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_convert_difference_in_decode(sides, arch):
+    """The size of the converts' difference where it matters, decode: the
+    reference's fused converts of the cache are several times the port's
+    one cast per read."""
+    mine, theirs = (sides[s][arch]["4x1/decode_32k"] for s in ("port", "ref"))
+    assert theirs["convert"] > 2 * mine["convert"] > 0
+    assert theirs["convert"] > 0.2 * theirs["flops"]
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_collectives_are_the_ports_own(sides, arch, shape, mesh):
+    """coll_breakdown (aten c10d operand bytes) equals what collectives'
+    transport records say the step moved, kind by kind."""
+    cell = sides["port"][arch][f"{mesh[0]}x{mesh[1]}/{shape}"]
+    want = {k: 0 for k in cell["coll"]}
+    for kind, b in cell["records"].items():
+        want[KINDS[kind]] += b
+    assert cell["coll"] == want
+    assert sum(want.values()) > 0
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_memory_covers_the_state(sides, arch, shape, mesh):
+    cell = sides["port"][arch][f"{mesh[0]}x{mesh[1]}/{shape}"]
+    if shape == "train_4k":
+        assert cell["state_bytes"] == cell["spec_bytes"]
+    assert cell["bytes_per_device"] >= cell["state_bytes"] > 0
+
+
+def test_all_skips_match_reference(tmp_path, capsys):
+    """``main --all`` prints the reference's SKIP lines (every cell's row
+    already cached, so nothing is traced)."""
+    from repro.configs import registry as ref_registry
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+
+    cells, _ = registry.all_cells()
+    for a, s in cells:
+        (tmp_path / f"{a}__{s}__pod.json").write_text("{}")
+    dryrun.main(["--all", "--mesh", "pod", "--out", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
+    _, skipped = ref_registry.all_cells()
+    assert [ln for ln in lines if ln.startswith("SKIP")] == \
+        [f"SKIP {a} x {s}: {why}" for a, s, why in skipped]
+    assert len([ln for ln in lines if ln.startswith("CACHED")]) == len(cells)
+
+
+def test_model_axis_residual_writes_failed(tmp_path):
+    """``--model-axis-residual`` on the pod mesh: the port refuses (its
+    blocks run on the whole d), and the traceback goes to ``.FAILED``."""
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "mamba2-130m", "--shape", "decode_32k", "--mesh", "pod",
+         "--model-axis-residual", "--out", str(tmp_path)],
+        env=dict(os.environ, PYTHONPATH="src"), capture_output=True,
+        text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    tag = "mamba2-130m__decode_32k__pod"
+    assert f"FAILED {tag}" in r.stdout
+    text = (tmp_path / f"{tag}.FAILED").read_text()
+    assert "model_axis_residual" in text and "ZeRO-3" in text
+    assert not (tmp_path / f"{tag}.json").exists()
+
+
+def test_no_fake_world_raises():
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="fake world"):
+        dryrun.lower_cell("hymba-1.5b", "train_4k", {"data": 4, "model": 1})
+
+
+def test_abstract_inputs_need_the_fake_mode():
+    """Outside a FakeTensorMode the abstract state would allocate: it
+    raises instead."""
+    from repro_torch.launch import dryrun
+    cfg = _cfg("minitron-8b")
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        dryrun.abstract_state(cfg, dryrun._opt_cfg(cfg))
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        dryrun.abstract_caches(cfg, 2, 16)

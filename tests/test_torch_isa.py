@@ -116,11 +116,12 @@ def _package_names(pkg):
 
 
 def test_core_package_exports_reference_names():
-    """repro_torch.core exports repro.core's names but the roofline ones
-    (they read an XLA-compiled step), with fx_census for jaxpr_census."""
+    """repro_torch.core exports repro.core's names, with fx_census for
+    jaxpr_census, from_trace for from_compiled (no XLA-compiled step) and
+    aten_cost, the traced step's pricing, beside them."""
     import repro.core as jcore
     import repro_torch.core as tcore
-    waiting = {"roofline", "Roofline", "collective_bytes", "from_compiled"}
-    want = _package_names(jcore) - waiting - {"jaxpr_census"} | {"fx_census"}
+    want = _package_names(jcore) - {"jaxpr_census", "from_compiled"} \
+        | {"fx_census", "from_trace", "aten_cost"}
     assert _package_names(tcore) == want
     assert all(hasattr(tcore, name) for name in want)
