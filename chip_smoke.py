@@ -147,11 +147,13 @@ each printing JSON lines with its wall time:
    type: the route's staged collectives, the state placed at
    ``state_specs`` (each rank's bytes equal to the specs'), 1 +
    ``SHARD_TIMED`` sharded steps on ``TRAIN``'s tokens (each rank its
-   rows; 0 kernel launches), held after ``TRAIN_AGREE_STEPS`` to the
-   one-device run within ``TRAIN_TOL`` (metrics) and ``SHARD_PARAM_TOL``
-   (every parameter block; the one-device run's last update, what a
-   dropped one would leave, printed beside it), seconds a step, peak memory and the step's
-   ``collective.bytes`` / ``shard.redistribute_bytes``; the (2, 2)
+   rows, the products tensor-parallel over "model"; 0 kernel launches),
+   held after ``TRAIN_AGREE_STEPS`` to the one-device run within
+   ``TRAIN_TOL`` (metrics) and ``SHARD_PARAM_TOL`` (every parameter
+   block; the one-device run's last update, what a dropped one would
+   leave, printed beside it), seconds a step, peak memory and the step's
+   ``collective.bytes`` / ``shard.redistribute_bytes`` and the TP
+   all-reduces' share (``shard.tp_all_reduce_bytes``); the (2, 2)
    checkpoint restored onto (4, 1) and onto one device, bitwise, at the
    new specs; ``train_loop`` on the debug mesh failed at step 7 and
    restarted (within 1e-4 of the uninterrupted run); four pipeline stages
@@ -182,11 +184,12 @@ each printing JSON lines with its wall time:
    its peak within ``DRYRUN_MEM_TOL`` of the train phase's
    ``max_memory_allocated`` and its flops at or above that phase's bound;
    (b) the shard phase's cell (``shard_cfg()`` on (data 2, model 2)): rank
-   0's ``collective.bytes`` and ``shard.redistribute_bytes`` a step equal
+   0's ``collective.bytes``, ``shard.redistribute_bytes`` and
+   ``shard.tp_all_reduce_bytes`` a step equal
    to the live rank 0's, its state bytes to the live ``spec_bytes``, its
    peak within ``DRYRUN_MEM_TOL`` of the live rank's; (c) hymba-1.5b
    ``train_4k`` on the ``pod`` mesh (a fake world of 256): its row and
-   its trace seconds.
+   its trace seconds, beside the ZeRO-3 route's row (``DRYRUN_POD_ZERO3``).
 14. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
@@ -393,8 +396,8 @@ SHARD_PARAM_TOL = (2e-5, "absolute at lr 1.8e-4 (the third warmup step): "
                          "printed beside it")
 SHARD_TIMEOUT_S = 900
 SHARD_NOTE = ("four ranks share one card over gloo (host loopback, each "
-              "buffer staged through pinned host memory), and every rank of "
-              "a model group runs the same rows: not a scaling number")
+              "buffer staged through pinned host memory, the TP all-reduces "
+              "included): a route check, not a scaling number")
 # the analysis phase: processes for the fake-traced no-mesh legs of the
 # surface grid (and the two large fake traces; its mesh legs take as many
 # gloo ranks as the largest mesh), and the calls whose real and fake
@@ -408,12 +411,19 @@ DRYRUN_TIMEOUT_S = 300
 DRYRUN_MEM_TOL = (0.15, "relative: the trace counts the storages aten "
                         "ops allocate; the card's allocator rounds blocks "
                         "and adds library workspaces")
+# hymba-1.5b train_4k on the pod mesh before TP compute (every block
+# gathered whole over model): PR 24's row (PERF.md section 6)
+DRYRUN_POD_ZERO3 = {"useful_flop_ratio": 0.04324, "gib_per_device": 86.3,
+                    "hlo_flops": 9.33e14, "compute_s": 13.92,
+                    "memory_s": 2.85, "collective_s": 0.006388}
 SHARD_REDUCED = {
     "n_layers": f"32 -> {SHARD_LAYERS}: every step moves each parameter "
-                f"three times over gloo's host loopback (gathered, gathered "
-                f"again by remat, gradients reduce-scattered); the (2, 2) "
-                f"SUMMA call moved 728 of its 765 ms there (PERF.md), so 32 "
-                f"layers would take tens of seconds a step",
+                f"three times over gloo's host loopback (gathered over data, "
+                f"gathered again by remat, gradients reduce-scattered) and "
+                f"each layer's activations through TP's all-reduces and "
+                f"gathers over model; the (2, 2) SUMMA call moved 728 of its "
+                f"765 ms there (PERF.md), so 32 layers would take tens of "
+                f"seconds a step",
     "ranks": "4 ranks on 1 card (gloo: NCCL refuses two ranks on one card)",
     "compute_dtype": "bfloat16 -> float32 in the train, restart and decode "
                      "legs: held to one device at TRAIN_TOL (the pipeline "
@@ -3713,7 +3723,9 @@ def shard_train(rows, mesh, rank, directory):
                       **{k: m[k].item() for k in ("loss", "grad_norm", "lr")},
                       "collective_bytes": ctr.get("collective.bytes", 0),
                       "redistribute_bytes": ctr.get(
-                          "shard.redistribute_bytes", 0)})
+                          "shard.redistribute_bytes", 0),
+                      "tp_all_reduce_bytes": ctr.get(
+                          "shard.tp_all_reduce_bytes", 0)})
         if i == TRAIN_AGREE_STEPS - 1:
             one = torch.load(os.path.join(directory, "..", "one_device.pt"),
                              mmap=True)
@@ -3976,9 +3988,15 @@ def phase_shard(smi):
             one["last_update_max_abs"]["median_over_leaves"] / 5, one
         world = SHARD_MESH[0] * SHARD_MESH[1]
         emit(phase="shard", card=smi, probe=shard_probe(world, top),
-             route="zero3: each block's parameters all-gathered before it "
-                   "runs (again in remat's recompute), gradients "
-                   "reduce-scattered over data, on collectives.py's "
+             route="tp x zero3: the products tensor-parallel over model "
+                   "(Megatron column-parallel wq wk wv w_in w_gate in_proj, "
+                   "row-parallel wo w_out out_proj with an all-reduce over "
+                   "model forward and one for each column-parallel input's "
+                   "gradient; hymba's 25 heads do not divide model, so q, "
+                   "k, v and in_proj's output are gathered over model, "
+                   "counted), each block's leaves all-gathered over data "
+                   "only before it runs (again in remat's recompute), "
+                   "gradients reduce-scattered over data, on collectives.py's "
                    "transport (gloo, staged through pinned host memory)")
         ranks = run_ranks(world, "gloo", os.path.join(top, "gloo4"),
                           target=shard_rank, timeout_s=SHARD_TIMEOUT_S)
@@ -4306,11 +4324,12 @@ def phase_dryrun(smi, train, shard):
     # (b) the shard cell: rank 0's counters, state and peak
     state = next(r for r in shard if r.get("leg") == "state on the mesh")
     step = next(r for r in shard if "steps" in r)
-    live = {(s["collective_bytes"], s["redistribute_bytes"])
-            for s in step["steps"]}
+    live = {(s["collective_bytes"], s["redistribute_bytes"],
+             s["tp_all_reduce_bytes"]) for s in step["steps"]}
     dry = got["shard"]
     ctr = (dry["counters"].get("collective.bytes", 0),
-           dry["counters"].get("shard.redistribute_bytes", 0))
+           dry["counters"].get("shard.redistribute_bytes", 0),
+           dry["counters"].get("shard.tp_all_reduce_bytes", 0))
     peak = dry["row"]["bytes_per_device"] / step["peak_bytes"]
     ok_b = live == {ctr} and dry["state_bytes"] == state["spec_bytes"] \
         and abs(peak - 1) <= tol and not dry["launches"]
@@ -4318,16 +4337,24 @@ def phase_dryrun(smi, train, shard):
          f"layers, f32, data x model {SHARD_MESH}, {TRAIN[0]}x{TRAIN[1]}) "
          f"against the live rank 0", card=smi,
          collective_bytes=ctr[0], redistribute_bytes=ctr[1],
-         live_per_step=sorted(live), state_bytes=dry["state_bytes"],
+         tp_all_reduce_bytes=ctr[2], live_per_step=sorted(live),
+         state_bytes=dry["state_bytes"],
          live_spec_bytes=state["spec_bytes"],
          bytes_per_device=dry["row"]["bytes_per_device"],
          live_peak_bytes=step["peak_bytes"], peak_ratio=peak,
          trace_s=dry["trace_s"], ok=ok_b)
-    # (c) one production cell
+    # (c) one production cell, beside the ZeRO-3 route's reading
     pod = got["pod"]
+    row = pod["row"]
     emit(phase="dryrun", check="(c) hymba-1.5b train_4k on the pod mesh "
-         "(a fake world of 256)", card=smi, row=pod["row"],
-         trace_s=pod["trace_s"], launches=pod["launches"])
+         "(a fake world of 256)", card=smi, row=row,
+         trace_s=pod["trace_s"], launches=pod["launches"],
+         beside_zero3=DRYRUN_POD_ZERO3, now={
+             "useful_flop_ratio": row["useful_flop_ratio"],
+             "gib_per_device": row["bytes_per_device"] / 2 ** 30,
+             "hlo_flops": row["hlo_flops"], "compute_s": row["compute_s"],
+             "memory_s": row["memory_s"],
+             "collective_s": row["collective_s"]})
     assert ok_a and ok_b and not pod["launches"], (ok_a, ok_b)
     emit(phase="dryrun", wall_s=time.perf_counter() - t0, card=smi)
 

@@ -37,59 +37,95 @@ from the same seed and keeps its own block (:func:`distribute`, by
 ``DTensor.from_local``, no communication), so each rank's local ``numel``
 is the global one over the sizes of the axes the spec names.
 
-**Compute** (the ZeRO-3 route): the DTensors hold the state; the model
-runs on plain tensors. Each rank runs the forward and backward on its own
-rows of the batch (batch over the DP axes). A block's parameters are
-gathered to full tensors when the block starts (a forward pre-hook, as
-FSDP's unshard; again in the backward when remat recomputes it), and a
-parameter's gradient is sliced over the other axes (no bytes: their
-ranks ran the same rows) and reduce-scattered over the DP axes (summed,
-then divided by their size: the mean over the global batch), back to the
+**Compute** (TP over "model" inside the blocks, ZeRO-3 over the DP
+axes): the DTensors hold the state; the model runs on plain tensors. Each
+rank runs the forward and backward on its own rows of the batch (batch
+over the DP axes); every rank of a "model" group runs the same rows, and
+the residual stream between the layers is whole on each of them. A
+block's parameters are swapped in when the block starts (a forward
+pre-hook, as FSDP's unshard; again in the backward when remat recomputes
+it), as are the parameters outside the blocks for the whole forward (a
+hook on the root module): each is all-gathered over the DP axes, and over
+"model" too unless it stays this rank's block there. A leaf stays split
+over "model" where its spec splits it and the module that owns it lists
+it in its ``TP_LEAVES``; the module then finds its :class:`TPSplit`
+(which dim is split, the axis's size and this rank's index, and the
+axis's ops) and runs its products tensor-parallel, as Megatron-LM does
+(``models/layers.py``, ``attention.py``, ``mamba2.py``): a
+column-parallel product (``wq wk wv w_in w_gate in_proj``, the head,
+``frontend_proj``) takes its input through :class:`_TPCopy` (the
+identity forward, its gradient all-reduced over "model" backward) and
+gives this rank's columns; a row-parallel one (``wo w_out out_proj``)
+multiplies this rank's slice of the features and :class:`_TPReduce`
+all-reduces the partial result over "model" (the identity backward); the
+vocab-split ``table`` looks up this rank's ids and all-reduces, and the
+loss over the vocab-split logits reduces its maximum, sum of exponentials
+and the target's logit over "model" (``train/losses.py``). A leaf that
+its spec leaves whole over "model" (the norms, the biases, hymba's
+32001-wide head, the moe FFN's leaves, which no module lists) is gathered
+whole and its product runs whole. A parameter's gradient is cut to this
+rank's block over the non-DP axes where the leaf was gathered over them
+(the same on each of their ranks, so no bytes move) or is that block
+already (a TP leaf), then reduce-scattered over the DP axes (summed, then
+divided by their size: the mean over the global batch), back to the
 parameter's placements. The transport is
 :mod:`repro_torch.distributed.collectives`' (through pinned host memory
-for gloo on the card). Every rank of a "model" group runs the same rows:
-the TP placements shard storage, not compute (TP compute waits for
-ROADMAP.md A.7c).
+for gloo on the card).
 
 **Where the layout is not kept sharded**, each counted under the counter
 ``shard.redistribute_bytes`` (the bytes that reach this rank over the
 non-DP axes) with an obs event ``shard.redistribute`` naming the op:
 
-1. every block's parameters, gathered over ``"model"`` before the block
-   runs (``<path> parameters``; the TP split of ``wq``, ``w_in``, ...
-   and the experts' E split are not carried into the products: this is
-   where TP compute is lost, hymba-1.5b's 25-head cut inside ``wq``
-   included);
-2. the parameters outside the blocks (``embed``, norms, ``head``,
-   ``frontend_proj``), gathered over ``"model"`` for the whole forward by
-   the root module's hook (``model parameters``);
-3. decode: each cache leaf gathered over ``"model"`` (sequence and SSM
-   heads) before the step and cut back after (``decode caches``);
+1. the leaves gathered whole over "model" by the hooks (``<path>
+   parameters``, ``model parameters``): the moe FFN's (its experts' E
+   split and ``router``: ROADMAP.md A.7d);
+2. where a consumer needs whole features, a column-parallel output
+   gathered over "model" (:class:`_TPGather`): q, k and v where the q
+   heads do not divide the axis (hymba's 25; ``attention wq output``
+   ...), then ``attention wo input`` cut back for the row-parallel
+   ``wo`` (:class:`_TPScatter`, whose backward gathers); mamba's
+   ``in_proj`` output for the conv, the scan and the gated norm, and
+   ``out_proj``'s input; ``frontend_proj``'s output; the kv heads' columns
+   where the q heads divide and the kv heads do not (``attention wk
+   columns``: each rank's gradient summed back by a reduce-scatter);
+   prefill's and decode's k and v for their caches, which hold every head;
+3. decode: each cache leaf gathered over "model" (sequence and SSM
+   heads) before the step and cut back after (``decode caches``), and the
+   logits gathered over the vocabulary (``decode logits``);
 4. an 8-bit moment's update, which gathers its parameter, gradient and
    codes (``8-bit moment <path>``).
 
 The DP-axis gathers and reduce-scatters are ZeRO's own traffic, counted
-under ``collective.bytes``, as are the moe FFN's sums over the DP ranks. No error is caught to fall back anywhere.
+under ``collective.bytes``, as are the moe FFN's sums over the DP ranks
+and TP's own all-reduces over "model" (row-parallel outputs,
+column-parallel inputs' gradients, the vocab-parallel reductions, a whole
+leaf's gradient where each rank picks its own entries of it), which
+``shard.tp_all_reduce_bytes`` also counts on their own. Where a dim
+does not divide its axis the spec leaves it whole and the module runs
+the product whole: no error is caught to fall back anywhere.
 
 :func:`make_shard_fn` is the models' ``shard_fn(x, name)`` hook (a
 :class:`ShardFn`). The port's activations are each rank's rows already
 (the batch reaches the model as this rank's shard), so the
 ``"residual"`` constraint holds by construction and the hook returns
-``x``; ``model_axis_residual`` (d over ``"model"``) would split what every
-rank's blocks compute whole, and raises where it would apply. The hook
-also answers the moe FFN, whose flat dispatch must see the global batch
-as the reference's does: ``row_shares`` (the DP size where the rows are
-split over it, else 1) scales the token count that sets the capacity,
-``"dp_sum"`` sums the router's statistics over the DP ranks (its backward
-sums the gradients back), and ``"dp_cumsum"`` gives each expert's count
-up to and including this rank's rows, so an assignment keeps the slot
-its global position gives it. The identity hook of one device is all
-three with one share.
+``x``; ``model_axis_residual`` (d over ``"model"``) would split the
+residual stream that every rank of a model group holds whole between the
+blocks, and raises where it would apply. The hook also tells the model
+axis's size and this rank's index on it (``model_size``,
+``model_index``), and answers the moe FFN, whose flat dispatch must see
+the global batch as the reference's does: ``row_shares`` (the DP size
+where the rows are split over it, else 1) scales the token count that
+sets the capacity, ``"dp_sum"`` sums the router's statistics over the DP
+ranks (its backward sums the gradients back), and ``"dp_cumsum"`` gives
+each expert's count up to and including this rank's rows, so an
+assignment keeps the slot its global position gives it. The identity
+hook of one device is all three with one share.
 
 The model's own entry points stay mesh-agnostic: :func:`shard_model`
 hooks the blocks and the root module, so ``model_zoo.forward`` runs a
-sharded model as it runs a plain one; decode on a mesh is
-:func:`decode_step` here, ``model_zoo.decode_step``'s counterpart.
+sharded model as it runs a plain one; prefill and decode on a mesh are
+:func:`prefill` and :func:`decode_step` here, ``model_zoo``'s
+counterparts.
 """
 from __future__ import annotations
 
@@ -110,6 +146,7 @@ from repro_torch.obs import counters as _counters
 from repro_torch._state import _Moment, named_parameters
 
 DP_AXES = ("pod", "data")
+TP_AXIS = "model"
 STACKS = ("blocks", "enc_blocks", "dec_blocks")
 
 
@@ -318,15 +355,28 @@ class ShardFn:
     def rows(self, split: bool) -> "ShardFn":
         return ShardFn(self.mesh, self.model_axis_residual, split)
 
+    @property
+    def model_size(self) -> int:
+        """The size of the mesh's "model" axis (1 without one)."""
+        return mesh_axes(self.mesh).get(TP_AXIS, 1)
+
+    @property
+    def model_index(self) -> int:
+        """This rank's index on the "model" axis (0 without one)."""
+        if self.model_size == 1:
+            return 0
+        return _model_axis(self.mesh)[1]
+
     def __call__(self, x, name):
         if name == "residual":
             if (self.model_axis_residual and x.ndim >= 2
                     and _fits(x.shape[-1], self.mesh, "model")):
                 raise ValueError(
-                    "model_axis_residual: the port runs each block on the "
-                    "whole d on every rank of a model group (the ZeRO-3 "
-                    "route of repro_torch.distributed.sharding), so the "
-                    "residual cannot stay split over 'model' between blocks")
+                    "model_axis_residual: the port keeps the residual stream "
+                    "whole on every rank of a model group (TP inside the "
+                    "blocks, ZeRO-3 over the DP axes: repro_torch."
+                    "distributed.sharding), so it cannot stay split over "
+                    "'model' between blocks")
             return x
         if self.row_shares == 1:
             return x
@@ -531,23 +581,27 @@ def full_tensor(t, what: Optional[str] = None) -> torch.Tensor:
     return out
 
 
-def shard_grad(g: torch.Tensor, mesh, placements, shape) -> DTensor:
-    """A full gradient from this rank's rows -> the mean over the DP
-    axes, at ``placements``: first sliced over the other axes (their
-    ranks ran the same rows, so no bytes move), where those shard a
-    tensor dim of their own, then reduce-scattered (or, where the
-    parameter is replicated over a DP axis, all-reduced) over the DP axes
-    and divided by their size."""
+def shard_grad(g: torch.Tensor, mesh, placements, shape,
+               local=()) -> DTensor:
+    """A gradient from this rank's rows -> the mean over the DP axes, at
+    ``placements``: first cut to this rank's block over the other axes
+    (the gradient of a leaf gathered whole over them is the same on each
+    of their ranks, so no bytes move), where those shard a tensor dim of
+    their own, but the axes in ``local`` (a TP leaf's gradient is this
+    rank's block already); then reduce-scattered (or, where the parameter
+    is replicated over a DP axis, all-reduced) over the DP axes and
+    divided by their size."""
     names = mesh.mesh_dim_names
     coord = _coordinate(mesh)
     dp_dims = {pl.dim for m, pl in enumerate(placements)
                if isinstance(pl, Shard) and names[m] in DP_AXES}
     first = [m for m, pl in enumerate(placements) if names[m] not in DP_AXES
-             and isinstance(pl, Shard) and pl.dim not in dp_dims]
+             and names[m] not in local and isinstance(pl, Shard)
+             and pl.dim not in dp_dims]
     out, ndp = g, 1
     for m in first + [m for m in range(len(placements)) if m not in first]:
         pl, axis, size = placements[m], names[m], int(mesh.shape[m])
-        if size == 1:
+        if size == 1 or axis in local:
             continue
         if axis in DP_AXES:
             ndp *= size
@@ -568,18 +622,192 @@ def shard_grad(g: torch.Tensor, mesh, placements, shape) -> DTensor:
 
 
 class _Gather(torch.autograd.Function):
-    """Full value of a DTensor parameter for the forward; its gradient
-    back to the parameter's placements (:func:`shard_grad`)."""
+    """The value of a DTensor parameter for the forward, gathered over
+    every mesh axis but those in ``keep`` (whose blocks stay local); its
+    gradient back to the parameter's placements (:func:`shard_grad`, the
+    ``keep`` axes' gradient already this rank's block)."""
 
     @staticmethod
-    def forward(ctx, p, axis_bytes):
+    def forward(ctx, p, axis_bytes, keep=()):
         ctx.mesh, ctx.placements, ctx.shape = (p.device_mesh, p.placements,
                                                p.shape)
-        return _gather(p, axis_bytes)
+        ctx.keep = keep
+        return _gather(p, axis_bytes, keep)
 
     @staticmethod
     def backward(ctx, g):
-        return shard_grad(g, ctx.mesh, ctx.placements, ctx.shape), None
+        return shard_grad(g, ctx.mesh, ctx.placements, ctx.shape,
+                          local=ctx.keep), None, None
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over "model": the ops a module runs on its kept blocks
+# ---------------------------------------------------------------------------
+
+def _model_axis(mesh) -> Tuple[int, int]:
+    """(size, this rank's index) of the mesh's "model" axis."""
+    _, size, idx = coll.axis_group(mesh, TP_AXIS)
+    return size, idx
+
+
+def _tp_all_reduce(x: torch.Tensor, mesh, op=dist.ReduceOp.SUM):
+    """``x`` reduced over "model", counted under ``collective.bytes`` as
+    :func:`shard_grad` counts an all-reduce, and again under
+    ``shard.tp_all_reduce_bytes`` (TP's share of them)."""
+    n, _ = _model_axis(mesh)
+    moved = 2 * (n - 1) * x.numel() * x.element_size() // n
+    _counters.inc("collective.bytes", moved)
+    _counters.inc("shard.tp_all_reduce_bytes", moved)
+    return coll.all_reduce(x.contiguous(), mesh, TP_AXIS, op)
+
+
+def _tp_all_gather(x: torch.Tensor, mesh, dim: int, what: str):
+    """The blocks of ``x`` over "model" concatenated along ``dim``, counted
+    as a redistribution named ``what``."""
+    n, _ = _model_axis(mesh)
+    _count({TP_AXIS: (n - 1) * x.numel() * x.element_size()}, what)
+    return coll.all_gather_cat(x.contiguous(), mesh, TP_AXIS, dim)
+
+
+class _TPCopy(torch.autograd.Function):
+    """A column-parallel product's input: the identity forward; the
+    gradient (each rank's from its columns) summed over "model"."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_all_reduce(g, ctx.mesh), None
+
+
+class _TPReduce(torch.autograd.Function):
+    """A row-parallel product's partial output summed over "model"; the
+    gradient (the same on every rank) passed through."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _tp_all_reduce(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPGather(torch.autograd.Function):
+    """This rank's block of ``x`` along ``dim`` and the other ranks' of the
+    "model" axis, concatenated. The gradient: this rank's block of it
+    where the consumer runs the same on every rank, or (``partial``: each
+    rank's consumer reads part of it) summed over "model" first, a
+    reduce-scatter. Both directions counted under ``what``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, what, partial):
+        ctx.mesh, ctx.dim, ctx.what, ctx.partial = mesh, dim, what, partial
+        return _tp_all_gather(x, mesh, dim, what)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, idx = _model_axis(ctx.mesh)
+        if not ctx.partial:
+            return g.chunk(n, ctx.dim)[idx], None, None, None, None
+        _count({TP_AXIS: (n - 1) * g.numel() * g.element_size() // n},
+               ctx.what)
+        out = coll.reduce_scatter_chunk(g.contiguous(), ctx.mesh, TP_AXIS,
+                                        ctx.dim)
+        return out, None, None, None, None
+
+
+class _TPScatter(torch.autograd.Function):
+    """This rank's block along ``dim`` of an activation every rank of the
+    "model" axis holds whole (a row-parallel product's input); the
+    gradient's blocks gathered back, counted under ``what``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, what):
+        ctx.mesh, ctx.dim, ctx.what = mesh, dim, what
+        n, idx = _model_axis(mesh)
+        return x.chunk(n, dim)[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_all_gather(g, ctx.mesh, ctx.dim, ctx.what), None, None, \
+            None
+
+
+class _TPPick(torch.autograd.Function):
+    """Entries [start, stop) along ``dim`` of a leaf every rank of the
+    "model" axis holds whole, where each rank reads its own entries; the
+    gradient, zero outside them, summed over "model"."""
+
+    @staticmethod
+    def forward(ctx, w, mesh, dim, start, stop):
+        ctx.mesh, ctx.dim, ctx.start, ctx.shape = mesh, dim, start, w.shape
+        return w.narrow(dim, start, stop - start)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(ctx.shape)
+        full.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
+        return _tp_all_reduce(full, ctx.mesh), None, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TPSplit:
+    """A parameter kept as this rank's block over "model" (its dim
+    ``dim`` split in ``size`` blocks, this rank's the ``index``-th) for
+    the products of the module that owns it, and the "model" axis's ops
+    the module runs around them (module docstring, "Compute"). The
+    models read it with ``layers.tp_split(module, name)``."""
+
+    mesh: object
+    dim: int
+    size: int
+    index: int
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """This rank's [start, stop) of ``n`` entries split in ``size``
+        blocks."""
+        return self.index * n // self.size, (self.index + 1) * n // self.size
+
+    def copy(self, x):
+        """A column-parallel product's input (gradient summed)."""
+        return _TPCopy.apply(x, self.mesh)
+
+    def reduce(self, x):
+        """Partial results summed over "model" (gradient passed through)."""
+        return _TPReduce.apply(x, self.mesh)
+
+    def max(self, x):
+        """The maximum over "model" (not recorded by autograd)."""
+        with torch.no_grad():
+            return _tp_all_reduce(x, self.mesh, dist.ReduceOp.MAX)
+
+    def gather(self, x, what: str, dim: int = -1, partial: bool = False):
+        """Every rank's block of ``x`` along ``dim``, concatenated
+        (:class:`_TPGather`, counted under ``what``)."""
+        return _TPGather.apply(x, self.mesh, dim % x.ndim, what, partial)
+
+    def scatter(self, x, what: str, dim: int = -1):
+        """This rank's block of a whole activation (:class:`_TPScatter`)."""
+        return _TPScatter.apply(x, self.mesh, dim % x.ndim, what)
+
+    def pick(self, w, dim: int, start: int, stop: int):
+        """Entries [start, stop) of a whole leaf (:class:`_TPPick`)."""
+        return _TPPick.apply(w, self.mesh, dim, start, stop)
+
+
+def _tp_dim(p: DTensor) -> Optional[int]:
+    """The tensor dim a DTensor shards over a "model" axis of more than
+    one rank, or None."""
+    names = p.device_mesh.mesh_dim_names
+    for m, pl in enumerate(p.placements):
+        if isinstance(pl, Shard) and names[m] == TP_AXIS \
+                and int(p.device_mesh.shape[m]) > 1:
+            return pl.dim
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -603,17 +831,28 @@ def _block_modules(model: nn.Module):
 
 def _swap_in(params, what: str) -> list:
     """Replace each DTensor parameter of ``params`` ((owner, name) pairs)
-    by its full value (recorded for autograd while grad mode is on);
-    returns what to put back. Counted as one ``what``."""
+    by its value for the forward (recorded for autograd while grad mode
+    is on); returns what to put back. Counted as one ``what``. A leaf
+    split over "model" whose owner lists it in its ``TP_LEAVES`` stays
+    this rank's block (gathered over the DP axes only), and the owner's
+    ``_tp_leaves`` maps its name to a :class:`TPSplit`; every other leaf
+    is gathered whole."""
     swapped, axis_bytes = [], {}
     for owner, name in params:
         p = owner._parameters[name]
         if isinstance(p, DTensor):
+            dim = _tp_dim(p) if name in getattr(owner, "TP_LEAVES",
+                                                ()) else None
+            keep = () if dim is None else (TP_AXIS,)
             if torch.is_grad_enabled() and p.requires_grad:
-                full = _Gather.apply(p, axis_bytes)
+                full = _Gather.apply(p, axis_bytes, keep)
             else:
-                full = _gather(p, axis_bytes)
+                full = _gather(p, axis_bytes, keep)
             owner._parameters[name] = full
+            if dim is not None:
+                size, idx = _model_axis(p.device_mesh)
+                owner.__dict__.setdefault("_tp_leaves", {})[name] = TPSplit(
+                    p.device_mesh, dim, size, idx)
             swapped.append((owner, name, p))
     _count(axis_bytes, what)
     return swapped
@@ -622,12 +861,13 @@ def _swap_in(params, what: str) -> list:
 def _swap_out(swapped) -> None:
     for owner, name, p in swapped:
         owner._parameters[name] = p
+        owner.__dict__.get("_tp_leaves", {}).pop(name, None)
 
 
 def _hook_block(path: str, blk: nn.Module) -> None:
     """FSDP's unshard around a block's forward: its parameters gathered
-    when it starts (again when remat recomputes it), put back when it
-    returns."""
+    (the TP leaves over the DP axes only) when it starts, again when
+    remat recomputes it, put back when it returns."""
     if getattr(blk, "_repro_shard_hooks", False):
         return
     params = _owners(blk)
@@ -718,10 +958,11 @@ def shard_model(model: nn.Module, mesh, specs=None,
 
 
 @contextlib.contextmanager
-def unsharded(model: nn.Module) -> Iterator[None]:
-    """Within the scope every DTensor parameter of the model is its full
-    tensor (for the methods that bypass the modules' hooks)."""
-    swapped = _swap_in(_owners(model), "model parameters")
+def _swapped(params, what: str) -> Iterator[None]:
+    """Within the scope ``params`` ((owner, name) pairs) hold their values
+    for the forward, as the hooks swap them in, for the methods that
+    bypass the modules' hooks (:func:`prefill`, :func:`decode_step`)."""
+    swapped = _swap_in(params, what)
     try:
         yield
     finally:
@@ -950,17 +1191,48 @@ def _nondp_cut(full: torch.Tensor, t: DTensor) -> torch.Tensor:
     return out
 
 
+def gather_logits(logits: torch.Tensor,
+                  what: str = "logits") -> torch.Tensor:
+    """Logits whole over the vocabulary: a vocab-parallel head's (this
+    rank's columns, marked by ``layers.vocab_split``) gathered over
+    "model", counted under ``what``; any other as they are."""
+    from repro_torch.models.layers import vocab_split
+    split = vocab_split(logits)
+    return logits if split is None else split.gather(logits, what)
+
+
+def prefill(model: nn.Module, batch: dict, cfg, shard_fn=None,
+            use_kernels=None):
+    """``model_zoo.prefill`` on a mesh: ``batch``'s leaves as DTensors at
+    :func:`batch_specs` (each rank runs its rows) or whole on every rank;
+    the model at :func:`shard_model`'s placements, its blocks swapped in
+    by their hooks and the rest for the call, the products TP. Returns
+    this rank's rows: the logits its vocabulary block where the head is
+    split (:func:`gather_logits` makes them whole), the aux loss and the
+    caches with every kv head (gathered over "model")."""
+    from repro_torch.models import model_zoo
+    mesh = model_mesh(model)
+    hook = rows_hook(make_shard_fn(mesh) if shard_fn is None else shard_fn,
+                     rows_split(batch["tokens"], mesh))
+    rows = {k: local(v) for k, v in batch.items()}
+    with _swapped(_outside_blocks(model), "model parameters"):
+        return model_zoo.prefill(model, rows, cfg, shard_fn=hook,
+                                 use_kernels=use_kernels)
+
+
 def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
                 cache_index: int, shard_fn=None):
     """``model_zoo.decode_step`` on a mesh (the same arguments): every rank
     passes the whole token batch (B, 1), the model at :func:`shard_model`'s
     placements and the caches at :func:`place_caches`' (or plain caches,
     whole on every rank). The rank decodes its DP rows: the parameters
-    gathered (``model parameters``), each cache leaf gathered over its
-    non-DP axes (``decode caches``), the step run, the caches' blocks
-    written back in place; the logits' rows are gathered, so every rank
-    returns all (B, 1, V) of them. ``shard_fn``: the models' hook (default
-    :func:`make_shard_fn`)."""
+    swapped in (``model parameters``: the TP leaves this rank's blocks,
+    the products TP), each cache leaf gathered over its non-DP axes
+    (``decode caches``; the new token's k and v are gathered over "model"
+    before they are written), the step run, the caches' blocks written
+    back in place; the logits are gathered over the vocabulary and the
+    rows, so every rank returns all (B, 1, V) of them. ``shard_fn``: the
+    models' hook (default :func:`make_shard_fn`)."""
     mesh = model_mesh(model) or tree_mesh(caches)
     token = full_tensor(token)
     n = token.shape[0]
@@ -973,9 +1245,10 @@ def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
     work = pytree.tree_map(lambda t: _gather(t, axis_bytes, keep=DP_AXES)
                            if isinstance(t, DTensor) else t, caches)
     _count(axis_bytes, "decode caches")
-    with unsharded(model):
+    with _swapped(_owners(model), "model parameters"):
         logits, work = model.decode_step(token[rows], work, cache_index,
                                          shard_fn=hook)
+        logits = gather_logits(logits, "decode logits")
 
     def put_back(old, new):
         if isinstance(old, Mapping):

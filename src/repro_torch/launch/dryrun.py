@@ -25,12 +25,10 @@ this module:
    :class:`repro_torch.core.aten_cost.CostMode` (flops, bytes, collective
    bytes and the peak of live memory, at the aten level): train is
    ``make_train_step`` with ``make_shard_fn(mesh, model_axis_residual=)``;
-   prefill is ``model_zoo.prefill(..., use_kernels=False)`` (the
-   reference's ``use_pallas=False``) on this rank's rows of the batch,
-   with the parameters gathered whole for the call
-   (``sharding.unsharded``, as ``sharding.decode_step`` gathers them: the
-   port has no sharded prefill of its own); decode is
-   ``sharding.decode_step``;
+   prefill is ``sharding.prefill(..., use_kernels=False)`` (the
+   reference's ``use_pallas=False``) on this rank's rows of the batch;
+   decode is ``sharding.decode_step``; each runs its products
+   tensor-parallel over "model" (``sharding``'s docstring);
 4. **prices the counts** as a :class:`repro_torch.core.roofline.Roofline`
    row (:func:`repro_torch.core.roofline.from_trace`, on the ``"h100"``
    machine).
@@ -47,10 +45,13 @@ a generator, its storage never initialized.
 
 A row's ``coll_breakdown`` holds the c10d collectives' operand bytes as
 the reference counts them; its ``extra`` holds the port's own counters
-(``collective.bytes``, ``shard.redistribute_bytes``: the bytes that reach
-the rank), the rank's state and input bytes and the trace's seconds.
-TP splits storage, not compute, until ROADMAP.md A.7c: each rank of a
-model group runs whole blocks on its rows.
+(``collective.bytes``, ``shard.redistribute_bytes``,
+``shard.tp_all_reduce_bytes``: the bytes that reach the rank), the rank's
+state and input bytes and the trace's seconds. The
+TP collectives (row-parallel all-reduces, column-parallel input
+gradients, the vocab-parallel loss's reductions, the gathers where a
+consumer needs whole features) are c10d ops on the fake group like
+ZeRO's, priced under the reference's kinds.
 
 Usage::
 
@@ -203,15 +204,12 @@ def _step(kind, cfg, shape, specs, mesh, shard_fn, accum, fsdp,
         full = _fake_inputs(specs, dev)
         placed = _placed(full, sh.batch_specs(full, mesh), mesh)
         del full
-        hook = sh.rows_hook(shard_fn, sh.rows_split(placed["tokens"], mesh))
-        rows = {k: sh.local(v) for k, v in placed.items()}
 
         def run():
-            with sh.unsharded(model):
-                return zoo.prefill(model, rows, cfg, shard_fn=hook,
-                                   use_kernels=False)
+            return sh.prefill(model, placed, cfg, shard_fn=shard_fn,
+                              use_kernels=False)
         state_b = sh.local_bytes(model)
-        return run, state_b, state_b + sh.local_bytes(rows), {}
+        return run, state_b, state_b + sh.local_bytes(placed), {}
     caches = sh.place_caches(abstract_caches(cfg, shape.global_batch,
                                              shape.seq_len, model, dev),
                              mesh, seq_shard=seq_shard_cache)
@@ -303,6 +301,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, accum=None,
              "collective.bytes": float(moved.get("collective.bytes", 0)),
              "shard.redistribute_bytes": float(
                  moved.get("shard.redistribute_bytes", 0)),
+             "shard.tp_all_reduce_bytes": float(
+                 moved.get("shard.tp_all_reduce_bytes", 0)),
              **{f"product_flops.{dt}": f for dt, f in cost.products.items()},
              **cell_extra, **(extra_tags or {})}
     row = rl.from_trace(arch, shape_name, mesh_name(mesh), chips,

@@ -8,6 +8,20 @@ the caller passes ``use_kernels=False`` (the trainer does). The
 decode path writes one token into the cache and attends with a kv-length
 mask in plain PyTorch, as the reference does (``masked_decode_attention``
 reaches no kernel there either).
+
+On a mesh (``layers.tp_split``) the layer runs tensor-parallel. Where the
+q heads divide the "model" axis, each rank runs its block of q heads:
+``wq`` column-parallel, ``wo`` row-parallel, and the kv heads those q
+heads read, from ``wk`` / ``wv``'s own block where the kv heads divide
+too, else from their columns gathered over "model" (each rank's gradient
+of them summed back: a reduce-scatter) or picked from a whole leaf; the
+attention core (B5 on the card, the plain oracles elsewhere) takes the
+local heads unchanged. Where the heads do not divide (hymba's 25), q, k
+and v are computed on each rank's columns and gathered over "model", the
+core runs whole, and ``wo`` runs row-parallel on the rank's slice of its
+input. The gathers are counted as redistributions. Decode writes the new
+token's k and v with every kv head (gathered) into its cache, which holds
+every head on a mesh too (``sharding.decode_step``).
 """
 from __future__ import annotations
 
@@ -18,7 +32,8 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import linear, param, rope, truncated_normal_
+from repro_torch.models.layers import (linear, param, rope, row_linear,
+                                       tp_split, truncated_normal_)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -45,6 +60,8 @@ def masked_decode_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 class Attention(nn.Module):
+    TP_LEAVES = ("wq", "wk", "wv", "wo")
+
     def __init__(self, cfg: ModelConfig, d_in: Optional[int] = None,
                  device=None):
         super().__init__()
@@ -71,31 +88,134 @@ class Attention(nn.Module):
             if b is not None:
                 nn.init.zeros_(b)
 
-    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor,
-                    use_rope: bool = True):
-        """q (B, S, Hq, hd), k and v (B, S, Hkv, hd), RoPE applied."""
+    # ---- tensor parallelism (module docstring) ----
+
+    def _tp(self):
+        """(the "model" axis's record, or None on one device; this rank's
+        (q heads, kv heads) [start, stop) pairs where it runs its own q
+        heads, or None where the core runs whole)."""
+        tp = next((r for r in (tp_split(self, n) for n in self.TP_LEAVES)
+                   if r is not None), None)
+        hq, g = self.cfg.n_heads, self.cfg.n_heads // self.cfg.n_kv
+        if tp is None or hq % tp.size or tp_split(self, "wq") is None \
+                or tp_split(self, "wo") is None:
+            return tp, None
+        qa, qb = tp.span(hq)
+        return tp, ((qa, qb), (qa // g, (qb - 1) // g + 1))
+
+    def _cols(self, x, xc, tp, name: str, bias, span=None):
+        """Columns ``span`` (head indices; None: every head) of x @ w (+
+        bias), w = ``getattr(self, name)``: from w's block, from its
+        columns gathered over "model" or from a whole leaf's entries where
+        ``span`` is this rank's heads; every column, gathered over
+        "model" where w is split. ``xc`` is ``tp.copy(x)``."""
+        w, hd = getattr(self, name), self.cfg.hd
+        rec = None if tp is None else tp_split(self, name)
+        if span is None:
+            if rec is None:
+                return linear(x, w, bias)
+            y = tp.gather(linear(xc, w), f"attention {name} output")
+            return y if bias is None else y + bias.to(y.dtype)
+        lo, hi = span[0] * hd, span[1] * hd
+        if rec is None:
+            w = tp.pick(w, 1, lo, hi)
+        elif (lo, hi) != (rec.index * w.shape[1],
+                          (rec.index + 1) * w.shape[1]):
+            w = tp.gather(w, f"attention {name} columns", dim=1,
+                          partial=True).narrow(1, lo, hi - lo)
+        if bias is not None:
+            bias = tp.pick(bias, 0, lo, hi)
+        return linear(xc, w, bias)
+
+    def _out(self, o, tp, local: bool):
+        """o @ wo: row-parallel on this rank's heads (``local``) or on its
+        slice of the whole o, else whole."""
+        if tp is None or tp_split(self, "wo") is None:
+            return linear(o, self.wo)
+        if not local:
+            o = tp.scatter(o, "attention wo input")
+        return row_linear(o, self.wo, tp)
+
+    def _qkv(self, x, positions, use_rope: bool = True, kv_src=None):
+        """q, k, v for this rank's core (module docstring), the axis's
+        record and whether the core runs on this rank's own heads;
+        ``kv_src``: where k and v come from (cross-attention's memory,
+        without biases then; default ``x``)."""
+        tp, heads = self._tp()
+        xc = x if tp is None else tp.copy(x)
+        q = self._q(x, xc, tp, heads, positions, use_rope, kv_src is None)
+        if kv_src is None:
+            k, v = self._kv(x, xc, tp, heads, positions, use_rope)
+        else:
+            sc = kv_src if tp is None else tp.copy(kv_src)
+            k, v = self._kv(kv_src, sc, tp, heads, None, False, bias=False)
+        if heads is not None:
+            k, v = self._grouped(k, heads), self._grouped(v, heads)
+        return q, k, v, tp, heads is not None
+
+    def _q(self, x, xc, tp, heads, positions, use_rope: bool = True,
+           bias: bool = True):
+        """q (B, S, heads, hd): this rank's q heads, or every head."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        q = linear(x, self.wq, self.bq).reshape(b, s, cfg.n_heads, cfg.hd)
-        k = linear(x, self.wk, self.bk).reshape(b, s, cfg.n_kv, cfg.hd)
-        v = linear(x, self.wv, self.bv).reshape(b, s, cfg.n_kv, cfg.hd)
+        q = self._cols(x, xc, tp, "wq", self.bq if bias else None,
+                       None if heads is None else heads[0])
+        q = q.reshape(x.shape[0], x.shape[1], -1, cfg.hd)
         if use_rope and cfg.pos == "rope":
             q = rope(q, positions, cfg.rope_theta)
+        return q
+
+    def _kv(self, src, sc, tp, heads, positions, use_rope: bool = True,
+            bias: bool = True):
+        """k and v (B, S, heads, hd) of ``src``: the kv heads this rank's q
+        heads read, or every kv head (``heads`` None). ``sc`` is
+        ``tp.copy(src)``."""
+        cfg = self.cfg
+        span = None if heads is None else heads[1]
+        b, s = src.shape[:2]
+        k = self._cols(src, sc, tp, "wk", self.bk if bias else None, span)
+        v = self._cols(src, sc, tp, "wv", self.bv if bias else None, span)
+        k, v = k.reshape(b, s, -1, cfg.hd), v.reshape(b, s, -1, cfg.hd)
+        if use_rope and cfg.pos == "rope":
             k = rope(k, positions, cfg.rope_theta)
-        return q, k, v
+        return k, v
+
+    def _grouped(self, k, heads):
+        """k (B, S, kv heads of this rank, hd) for the local q heads'
+        grouped reads: q head i reads kv head i // (Hq_local / Hkv_local)
+        where this rank's q heads map onto its kv heads that way; else
+        one kv head per q head."""
+        (qa, qb), (ka, kb) = heads
+        g = self.cfg.n_heads // self.cfg.n_kv
+        want = [(qa + i) // g - ka for i in range(qb - qa)]
+        nq, nk = qb - qa, kb - ka
+        if nq % nk == 0 and want == [i // (nq // nk) for i in range(nq)]:
+            return k
+        return k[:, :, want]
+
+    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor,
+                    use_rope: bool = True):
+        """q (B, S, Hq, hd), k and v (B, S, Hkv, hd), RoPE applied; on a
+        mesh, the heads this rank's core runs (module docstring)."""
+        return self._qkv(x, positions, use_rope)[:3]
+
+    def cache_kv(self, x: torch.Tensor, positions: torch.Tensor):
+        """k and v (B, S, Hkv, hd) with every kv head, RoPE applied (what
+        a cache holds; gathered over "model" on a mesh)."""
+        tp, _ = self._tp()
+        return self._kv(x, x if tp is None else tp.copy(x), tp, None,
+                        positions)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 window: Optional[int] = None, causal: bool = True,
                 use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Full-sequence (training / prefill) attention. x: (B, S, d)."""
-        q, k, v = self.project_qkv(x, positions)
+        q, k, v, tp, local = self._qkv(x, positions)
         # (B, Hq, S, hd) views: the kernel reads them through their strides
         o = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
                           causal=causal, window=window,
                           use_kernels=use_kernels)
         b, s = x.shape[:2]
-        o = o.movedim(1, 2).reshape(b, s, self.cfg.n_heads * self.cfg.hd)
-        return linear(o, self.wo)
+        return self._out(o.movedim(1, 2).reshape(b, s, -1), tp, local)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                write_idx: int, position: int, kv_len: int
@@ -106,19 +226,35 @@ class Attention(nn.Module):
         Smax), ``position`` the absolute token position (RoPE), ``kv_len``
         the number of valid slots. The cache is updated in place and
         returned. Keys are stored rotated at their absolute positions, so
-        ring-buffer slot order does not matter.
+        ring-buffer slot order does not matter. On a mesh the token's k
+        and v are written with every kv head, and this rank's q heads read
+        theirs from the cache.
         """
         b = x.shape[0]
         positions = torch.full((b, 1), position, dtype=torch.int32,
                                device=x.device)
-        q, k, v = self.project_qkv(x, positions)
+        tp, heads = self._tp()
+        xc = x if tp is None else tp.copy(x)
+        q = self._q(x, xc, tp, heads, positions)
+        k, v = self._kv(x, xc, tp, None, positions)
         cache["k"][:, write_idx:write_idx + 1] = k.to(cache["k"].dtype)
         cache["v"][:, write_idx:write_idx + 1] = v.to(cache["v"].dtype)
-        kh = cache["k"].movedim(2, 1).to(x.dtype)     # (B, Hkv, Smax, hd)
-        vh = cache["v"].movedim(2, 1).to(x.dtype)
-        o = masked_decode_attention(q.movedim(2, 1), kh, vh, kv_len)
-        o = o.movedim(1, 2).reshape(b, 1, self.cfg.n_heads * self.cfg.hd)
-        return linear(o, self.wo), cache
+        o = self._attend_cache(q, cache["k"], cache["v"], heads, kv_len,
+                               x.dtype)
+        return self._out(o, tp, heads is not None), cache
+
+    def _attend_cache(self, q, ck, cv, heads, kv_len: int, dtype):
+        """q (B, 1, Hq_local, hd) against a cache (B, Smax, Hkv, hd) with
+        every kv head: this rank's kv heads read where it runs its own q
+        heads. Returns (B, 1, Hq_local * hd)."""
+        if heads is not None:
+            (ka, kb) = heads[1]
+            ck = self._grouped(ck[:, :, ka:kb], heads)
+            cv = self._grouped(cv[:, :, ka:kb], heads)
+        o = masked_decode_attention(q.movedim(2, 1),
+                                    ck.movedim(2, 1).to(dtype),
+                                    cv.movedim(2, 1).to(dtype), kv_len)
+        return o.movedim(1, 2).reshape(q.shape[0], 1, -1)
 
     def cross(self, x: torch.Tensor, memory: torch.Tensor,
               use_kernels: Optional[bool] = None) -> torch.Tensor:
@@ -126,14 +262,20 @@ class Attention(nn.Module):
         x (B, S, d), keys and values from the encoder memory (B, Sm, d), no
         RoPE and no biases, every query attending to every memory row (on
         the card: B5 with Sq != Sk, causal off)."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        sm = memory.shape[1]
-        hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv
-        q = linear(x, self.wq).reshape(b, s, hq, hd)
-        k = (memory @ self.wk.to(x.dtype)).reshape(b, sm, hkv, hd)
-        v = (memory @ self.wv.to(x.dtype)).reshape(b, sm, hkv, hd)
+        q, k, v, tp, local = self._qkv(x, None, use_rope=False,
+                                       kv_src=memory)
         o = ops.attention(q.movedim(2, 1), k.movedim(2, 1), v.movedim(2, 1),
                           causal=False, use_kernels=use_kernels)
-        o = o.movedim(1, 2).reshape(b, s, hq * hd)
-        return linear(o, self.wo)
+        b, s = x.shape[:2]
+        return self._out(o.movedim(1, 2).reshape(b, s, -1), tp, local)
+
+    def cross_decode(self, x: torch.Tensor, ck: torch.Tensor,
+                     cv: torch.Tensor) -> torch.Tensor:
+        """One decoder token x (B, 1, d) against the cross K / V (B, Sm,
+        Hkv, hd) projected from the memory once: no RoPE, no biases, every
+        memory row valid."""
+        tp, heads = self._tp()
+        xc = x if tp is None else tp.copy(x)
+        q = self._q(x, xc, tp, heads, None, use_rope=False, bias=False)
+        o = self._attend_cache(q, ck, cv, heads, ck.shape[1], x.dtype)
+        return self._out(o, tp, heads is not None)

@@ -12,6 +12,12 @@ self-attention KV ring and the cross K/V computed once from the memory.
 Decode's cross step is ``masked_decode_attention`` over the whole memory,
 plain PyTorch as in the reference. Decode updates the self-attention
 caches in place and returns them.
+
+On a mesh the three attentions and the FFNs run tensor-parallel as the
+decoder-only families' do (:mod:`repro_torch.models.attention`,
+:mod:`repro_torch.models.layers`); the embedding is vocab-parallel and
+the head column-parallel where their specs split V (whisper's 51865
+does not divide).
 """
 from __future__ import annotations
 
@@ -23,9 +29,10 @@ from torch import nn
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (FFN, Embedding, RMSNorm, param,
-                                       sinusoidal_positions,
+                                       sinusoidal_positions, tp_split,
                                        truncated_normal_)
-from repro_torch.models.transformer import identity_shard, maybe_remat
+from repro_torch.models.transformer import (identity_shard, logits_of,
+                                            maybe_remat)
 
 
 class EncBlock(nn.Module):
@@ -66,6 +73,8 @@ class DecBlock(nn.Module):
 
 
 class EncDec(nn.Module):
+    TP_LEAVES = ("head",)
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -127,7 +136,8 @@ class EncDec(nn.Module):
         return self._logits(x)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dec_norm(x) @ self.head.to(x.dtype)
+        return logits_of(self.dec_norm(x), self.head,
+                         tp_split(self, "head"))
 
     def forward(self, frames: torch.Tensor, tokens: torch.Tensor,
                 use_kernels: Optional[bool] = None, shard_fn=identity_shard):
@@ -165,8 +175,6 @@ class EncDec(nn.Module):
         (logits (B, 1, V), caches updated in place)."""
         cfg, dtype = self.cfg, self.dtype
         cache_index = int(cache_index)
-        b = token.shape[0]
-        hq, hd = cfg.n_heads, cfg.hd
         smax = caches["self"]["k"].shape[2]
         # the reference's dynamic_slice clamps a start past the table
         table = sinusoidal_positions(smax, cfg.d_model, dtype, token.device)
@@ -181,13 +189,7 @@ class EncDec(nn.Module):
                 if v is not self_cache[k]:     # replaced, not written in place
                     caches["self"][k][i].copy_(v)
             x = x + y
-            h = blk.ln_x(x)
-            q = (h @ blk.xattn.wq.to(dtype)).reshape(b, 1, hq, hd)
-            ck, cv = caches["cross_k"][i], caches["cross_v"][i]
-            o = attn_mod.masked_decode_attention(
-                q.movedim(2, 1), ck.movedim(2, 1).to(dtype),
-                cv.movedim(2, 1).to(dtype), ck.shape[1])
-            x = x + o.movedim(1, 2).reshape(b, 1, hq * hd) \
-                @ blk.xattn.wo.to(dtype)
+            x = x + blk.xattn.cross_decode(blk.ln_x(x), caches["cross_k"][i],
+                                           caches["cross_v"][i])
             x = x + blk.ffn(blk.ln2(x))
         return self._logits(x), caches

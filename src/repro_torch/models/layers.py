@@ -9,6 +9,16 @@ distributions into them and :func:`repro_torch.models.convert.from_jax_params`
 copies the JAX package's values. Parameters are built without
 ``requires_grad``, so serving records no graph; the trainer
 (:func:`repro_torch.train.train_state.init_state`) turns it on.
+
+On a mesh (:mod:`repro_torch.distributed.sharding`) a module's forward
+finds the parameters its ``TP_LEAVES`` name as this rank's blocks over
+the "model" axis where their specs split them (:func:`tp_split` gives the
+split's record and the axis's ops), and runs its products tensor-parallel
+(Megatron): a column-parallel product takes its input through
+``tp.copy`` (whose backward sums the input's gradient over "model") and
+gives this rank's columns; a row-parallel one (:func:`row_linear`) takes
+this rank's slice of the features and sums the partial products over
+"model". A module whose leaves are whole runs as on one device.
 """
 from __future__ import annotations
 
@@ -39,9 +49,39 @@ def truncated_normal_(t: torch.Tensor, scale: float,
 
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w (+ b) with the parameters cast to x's dtype."""
+    """x @ w (+ b) with the parameters cast to x's dtype. Its
+    column-parallel form is the same call on ``tp.copy(x)`` and w's block
+    of columns (the output: this rank's columns)."""
     y = x @ w.to(x.dtype)
     return y if b is None else y + b.to(x.dtype)
+
+
+def row_linear(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """The row-parallel form of :func:`linear`: ``x`` this rank's slice of
+    the input features and ``w`` its block of rows; the partial products
+    summed over "model" (``tp.reduce``)."""
+    return tp.reduce(linear(x, w))
+
+
+def tp_split(module: nn.Module, name: str):
+    """The record of ``module``'s parameter ``name`` kept as this rank's
+    block over "model" (a ``sharding.TPSplit``: the split dim, the axis's
+    size and this rank's index, and the axis's ops), or None where the
+    leaf is whole (one device, or a spec that leaves it replicated)."""
+    return module.__dict__.get("_tp_leaves", {}).get(name)
+
+
+def mark_vocab_split(logits: torch.Tensor, tp) -> torch.Tensor:
+    """Mark ``logits`` as this rank's columns of the vocabulary (a
+    vocab-parallel head's), for the loss and ``sharding.gather_logits``."""
+    logits._vocab_split = tp
+    return logits
+
+
+def vocab_split(logits: torch.Tensor):
+    """The record of a vocab-parallel head that ``logits`` came from
+    (:func:`mark_vocab_split`), or None (whole logits)."""
+    return getattr(logits, "_vocab_split", None)
 
 
 class RMSNorm(nn.Module):
@@ -60,6 +100,13 @@ class RMSNorm(nn.Module):
 
 
 class Embedding(nn.Module):
+    """A (V, d) table. Vocab-parallel on a mesh where ``table`` is split
+    over V: each rank looks up the ids of its vocabulary range (zeros
+    elsewhere) and the rows are summed over "model"; the table's gradient
+    stays this rank's rows."""
+
+    TP_LEAVES = ("table",)
+
     def __init__(self, vocab: int, d: int, device=None):
         super().__init__()
         self.table = param(vocab, d, device=device)
@@ -72,7 +119,14 @@ class Embedding(nn.Module):
         # gather, without casting the whole table; F.embedding's backward
         # sums each row's gradients in a fixed order (an indexing
         # backward adds them in an order that varies from run to run)
-        return F.embedding(ids, self.table).to(dtype)
+        tp = tp_split(self, "table")
+        if tp is None:
+            return F.embedding(ids, self.table).to(dtype)
+        lo = tp.index * self.table.shape[0]
+        mine = (ids >= lo) & (ids < lo + self.table.shape[0])
+        rows = F.embedding(torch.where(mine, ids - lo, 0), self.table)
+        rows = torch.where(mine[..., None], rows, 0.0)
+        return tp.reduce(rows).to(dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -115,6 +169,13 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 class FFN(nn.Module):
+    """The (gated) FFN. On a mesh ``w_in`` / ``w_gate`` are
+    column-parallel, the activation runs on this rank's columns and
+    ``w_out`` is row-parallel (the three split together: f over
+    "model")."""
+
+    TP_LEAVES = ("w_in", "w_gate", "w_out")
+
     def __init__(self, d: int, f: int, glu: bool, act: str, device=None):
         super().__init__()
         self.act = act
@@ -130,9 +191,13 @@ class FFN(nn.Module):
             truncated_normal_(self.w_gate, d ** -0.5, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = tp_split(self, "w_out")
+        if tp is not None:
+            x = tp.copy(x)
         h = linear(x, self.w_in)
         if self.w_gate is not None:
             h = activation(linear(x, self.w_gate), self.act) * h
         else:
             h = activation(h, self.act)
-        return linear(h, self.w_out)
+        return linear(h, self.w_out) if tp is None else \
+            row_linear(h, self.w_out, tp)

@@ -6,6 +6,13 @@ The full-sequence path runs the chunked SSD through
 chunked oracle on the CPU or under ``use_kernels=False``); decode is the
 one-step recurrence against a cached (H, P, N) state and conv tail, in
 plain PyTorch as in the reference.
+
+On a mesh (``layers.tp_split``) ``in_proj`` is column-parallel where its
+spec splits it, its output gathered over "model" (counted) for the conv,
+the scan and the gated norm, which span every head and all of
+``d_inner``; ``out_proj`` is row-parallel on this rank's slice of the
+normed output. Re-laying ``in_proj``'s columns by head, to keep the scan
+local, is ROADMAP.md A.7e.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, linear, param, truncated_normal_
+from repro_torch.models.layers import (RMSNorm, linear, param, row_linear,
+                                       tp_split, truncated_normal_)
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -49,6 +57,8 @@ def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 class Mamba2(nn.Module):
+    TP_LEAVES = ("in_proj", "out_proj")
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -76,6 +86,15 @@ class Mamba2(nn.Module):
         nn.init.zeros_(self.conv_b)
         nn.init.zeros_(self.dt_bias)
         nn.init.ones_(self.d_skip)
+
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ in_proj, every column: column-parallel and gathered over
+        "model" where in_proj is split."""
+        tp = tp_split(self, "in_proj")
+        if tp is None:
+            return linear(x, self.in_proj)
+        return tp.gather(linear(tp.copy(x), self.in_proj),
+                         "mamba in_proj output")
 
     def _split(self, zxbcdt: torch.Tensor):
         cfg = self.cfg
@@ -107,13 +126,17 @@ class Mamba2(nn.Module):
     def _out(self, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor):
         bsz, s = z.shape[:2]
         y = y + xh * self.d_skip.to(z.dtype)[None, None, :, None]
-        y = y.reshape(bsz, s, self.cfg.d_inner)
-        return linear(self.norm(y * F.silu(z)), self.out_proj)
+        y = self.norm(y.reshape(bsz, s, self.cfg.d_inner) * F.silu(z))
+        tp = tp_split(self, "out_proj")
+        if tp is None:
+            return linear(y, self.out_proj)
+        return row_linear(tp.scatter(y, "mamba out_proj input"),
+                          self.out_proj, tp)
 
     def forward(self, x: torch.Tensor,
                 use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Full-sequence path. x: (B, S, d)."""
-        z, xs, B, C, dt = self._split(linear(x, self.in_proj))
+        z, xs, B, C, dt = self._split(self._in(x))
         xbc, _ = causal_conv(torch.cat([xs, B, C], dim=-1), self.conv_w,
                              self.conv_b)
         xs, B, C = self._mix(xbc)
@@ -126,7 +149,7 @@ class Mamba2(nn.Module):
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One-token recurrence. x: (B, 1, d). The cache dict is updated
         with the new state and conv tail and returned."""
-        z, xs, B, C, dt = self._split(linear(x, self.in_proj))
+        z, xs, B, C, dt = self._split(self._in(x))
         xbc, new_conv = causal_conv(torch.cat([xs, B, C], dim=-1),
                                     self.conv_w, self.conv_b,
                                     tail=cache["conv"])

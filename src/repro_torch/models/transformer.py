@@ -10,6 +10,15 @@ a vlm model projects the frontend's prefix embeddings with
 ``frontend_proj`` and prepends them to the token embeddings. The
 encoder-decoder family is :mod:`repro_torch.models.encdec`.
 
+On a mesh the blocks' attention, FFN and SSM run tensor-parallel (see
+:mod:`repro_torch.models.layers`); the embedding is vocab-parallel where
+``table`` is split, the head column-parallel where ``head`` (or the tied
+table) is split over V, its logits left as this rank's columns of the
+vocabulary (``layers.vocab_split`` marks them; the loss is vocab-parallel
+and ``sharding.gather_logits`` makes them whole), the softcap on those
+columns, and ``frontend_proj`` column-parallel with its output gathered.
+The moe FFN's leaves are gathered whole (ROADMAP.md A.7d).
+
 Caches: hybrid models keep a per-layer list (global layers carry the full
 horizon, windowed layers a ring of ``window`` slots); the other families
 keep the reference's stacked (n_layers, ...) tensors. Decode updates the
@@ -29,7 +38,8 @@ from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (FFN, Embedding, RMSNorm, param,
+from repro_torch.models.layers import (FFN, Embedding, RMSNorm,
+                                       mark_vocab_split, param, tp_split,
                                        truncated_normal_)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
@@ -119,11 +129,16 @@ class Block(nn.Module):
         return x + self.ffn(self.ln2(x)), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                use_kernels: Optional[bool] = None, shard_fn=identity_shard):
+                use_kernels: Optional[bool] = None, shard_fn=identity_shard,
+                kv_out: Optional[list] = None):
         """(x, aux): aux is the moe FFN's float32 loss, else None.
         ``shard_fn(x, "residual")`` constrains the residual where the
-        reference's ``apply_block`` does."""
+        reference's ``apply_block`` does. ``kv_out``: a list that an
+        attention block appends its (k, v) to, every kv head (prefill's
+        caches)."""
         h = self.ln1(x)
+        if kv_out is not None and self.attn is not None:
+            kv_out.append(self.attn.cache_kv(h, positions))
         if self.ssm is not None:
             x, aux = self._ffn(x + self.ssm(h, use_kernels=use_kernels),
                                shard_fn)
@@ -152,7 +167,20 @@ class Block(nn.Module):
         return x, aux, nc
 
 
+def logits_of(x: torch.Tensor, head: torch.Tensor, tp,
+              softcap: Optional[float] = None) -> torch.Tensor:
+    """x @ head (+ the softcap): column-parallel where ``tp`` (the head's
+    split over V) is given, the logits then this rank's columns, marked
+    for the loss (``layers.mark_vocab_split``)."""
+    logits = (x if tp is None else tp.copy(x)) @ head.to(x.dtype)
+    if softcap:
+        logits = softcap * torch.tanh(logits.float() / softcap)
+    return logits if tp is None else mark_vocab_split(logits, tp)
+
+
 class LM(nn.Module):
+    TP_LEAVES = ("head", "frontend_proj")
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_family(cfg)
@@ -184,17 +212,22 @@ class LM(nn.Module):
         x = self.embed(tokens, dtype)
         if prefix_embeds is None:
             return x
-        pe = prefix_embeds.to(dtype) @ self.frontend_proj.to(dtype)
+        pe = prefix_embeds.to(dtype)
+        tp = tp_split(self, "frontend_proj")
+        if tp is None:
+            pe = pe @ self.frontend_proj.to(dtype)
+        else:
+            pe = tp.gather(tp.copy(pe) @ self.frontend_proj.to(dtype),
+                           "frontend_proj output")
         return torch.cat([pe, x], dim=1)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x)
-        head = self.embed.table.T if self.head is None else self.head
-        logits = x @ head.to(x.dtype)
-        if self.cfg.logit_softcap:
-            c = self.cfg.logit_softcap
-            logits = c * torch.tanh(logits.float() / c)
-        return logits
+        if self.head is None:
+            head, tp = self.embed.table.T, tp_split(self.embed, "table")
+        else:
+            head, tp = self.head, tp_split(self, "head")
+        return logits_of(self.final_norm(x), head, tp,
+                         self.cfg.logit_softcap)
 
     @staticmethod
     def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -225,17 +258,15 @@ class LM(nn.Module):
         x = shard_fn(self._embed(tokens, prefix_embeds), "residual")
         positions = self._positions(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        ks, vs = [], []
+        kvs = [] if collect_kv else None
         for blk in self.blocks:
-            if collect_kv and blk.attn is not None:
-                _, k, v = blk.attn.project_qkv(blk.ln1(x), positions)
-                ks.append(k)
-                vs.append(v)
             x, a = maybe_remat(blk, self.cfg, x, positions,
-                               use_kernels=use_kernels, shard_fn=shard_fn)
+                               use_kernels=use_kernels, shard_fn=shard_fn,
+                               kv_out=kvs)
             if a is not None:
                 aux = aux + a
-        kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else None
+        kv = {"k": torch.stack([k for k, _ in kvs]),
+              "v": torch.stack([v for _, v in kvs])} if kvs else None
         return self._logits(x), aux, kv
 
     def init_caches(self, batch: int, max_len: int,

@@ -31,10 +31,12 @@ The names below are the reference's frozen vocabulary, kept unchanged:
     call); the trainer's sharding adds the bytes its ZeRO gathers and
     reduce-scatters over the DP axes bring to a rank.
 
-One name is the port's own, outside the frozen tuple:
+Two names are the port's own, outside the frozen tuple:
 ``shard.redistribute_bytes``, the bytes that reach a rank where
 :mod:`repro_torch.distributed.sharding` gathers a sharded layout over a
-non-DP axis (its docstring lists the places).
+non-DP axis (its docstring lists the places), and
+``shard.tp_all_reduce_bytes``, the share of ``collective.bytes`` that its
+tensor-parallel all-reduces over "model" bring to a rank.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ model 1) and (data 2, model 2). Each side runs in its own subprocesses:
 the reference's ``lower_cell`` on XLA host devices (its import asks for
 512), the port's on a fake world of 4 ranks.
 
-Per-chip flops are compared net of three documented differences, each
+Per-chip flops are compared net of five documented differences, each
 asserted on its own:
 
 * **converts**: XLA's fused HLO holds a dtype ``convert`` once in every
@@ -22,17 +22,29 @@ asserted on its own:
   the whole difference measured there; at (data 2, model 2) net of twice
   it, since a rank there runs twice the rows.
 * **the moe's global capacity**: on a mesh the port's expert buffers hold
-  the global batch's capacity on every DP rank (``models/moe.py``: the
-  dispatch sees the global batch), so each rank multiplies all E x C
-  slots where the reference's partitioner splits them: the port does
-  (1 - 1/DP) x its expert products more. The port's expert products are
-  asserted to be E x C_global x d x d_expert x 2 x products x passes
-  exactly, on both meshes.
+  the global batch's capacity on every rank, and the port gathers the
+  experts whole over "model" (ROADMAP.md A.7d), so each rank multiplies
+  all E x C slots where the reference's partitioner splits them over
+  every chip: the port does (1 - 1/chips) x its expert products more. The
+  port's expert products are asserted to be E x C_global x d x d_expert x
+  2 x products x passes exactly, on both meshes.
+* **the decode-cache write**: at model 2 the cache's sequence is split
+  over "model"; the reference writes the new token by ``select``s over
+  the rank's whole block of k and v (two each), the port into one slot of
+  the cache it gathered. The reference's selects are taken out and
+  asserted to be 4 x B / data x S / model x Hkv x hd a layer exactly.
+* **hymba's decode core**: its 25 heads do not divide the model axis, so
+  a port rank runs decode's attention core on every head over the whole
+  cache it gathered, where the reference's reads its sequence block; the
+  port's core (every op inside it, its converts aside) is taken out (1 -
+  1/model) times, and its products asserted to be 4 x B / data x Hq x hd
+  x the layers' cache lengths exactly.
 
-At model 2 TP splits storage, not compute (ROADMAP.md A.7c), so the port
-does 1.6-2.1x the reference's flops a chip; hymba's 25 heads do not
-divide the model axis, so there the reference splits little and the
-ratio is 2 x ref(data 4) / ref(data 2, model 2) instead.
+At model 2 the port runs TP over "model" (Megatron column and row
+products, attention on each rank's heads where they divide, the
+vocab-parallel embedding, head and loss), so every cell comes within 10 %
+of the reference's flops a chip net of those differences; in train and
+prefill both sides run hymba's attention core whole.
 
 The reference compiles at LLVM optimization level 0 on 8 host devices:
 ``hlo_cost`` reads the optimized HLO, which XLA's HLO passes make before
@@ -65,7 +77,7 @@ _REFERENCE = textwrap.dedent("""
     from repro.launch.mesh import make_debug_mesh
     from repro.core import hlo_cost as hc
 
-    def converts(text):
+    def converts(text, want=lambda rec: rec.kind == "convert"):
         comps = hc.parse_module(text)
         def walk(name, scale, depth=0):
             total = 0.0
@@ -88,7 +100,7 @@ _REFERENCE = textwrap.dedent("""
                         hc._attr(rec.line, "calls")
                     if callee:
                         total += walk(callee, scale, depth + 1)
-                elif k == "convert":
+                elif want(rec):
                     n = 1
                     for d in rec.dims:
                         n *= d
@@ -96,18 +108,27 @@ _REFERENCE = textwrap.dedent("""
             return total
         return walk("ENTRY", 1.0)
 
+    from repro.configs import registry
     arch = sys.argv[1]
+    cfg = registry.get_config(arch)
+    # a select over a decode cache's block (B, S, Hkv, hd): the
+    # partitioner's write of one token into a sequence-split cache
+    tail = (cfg.n_kv, cfg.hd)
+    cache_select = lambda rec: (rec.kind == "select" and len(rec.dims) == 4
+                                and tuple(rec.dims[2:]) == tail)
     out = {}
     for data, model in ((4, 1), (2, 2)):
         mesh = make_debug_mesh(data, model)
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
             c, row = dryrun.lower_cell(arch, shape, mesh,
                                        overrides=json.loads(sys.argv[2]))
+            text = c.as_text()
             out[f"{data}x{model}/{shape}"] = {
                 "kind": row.extra["kind"], "n_params": row.extra["n_params"],
                 "n_active": row.extra["n_active"],
                 "model_flops": row.model_flops, "flops": row.hlo_flops,
-                "convert": converts(c.as_text())}
+                "convert": converts(text),
+                "cache_select": converts(text, cache_select)}
     print(json.dumps(out))
 """)
 
@@ -117,6 +138,7 @@ _PORT = textwrap.dedent("""
     from repro_torch.core import aten_cost
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import attention
 
     data, model, jobs = int(sys.argv[1]), int(sys.argv[2]), json.loads(
         sys.argv[3])
@@ -126,9 +148,29 @@ _PORT = textwrap.dedent("""
     # the moe's expert products: the bmm over (E, ., .) operands that hold
     # both d and d_expert (forward, recompute and both gradients)
     expert, dims = [0.0], [None]
+    # the attention core's flops (its converts aside) and products: every
+    # op inside the full-sequence core (ops.attention) or decode's cached
+    # one
+    core, inside = [0.0, 0.0], [0]
+    def scoped(fn):
+        def run(*a, **k):
+            inside[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                inside[0] -= 1
+        return run
+    attention.ops.attention = scoped(attention.ops.attention)
+    attention.masked_decode_attention = scoped(
+        attention.masked_decode_attention)
     op_cost = aten_cost.op_cost
     def counting(func, args, kwargs, out):
         c = op_cost(func, args, kwargs, out)
+        name = aten_cost.base_name(func)
+        if inside[0] and name != "_to_copy":
+            core[0] += c.flops
+            if name in ("mm", "bmm", "addmm", "baddbmm"):
+                core[1] += c.flops
         if dims[0] and aten_cost.base_name(func) == "bmm":
             x, y = (aten_cost._local(t) for t in args[:2])
             e, need = dims[0]
@@ -144,7 +186,7 @@ _PORT = textwrap.dedent("""
         dims[0] = cfg.n_experts and (cfg.n_experts, {
             cfg.d_model, cfg.d_expert or cfg.d_ff})
         for shape in shapes:
-            expert[0] = 0.0
+            expert[0] = core[0] = core[1] = 0.0
             trace, row = dryrun.lower_cell(arch, shape, mesh,
                                            overrides=overrides)
             records = {}
@@ -158,7 +200,8 @@ _PORT = textwrap.dedent("""
                                if k.startswith("aten::_to_copy")),
                 "products": sum(v[1] for k, v in trace.ops.items()
                                 if k in %r),
-                "expert": expert[0],
+                "expert": expert[0], "core": core[0],
+                "core_products": core[1],
                 "coll": row.coll_breakdown, "records": records,
                 "bytes_per_device": row.bytes_per_device,
                 "state_bytes": trace.state_bytes,
@@ -234,11 +277,12 @@ def _expert_products(arch, shape):
 
 
 def _moe_excess(arch, shape, data):
-    """The port's expert products beyond the reference's a DP rank: (1 -
-    1/DP) x every expert product at the global capacity (module doc)."""
+    """The port's expert products beyond the reference's a rank: (1 -
+    1/chips) x every expert product at the global capacity (module
+    doc)."""
     if _cfg(arch).family != "moe":
         return 0.0
-    return (1 - 1 / data) * _expert_products(arch, shape)
+    return (1 - 1 / 4) * _expert_products(arch, shape)
 
 
 def _global_extra(arch, shape, data):
@@ -255,17 +299,64 @@ def _global_extra(arch, shape, data):
         * passes
 
 
+def _cache_lengths(arch, shape):
+    """Each layer's decode cache length (a windowed layer's ring holds
+    ``window`` slots)."""
+    from repro_torch.configs import registry
+    cfg = _cfg(arch)
+    s = registry.SHAPE_BY_NAME[shape].seq_len
+    return [s if cfg.window is None or i in cfg.global_layers
+            else min(s, cfg.window) for i in range(cfg.n_layers)]
+
+
+def _cache_select(arch, shape, data):
+    """The reference's decode-cache write on a (data, 4 / data) mesh where
+    "model" splits the cache's sequence: its HLO writes each of k and v
+    with two selects over the rank's whole block (``dynamic_update_slice``
+    partitioned), B / data x S / model x Hkv x hd each, a layer."""
+    from repro_torch.configs import registry
+    model = 4 // data
+    spec = registry.SHAPE_BY_NAME[shape]
+    if spec.kind != "decode" or model == 1:
+        return 0.0
+    cfg = _cfg(arch)
+    rows = spec.global_batch // data
+    return 4.0 * sum(rows * n // model * cfg.n_kv * cfg.hd
+                     for n in _cache_lengths(arch, shape))
+
+
+def _whole_core(arch, shape, data):
+    """Where the q heads do not divide the model axis, a decode rank's
+    attention core reads the whole sequence of every head from the cache
+    it gathered (``sharding.decode_step``); the reference's reads its
+    sequence block: the port runs (1 - 1/model) of its core beyond."""
+    model = 4 // data
+    if model == 1 or _cfg(arch).n_heads % model == 0 \
+            or not shape.startswith("decode"):
+        return 0.0
+    return 1.0 - 1.0 / model
+
+
 def _net(sides, arch, shape, data):
     """The port's flops on a (data, 4 / data) mesh less its converts, the
-    moe's excess and, for hymba's train and prefill, the global layer's
-    extra flops: the module docstring's three differences."""
+    moe's excess, hymba's decode core beyond the reference's and, for
+    hymba's train and prefill, the global layer's extra flops: the module
+    docstring's differences."""
     cell = sides["port"][arch][f"{data}x{4 // data}/{shape}"]
     net = cell["flops"] - cell["convert"] - _moe_excess(arch, shape, data)
+    net -= _whole_core(arch, shape, data) * cell["core"]
     if arch == "hymba-1.5b" and shape != "decode_32k":
         full, windowed = (sides[s][arch][f"4x1/{shape}"]
                           for s in ("port", "windowed"))
         net -= (full["flops"] - windowed["flops"]) * 4 / data
     return net
+
+
+def _ref_net(sides, arch, shape, data):
+    """The reference's flops on a (data, 4 / data) mesh less its converts
+    and its decode-cache selects."""
+    cell = sides["ref"][arch][f"{data}x{4 // data}/{shape}"]
+    return cell["flops"] - cell["convert"] - cell["cache_select"]
 
 
 CELLS = [(a, s) for a in ARCHS for s in SHAPES]
@@ -283,23 +374,43 @@ def test_exact_fields(sides, arch, shape, mesh):
 
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_flops_at_model_1(sides, arch, shape):
-    theirs = sides["ref"][arch][f"4x1/{shape}"]
-    ratio = _net(sides, arch, shape, 4) / (theirs["flops"] - theirs["convert"])
+    ratio = _net(sides, arch, shape, 4) / _ref_net(sides, arch, shape, 4)
     assert 0.9 <= ratio <= 1.1, ratio
 
 
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_flops_at_model_2(sides, arch, shape):
-    theirs = sides["ref"][arch][f"2x2/{shape}"]
-    ratio = _net(sides, arch, shape, 2) / (theirs["flops"] - theirs["convert"])
-    if arch == "hymba-1.5b" and shape != "decode_32k":
-        one = sides["ref"][arch][f"4x1/{shape}"]
-        want = 2 * (one["flops"] - one["convert"]) / (
-            theirs["flops"] - theirs["convert"])
-        assert want < 1.6 and ratio == pytest.approx(want, rel=0.1), \
-            (ratio, want)
-    else:
-        assert 1.6 <= ratio <= 2.1, ratio
+    """TP over "model": every cell within 10 % of the reference's flops a
+    chip, net of the named differences."""
+    ratio = _net(sides, arch, shape, 2) / _ref_net(sides, arch, shape, 2)
+    assert 0.9 <= ratio <= 1.1, ratio
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_cache_select_difference(sides, arch, shape, mesh):
+    """The size of the reference's cache-write difference: at model 2 its
+    decode writes the token by a select over the rank's whole block of
+    the sequence-split cache (none elsewhere), exactly."""
+    cell = sides["ref"][arch][f"{mesh[0]}x{mesh[1]}/{shape}"]
+    assert cell["cache_select"] == _cache_select(arch, shape, mesh[0])
+
+
+def test_whole_core_difference(sides):
+    """The size of the decode core's difference: hymba's 25 heads do not
+    divide the model axis, so at (data 2, model 2) a rank's core products
+    are its rows' q x K and P x V over every head and each layer's whole
+    cache, exactly; the other cells run none of it whole."""
+    from repro_torch.configs import registry
+    cfg = _cfg("hymba-1.5b")
+    rows = registry.SHAPE_BY_NAME["decode_32k"].global_batch // 2
+    want = 4 * rows * cfg.n_heads * cfg.hd * sum(
+        _cache_lengths("hymba-1.5b", "decode_32k"))
+    cell = sides["port"]["hymba-1.5b"]["2x2/decode_32k"]
+    assert cell["core_products"] == want
+    assert 0 < cell["core_products"] <= cell["core"]
+    assert [(a, s) for a, s in CELLS if _whole_core(a, s, 2)] == \
+        [("hymba-1.5b", "decode_32k")]
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])

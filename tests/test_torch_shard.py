@@ -11,7 +11,14 @@ step jitted), the port as 8 gloo CPU ranks
 tests' (``tests/test_distributed.py``): a dense 2-layer model's train step
 and decode on a 2 x 4 mesh, 4 pipeline stages of affine maps, elastic
 1 x 1 -> 4 x 2; and a moe model's train step on 2 x 4 at the registered
-capacity factor, tokens dropped.
+capacity factor, tokens dropped. The products run tensor-parallel over
+"model" (Megatron column and row products, attention on each rank's
+heads): the dense model's n_kv 2 on model 4 gathers the kv heads'
+columns; three more models' steps hold the other TP routes (a vocabulary
+that divides the model axis: vocab-parallel embedding, head and loss; a
+hybrid whose 5 heads do not divide it; an encoder-decoder), and the
+vocab-split model's prefill and decode; the TP ops themselves are held
+to the unsplit products in float64 (gradients within 1e-12).
 
 Tolerances (``tests/test_torch_train.py``'s, for the same noise): losses
 and grad norms rtol 1e-5, the learning rate 1e-6, parameters atol 2e-4 at
@@ -62,8 +69,25 @@ SPEC = {
                     n_heads=4, n_kv=2, d_ff=96, vocab=97, n_experts=8,
                     top_k=2, d_expert=48, capacity_factor=1.25,
                     dtype="float32"),
+    # TP over "model" of 4: the vocabulary divides it (vocab-parallel
+    # embedding, head and loss); the hybrid's 5 heads do not (q, k and v
+    # gathered) and its in_proj's 280 columns do; whisper's layout
+    "cfg_vocab": dict(name="t", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv=2, d_ff=128, vocab=96,
+                      dtype="float32"),
+    "cfg_hybrid": dict(name="t", family="hybrid", n_layers=2, d_model=64,
+                       n_heads=5, n_kv=1, head_dim=16, d_ff=128, vocab=96,
+                       ssm_state=8, ssm_head_dim=16, ssm_expand=2,
+                       ssm_groups=1, ssm_chunk=16, window=8,
+                       global_layers=(0,), dtype="float32"),
+    "cfg_encdec": dict(name="t", family="encdec", n_layers=2, d_model=64,
+                       n_heads=4, n_kv=4, d_ff=128, vocab=96,
+                       encoder_layers=2, encoder_seq=16, frontend="audio",
+                       pos="sinusoidal", act="gelu", glu=False,
+                       dtype="float32"),
     "opt": dict(lr=5e-3, warmup_steps=2, decay_steps=20),
     "data": dict(vocab=97, global_batch=8, seq_len=32),
+    "data_tp": dict(vocab=96, global_batch=8, seq_len=32),
     "steps": 2, "loop_steps": 6, "decode_batch": 4, "decode_len": 64,
 }
 
@@ -74,7 +98,10 @@ def _inputs():
     x = {}
     for prefix, cfg, seed in (("init", SPEC["cfg"], 0),
                               ("decode", SPEC["cfg_decode"], 1),
-                              ("moe_init", SPEC["cfg_moe"], 2)):
+                              ("moe_init", SPEC["cfg_moe"], 2),
+                              ("vocab_init", SPEC["cfg_vocab"], 3),
+                              ("hybrid_init", SPEC["cfg_hybrid"], 4),
+                              ("encdec_init", SPEC["cfg_encdec"], 5)):
         params = jts.init_state(jax.random.PRNGKey(seed), JConfig(**cfg),
                                 JAdamW())["params"]
         flat, _ = jax.tree_util.tree_flatten_with_path(params)
@@ -89,6 +116,12 @@ def _inputs():
         x[f"pipe/b{i}"] = rng.normal(size=(16,)).astype(np.float32)
     x["pipe/x"] = rng.normal(size=(6, 8, 16)).astype(np.float32)
     x["moe_tokens"] = rng.integers(0, 97, size=(4, 16)).astype(np.int32)
+    enc = SPEC["cfg_encdec"]
+    for i in range(SPEC["steps"]):
+        x[f"encdec/frames{i}"] = (0.02 * rng.normal(size=(
+            SPEC["data_tp"]["global_batch"], enc["encoder_seq"],
+            enc["d_model"]))).astype(np.float32)
+    x["prefill_tokens"] = rng.integers(0, 96, size=(8, 16)).astype(np.int32)
     return x
 
 
@@ -110,6 +143,10 @@ REFERENCE = textwrap.dedent("""
 
     d = sys.argv[1]
     spec = json.load(open(os.path.join(d, "spec.json")))
+
+    def cfg_of(c):
+        return {k: tuple(v) if isinstance(v, list) else v
+                for k, v in c.items()}
     x = dict(np.load(os.path.join(d, "inputs.npz")))
     out = {}
 
@@ -199,6 +236,52 @@ REFERENCE = textwrap.dedent("""
             logits, caches_s = f(params_s, toks[:, i:i + 1], caches_s,
                                  jnp.int32(i))
         out[f"decode/logits{i}"] = np.asarray(logits)
+
+    # TP cases: train steps of three models, and the vocab-split model's
+    # prefill and decode
+    tdata = DataConfig(**spec["data_tp"])
+    for tag in ("vocab", "hybrid", "encdec"):
+        tcfg = ModelConfig(**cfg_of(spec[f"cfg_{tag}"]))
+        opt = AdamWConfig(**spec["opt"])
+        tinit = nested(f"{tag}_init")
+        state = {"params": tinit, "opt": optimizer.init(tinit, opt)}
+        st_sh = sh.to_shardings(sh.state_specs(state, mesh), mesh)
+        state = jax.tree.map(jax.device_put, state, st_sh)
+        step = jax.jit(ts.make_train_step(tcfg, opt, sh.make_shard_fn(mesh)),
+                       in_shardings=(st_sh, None),
+                       out_shardings=(st_sh, None))
+        for i in range(spec["steps"]):
+            batch = make_batch(tcfg, tdata, i)
+            if tcfg.family == "encdec":
+                batch["frames"] = jnp.asarray(x[f"encdec/frames{i}"])
+            with mesh:
+                state, m = step(state, batch)
+            for k in ("loss", "grad_norm", "lr"):
+                out[f"{tag}/{k}{i}"] = np.asarray(m[k])
+        for k, v in flat(state).items():
+            out[f"{tag}/state/{k}"] = v
+    vcfg = ModelConfig(**cfg_of(spec["cfg_vocab"]))
+    params = nested("vocab_init")
+    p_sh = sh.to_shardings(sh.params_specs(params, mesh), mesh)
+    params_s = jax.tree.map(jax.device_put, params, p_sh)
+    pf = jax.jit(lambda p, t: zoo.prefill(p, {"tokens": t}, vcfg),
+                 in_shardings=(p_sh, None))
+    with mesh:
+        logits, _, kv = pf(params_s, jnp.asarray(x["prefill_tokens"]))
+    out["prefill/logits"] = np.asarray(logits)
+    for k in ("k", "v"):
+        out[f"prefill/{k}"] = np.asarray(kv[k])
+    caches = zoo.init_caches(params, vcfg, b, s, dtype=jnp.float32)
+    c_sh = sh.to_shardings(sh.cache_specs(caches, mesh), mesh)
+    caches_s = jax.tree.map(jax.device_put, caches, c_sh)
+    f = jax.jit(lambda p, t, c, i: zoo.decode_step(p, t, vcfg, c, i),
+                in_shardings=(p_sh, None, c_sh, None),
+                out_shardings=(None, c_sh))
+    for i in range(toks.shape[1]):
+        with mesh:
+            logits, caches_s = f(params_s, toks[:, i:i + 1], caches_s,
+                                 jnp.int32(i))
+        out[f"vdecode/logits{i}"] = np.asarray(logits)
 
     pmesh = jax.make_mesh((4,), ("stage",))
     per_stage = [{"w": jnp.asarray(x[f"pipe/w{i}"]),
@@ -491,3 +574,108 @@ def test_train_loop_on_a_mesh_with_a_restart(runs):
                                    straight["losses"][-1:],
                                    rtol=RESUME_RTOL)
         assert straight["saved"] == restarted["saved"] == [2, 4, 5]
+
+
+TP_TAGS = ("vocab", "hybrid", "encdec")
+# what each TP case gathers over "model" a step: the kv heads' columns
+# where n_kv does not divide the model axis, the hybrid's attention
+# projections (5 heads over 4) and mamba's in_proj columns, and nothing
+# else (no block's or the root's parameters)
+TP_REDISTRIBUTED = {
+    "f32": ["attention wk columns", "attention wv columns"],
+    "vocab": ["attention wk columns", "attention wv columns"],
+    "hybrid": ["attention wk output", "attention wo input",
+               "attention wq output", "attention wv output",
+               "mamba in_proj output", "mamba out_proj input"],
+    "encdec": [],
+}
+
+
+@pytest.mark.parametrize("tag", TP_TAGS)
+def test_tp_train_step(runs, tag):
+    """Two steps on 2 x 4 with TP over "model" (a vocab-parallel dense
+    model, a hybrid whose heads do not divide, an encoder-decoder) against
+    the port's one-device steps and the reference's sharded ones: losses,
+    grad norms, lr and the parameters; every rank's state the same."""
+    port, ref = runs["port"][0], runs["ref"]
+    for i in range(SPEC["steps"]):
+        for k, tol in (("loss", LOSS_RTOL), ("grad_norm", LOSS_RTOL),
+                       ("lr", LR_RTOL)):
+            got = port[f"{tag}/{k}{i}"]
+            np.testing.assert_allclose(got, port[f"{tag}/one/{k}{i}"],
+                                       rtol=tol, err_msg=f"{k}{i}")
+            np.testing.assert_allclose(got, ref[f"{tag}/{k}{i}"], rtol=tol,
+                                       err_msg=f"{k}{i} vs reference")
+    mine = _state(port, f"{tag}/state/")
+    one = _state(port, f"{tag}/one/state/")
+    theirs = _state(ref, f"{tag}/state/")
+    for k, v in mine.items():
+        if k.startswith("params/"):
+            np.testing.assert_allclose(v, one[k], atol=PARAM_ATOL, rtol=0,
+                                       err_msg=k)
+    for k, v in convert.train_state_to_jax(mine).items():
+        if k.startswith("params/"):
+            np.testing.assert_allclose(v, theirs[k], atol=PARAM_ATOL, rtol=0,
+                                       err_msg=k)
+    for r in range(1, WORLD):
+        for k, v in _state(runs["port"][r], f"{tag}/state/").items():
+            assert np.array_equal(v, mine[k]), (r, k)
+
+
+@pytest.mark.parametrize("tag", ("f32",) + TP_TAGS)
+def test_tp_step_collectives(runs, tag):
+    """Each TP step all-reduces over "model" (the row-parallel outputs,
+    the column-parallel inputs' gradients) and gathers over it only what
+    its consumers need whole, by name: no parameter of a block or of the
+    root is gathered over "model"."""
+    for meta in runs["meta"]:
+        for i in range(SPEC["steps"]):
+            assert meta[f"{tag}/redistributed{i}"] == TP_REDISTRIBUTED[tag]
+            c = meta[f"{tag}/counters{i}"]
+            assert c.get("shard.redistribute_bytes", 0) > 0 \
+                or not TP_REDISTRIBUTED[tag]
+        if tag == "f32":
+            assert all(meta[f"f32/model_all_reduces{i}"] > 0
+                       for i in range(SPEC["steps"]))
+
+
+def test_tp_ops_gradients(runs):
+    """The TP ops in float64 on the 2 x 4 mesh against the unsplit
+    products on the same inputs, every rank: the column / row pair, the
+    kv heads' partial gather and pick, the activation gather and scatter;
+    gradients within 1e-12."""
+    for meta in runs["meta"]:
+        assert sorted(meta["tp_ops"]) == ["copy_reduce", "gather",
+                                          "gather_partial", "pick",
+                                          "scatter"]
+        for k, e in meta["tp_ops"].items():
+            assert e <= 1e-12, (k, e)
+
+
+def test_tp_prefill(runs):
+    """The vocab-split model's prefill on 2 x 4: each rank's logits are its
+    rows' block of the vocabulary (4 x 16 x 24); gathered, they and the
+    caches' k and v are the reference's sharded prefill's and the port's
+    one-device prefill's within 2e-3."""
+    for out, meta in zip(runs["port"], runs["meta"]):
+        assert meta["prefill/logits_local"] == [4, 16, 24]
+        for k in ("logits", "k", "v"):
+            got = out[f"prefill/{k}"]
+            np.testing.assert_allclose(got, out[f"prefill/one/{k}"],
+                                       atol=DECODE_ATOL, rtol=0, err_msg=k)
+            np.testing.assert_allclose(got, runs["ref"][f"prefill/{k}"],
+                                       atol=DECODE_ATOL, rtol=0, err_msg=k)
+
+
+def test_tp_vocab_decode(runs):
+    """Three decode steps of the vocab-split model (n_kv 2 on model 4: the
+    kv heads' columns gathered) on 2 x 4: logits gathered over the
+    vocabulary and the rows, within 2e-3 of one device and of the
+    reference, on every rank."""
+    for out in runs["port"]:
+        for i in range(3):
+            got = out[f"vdecode/logits{i}"]
+            np.testing.assert_allclose(got, out[f"vdecode/one/logits{i}"],
+                                       atol=DECODE_ATOL, rtol=0)
+            np.testing.assert_allclose(got, runs["ref"][f"vdecode/logits{i}"],
+                                       atol=DECODE_ATOL, rtol=0)

@@ -84,10 +84,85 @@ def _moe_dropped(moe, x):
         return int((counts - capacity(xt.shape[0], cfg)).clamp(min=0).sum())
 
 
+def cfg_of(d):
+    """A ModelConfig's keyword arguments from JSON (tuples come back as
+    lists)."""
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+
+def _tp_ops(mesh):
+    """The TP ops on 8 ranks of ``mesh`` ("model" of 4) in float64 against
+    the unsplit products on the same inputs: the largest gradient error
+    of each pattern (this rank's blocks against the unsplit gradients'
+    blocks)."""
+    from repro_torch.distributed import sharding as sh
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(6, 8, dtype=f64, generator=g)
+    w = torch.randn(8, 12, dtype=f64, generator=g)
+    v = torch.randn(8, 12, dtype=f64, generator=g)
+    wo = torch.randn(12, 8, dtype=f64, generator=g)
+    c = torch.randn(6, 8, dtype=f64, generator=g)
+    n, r = 4, mesh.get_local_rank("model")
+    tp = sh.TPSplit(mesh, 1, n, r)
+    blk = lambda t, dim, i=r: t.chunk(n, dim)[i]           # noqa: E731
+    kv = lambda i: slice((i // 2) * 6, (i // 2) * 6 + 6)   # noqa: E731
+
+    def grads(fn, *leaves):
+        leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        loss = (fn(*leaves) * c).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    def err(got, want):
+        return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+    def heads(xx, w_cols, v_cols, o_rows):
+        o = torch.tanh(xx @ w_cols) * (xx @ v_cols).sum(-1, keepdim=True)
+        return o @ o_rows
+
+    out = {}
+    # column / row pair: y = tanh(x W) Wo, W by columns, Wo by rows
+    want = grads(lambda a, b, o: torch.tanh(a @ b) @ o, x, w, wo)
+    got = grads(lambda a, b, o: tp.reduce(torch.tanh(tp.copy(a) @ b) @ o),
+                x, blk(w, 1), blk(wo, 0))
+    out["copy_reduce"] = err(got, (want[0], blk(want[1], 1),
+                                   blk(want[2], 0)))
+    # heads reading a kv block two ranks share: gathered columns (the
+    # partial gather, a reduce-scatter back) or picked from a whole leaf
+    def full(a, b, vv, o):
+        return sum(heads(a, blk(b, 1, i), vv[:, kv(i)], blk(o, 0, i))
+                   for i in range(n))
+    want = grads(full, x, w, v, wo)
+    got = grads(lambda a, b, vv, o: tp.reduce(heads(
+        tp.copy(a), b, tp.gather(vv, "test", 1, partial=True)[:, kv(r)],
+        o)), x, blk(w, 1), blk(v, 1), blk(wo, 0))
+    out["gather_partial"] = err(got, (want[0], blk(want[1], 1),
+                                      blk(want[2], 1), blk(want[3], 0)))
+    got = grads(lambda a, b, vv, o: tp.reduce(heads(
+        tp.copy(a), b, tp.pick(vv, 1, kv(r).start, kv(r).stop), o)),
+        x, blk(w, 1), v, blk(wo, 0))
+    out["pick"] = err(got, (want[0], blk(want[1], 1), want[2],
+                            blk(want[3], 0)))
+    # the activation gather (a whole consumer) and its inverse, the
+    # scatter of a whole activation into a row-parallel product
+    want = grads(lambda a, b, o: torch.tanh(a @ b) @ o, x, w, wo)
+    got = grads(lambda a, b, o: torch.tanh(tp.gather(tp.copy(a) @ b,
+                                                     "test")) @ o,
+                x, blk(w, 1), wo)
+    out["gather"] = err(got, (want[0], blk(want[1], 1), want[2]))
+    got = grads(lambda a, b, o: tp.reduce(tp.scatter(torch.tanh(a @ b),
+                                                     "test") @ o),
+                x, w, blk(wo, 0))
+    out["scatter"] = err(got, (want[0], want[1], blk(want[2], 0)))
+    return out
+
+
 def run(rank, world, d):
+    from repro_torch import obs
     from repro_torch.ckpt import checkpoint as ck
     from repro_torch.data.pipeline import DataConfig, SyntheticDataset, \
         make_batch
+    from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import elastic, sharding as sh
     from repro_torch.distributed.pipeline_parallel import \
         pipeline_forward, stack_stage_params
@@ -129,9 +204,15 @@ def run(rank, world, d):
         one_fn = ts.make_train_step(cfg, opt)
         for i in range(spec["steps"]):
             before = counters.snapshot()
-            state, m = step_fn(state, make_batch(
-                cfg, data, i, device="cpu", sharding=tokens_sharding))
+            with coll.record_transport() as moved, obs.trace() as tr:
+                state, m = step_fn(state, make_batch(
+                    cfg, data, i, device="cpu", sharding=tokens_sharding))
             meta[f"{tag}/counters{i}"] = counters.delta(before)
+            meta[f"{tag}/model_all_reduces{i}"] = sum(
+                1 for t in moved if t.kind == "all_reduce"
+                and t.axis == "model")
+            meta[f"{tag}/redistributed{i}"] = sorted({
+                e.attrs["op"] for e in tr.spans("shard.redistribute")})
             one, m1 = one_fn(one, make_batch(cfg, data, i, device="cpu"))
             for k in ("loss", "grad_norm", "lr"):
                 out[f"{tag}/{k}{i}"] = m[k].numpy()
@@ -150,6 +231,45 @@ def run(rank, world, d):
                     flat = convert.train_state_to_jax(dict(f))
                 ck.save(os.path.join(d, "port_ckpt_jax"), spec["steps"],
                         flat)
+
+    # 1b. TP on 2 x 4: a dense model whose vocabulary divides the model
+    #     axis (vocab-parallel embedding, head and loss), a hybrid whose
+    #     heads do not (q, k, v gathered) and whose in_proj does, and an
+    #     encoder-decoder; each against the one-device steps
+    tdata = DataConfig(**spec["data_tp"])
+    for tag in ("vocab", "hybrid", "encdec"):
+        tcfg = ModelConfig(**cfg_of(spec[f"cfg_{tag}"]))
+        tinit = _nested(x, f"{tag}_init")
+        opt = AdamWConfig(**spec["opt"])
+        state = sh.place_state(ts.state_for(convert.from_jax_params(
+            tinit, tcfg, "cpu"), opt), mesh24)
+        one = ts.state_for(convert.from_jax_params(tinit, tcfg, "cpu"), opt)
+        step_fn = ts.make_train_step(tcfg, opt, sh.make_shard_fn(mesh24))
+        one_fn = ts.make_train_step(tcfg, opt)
+        for i in range(spec["steps"]):
+            batch = make_batch(tcfg, tdata, i, device="cpu",
+                               sharding=tokens_sharding)
+            whole = make_batch(tcfg, tdata, i, device="cpu")
+            if tcfg.family == "encdec":
+                whole["frames"] = torch.from_numpy(x[f"encdec/frames{i}"])
+                batch["frames"] = sh.distribute(
+                    whole["frames"], sh.NamedSharding(
+                        mesh24, sh.batch_specs(whole, mesh24)["frames"]))
+            before = counters.snapshot()
+            with obs.trace() as tr:
+                state, m = step_fn(state, batch)
+            meta[f"{tag}/counters{i}"] = counters.delta(before)
+            meta[f"{tag}/redistributed{i}"] = sorted({
+                e.attrs["op"] for e in tr.spans("shard.redistribute")})
+            one, m1 = one_fn(one, whole)
+            for k in ("loss", "grad_norm", "lr"):
+                out[f"{tag}/{k}{i}"] = m[k].numpy()
+                out[f"{tag}/one/{k}{i}"] = m1[k].numpy()
+        for k, v in _flat_state(state).items():
+            out[f"{tag}/state/{k}"] = v
+        for k, v in _flat_state(one).items():
+            out[f"{tag}/one/state/{k}"] = v
+    meta["tp_ops"] = _tp_ops(mesh24)
 
     # 2. global_batch: this rank's block of the step's tokens, and of the
     #    microbatches with accum 2
@@ -196,6 +316,38 @@ def run(rank, world, d):
     for k, v in scaches.items():
         out[f"decode/cache/{k}"] = sh.full_tensor(v).numpy()
         out[f"decode/one/cache/{k}"] = caches[k].numpy()
+
+    # 3a. the vocab-split model's prefill (each rank its rows, logits its
+    #     vocabulary block, gathered here) and decode on 2 x 4
+    vcfg = ModelConfig(**cfg_of(spec["cfg_vocab"]))
+    vinit = _nested(x, "vocab_init")
+    model = convert.from_jax_params(vinit, vcfg, "cpu")
+    smodel = sh.shard_model(convert.from_jax_params(vinit, vcfg, "cpu"),
+                            mesh24)
+    ptok = torch.from_numpy(x["prefill_tokens"])
+    with torch.no_grad():
+        logits, _, kv = sh.prefill(smodel, {"tokens": sh.distribute(
+            ptok, tokens_sharding)}, vcfg)
+        meta["prefill/logits_local"] = list(logits.shape)
+        n = ptok.shape[0]
+        out["prefill/logits"] = sh.gather_rows(sh.gather_logits(logits),
+                                               mesh24, n).numpy()
+        for k in ("k", "v"):
+            out[f"prefill/{k}"] = sh.gather_rows(
+                kv[k].transpose(0, 1), mesh24, n).transpose(0, 1).numpy()
+        want = model_zoo.prefill(model, {"tokens": ptok}, vcfg)
+    out["prefill/one/logits"] = want[0].numpy()
+    for k in ("k", "v"):
+        out[f"prefill/one/{k}"] = want[2][k].numpy()
+    caches = model_zoo.init_caches(model, vcfg, b, s, dtype=torch.float32)
+    scaches = sh.place_caches(model_zoo.init_caches(
+        model, vcfg, b, s, dtype=torch.float32), mesh24)
+    for i in range(toks.shape[1]):
+        want, _ = model_zoo.decode_step(model, toks[:, i:i + 1], vcfg,
+                                        caches, i)
+        got, _ = sh.decode_step(smodel, toks[:, i:i + 1], vcfg, scaches, i)
+        out[f"vdecode/logits{i}"] = got.numpy()
+        out[f"vdecode/one/logits{i}"] = want.numpy()
 
     # 3b. a moe model (capacity factor 1.25, as registered) with its
     #     experts sharded over "model" in E: each rank's rows of a forward
