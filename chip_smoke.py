@@ -161,14 +161,30 @@ each printing JSON lines with its wall time:
    microbatches, 8 B5 and 8 B6 launches a rank, bitwise the blocks in
    order; and ``sharding.decode_step`` with parameters at
    ``params_specs`` and f32 caches at ``cache_specs`` within
-   ``SHARD_DECODE_TOL`` of one device. Rows
-   carry ``SHARD_NOTE``: not a scaling number.
+   ``SHARD_DECODE_TOL`` of one device. The first sharded step runs
+   inside ``record_transport()`` (its backward on autograd's device
+   thread): its "model" all-reduces are TP's, equal to
+   ``shard.tp_all_reduce_bytes``, and the grad norm's scalar, its gathers
+   over "data" each block's leaves twice (remat's recompute) and the
+   root's once. Then the moe
+   with its experts split over "model" in E, each DP rank multiplying its
+   window of the capacity slots exchanged over "data": (a) the families
+   phase's reduced moe at capacity factors ``SHARD_MOE_FACTORS`` (0.5
+   drops assignments), ``TRAIN_AGREE_STEPS`` steps held to one device
+   within ``TRAIN_TOL`` / ``SHARD_PARAM_TOL``, each step's
+   ``shard.expert_exchange_bytes`` equal to the exchange's size to the
+   byte; (b) qwen3-moe at full width cut to ``SHARD_MOE_LAYERS`` layers
+   (f32, about 25 GB, built on the card by one rank at a time), a
+   ``sharding.prefill`` of ``SHARD_MOE_PREFILL`` tokens, each rank's
+   logits within ``SHARD_MOE_TOL`` of the one-device prefill of the same
+   weights and its expert products' flops exactly a quarter of one
+   device's. Rows carry ``SHARD_NOTE``: not a scaling number.
 12. ``analysis``: ``repro_torch.analysis`` on the card. The Python
    counterparts of what a launch asks the card - the SM count, B2's
    co-resident CTAs at every shared-memory size its plans take, B4's
    resident CTAs per SM, B6's shared memory per pass - held to the card's
    and the C functions' answers, exactly. ``gemm`` 8192^3 f32, ``cholesky``
-   8192 f32, ``qr`` 4096 f32 and one hymba-1.5b prefill (``PREFILL``) run
+   8192 f32, ``qr`` 2048 f32 and one hymba-1.5b prefill (``PREFILL``) run
    for real under ``record_launches`` and traced on fake CUDA tensors (the
    two large fake traces in the worker pool); the records must agree
    kernel by kernel (variant, tile, grid, shared memory). Then the whole
@@ -377,7 +393,7 @@ MESH_NOTE = ("four ranks share one card, and the links are host loopback "
 # TRAIN[1] over 4 stages and a sharded decode (batch, tokens, cache length)
 SHARD_MESH = (2, 2)
 SHARD_LAYERS = 4
-SHARD_TIMED = 3
+SHARD_TIMED = 2
 SHARD_MICRO = 8
 SHARD_DECODE = (4, 6, 64)
 SHARD_DECODE_TOL = (2e-3, "absolute, the reference's bound "
@@ -395,16 +411,38 @@ SHARD_PARAM_TOL = (2e-5, "absolute at lr 1.8e-4 (the third warmup step): "
                          "last update is off by that step's update, "
                          "printed beside it")
 SHARD_TIMEOUT_S = 900
+# the shard phase's moe legs on the same mesh: (a) the families phase's
+# reduced moe (3 layers, d_model 256, 8 experts top 2, vocab 512, f32) at
+# each of SHARD_MOE_FACTORS, TRAIN_AGREE_STEPS sharded steps of
+# SHARD_MOE_TRAIN tokens held to one device (TRAIN_TOL, SHARD_PARAM_TOL);
+# (b) qwen3-moe-235b-a22b at full width cut to SHARD_MOE_LAYERS layers
+# (f32), sharding.prefill of SHARD_MOE_PREFILL tokens (each DP rank one
+# row) held to the one-device prefill of the same weights
+SHARD_MOE_FACTORS = (1.25, 0.5)
+SHARD_MOE_TRAIN = (2, 1024)
+SHARD_MOE_LAYERS = 2
+SHARD_MOE_PREFILL = (2, 4096)
+SHARD_MOE_TOL = (2e-4, "max|dlogits| / max|logits|: f32 on both sides; "
+                       "the row-parallel products' partial sums and the "
+                       "experts' outputs are summed over model in another "
+                       "order, and each rank multiplies its window of the "
+                       "capacity slots in products of other shapes (other "
+                       "cuBLAS kernels)")
+SHARD_MOE_WHY = ("a full-width moe train step cannot run on one card: "
+                 "qwen3-moe at one layer holds 3.73e9 parameters x 16 bytes "
+                 "(f32 parameter, gradient, m and v) = 59.7 GB of state "
+                 "before the 4 ranks' gathered blocks")
 SHARD_NOTE = ("four ranks share one card over gloo (host loopback, each "
               "buffer staged through pinned host memory, the TP all-reduces "
               "included): a route check, not a scaling number")
 # the analysis phase: processes for the fake-traced no-mesh legs of the
 # surface grid (and the two large fake traces; its mesh legs take as many
 # gloo ranks as the largest mesh), and the calls whose real and fake
-# launch records must agree
+# launch records must agree (QR at 2048: its fake trace, the phase's
+# longest task, took about 110 s at 4096 on a CPU core)
 ANALYSIS_WORKERS = 8
 ANALYSIS_TIMEOUT_S = 600
-ANALYSIS_CALLS = (("gemm", N), ("cholesky", N), ("qr", 4096))
+ANALYSIS_CALLS = (("gemm", N), ("cholesky", N), ("qr", 2048))
 # the dryrun phase: each child's deadline; a traced peak's distance from
 # the card's max_memory_allocated of the same step
 DRYRUN_TIMEOUT_S = 300
@@ -3559,6 +3597,153 @@ def shard_one_device(cfg, opt_cfg, path):
                                         last[len(last) // 2]}}
 
 
+def shard_moe_cfg(factor):
+    """The families phase's reduced moe at capacity factor ``factor``, a
+    step in one microbatch."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+
+    return dataclasses.replace(reduce_config(
+        registry.get_config("qwen3-moe-235b-a22b"), layers=3, d_model=256,
+        vocab=512, heads=4), dtype="float32", capacity_factor=factor,
+        accum_steps=1)
+
+
+def shard_moe_full_cfg():
+    """qwen3-moe-235b-a22b at full width, SHARD_MOE_LAYERS layers, f32."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+
+    return dataclasses.replace(reduce_config(
+        registry.get_config("qwen3-moe-235b-a22b"),
+        layers=SHARD_MOE_LAYERS), dtype="float32")
+
+
+def moe_dropped(layer, x):
+    """How many of a flat-dispatch moe layer's (token, k) assignments on
+    ``x`` (B, S, d) land past their expert's capacity."""
+    from repro_torch.models.moe import capacity
+
+    cfg = layer.cfg
+    with torch.no_grad():
+        xt = x.reshape(-1, x.shape[-1]).float()
+        ids = torch.topk(torch.softmax(xt @ layer.router.float(), -1),
+                         cfg.top_k, -1).indices
+        counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+        return int((counts - capacity(xt.shape[0], cfg)).clamp(min=0).sum())
+
+
+def moe_exchange_bytes(cfg, tokens, ndp, nmodel):
+    """The bytes one slot exchange brings a rank over the DP axes: (ndp -
+    1) windows of E / model experts x capacity / ndp slots x d x 4."""
+    from repro_torch.models.moe import capacity, padded_capacity
+
+    window = padded_capacity(capacity(tokens, cfg), ndp) // ndp
+    return (ndp - 1) * cfg.n_experts // nmodel * window * cfg.d_model * 4
+
+
+def moe_prefill_tokens(cfg):
+    """The (b) leg's SHARD_MOE_PREFILL tokens, the same on every process."""
+    return torch.randint(0, cfg.vocab, SHARD_MOE_PREFILL,
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             SEED + 2), device="cuda")
+
+
+def expert_flops(fn, dims):
+    """``fn()``'s result and the flops of its expert products: every bmm
+    whose second operand is (E', d, d_expert) with ``dims`` = (d,
+    d_expert)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    total = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.bmm.default \
+                    and tuple(args[1].shape[1:]) == dims:
+                e, m, k = args[0].shape
+                total[0] += 2 * e * m * k * args[1].shape[2]
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, total[0]
+
+
+def shard_moe_one_device(top):
+    """The moe legs' one-device runs, in this process: (a) each capacity
+    factor's TRAIN_AGREE_STEPS steps (metrics, the parameters saved, the
+    first step's dropped assignments, the last update), (b) the full-width
+    cut's prefill (its logits saved, its expert flops)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    out = {"train": {}}
+    for factor in SHARD_MOE_FACTORS:
+        cfg = shard_moe_cfg(factor)
+        opt_cfg = optimizer.AdamWConfig(**TRAIN_OPT)
+        state = ts.init_state(torch.Generator(device="cuda").manual_seed(
+            SEED), cfg, opt_cfg, "cuda")
+        data = DataConfig(vocab=cfg.vocab, global_batch=SHARD_MOE_TRAIN[0],
+                          seq_len=SHARD_MOE_TRAIN[1], seed=SEED)
+        dropped = []
+        hooks = [b.moe.register_forward_hook(
+            lambda mod, args, _o: dropped.append(moe_dropped(mod, args[0])))
+            for b in state["params"].blocks]
+        step_fn = ts.make_train_step(cfg, opt_cfg)
+        metrics = []
+        for i in range(TRAIN_AGREE_STEPS):
+            if i == TRAIN_AGREE_STEPS - 1:
+                prev = {k: p.detach().clone() for k, p in
+                        optimizer.named_parameters(state["params"]).items()}
+            (state, m), secs = sync_time(lambda: step_fn(state, make_batch(
+                cfg, data, i, device="cuda")))
+            metrics.append({"wall_s": secs, **{k: m[k].item() for k in
+                                               ("loss", "grad_norm", "lr")}})
+            if i == 0:
+                for h in hooks:
+                    h.remove()
+        params = optimizer.named_parameters(state["params"])
+        last = sorted((p.detach() - prev[k]).abs().max().item()
+                      for k, p in params.items())
+        torch.save({k: p.detach().cpu() for k, p in params.items()},
+                   os.path.join(top, f"moe_{factor}.pt"))
+        out["train"][factor] = {
+            "metrics": metrics, "dropped_step0": sum(dropped[:cfg.n_layers]),
+            "last_update_median": last[len(last) // 2]}
+        del state, prev, params
+        torch.cuda.empty_cache()
+    cfg = shard_moe_full_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = sync_time(lambda: model_zoo.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda"))
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = moe_prefill_tokens(cfg)
+    with torch.no_grad():           # the first call counts the expert flops
+        _, flops = expert_flops(lambda: model_zoo.prefill(
+            model, {"tokens": tokens}, cfg), (cfg.d_model, cfg.d_expert))
+        counts = zero_launches()
+        (logits, _, _), secs = sync_time(lambda: model_zoo.prefill(
+            model, {"tokens": tokens}, cfg))
+    launches = {k: w.launches for k, w in counts.items() if w.launches}
+    assert launches == {"attention": cfg.n_layers}, launches
+    assert bool(torch.isfinite(logits).all())
+    torch.save(logits.cpu(), os.path.join(top, "moe_prefill_logits.pt"))
+    out["prefill"] = {"params": n_params, "init_s": init_s, "wall_s": secs,
+                      "expert_flops": flops, "launches": launches,
+                      "param_bytes": 4 * n_params,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    del model, logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def shard_probe_rank(rank, world, backend, directory):
     """One rank of a probe group (spawned, a group per op: a collective
     that kills its processes stops only its group): DTensor's own
@@ -3609,16 +3794,21 @@ def shard_probe(world, top):
     """DTensor's all-gather, reduce-scatter and all-to-all on card
     tensors over gloo, a spawned group each: {op: result}, or the exit
     codes of ranks that died (-11: a segmentation fault)."""
+    import concurrent.futures as cf
+
+    ops = ("all_gather", "reduce_scatter", "all_to_all")
+    dirs = {op: os.path.join(top, f"probe-{op}") for op in ops}
+    with cf.ThreadPoolExecutor(len(ops)) as ex:       # the groups at once
+        codes = dict(zip(ops, ex.map(lambda op: spawn_ranks(
+            world, "gloo", dirs[op], shard_probe_rank, 120), ops)))
     out = {}
-    for op in ("all_gather", "reduce_scatter", "all_to_all"):
-        d = os.path.join(top, f"probe-{op}")
-        codes = spawn_ranks(world, "gloo", d, shard_probe_rank, 120)
-        path = os.path.join(d, "probe0.json")
+    for op in ops:
+        path = os.path.join(dirs[op], "probe0.json")
         if os.path.exists(path):
             with open(path) as f:
                 out[f"dtensor.{op}"] = json.load(f)
         else:
-            out[f"dtensor.{op}"] = f"the ranks died: exit codes {codes}"
+            out[f"dtensor.{op}"] = f"the ranks died: exit codes {codes[op]}"
     return out
 
 
@@ -3681,6 +3871,8 @@ def shard_legs(rank, directory):
     shard_restart(rows, directory)
     shard_pipeline(rows, rank)
     shard_decode(rows, mesh)
+    shard_moe_train(rows, mesh, directory)
+    shard_moe_prefill(rows, mesh, rank, int(mesh.size()), directory)
     return rows
 
 
@@ -3690,6 +3882,7 @@ def shard_train(rows, mesh, rank, directory):
     rows), the agreement read after TRAIN_AGREE_STEPS: this rank's
     parameter blocks against the one-device run's."""
     from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding as sh
     from repro_torch.obs import counters
     from repro_torch.train import optimizer
@@ -3717,8 +3910,11 @@ def shard_train(rows, mesh, rank, directory):
         batch = make_batch(cfg, data, i, device="cuda", sharding=bsh)
         mesh_barrier()
         before = counters.snapshot()
-        (state, m), secs = sync_time(lambda: step_fn(state, batch))
+        with coll.record_transport() as moved:
+            (state, m), secs = sync_time(lambda: step_fn(state, batch))
         ctr = counters.delta(before)
+        if i == 0:                      # the untimed step's records
+            transport = shard_transport(moved, ctr, state, mesh)
         steps.append({"step": i, "wall_s": secs,
                       **{k: m[k].item() for k in ("loss", "grad_norm", "lr")},
                       "collective_bytes": ctr.get("collective.bytes", 0),
@@ -3745,7 +3941,184 @@ def shard_train(rows, mesh, rank, directory):
                  "peak_bytes": torch.cuda.max_memory_allocated(),
                  "launches": launches})
     assert not any(launches.values()), launches
+    rows.append(transport)
+    assert transport["ok"], transport
     return state
+
+
+def shard_transport(moved, ctr, state, mesh):
+    """A sharded step's ``record_transport()`` records (its backward on
+    autograd's device thread) against its counters: the "model"
+    all-reduces are TP's, equal to ``shard.tp_all_reduce_bytes``, and the
+    grad norm's one f32 scalar; the gathers over "data" each block's
+    leaves twice (forward and remat's recompute) and the root's once;
+    one reduce-scatter a leaf."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train import optimizer
+
+    model = state["params"]
+    params = optimizer.named_parameters(model).values()
+    names = mesh.mesh_dim_names
+
+    def over_data(p):
+        return any(isinstance(pl, sh.Shard) and n == "data"
+                   for pl, n in zip(p.placements, names))
+
+    inner = {id(p) for b in model.blocks for p in b.parameters()}
+    blocks = sum(1 for p in params if over_data(p) and id(p) in inner)
+    root = sum(1 for p in params if over_data(p) and id(p) not in inner)
+    nmodel = dict(zip(names, map(int, mesh.shape)))["model"]
+    reduces = [t.bytes for t in moved if t.kind == "all_reduce"
+               and t.axis == "model"]
+    norm = 2 * (nmodel - 1) * 4 // nmodel          # the grad norm's scalar
+    recorded = sum(2 * (nmodel - 1) * b // nmodel for b in reduces)
+    gathers = sum(1 for t in moved if t.kind == "all_gather"
+                  and t.axis == "data")
+    scatters = sum(1 for t in moved if t.kind == "reduce_scatter"
+                   and t.axis == "data")
+    row = {"leg": "transport records of the first sharded step (its "
+                  "backward on autograd's device thread)",
+           "model_all_reduces": len(reduces),
+           "recorded_tp_bytes": recorded - norm,
+           "tp_all_reduce_bytes": ctr.get("shard.tp_all_reduce_bytes", 0),
+           "data_all_gathers": gathers, "data_reduce_scatters": scatters,
+           "want_gathers": 2 * blocks + root,
+           "want_reduce_scatters": blocks + root}
+    row["ok"] = (recorded - norm == row["tp_all_reduce_bytes"] > 0
+                 and gathers == 2 * blocks + root
+                 and scatters == blocks + root)
+    return row
+
+
+def shard_moe_train(rows, mesh, directory):
+    """Leg (a): the reduced moe at each of SHARD_MOE_FACTORS placed at
+    state_specs, TRAIN_AGREE_STEPS steps of SHARD_MOE_TRAIN tokens (each
+    DP rank its rows, its experts' window of the capacity slots), each
+    step's slot exchange to the byte, this rank's parameter blocks
+    against the one-device run's after the last."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.obs import counters
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    shape = dict(zip(mesh.mesh_dim_names, map(int, mesh.shape)))
+    for factor in SHARD_MOE_FACTORS:
+        cfg = shard_moe_cfg(factor)
+        opt_cfg = optimizer.AdamWConfig(**TRAIN_OPT)
+        state = sh.place_state(ts.init_state(torch.Generator(
+            device="cuda").manual_seed(SEED), cfg, opt_cfg, "cuda"), mesh)
+        data = DataConfig(vocab=cfg.vocab, global_batch=SHARD_MOE_TRAIN[0],
+                          seq_len=SHARD_MOE_TRAIN[1], seed=SEED)
+        bsh = sh.NamedSharding(mesh, sh.batch_specs(
+            {"tokens": SHARD_MOE_TRAIN}, mesh)["tokens"])
+        step_fn = ts.make_train_step(cfg, opt_cfg, sh.make_shard_fn(mesh))
+        want_x = 6 * cfg.n_layers * moe_exchange_bytes(
+            cfg, SHARD_MOE_TRAIN[0] * SHARD_MOE_TRAIN[1], shape["data"],
+            shape["model"])
+        counts = zero_launches()
+        steps = []
+        for i in range(TRAIN_AGREE_STEPS):
+            batch = make_batch(cfg, data, i, device="cuda", sharding=bsh)
+            mesh_barrier()
+            before = counters.snapshot()
+            (state, m), secs = sync_time(lambda: step_fn(state, batch))
+            ctr = counters.delta(before)
+            steps.append({"step": i, "wall_s": secs,
+                          **{k: m[k].item() for k in
+                             ("loss", "grad_norm", "lr")},
+                          **{k: ctr.get(k, 0) for k in (
+                              "collective.bytes", "shard.redistribute_bytes",
+                              "shard.tp_all_reduce_bytes",
+                              "shard.expert_exchange_bytes")}})
+        one = torch.load(os.path.join(directory, "..", f"moe_{factor}.pt"),
+                         mmap=True)
+        p_err = max(
+            (sh.local(p).detach() - one[k][sh.local_index(
+                p.shape, p.placements, mesh)].cuda()).abs().max().item()
+            for k, p in optimizer.named_parameters(state["params"]).items())
+        launches = {k: w.launches for k, w in counts.items() if w.launches}
+        row = {"leg": f"moe train (a): qwen3-moe reduced 3x256, 8 experts "
+                      f"top 2, capacity factor {factor}, "
+                      f"{SHARD_MOE_TRAIN[0]}x{SHARD_MOE_TRAIN[1]} on data x "
+                      f"model {SHARD_MESH}", "factor": factor,
+               "steps": steps, "params_max_abs_after_agree": p_err,
+               "wall_s": sum(r["wall_s"] for r in steps),
+               "expert_exchange_bytes_want": want_x, "launches": launches,
+               "why_reduced": SHARD_MOE_WHY}
+        rows.append(row)
+        assert all(r["shard.expert_exchange_bytes"] == want_x
+                   for r in steps), row
+        assert not launches, launches
+        del state, one
+        torch.cuda.empty_cache()
+
+
+def shard_moe_prefill(rows, mesh, rank, world, directory):
+    """Leg (b): qwen3-moe-235b-a22b at full width cut to SHARD_MOE_LAYERS
+    layers (f32), built from SEED on the card by one rank at a time (each
+    keeps its blocks at params_specs), then ``sharding.prefill`` of
+    SHARD_MOE_PREFILL tokens (each DP rank one row): this rank's logits
+    (its row, its block of the vocabulary) against the one-device
+    prefill's; the expert products' flops a rank beside one device's."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import vocab_split
+    from repro_torch.obs import counters
+
+    cfg = shard_moe_full_cfg()
+    t0 = time.perf_counter()
+    for r in range(world):                # one full build on the card at once
+        if r == rank:
+            model = sh.shard_model(model_zoo.init(
+                cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                "cuda"), mesh)
+            torch.cuda.empty_cache()
+        mesh_barrier()
+    build_s = time.perf_counter() - t0
+    tokens = moe_prefill_tokens(cfg)
+    placed = sh.distribute(tokens, sh.NamedSharding(mesh, sh.batch_specs(
+        {"tokens": tokens}, mesh)["tokens"]))
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        mesh_barrier()
+        counts = zero_launches()
+        before = counters.snapshot()
+        ((logits, aux, _), flops), secs = sync_time(lambda: expert_flops(
+            lambda: sh.prefill(model, {"tokens": placed}, cfg),
+            (cfg.d_model, cfg.d_expert)))
+        ctr = counters.delta(before)
+    launches = {k: w.launches for k, w in counts.items() if w.launches}
+    split = vocab_split(logits)
+    v0, v1 = split.span(cfg.vocab) if split is not None else (0, cfg.vocab)
+    rows_ = sh.dp_rows(SHARD_MOE_PREFILL[0], mesh)
+    got = logits.float().cpu()
+    del logits
+    want = torch.load(os.path.join(directory, "..", "moe_prefill_logits.pt"),
+                      mmap=True)[rows_, :, v0:v1]
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ok = err <= SHARD_MOE_TOL[0] * scale and bool(torch.isfinite(got).all())
+    row = {"leg": f"moe prefill (b): qwen3-moe-235b-a22b full width, "
+                  f"{SHARD_MOE_LAYERS} of 94 layers (f32), "
+                  f"{SHARD_MOE_PREFILL[0]}x{SHARD_MOE_PREFILL[1]} tokens on "
+                  f"data x model {SHARD_MESH}, sharding.prefill",
+           "build_s": build_s, "wall_s": secs,
+           "local_param_bytes": sh.local_bytes(model),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "logits_local": list(got.shape), "vocab_block": [v0, v1],
+           "max_abs_err": err, "max_abs_logit": scale,
+           "tol": SHARD_MOE_TOL[0], "reason": SHARD_MOE_TOL[1],
+           "expert_flops": flops, "launches": launches,
+           **{k: ctr.get(k, 0) for k in (
+               "collective.bytes", "shard.redistribute_bytes",
+               "shard.tp_all_reduce_bytes", "shard.expert_exchange_bytes")},
+           "ok": ok}
+    rows.append(row)
+    assert ok, row
+    assert launches == {"attention": cfg.n_layers}, launches
+    del model, got, want
+    torch.cuda.empty_cache()
 
 
 def shard_elastic(rows, state, rank, directory):
@@ -3961,8 +4334,10 @@ def phase_shard(smi):
     layers at full width, first TRAIN_AGREE_STEPS steps on one device in
     this process, then four spawned gloo ranks sharing the card on a
     (data, model) = SHARD_MESH mesh: the probe, the sharded steps held to
-    one device, elastic restores, a train_loop restart, the pipeline and a
-    sharded decode. Every row names the card and its power limit."""
+    one device, their transport records, elastic restores, a train_loop
+    restart, the pipeline, a sharded decode and the moe's two legs (their
+    one-device runs first, here). Every row names the card and its power
+    limit."""
     import shutil
     import tempfile
 
@@ -3986,6 +4361,21 @@ def phase_shard(smi):
              params_tol=SHARD_PARAM_TOL[0])
         assert SHARD_PARAM_TOL[0] <= \
             one["last_update_max_abs"]["median_over_leaves"] / 5, one
+        moe_one = shard_moe_one_device(top)
+        emit(phase="shard", card=smi, moe_one_device=moe_one,
+             moe_reduced={"train (a)": "qwen3-moe-235b-a22b: n_layers 94 -> "
+                                       "3, d_model 4096 -> 256, experts "
+                                       "128 -> 8, top_k 8 -> 2, vocab "
+                                       "151936 -> 512, accum_steps 4 -> 1 "
+                                       "(" + SHARD_MOE_WHY +
+                                       ")",
+                          "prefill (b)": f"qwen3-moe-235b-a22b: n_layers "
+                                         f"94 -> {SHARD_MOE_LAYERS}, compute "
+                                         f"dtype float32"})
+        assert moe_one["train"][0.5]["dropped_step0"] > 0, moe_one
+        for factor, run in moe_one["train"].items():
+            assert SHARD_PARAM_TOL[0] <= run["last_update_median"] / 5, \
+                (factor, run)
         world = SHARD_MESH[0] * SHARD_MESH[1]
         emit(phase="shard", card=smi, probe=shard_probe(world, top),
              route="tp x zero3: the products tensor-parallel over model "
@@ -3997,7 +4387,11 @@ def phase_shard(smi):
                    "counted), each block's leaves all-gathered over data "
                    "only before it runs (again in remat's recompute), "
                    "gradients reduce-scattered over data, on collectives.py's "
-                   "transport (gloo, staged through pinned host memory)")
+                   "transport (gloo, staged through pinned host memory); the "
+                   "moe's experts split over model in E, each data rank "
+                   "multiplying its window of their capacity slots (a "
+                   "reduce-scatter over data, the outputs gathered back), "
+                   "the router gathered whole")
         ranks = run_ranks(world, "gloo", os.path.join(top, "gloo4"),
                           target=shard_rank, timeout_s=SHARD_TIMEOUT_S)
     finally:
@@ -4027,6 +4421,37 @@ def phase_shard(smi):
               "params": SHARD_PARAM_TOL[0]},
          params_reason=SHARD_PARAM_TOL[1], ok=ok)
     assert ok, agree
+    # the moe legs: (a) every rank's steps and parameter blocks against one
+    # device at each capacity factor, (b) the expert flops a rank against
+    # one device's (each rank's logits are held in the rank)
+    for factor, want in moe_one["train"].items():
+        agree = []
+        for rank_rows in ranks:
+            train = next(r for r in rank_rows if r.get("factor") == factor)
+            agree.append({"params_max_abs": train[
+                "params_max_abs_after_agree"], **{
+                k: max(abs(got[k] - w[k]) / abs(w[k]) for got, w in zip(
+                    train["steps"], want["metrics"]))
+                for k in ("loss", "grad_norm", "lr")}})
+        ok = all(a[k] <= TRAIN_TOL[k][0] for a in agree
+                 for k in ("loss", "grad_norm", "lr")) and all(
+            a["params_max_abs"] <= SHARD_PARAM_TOL[0] for a in agree)
+        emit(phase="shard", check=f"moe (a) capacity factor {factor} on "
+                                  f"{SHARD_MESH} against one device: "
+                                  f"{TRAIN_AGREE_STEPS} steps, every rank",
+             per_rank=agree, dropped_step0=want["dropped_step0"], card=smi,
+             ok=ok)
+        assert ok, agree
+    prefill = [next(r for r in rank_rows if "expert_flops" in r)
+               for rank_rows in ranks]
+    ratio = [r["expert_flops"] / moe_one["prefill"]["expert_flops"]
+             for r in prefill]
+    emit(phase="shard", check=f"moe (b) expert flops a rank over one "
+                              f"device's on {SHARD_MESH}", per_rank=ratio,
+         max_abs_err=[r["max_abs_err"] for r in prefill],
+         one_device_expert_flops=moe_one["prefill"]["expert_flops"],
+         card=smi, ok=all(q == 0.25 for q in ratio))
+    assert all(q == 0.25 for q in ratio), ratio
     emit(phase="shard", wall_s=time.perf_counter() - t0, card=smi)
     return ranks[0]
 

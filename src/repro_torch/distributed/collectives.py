@@ -33,7 +33,9 @@ hops of each ``ring_bcast`` loop, every ``all_gather_cat`` (the routines'
 final result gathers tagged ``"result"``), every ``reduce_scatter_chunk``
 and ``all_reduce``, and the operand partition each mesh routine takes;
 the static analyzer's CC and SH rules read it, and the dry run holds its
-aten-level collective bytes to it.
+aten-level collective bytes to it. A backward records into the scope
+that was active at its forward (:func:`transport_scope`), on whatever
+thread autograd runs it.
 
 Transport follows the group's backend, never a caught error: NCCL moves
 tensors on the card; gloo moves host memory, so a tensor on the card is
@@ -137,6 +139,26 @@ _TRANSPORT: "ContextVar[Optional[List[TransportRecord]]]" = ContextVar(
 def record_transport():
     """Collect every TransportRecord this rank emits inside the scope."""
     rec: List[TransportRecord] = []
+    token = _TRANSPORT.set(rec)
+    try:
+        yield rec
+    finally:
+        _TRANSPORT.reset(token)
+
+
+def transport_list() -> Optional[List[TransportRecord]]:
+    """The list of the :func:`record_transport` scope active here, or
+    None: what an ``autograd.Function`` keeps at its forward for
+    :func:`transport_scope` to re-enter in its backward."""
+    return _TRANSPORT.get()
+
+
+@contextlib.contextmanager
+def transport_scope(rec: Optional[List[TransportRecord]]):
+    """Record into ``rec`` (a :func:`transport_list`) inside the scope.
+    A backward and remat's recompute run where the forward's scope may be
+    unseen: on CUDA tensors autograd runs them on its device thread,
+    which starts with none of the caller's ContextVars."""
     token = _TRANSPORT.set(rec)
     try:
         yield rec

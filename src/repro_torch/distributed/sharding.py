@@ -60,25 +60,31 @@ multiplies this rank's slice of the features and :class:`_TPReduce`
 all-reduces the partial result over "model" (the identity backward); the
 vocab-split ``table`` looks up this rank's ids and all-reduces, and the
 loss over the vocab-split logits reduces its maximum, sum of exponentials
-and the target's logit over "model" (``train/losses.py``). A leaf that
-its spec leaves whole over "model" (the norms, the biases, hymba's
-32001-wide head, the moe FFN's leaves, which no module lists) is gathered
-whole and its product runs whole. A parameter's gradient is cut to this
+and the target's logit over "model" (``train/losses.py``); the moe FFN
+runs its block of experts (split over "model" in E) on its window of
+their capacity slots, exchanged over the DP axes, and sums its experts'
+outputs over "model" (``models/moe.py``). A leaf that its spec leaves
+whole over "model" (the norms, the biases, hymba's 32001-wide head) or
+that no module lists (the moe's ``router``) is gathered whole and its
+product runs whole. A parameter's gradient is cut to this
 rank's block over the non-DP axes where the leaf was gathered over them
 (the same on each of their ranks, so no bytes move) or is that block
 already (a TP leaf), then reduce-scattered over the DP axes (summed, then
 divided by their size: the mean over the global batch), back to the
 parameter's placements. The transport is
 :mod:`repro_torch.distributed.collectives`' (through pinned host memory
-for gloo on the card).
+for gloo on the card); each op whose backward moves bytes keeps the
+``record_transport()`` list of its forward and records into it
+(``collectives.transport_scope``), on whatever thread autograd runs it.
 
 **Where the layout is not kept sharded**, each counted under the counter
 ``shard.redistribute_bytes`` (the bytes that reach this rank over the
 non-DP axes) with an obs event ``shard.redistribute`` naming the op:
 
 1. the leaves gathered whole over "model" by the hooks (``<path>
-   parameters``, ``model parameters``): the moe FFN's (its experts' E
-   split and ``router``: ROADMAP.md A.7d);
+   parameters``, ``model parameters``): the moe's ``router`` (d, E),
+   whose softmax and top-k read every expert's logit (a d x E leaf; the
+   moe's only redistribution over "model");
 2. where a consumer needs whole features, a column-parallel output
    gathered over "model" (:class:`_TPGather`): q, k and v where the q
    heads do not divide the axis (hymba's 25; ``attention wq output``
@@ -96,8 +102,10 @@ non-DP axes) with an obs event ``shard.redistribute`` naming the op:
    codes (``8-bit moment <path>``).
 
 The DP-axis gathers and reduce-scatters are ZeRO's own traffic, counted
-under ``collective.bytes``, as are the moe FFN's sums over the DP ranks
-and TP's own all-reduces over "model" (row-parallel outputs,
+under ``collective.bytes``, as are the moe FFN's sums over the DP ranks,
+its exchange of capacity slots over them (``shard.expert_exchange_bytes``
+counts it on its own, with an obs event ``shard.expert_exchange``) and
+TP's own all-reduces over "model" (row-parallel outputs,
 column-parallel inputs' gradients, the vocab-parallel reductions, a whole
 leaf's gradient where each rank picks its own entries of it), which
 ``shard.tp_all_reduce_bytes`` also counts on their own. Where a dim
@@ -116,10 +124,14 @@ axis's size and this rank's index on it (``model_size``,
 the global batch as the reference's does: ``row_shares`` (the DP size
 where the rows are split over it, else 1) scales the token count that
 sets the capacity, ``"dp_sum"`` sums the router's statistics over the DP
-ranks (its backward sums the gradients back), and ``"dp_cumsum"`` gives
+ranks (its backward sums the gradients back), ``"dp_cumsum"`` gives
 each expert's count up to and including this rank's rows, so an
-assignment keeps the slot its global position gives it. The identity
-hook of one device is all three with one share.
+assignment keeps the slot its global position gives it, ``"slot_window"``
+sums the DP ranks' (E', slots, d) buffers and keeps this rank's window of
+the slots (a reduce-scatter over the DP axes, one after another in mesh
+order; :class:`_SlotWindow`) and ``"slot_gather"`` is its inverse (an
+all-gather). The identity hook of one device is each of them with one
+share.
 
 The model's own entry points stay mesh-agnostic: :func:`shard_model`
 hooks the blocks and the root module, so ``model_zoo.forward`` runs a
@@ -384,6 +396,10 @@ class ShardFn:
             return _DPSum.apply(x, self.mesh)
         if name == "dp_cumsum":
             return dp_cumsum(x, self.mesh)
+        if name == "slot_window":
+            return _SlotWindow.apply(x, self.mesh)
+        if name == "slot_gather":
+            return _SlotGather.apply(x, self.mesh)
         return x
 
 
@@ -631,13 +647,14 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, p, axis_bytes, keep=()):
         ctx.mesh, ctx.placements, ctx.shape = (p.device_mesh, p.placements,
                                                p.shape)
-        ctx.keep = keep
+        ctx.keep, ctx.rec = keep, coll.transport_list()
         return _gather(p, axis_bytes, keep)
 
     @staticmethod
     def backward(ctx, g):
-        return shard_grad(g, ctx.mesh, ctx.placements, ctx.shape,
-                          local=ctx.keep), None, None
+        with coll.transport_scope(ctx.rec):
+            return shard_grad(g, ctx.mesh, ctx.placements, ctx.shape,
+                              local=ctx.keep), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -675,12 +692,13 @@ class _TPCopy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+        ctx.mesh, ctx.rec = mesh, coll.transport_list()
         return x
 
     @staticmethod
     def backward(ctx, g):
-        return _tp_all_reduce(g, ctx.mesh), None
+        with coll.transport_scope(ctx.rec):
+            return _tp_all_reduce(g, ctx.mesh), None
 
 
 class _TPReduce(torch.autograd.Function):
@@ -706,6 +724,7 @@ class _TPGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim, what, partial):
         ctx.mesh, ctx.dim, ctx.what, ctx.partial = mesh, dim, what, partial
+        ctx.rec = coll.transport_list()
         return _tp_all_gather(x, mesh, dim, what)
 
     @staticmethod
@@ -715,8 +734,9 @@ class _TPGather(torch.autograd.Function):
             return g.chunk(n, ctx.dim)[idx], None, None, None, None
         _count({TP_AXIS: (n - 1) * g.numel() * g.element_size() // n},
                ctx.what)
-        out = coll.reduce_scatter_chunk(g.contiguous(), ctx.mesh, TP_AXIS,
-                                        ctx.dim)
+        with coll.transport_scope(ctx.rec):
+            out = coll.reduce_scatter_chunk(g.contiguous(), ctx.mesh,
+                                            TP_AXIS, ctx.dim)
         return out, None, None, None, None
 
 
@@ -728,13 +748,15 @@ class _TPScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim, what):
         ctx.mesh, ctx.dim, ctx.what = mesh, dim, what
+        ctx.rec = coll.transport_list()
         n, idx = _model_axis(mesh)
         return x.chunk(n, dim)[idx]
 
     @staticmethod
     def backward(ctx, g):
-        return _tp_all_gather(g, ctx.mesh, ctx.dim, ctx.what), None, None, \
-            None
+        with coll.transport_scope(ctx.rec):
+            return _tp_all_gather(g, ctx.mesh, ctx.dim, ctx.what), None, \
+                None, None
 
 
 class _TPPick(torch.autograd.Function):
@@ -745,13 +767,15 @@ class _TPPick(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, mesh, dim, start, stop):
         ctx.mesh, ctx.dim, ctx.start, ctx.shape = mesh, dim, start, w.shape
+        ctx.rec = coll.transport_list()
         return w.narrow(dim, start, stop - start)
 
     @staticmethod
     def backward(ctx, g):
         full = g.new_zeros(ctx.shape)
         full.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
-        return _tp_all_reduce(full, ctx.mesh), None, None, None, None
+        with coll.transport_scope(ctx.rec):
+            return _tp_all_reduce(full, ctx.mesh), None, None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1075,12 +1099,76 @@ class _DPSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+        ctx.mesh, ctx.rec = mesh, coll.transport_list()
         return _dp_all_reduce(x, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return _dp_all_reduce(g.contiguous(), ctx.mesh), None
+        with coll.transport_scope(ctx.rec):
+            return _dp_all_reduce(g.contiguous(), ctx.mesh), None
+
+
+def _dp_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the DP axes, this rank's block of its dim 1 (the
+    DP ranks' blocks in flat order: a reduce-scatter over each axis in
+    mesh order), counted by :func:`_count_exchange`."""
+    for a in batch_axes(mesh):
+        x = coll.reduce_scatter_chunk(x.contiguous(), mesh, a, 1)
+    _count_exchange(x, mesh, "slot_window")
+    return x
+
+
+def _dp_cat(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every DP rank's block ``x`` of dim 1, concatenated in flat order
+    (the inverse of :func:`_dp_scatter`'s blocks), counted the same way."""
+    _count_exchange(x, mesh, "slot_gather")
+    for a in reversed(batch_axes(mesh)):
+        x = coll.all_gather_cat(x.contiguous(), mesh, a, 1)
+    return x
+
+
+def _count_exchange(block: torch.Tensor, mesh, op: str) -> None:
+    """The bytes an exchange of ``block``-sized windows brings this rank
+    over the DP axes, (n - 1) of them, under ``collective.bytes`` and
+    ``shard.expert_exchange_bytes``, with an obs event."""
+    moved = (dp_size(mesh) - 1) * block.numel() * block.element_size()
+    _counters.inc("collective.bytes", moved)
+    _counters.inc("shard.expert_exchange_bytes", moved)
+    if _obs.enabled():
+        _obs.event("shard.expert_exchange", cat="collective", op=op,
+                   bytes=moved, axes=list(batch_axes(mesh)))
+
+
+class _SlotWindow(torch.autograd.Function):
+    """The moe's capacity slots (E', slots, d), disjoint over the DP
+    ranks, summed over them: this rank's window of every expert's slots
+    (a reduce-scatter); the gradient, every window's, gathered back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rec = mesh, coll.transport_list()
+        return _dp_scatter(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        with coll.transport_scope(ctx.rec):
+            return _dp_cat(g, ctx.mesh), None
+
+
+class _SlotGather(torch.autograd.Function):
+    """Every DP rank's window of the experts' outputs, gathered (the
+    inverse of :class:`_SlotWindow`); the gradient summed over the DP
+    ranks, this rank's window of it (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rec = mesh, coll.transport_list()
+        return _dp_cat(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        with coll.transport_scope(ctx.rec):
+            return _dp_scatter(g, ctx.mesh), None
 
 
 def dp_cumsum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -1115,22 +1203,42 @@ def global_norm(leaves, mesh) -> torch.Tensor:
     return torch.sqrt(mesh_sum(sum(owned_sumsq(t) for t in leaves), mesh))
 
 
+# the values of a gathered leaf an 8-bit moment's update runs at once (a
+# kimi-k2 expert leaf holds 5.6e9: its whole update's f32 temporaries
+# would take hundreds of GB)
+UPDATE_CHUNK = 1 << 28
+
+
 def update_leaf(fn, p: DTensor, g: DTensor, m, v, args, what: str):
     """A sharded leaf's optimizer update: ``fn(p, g, m, v, *args)`` (which
     writes ``p`` in place and returns the new (m, v)) on this rank's
     shards, f32 moments written in place. An 8-bit moment's blocks run
     over the whole parameter: the parameter, gradient and codes are
-    gathered (counted under ``what``), ``fn`` runs whole on every rank,
-    and each keeps its blocks."""
+    gathered (counted under ``what``), ``fn`` runs on every rank over
+    ``UPDATE_CHUNK`` values of the flattened leaf at a time (whole
+    blocks: each block's codes and scale are its own, so the result is
+    the whole leaf's), and each keeps its blocks."""
     if not isinstance(m, _Moment):
         fn(local(p), local(g), local(m), local(v), *args)
         return m, v
     full = lambda t: full_tensor(t, what)                    # noqa: E731
-    pf = full(p).clone()
-    nm, nv = fn(pf, full(g), _Moment(*map(full, m)), _Moment(*map(full, v)),
-                *args)
+    pf = full(p).contiguous()
+    flat_p, flat_g = pf.view(-1), full(g).reshape(-1)
+    codes = [full(t) for t in (*m, *v)]                      # mq ms vq vs
+    new = [torch.empty_like(t) for t in codes]
+    block = codes[0].shape[-1]
+    step = max(UPDATE_CHUNK // block, 1) * block
+    for a in range(0, flat_p.numel(), step):
+        b = min(a + step, flat_p.numel())
+        blocks = slice(a // block, -(-b // block))
+        nm, nv = fn(flat_p[a:b], flat_g[a:b], _Moment(*(
+            t[blocks] for t in codes[:2])), _Moment(*(
+                t[blocks] for t in codes[2:])), *args)
+        for out, t in zip(new, (*nm, *nv)):
+            out[blocks] = t
     local(p).copy_(pf[local_index(pf.shape, p.placements, p.device_mesh)])
-    return _Moment(*map(like, nm, m)), _Moment(*map(like, nv, v))
+    return (_Moment(*map(like, new[:2], m)),
+            _Moment(*map(like, new[2:], v)))
 
 
 def mesh_barrier(mesh) -> None:

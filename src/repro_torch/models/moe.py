@@ -31,9 +31,29 @@ comes from the global token count; the aux loss from the router's
 statistics summed over the shares (``"dp_sum"``); an assignment's
 position inside its expert counts the assignments of the shares before
 this one (``"dp_cumsum"`` of the counts), so exactly the reference's
-assignments are dropped. A rank's buffer holds its own kept tokens in the
-first slots of each expert's global capacity. Grouped dispatch needs
-none of it: its groups are whole rows.
+assignments are dropped, and a kept one goes to that global slot. The
+shares' slots of an expert are disjoint and together are the one-device
+buffer, each expert's capacity padded to a multiple of the shares
+(:func:`padded_capacity`; drops still follow the unpadded one, so no
+token lands in a pad slot). The hook's ``"slot_window"`` sums the
+shares' buffers over the DP ranks and hands each its window of every
+expert's slots, ``capacity / shares`` of them (a reduce-scatter of
+disjoint blocks: exact); the expert FFN runs on that window, and
+``"slot_gather"`` gathers the outputs back, so each rank reads its own
+tokens' slots.
+
+The experts are split over "model" in E, as the reference's rules split
+them, where the model axis divides E (``TP_LEAVES``; the hooks keep this
+rank's block, ``layers.tp_split``): a rank dispatches only the
+assignments to its experts and sums its experts' gated outputs, a slot
+of another rank's expert reading the zero row, and the partial outputs
+are summed over "model" (``split.reduce``). The dispatched tokens and
+the gates enter through ``split.copy``, whose backward sums their
+gradients over "model" (each rank's covers its experts only); the
+router's input and the aux loss are whole and the same on every rank.
+The ``router`` (d, E) stays whole: softmax and top-k read every
+expert's logit. Grouped dispatch splits the experts the same way and
+needs no exchange: its groups are whole rows, each rank's own.
 """
 from __future__ import annotations
 
@@ -44,7 +64,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import activation, param, truncated_normal_
+from repro_torch.models.layers import (activation, param, tp_split,
+                                       truncated_normal_)
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -54,9 +75,26 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def padded_capacity(cap: int, shares: int) -> int:
+    """An expert's slots on a mesh of ``shares`` DP ranks: ``cap`` rounded
+    up to a multiple of ``shares``, so each rank's window of them
+    (:func:`slot_window`) is the same size."""
+    return -(-cap // shares) * shares
+
+
+def slot_window(cap: int, shares: int, index: int) -> slice:
+    """The slots of every expert that DP rank ``index`` (flat, over the
+    DP axes in mesh order) multiplies, of :func:`padded_capacity`'s."""
+    w = padded_capacity(cap, shares) // shares
+    return slice(index * w, (index + 1) * w)
+
+
 class MoE(nn.Module):
     """The moe FFN: ``router`` (d, E), ``w_in`` / ``w_gate`` (E, d, de),
-    ``w_out`` (E, de, d), the reference's names and shapes."""
+    ``w_out`` (E, de, d), the reference's names and shapes; on a mesh the
+    experts split over "model" in E (module docstring)."""
+
+    TP_LEAVES = ("w_in", "w_gate", "w_out")
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -98,6 +136,10 @@ class MoE(nn.Module):
         k, e = cfg.top_k, cfg.n_experts
         shares = getattr(shard_fn, "row_shares", 1)
         cap = capacity(t * shares, cfg)
+        cap_pad = padded_capacity(cap, shares)
+        split = tp_split(self, "w_in")            # this rank's experts
+        e0, e1 = split.span(e) if split is not None else (0, e)
+        el = e1 - e0
 
         logits = xt.float() @ self.router.float()                 # (G, T, E)
         probs = torch.softmax(logits, dim=-1)
@@ -122,18 +164,23 @@ class MoE(nn.Module):
         counts = F.one_hot(flat_e, e).sum(1)                      # (G, E)
         starts = counts.cumsum(-1) - counts                       # exclusive
         pos = torch.arange(t * k, device=dev) - starts.gather(1, se)
-        kept = pos < cap
-        if shares > 1:      # behind the earlier shares' assignments
+        if shares > 1:      # the global slot, behind the earlier shares'
             before = shard_fn(counts, "dp_cumsum") - counts
-            kept = pos + before.gather(1, se) < cap
-        dest = torch.where(kept, se * cap + pos,
-                           torch.full_like(se, e * cap))          # drop slot
+            pos = pos + before.gather(1, se)
+        mine = (pos < cap) & (se >= e0) & (se < e1)
+        dest = torch.where(mine, (se - e0) * cap_pad + pos,
+                           torch.full_like(se, el * cap_pad))     # drop slot
 
+        gates = gate_vals
+        if split is not None:   # gradients from this rank's experts only
+            xt, gates = split.copy(xt), split.copy(gate_vals)
         rows = torch.arange(g, device=dev)[:, None]
-        buf = torch.zeros(g, e * cap + 1, d, dtype=dtype, device=dev)
+        buf = torch.zeros(g, el * cap_pad + 1, d, dtype=dtype, device=dev)
         buf[rows, dest] = xt[rows, st]        # the spare row is discarded
-        h = buf[:, :e * cap].reshape(g, e, cap, d).transpose(0, 1) \
-            .reshape(e, g * cap, d)
+        h = buf[:, :el * cap_pad].reshape(g, el, cap_pad, d).transpose(0, 1) \
+            .reshape(el, g * cap_pad, d)
+        if shares > 1:                        # this rank's window of slots
+            h = shard_fn(h, "slot_window")
 
         # ---- expert FFN: batched products over the experts ----
         up = torch.bmm(h, self.w_in.to(dtype))
@@ -142,13 +189,18 @@ class MoE(nn.Module):
                             cfg.act) * up
         else:
             up = activation(up, cfg.act)
-        out = torch.bmm(up, self.w_out.to(dtype))                # (E, G*cap, d)
+        out = torch.bmm(up, self.w_out.to(dtype))
+        if shares > 1:                        # every slot's output back
+            out = shard_fn(out, "slot_gather")                    # (E', cap', d)
 
         # ---- combine: undo the sort, sum each token's k gated slots ----
         out_flat = torch.cat([
-            out.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d),
+            out.reshape(el, g, cap_pad, d).transpose(0, 1)
+            .reshape(g, el * cap_pad, d),
             torch.zeros(g, 1, d, dtype=dtype, device=dev)], dim=1)
         slot = torch.empty_like(dest).scatter_(1, order, dest)   # token order
         slot_out = out_flat[rows, slot].reshape(g, t, k, d)
-        y = (slot_out * gate_vals.to(dtype)[..., None]).sum(2)
+        y = (slot_out * gates.to(dtype)[..., None]).sum(2)
+        if split is not None:                 # the other ranks' experts
+            y = split.reduce(y)
         return y, aux

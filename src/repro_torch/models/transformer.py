@@ -17,7 +17,8 @@ table) is split over V, its logits left as this rank's columns of the
 vocabulary (``layers.vocab_split`` marks them; the loss is vocab-parallel
 and ``sharding.gather_logits`` makes them whole), the softcap on those
 columns, and ``frontend_proj`` column-parallel with its output gathered.
-The moe FFN's leaves are gathered whole (ROADMAP.md A.7d).
+The moe FFN's experts split over "model" in E, its router whole
+(:mod:`repro_torch.models.moe`).
 
 Caches: hybrid models keep a per-layer list (global layers carry the full
 horizon, windowed layers a ring of ``window`` slots); the other families
@@ -26,6 +27,7 @@ caches in place and returns them.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, List, Optional, Union
 
@@ -33,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba2 as mamba_mod
@@ -76,21 +79,39 @@ def maybe_remat(block: nn.Module, cfg: ModelConfig, *args, **kwargs):
     the products with no batch dimension and recomputes the rest, 'none'
     (or ``cfg.remat`` off) saves everything. Remat applies only while
     autograd records the block (grad mode on, and a parameter or input
-    that requires grad); serving runs the block as it is."""
+    that requires grad); serving runs the block as it is. The recompute
+    records its collectives into the transport scope of the forward."""
     recording = torch.is_grad_enabled() and (
         any(isinstance(a, torch.Tensor) and a.requires_grad for a in args)
         or any(p.requires_grad for p in block.parameters()))
     if not recording or not cfg.remat or cfg.remat_policy == "none":
         return block(*args, **kwargs)
     if cfg.remat_policy == "full":
-        return ckpt.checkpoint(block, *args, use_reentrant=False, **kwargs)
-    if cfg.remat_policy == "dots":
-        return ckpt.checkpoint(
-            block, *args, use_reentrant=False,
-            context_fn=functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _dots_policy),
-            **kwargs)
-    raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+        contexts = ckpt.noop_context_fn
+    elif cfg.remat_policy == "dots":
+        contexts = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    else:
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+    return ckpt.checkpoint(block, *args, use_reentrant=False,
+                           context_fn=functools.partial(_scoped, contexts),
+                           **kwargs)
+
+
+def _scoped(contexts):
+    """``contexts()``'s (forward, recompute) contexts, the recompute's
+    inside the transport scope active now: the recompute runs on
+    autograd's thread, which on CUDA tensors sees none of this one's
+    ContextVars (``collectives.transport_scope``)."""
+    forward, recompute = contexts()
+    rec = coll.transport_list()
+
+    @contextlib.contextmanager
+    def recompute_scoped():
+        with coll.transport_scope(rec), recompute:
+            yield
+
+    return forward, recompute_scoped()
 
 
 class Block(nn.Module):

@@ -5,7 +5,7 @@ model 1) and (data 2, model 2). Each side runs in its own subprocesses:
 the reference's ``lower_cell`` on XLA host devices (its import asks for
 512), the port's on a fake world of 4 ranks.
 
-Per-chip flops are compared net of five documented differences, each
+Per-chip flops are compared net of four documented differences, each
 asserted on its own:
 
 * **converts**: XLA's fused HLO holds a dtype ``convert`` once in every
@@ -21,13 +21,6 @@ asserted on its own:
   the global layer's extra pairs exactly. Those cells are compared net of
   the whole difference measured there; at (data 2, model 2) net of twice
   it, since a rank there runs twice the rows.
-* **the moe's global capacity**: on a mesh the port's expert buffers hold
-  the global batch's capacity on every rank, and the port gathers the
-  experts whole over "model" (ROADMAP.md A.7d), so each rank multiplies
-  all E x C slots where the reference's partitioner splits them over
-  every chip: the port does (1 - 1/chips) x its expert products more. The
-  port's expert products are asserted to be E x C_global x d x d_expert x
-  2 x products x passes exactly, on both meshes.
 * **the decode-cache write**: at model 2 the cache's sequence is split
   over "model"; the reference writes the new token by ``select``s over
   the rank's whole block of k and v (two each), the port into one slot of
@@ -44,7 +37,12 @@ At model 2 the port runs TP over "model" (Megatron column and row
 products, attention on each rank's heads where they divide, the
 vocab-parallel embedding, head and loss), so every cell comes within 10 %
 of the reference's flops a chip net of those differences; in train and
-prefill both sides run hymba's attention core whole.
+prefill both sides run hymba's attention core whole. The moe's experts
+split over "model" in E and each DP rank multiplies its window of their
+capacity slots, exchanged over the DP axes, as the reference's
+partitioner splits the expert products over every chip: the port's
+expert products are asserted to be E x C_pad x d x d_expert x 2 x
+products x passes / 4 exactly, on both meshes.
 
 The reference compiles at LLVM optimization level 0 on 8 host devices:
 ``hlo_cost`` reads the optimized HLO, which XLA's HLO passes make before
@@ -145,8 +143,9 @@ _PORT = textwrap.dedent("""
     dryrun.init_fake_world(4)
     mesh = make_debug_mesh(data, model, device_type="cpu")
 
-    # the moe's expert products: the bmm over (E, ., .) operands that hold
-    # both d and d_expert (forward, recompute and both gradients)
+    # the moe's expert products: the bmm over (E', ., .) operands (this
+    # rank's experts) that hold both d and d_expert (forward, recompute
+    # and both gradients)
     expert, dims = [0.0], [None]
     # the attention core's flops (its converts aside) and products: every
     # op inside the full-sequence core (ops.attention) or decode's cached
@@ -183,7 +182,8 @@ _PORT = textwrap.dedent("""
     out = {}
     for label, arch, overrides, shapes in jobs:
         cfg = dataclasses.replace(registry.get_config(arch), **overrides)
-        dims[0] = cfg.n_experts and (cfg.n_experts, {
+        e = cfg.n_experts
+        dims[0] = e and (e // model if e %% model == 0 else e, {
             cfg.d_model, cfg.d_expert or cfg.d_ff})
         for shape in shapes:
             expert[0] = core[0] = core[1] = 0.0
@@ -257,11 +257,12 @@ def _cfg(arch):
     return dataclasses.replace(registry.get_config(arch), **OVERRIDES)
 
 
-def _expert_products(arch, shape):
+def _expert_products(arch, shape, data):
     """The flops of every expert product of a step at the global batch's
-    capacity: E x C x d x d_expert x 2 a product, 3 products with a glu
-    (2 without), each run forward, recomputed and twice in the backward
-    when training, a layer and a microbatch."""
+    capacity, padded to a multiple of the DP ranks: E x C_pad x d x
+    d_expert x 2 a product, 3 products with a glu (2 without), each run
+    forward, recomputed and twice in the backward when training, a layer
+    and a microbatch."""
     from repro_torch.configs import registry
     from repro_torch.models import moe
     cfg = _cfg(arch)
@@ -269,20 +270,11 @@ def _expert_products(arch, shape):
     kind = spec.kind
     accum = max(cfg.accum_steps, 1) if kind == "train" else 1
     tokens = spec.global_batch * (spec.seq_len if kind != "decode" else 1)
-    cap = moe.capacity(tokens // accum, cfg)
+    cap = moe.padded_capacity(moe.capacity(tokens // accum, cfg), data)
     per = 2 * cfg.n_experts * cap * cfg.d_model * (cfg.d_expert or cfg.d_ff)
     passes = 4 if kind == "train" else 1     # forward, remat, backward x 2
     mats = 3 if cfg.glu else 2
     return per * mats * cfg.n_layers * passes * accum
-
-
-def _moe_excess(arch, shape, data):
-    """The port's expert products beyond the reference's a rank: (1 -
-    1/chips) x every expert product at the global capacity (module
-    doc)."""
-    if _cfg(arch).family != "moe":
-        return 0.0
-    return (1 - 1 / 4) * _expert_products(arch, shape)
 
 
 def _global_extra(arch, shape, data):
@@ -338,12 +330,12 @@ def _whole_core(arch, shape, data):
 
 
 def _net(sides, arch, shape, data):
-    """The port's flops on a (data, 4 / data) mesh less its converts, the
-    moe's excess, hymba's decode core beyond the reference's and, for
-    hymba's train and prefill, the global layer's extra flops: the module
-    docstring's differences."""
+    """The port's flops on a (data, 4 / data) mesh less its converts,
+    hymba's decode core beyond the reference's and, for hymba's train and
+    prefill, the global layer's extra flops: the module docstring's
+    differences."""
     cell = sides["port"][arch][f"{data}x{4 // data}/{shape}"]
-    net = cell["flops"] - cell["convert"] - _moe_excess(arch, shape, data)
+    net = cell["flops"] - cell["convert"]
     net -= _whole_core(arch, shape, data) * cell["core"]
     if arch == "hymba-1.5b" and shape != "decode_32k":
         full, windowed = (sides[s][arch][f"4x1/{shape}"]
@@ -428,13 +420,14 @@ def test_hybrid_conditional_difference(sides, shape):
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 @pytest.mark.parametrize("shape", SHAPES)
-def test_moe_global_capacity_difference(sides, shape, mesh):
-    """The size of the moe's difference: on every DP rank the port's
-    expert products are all E x C_global slots' (the reference's rank does
-    1/DP of them), exactly."""
+def test_moe_expert_products_split_over_the_chips(sides, shape, mesh):
+    """The moe's expert products a rank: a quarter of every expert slot's
+    of the global batch, exactly (E / model experts, each on 1 / data of
+    its padded capacity's slots), as the reference's partitioner splits
+    them over the 4 chips."""
     arch = "qwen3-moe-235b-a22b"
     cell = sides["port"][arch][f"{mesh[0]}x{mesh[1]}/{shape}"]
-    want = _expert_products(arch, shape)
+    want = _expert_products(arch, shape, mesh[0]) / 4
     assert cell["expert"] == pytest.approx(want, rel=1e-9), \
         (cell["expert"], want)
     assert 0 < cell["expert"] < cell["products"]

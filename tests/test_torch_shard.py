@@ -69,6 +69,12 @@ SPEC = {
                     n_heads=4, n_kv=2, d_ff=96, vocab=97, n_experts=8,
                     top_k=2, d_expert=48, capacity_factor=1.25,
                     dtype="float32"),
+    # each batch row its own group (8 slots an expert: tokens dropped)
+    "cfg_moe_grouped": dict(name="t", family="moe", n_layers=2, d_model=64,
+                            n_heads=4, n_kv=2, d_ff=96, vocab=97,
+                            n_experts=8, top_k=2, d_expert=48,
+                            capacity_factor=0.5, moe_grouped=True,
+                            dtype="float32"),
     # TP over "model" of 4: the vocabulary divides it (vocab-parallel
     # embedding, head and loss); the hybrid's 5 heads do not (q, k and v
     # gathered) and its in_proj's 280 columns do; whisper's layout
@@ -101,7 +107,9 @@ def _inputs():
                               ("moe_init", SPEC["cfg_moe"], 2),
                               ("vocab_init", SPEC["cfg_vocab"], 3),
                               ("hybrid_init", SPEC["cfg_hybrid"], 4),
-                              ("encdec_init", SPEC["cfg_encdec"], 5)):
+                              ("encdec_init", SPEC["cfg_encdec"], 5),
+                              ("moe_grouped_init", SPEC["cfg_moe_grouped"],
+                               6)):
         params = jts.init_state(jax.random.PRNGKey(seed), JConfig(**cfg),
                                 JAdamW())["params"]
         flat, _ = jax.tree_util.tree_flatten_with_path(params)
@@ -122,6 +130,9 @@ def _inputs():
             SPEC["data_tp"]["global_batch"], enc["encoder_seq"],
             enc["d_model"]))).astype(np.float32)
     x["prefill_tokens"] = rng.integers(0, 96, size=(8, 16)).astype(np.int32)
+    d = SPEC["cfg_moe"]["d_model"]
+    x["moe_ep/x"] = rng.normal(size=(4, 32, d)).astype(np.float32)
+    x["moe_ep/c"] = rng.normal(size=(4, 32, d)).astype(np.float32)
     return x
 
 
@@ -209,6 +220,20 @@ REFERENCE = textwrap.dedent("""
             out[f"moe/{k}{i}"] = np.asarray(m[k])
     for k, v in flat(state).items():
         out[f"moe/state/{k}"] = v
+    gcfg = ModelConfig(**spec["cfg_moe_grouped"])
+    ginit = nested("moe_grouped_init")
+    state = {"params": ginit, "opt": optimizer.init(ginit, opt)}
+    st_sh = sh.to_shardings(sh.state_specs(state, mesh), mesh)
+    state = jax.tree.map(jax.device_put, state, st_sh)
+    step = jax.jit(ts.make_train_step(gcfg, opt, sh.make_shard_fn(mesh)),
+                   in_shardings=(st_sh, None), out_shardings=(st_sh, None))
+    for i in range(spec["steps"]):
+        with mesh:
+            state, m = step(state, make_batch(gcfg, data, i))
+        for k in ("loss", "grad_norm", "lr"):
+            out[f"grouped/{k}{i}"] = np.asarray(m[k])
+    for k, v in flat(state).items():
+        out[f"grouped/state/{k}"] = v
 
     ds = SyntheticDataset(data)
     bspec = sh.batch_specs({"tokens": jax.ShapeDtypeStruct(
@@ -471,9 +496,9 @@ def test_sharded_decode(runs):
 def test_moe_forward_on_expert_sharded_leaves(runs):
     """A moe model's experts sharded over "model" in E (2 of 8 a rank),
     capacity factor 1.25 as registered: each rank's rows of the forward
-    and the aux loss within 1e-5 of the one-device forward's (the expert
-    gather runs on the gathered leaf; capacity, drops and aux come from
-    the global batch)."""
+    and the aux loss within 1e-5 of the one-device forward's (each rank
+    runs its 2 experts on its window of their slots, the outputs summed
+    over "model"; capacity, drops and aux come from the global batch)."""
     for out, meta in zip(runs["port"], runs["meta"]):
         assert meta["moe/experts_local"] == [2, 32, 48]
         np.testing.assert_allclose(out["moe/logits"], out["moe/one/logits"],
@@ -482,36 +507,162 @@ def test_moe_forward_on_expert_sharded_leaves(runs):
                                    atol=1e-5, rtol=0)
 
 
+def test_moe_serving_on_expert_sharded_leaves(runs):
+    """The moe model's prefill (each rank its rows) and three decode steps
+    of 4 rows on 2 x 4 (2 rows a data rank: 8 slots an expert, each rank
+    multiplying 4 of them on its 2 experts) within the decode tolerance
+    of one device's, every rank; each decode step exchanges the slots."""
+    cfg, data, model = _moe_layer_cfg()
+    e, dm = cfg["n_experts"], cfg["d_model"]
+    for out, meta in zip(runs["port"], runs["meta"]):
+        np.testing.assert_allclose(out["moe/prefill"], out["moe/one/prefill"],
+                                   atol=DECODE_ATOL, rtol=0)
+        for i in range(3):
+            np.testing.assert_allclose(out[f"moe/decode{i}"],
+                                       out[f"moe/one/decode{i}"],
+                                       atol=DECODE_ATOL, rtol=0)
+        window = (data - 1) * e // model * 8 // data * dm * 4
+        assert meta["moe/decode_counters"]["shard.expert_exchange_bytes"] \
+            == 3 * cfg["n_layers"] * 2 * window
+
+
+def _moe_steps_agree(runs, tag):
+    """Two moe steps on 2 x 4 against the port's one-device steps and the
+    reference's sharded ones: losses, grad norms, lr and the parameters;
+    every rank's gathered state the same."""
+    port, ref = runs["port"][0], runs["ref"]
+    for i in range(SPEC["steps"]):
+        for k, tol in (("loss", LOSS_RTOL), ("grad_norm", LOSS_RTOL),
+                       ("lr", LR_RTOL)):
+            got = port[f"{tag}/{k}{i}"]
+            np.testing.assert_allclose(got, port[f"{tag}/one/{k}{i}"],
+                                       rtol=tol, err_msg=f"{k}{i}")
+            np.testing.assert_allclose(got, ref[f"{tag}/{k}{i}"], rtol=tol,
+                                       err_msg=f"{k}{i} vs reference")
+    mine = _state(port, f"{tag}/state/")
+    one = _state(port, f"{tag}/one/state/")
+    for k, v in mine.items():
+        if k.startswith("params/"):
+            np.testing.assert_allclose(v, one[k], atol=PARAM_ATOL, rtol=0,
+                                       err_msg=k)
+    theirs = _state(ref, f"{tag}/state/")
+    for k, v in convert.train_state_to_jax(mine).items():
+        if k.startswith("params/"):
+            np.testing.assert_allclose(v, theirs[k], atol=PARAM_ATOL, rtol=0,
+                                       err_msg=k)
+    for r in range(1, WORLD):
+        for k, v in _state(runs["port"][r], f"{tag}/state/").items():
+            assert np.array_equal(v, mine[k]), (r, k)
+
+
 def test_sharded_moe_train_step(runs):
     """Two moe steps on 2 x 4 with the experts over "model" and the
     registered capacity factor 1.25, tokens dropped at the first step:
     losses, grad norms, lr and the parameters against the port's
     one-device steps and the reference's sharded ones (each rank's flat
     dispatch sees the global batch: capacity, drops and the aux loss)."""
-    port, ref = runs["port"][0], runs["ref"]
     assert sum(runs["meta"][0]["moe/dropped_step0"]) > 0
-    for i in range(SPEC["steps"]):
-        for k, tol in (("loss", LOSS_RTOL), ("grad_norm", LOSS_RTOL),
-                       ("lr", LR_RTOL)):
-            got = port[f"moe/{k}{i}"]
-            np.testing.assert_allclose(got, port[f"moe/one/{k}{i}"],
-                                       rtol=tol, err_msg=f"{k}{i}")
-            np.testing.assert_allclose(got, ref[f"moe/{k}{i}"], rtol=tol,
-                                       err_msg=f"{k}{i} vs reference")
-    mine = _state(port, "moe/state/")
-    one = _state(port, "moe/one/state/")
-    for k, v in mine.items():
-        if k.startswith("params/"):
-            np.testing.assert_allclose(v, one[k], atol=PARAM_ATOL, rtol=0,
-                                       err_msg=k)
-    theirs = _state(ref, "moe/state/")
-    for k, v in convert.train_state_to_jax(mine).items():
-        if k.startswith("params/"):
-            np.testing.assert_allclose(v, theirs[k], atol=PARAM_ATOL, rtol=0,
-                                       err_msg=k)
-    for r in range(1, WORLD):
-        for k, v in _state(runs["port"][r], "moe/state/").items():
-            assert np.array_equal(v, mine[k]), (r, k)
+    _moe_steps_agree(runs, "moe")
+
+
+def test_grouped_moe_train_step(runs):
+    """``moe_grouped`` (each batch row its own group, 8 slots an expert)
+    on 2 x 4: the experts split over "model", no exchange over the DP
+    ranks (a rank's groups are its own rows); two steps against one
+    device's and the reference's sharded ones."""
+    _moe_steps_agree(runs, "grouped")
+    for meta in runs["meta"]:
+        for i in range(SPEC["steps"]):
+            c = meta[f"grouped/counters{i}"]
+            assert "shard.expert_exchange_bytes" not in c
+            assert c["shard.tp_all_reduce_bytes"] > 0
+
+
+def _moe_layer_cfg():
+    return SPEC["cfg_moe"], 2, 4               # cfg, data, model
+
+
+def test_moe_exchanged_windows_are_the_one_device_buffer(runs):
+    """The moe FFN alone on (data 2, model 4), 4 x 32 tokens (40 slots an
+    expert): each rank's (2, 20, 64) window of its experts' slots, after
+    the exchange over "data", is the one-device (8, 40, 64) buffer's
+    block, bitwise (w_in's and w_gate's operand); its output and aux
+    within 1e-5 of one device's."""
+    cfg, data, model = _moe_layer_cfg()
+    e, dm = cfg["n_experts"], cfg["d_model"]
+    for out, meta in zip(runs["port"], runs["meta"]):
+        ep = meta["moe_ep"]
+        assert ep["windows"] == [[e // model, 40 // data, dm]] * 2
+        assert ep["whole"] == [[e, 40, dm]] * 2
+        assert ep["bitwise"] and ep["slots_filled"] > 0
+        np.testing.assert_allclose(out["moe_ep/y"], out["moe_ep/one/y"],
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(out["moe_ep/aux"], out["moe_ep/one/aux"],
+                                   atol=1e-5, rtol=0)
+
+
+def test_moe_router_gradient_at_model_4(runs):
+    """The router's gradient (whole on every rank, its block kept) and the
+    experts' (each rank's block) against one device's within PARAM_ATOL:
+    the gates' gradients, each model rank's from its experts only, are
+    summed over "model" before they reach the router."""
+    for meta in runs["meta"]:
+        errs = meta["moe_ep"]["grad_err"]
+        assert sorted(errs) == ["router", "w_gate", "w_in", "w_out"]
+        for k, err in errs.items():
+            assert err <= PARAM_ATOL, (k, err)
+
+
+def test_moe_step_exchange_and_redistribution(runs):
+    """A moe step's exchange over "data": (data - 1) x E' x cap / data x d
+    x 4 bytes each way, forward, in remat's recompute and backward (6 a
+    layer, an obs event each), counted under
+    ``shard.expert_exchange_bytes`` to the byte; of the blocks'
+    parameters only the router is gathered over "model", forward and
+    recompute (the kv columns are attention's: n_kv 2 on model 4)."""
+    cfg, data, model = _moe_layer_cfg()
+    tokens = SPEC["data"]["global_batch"] * SPEC["data"]["seq_len"]
+    cap = -(-int(tokens * cfg["top_k"] / cfg["n_experts"]
+                 * cfg["capacity_factor"]) // 8) * 8
+    window = cfg["n_experts"] // model * cap // data * cfg["d_model"] * 4
+    router = cfg["d_model"] // data * cfg["n_experts"] // model * 4
+    for meta in runs["meta"]:
+        for i in range(SPEC["steps"]):
+            c = meta[f"moe/counters{i}"]
+            assert c["shard.expert_exchange_bytes"] == \
+                6 * cfg["n_layers"] * (data - 1) * window
+            assert meta[f"moe/exchanges{i}"] == 6 * cfg["n_layers"]
+            moved = meta[f"moe/redistributed{i}"]
+            assert sorted(moved) == ["attention wk columns",
+                                     "attention wv columns",
+                                     "blocks/0 parameters",
+                                     "blocks/1 parameters"]
+            for layer in range(cfg["n_layers"]):
+                assert moved[f"blocks/{layer} parameters"] == \
+                    2 * (model - 1) * router
+
+
+@pytest.mark.parametrize("tag", ["f32", "moe"])
+def test_backward_on_a_fresh_thread(runs, tag):
+    """A sharded step's backward run on a fresh thread (no ContextVars, as
+    autograd's device thread on the card) records, in the transport scope
+    of its forward, what it records on the calling thread: remat's
+    recompute gathers over "data", every collective of the backward (the
+    moe's slot exchange too); the "model" all-reduces equal
+    ``shard.tp_all_reduce_bytes``."""
+    n_model = 4
+    for meta in runs["meta"]:
+        same, fresh = (meta[f"thread/{tag}"][k] for k in ("false", "true"))
+        assert fresh["fwd"] == same["fwd"]
+        assert fresh["bwd"] == same["bwd"]
+        bwd = fresh["bwd"]
+        assert any(k == "all_gather" and a == "data" for k, a, _ in bwd)
+        assert any(k == "reduce_scatter" and a == "data" for k, a, _ in bwd)
+        reduces = [b for k, a, b in fresh["fwd"] + bwd
+                   if k == "all_reduce" and a == "model"]
+        assert any(k == "all_reduce" and a == "model" for k, a, _ in bwd)
+        assert sum(2 * (n_model - 1) * b // n_model for b in reduces) == \
+            fresh["counters"]["shard.tp_all_reduce_bytes"]
 
 
 def test_pipeline_forward(runs):
@@ -650,6 +801,15 @@ def test_tp_ops_gradients(runs):
                                           "scatter"]
         for k, e in meta["tp_ops"].items():
             assert e <= 1e-12, (k, e)
+
+
+def test_eight_bit_update_in_chunks_is_the_whole_leafs(runs):
+    """An 8-bit moment's update on the mesh runs over the gathered leaf
+    ``UPDATE_CHUNK`` values at a time: three steps of one expert leaf (a
+    ragged last block) in chunks of 2 and of 7 blocks leave the
+    parameter, codes and scales bitwise as the whole leaf's update does,
+    on every rank."""
+    assert all(meta["update_chunks_bitwise"] for meta in runs["meta"])
 
 
 def test_tp_prefill(runs):

@@ -157,6 +157,170 @@ def _tp_ops(mesh):
     return out
 
 
+def _backward_records(cfg, state, batch, mesh, fresh):
+    """One sharded step's forward on this thread inside a
+    ``record_transport()`` scope and its backward on this thread or on a
+    fresh one (which starts with no ContextVars, as autograd's device
+    thread does): (the forward's records, the backward's, the counters'
+    deltas)."""
+    import threading
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.obs import counters
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_state as ts
+
+    model = state["params"]
+    params = list(optimizer.named_parameters(model).values())
+    hook = ts._hook(sh.make_shard_fn(mesh), mesh, batch)
+    rows = {k: sh.local(v) for k, v in batch.items()}
+    before = counters.snapshot()
+    with coll.record_transport() as moved:
+        with torch.enable_grad():
+            loss = ts._loss(model, rows, cfg, hook)
+        n_fwd = len(moved)
+        errors = []
+
+        def backward():
+            try:
+                torch.autograd.grad(loss, params, allow_unused=True)
+            except BaseException as e:              # noqa: BLE001
+                errors.append(e)
+
+        if fresh:
+            th = threading.Thread(target=backward)
+            th.start()
+            th.join()
+        else:
+            backward()
+        if errors:
+            raise errors[0]
+    return moved[:n_fwd], moved[n_fwd:], counters.delta(before)
+
+
+def _record_view(recs):
+    return [[t.kind, t.axis, t.bytes] for t in recs]
+
+
+def _moe_layer(minit, mcfg):
+    """The moe FFN of the moe model's first block, on its own."""
+    from repro_torch.models import convert
+    from repro_torch.models.moe import MoE
+    layer = MoE(mcfg, device="cpu")
+    layer.load_state_dict(convert.from_jax_params(
+        minit, mcfg, "cpu").blocks[0].moe.state_dict())
+    return layer
+
+
+def _expert_inputs(fn, dims):
+    """``fn()``'s result and the first operand of each expert product it
+    ran (a bmm whose second operand is (E', d, d_expert), ``dims`` = (d,
+    d_expert)), in order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.bmm.default \
+                    and args[1].shape[1:] == dims:
+                seen.append(args[0].detach().clone())
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        out = fn()
+    return out, seen
+
+
+def _moe_ep(minit, mcfg, x, mesh):
+    """The moe FFN on its own, experts over "model" 4 on (data 2, model
+    4): each rank's window of the capacity slots against the one-device
+    buffer's (bitwise), the output and aux against one device's, and the
+    router's and experts' gradients (the mean over the DP ranks, as a
+    step takes it) against one device's."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.moe import capacity, slot_window
+    dims = (mcfg.d_model, mcfg.d_expert)
+    xs = torch.from_numpy(x["moe_ep/x"])
+    c = torch.from_numpy(x["moe_ep/c"])
+    n = xs.shape[0]
+    one = _moe_layer(minit, mcfg).requires_grad_(True)
+    mine = sh.shard_model(_moe_layer(minit, mcfg).requires_grad_(True), mesh)
+    ndp = sh.dp_size(mesh)
+    rows = sh.dp_rows(n, mesh)
+    (y1, aux1), whole = _expert_inputs(lambda: one(xs), dims)
+    (y, aux), windows = _expert_inputs(lambda: mine(
+        xs[rows], sh.make_shard_fn(mesh)), dims)
+    di, _ = coll.flat_index(mesh, sh.batch_axes(mesh))
+    split = sh.TPSplit(mesh, 0, *sh._model_axis(mesh))
+    e0, e1 = split.span(mcfg.n_experts)
+    win = slot_window(capacity(xs.shape[0] * xs.shape[1], mcfg), ndp, di)
+    meta = {"windows": [list(w.shape) for w in windows],
+            "whole": [list(w.shape) for w in whole],
+            "bitwise": len(windows) == len(whole) > 0 and all(
+                torch.equal(w, b[e0:e1, win])
+                for w, b in zip(windows, whole)),
+            "slots_filled": sum(int((w.abs().sum(-1) > 0).sum())
+                                for w in windows)}
+    # a rank's loss is its rows' (the mean over the DP ranks is what the
+    # step's gradients are); the aux loss is the global batch's on each
+    (aux1 + (y1 * c).sum() / ndp).backward()
+    (aux + (y * c[rows]).sum()).backward()
+    grads = {name: (sh.full_tensor(p.grad) - dict(one.named_parameters())[
+        name].grad).abs().max().item()
+        for name, p in mine.named_parameters()}
+    meta["grad_err"] = grads
+    return meta, {"moe_ep/y": y.detach().numpy(),
+                  "moe_ep/one/y": y1[rows].detach().numpy(),
+                  "moe_ep/aux": aux.detach().numpy(),
+                  "moe_ep/one/aux": aux1.detach().numpy()}
+
+
+def _update_chunks(mesh):
+    """An 8-bit moment's update of one (8, 64, 45) leaf on ``mesh`` (the
+    experts' spec: 8 over "model", 64 over "data"; 45 x 64 x 8 values, not
+    a whole number of 256-value blocks), three steps, run whole and in
+    chunks of 2 blocks and of 7: are the parameter, codes and scales
+    bitwise the same?"""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train import optimizer
+    from repro_torch.train.optimizer import AdamWConfig
+
+    gen = torch.Generator().manual_seed(11)
+    w = torch.randn(8, 64, 45, generator=gen)
+    grads = [torch.randn(8, 64, 45, generator=gen) for _ in range(3)]
+    spec = sh.param_spec("blocks/0/moe/w_in", w, mesh)
+
+    def place(t, spec=spec):
+        return sh.distribute(t, sh.NamedSharding(mesh, spec))
+
+    def moment(mo):
+        mspec = sh._moment_spec(mo, spec, mesh)
+        return optimizer._Moment(*(place(t, ms) for t, ms in zip(mo, mspec)))
+
+    cfg = AdamWConfig(lr=5e-3, eight_bit=True)
+    chunk, got = sh.UPDATE_CHUNK, []
+    try:
+        for sh.UPDATE_CHUNK in (chunk, 2 * optimizer.Q_BLOCK,
+                                7 * optimizer.Q_BLOCK):
+            params = {"w": place(w)}
+            zero = optimizer.init({"w": w}, cfg)
+            state = {"step": place(zero["step"], sh.P()),
+                     "m": {"w": moment(zero["m"]["w"])},
+                     "v": {"w": moment(zero["v"]["w"])}}
+            for g in grads:
+                _, state, _ = optimizer.update({"w": place(g)}, state,
+                                               params, cfg)
+            got.append([sh.full_tensor(t) for t in (
+                params["w"], *state["m"]["w"], *state["v"]["w"])])
+    finally:
+        sh.UPDATE_CHUNK = chunk
+    return all(torch.equal(a, b) for other in got[1:]
+               for a, b in zip(got[0], other))
+
+
 def run(rank, world, d):
     from repro_torch import obs
     from repro_torch.ckpt import checkpoint as ck
@@ -270,6 +434,27 @@ def run(rank, world, d):
         for k, v in _flat_state(one).items():
             out[f"{tag}/one/state/{k}"] = v
     meta["tp_ops"] = _tp_ops(mesh24)
+    meta["update_chunks_bitwise"] = _update_chunks(mesh24)
+
+    # 1c. a sharded step's backward on a fresh thread records what it
+    #     records on this one (remat's recompute and every collective of
+    #     the backward, in the scope of the forward); the dense model of
+    #     case 1 and the moe model (its slot exchange)
+    for tag, key, tcfg in (("f32", "init", cfg),
+                           ("moe", "moe_init",
+                            ModelConfig(**spec["cfg_moe"]))):
+        opt = AdamWConfig(**spec["opt"])
+        state = sh.place_state(ts.state_for(convert.from_jax_params(
+            _nested(x, key), tcfg, "cpu"), opt), mesh24)
+        batch = make_batch(tcfg, data, 0, device="cpu",
+                           sharding=tokens_sharding)
+        views = {}
+        for fresh in (False, True):
+            fwd, bwd, ctr = _backward_records(tcfg, state, batch, mesh24,
+                                              fresh)
+            views[fresh] = {"fwd": _record_view(fwd),
+                            "bwd": _record_view(bwd), "counters": ctr}
+        meta[f"thread/{tag}"] = views
 
     # 2. global_batch: this rank's block of the step's tokens, and of the
     #    microbatches with accum 2
@@ -370,6 +555,27 @@ def run(rank, world, d):
     out["moe/logits"], out["moe/one/logits"] = got.numpy(), \
         want[rows].numpy()
     out["moe/aux"], out["moe/one/aux"] = got_aux.numpy(), want_aux.numpy()
+    # serving: prefill (each rank its rows) and three decode steps of the
+    # whole batch (its rows split: 8 slots an expert, 4 a rank's window)
+    one_moe = convert.from_jax_params(minit, mcfg, "cpu")
+    with torch.no_grad():
+        got = sh.prefill(smoe, {"tokens": sh.distribute(
+            mtok, sh.NamedSharding(mesh24, sh.batch_specs(
+                {"tokens": mtok}, mesh24)["tokens"]))}, mcfg)[0]
+        out["moe/prefill"] = got.numpy()
+        out["moe/one/prefill"] = model_zoo.prefill(
+            one_moe, {"tokens": mtok}, mcfg)[0][rows].numpy()
+    caches = model_zoo.init_caches(one_moe, mcfg, b, s, dtype=torch.float32)
+    scaches = sh.place_caches(model_zoo.init_caches(
+        one_moe, mcfg, b, s, dtype=torch.float32), mesh24)
+    before = counters.snapshot()
+    for i in range(toks.shape[1]):
+        want, _ = model_zoo.decode_step(one_moe, toks[:, i:i + 1], mcfg,
+                                        caches, i)
+        got, _ = sh.decode_step(smoe, toks[:, i:i + 1], mcfg, scaches, i)
+        out[f"moe/decode{i}"] = got.numpy()
+        out[f"moe/one/decode{i}"] = want.numpy()
+    meta["moe/decode_counters"] = counters.delta(before)
     opt = AdamWConfig(**spec["opt"])
     state = sh.place_state(ts.state_for(convert.from_jax_params(
         minit, mcfg, "cpu"), opt), mesh24)
@@ -382,8 +588,17 @@ def run(rank, world, d):
     step_fn = ts.make_train_step(mcfg, opt, sh.make_shard_fn(mesh24))
     one_fn = ts.make_train_step(mcfg, opt)
     for i in range(spec["steps"]):
-        state, m = step_fn(state, make_batch(mcfg, data, i, device="cpu",
-                                             sharding=tokens_sharding))
+        before = counters.snapshot()
+        with obs.trace() as tr:
+            state, m = step_fn(state, make_batch(
+                mcfg, data, i, device="cpu", sharding=tokens_sharding))
+        meta[f"moe/counters{i}"] = counters.delta(before)
+        moved = {}
+        for e in tr.spans("shard.redistribute"):
+            moved[e.attrs["op"]] = moved.get(e.attrs["op"], 0) + \
+                e.attrs["bytes"]
+        meta[f"moe/redistributed{i}"] = moved
+        meta[f"moe/exchanges{i}"] = len(tr.spans("shard.expert_exchange"))
         one, m1 = one_fn(one, make_batch(mcfg, data, i, device="cpu"))
         for k in ("loss", "grad_norm", "lr"):
             out[f"moe/{k}{i}"] = m[k].numpy()
@@ -393,6 +608,34 @@ def run(rank, world, d):
         out[f"moe/state/{k}"] = v
     for k, v in _flat_state(one).items():
         out[f"moe/one/state/{k}"] = v
+
+    # 3c. the moe FFN alone with its experts over "model": the exchanged
+    #     windows, the output and the gradients against one device
+    meta["moe_ep"], got = _moe_ep(minit, mcfg, x, mesh24)
+    out.update(got)
+
+    # 3d. a grouped moe (each batch row its own group: no exchange), two
+    #     steps against one device's (the reference's are the test's)
+    gcfg = ModelConfig(**spec["cfg_moe_grouped"])
+    ginit = _nested(x, "moe_grouped_init")
+    state = sh.place_state(ts.state_for(convert.from_jax_params(
+        ginit, gcfg, "cpu"), opt), mesh24)
+    one = ts.state_for(convert.from_jax_params(ginit, gcfg, "cpu"), opt)
+    step_fn = ts.make_train_step(gcfg, opt, sh.make_shard_fn(mesh24))
+    one_fn = ts.make_train_step(gcfg, opt)
+    for i in range(spec["steps"]):
+        before = counters.snapshot()
+        state, m = step_fn(state, make_batch(gcfg, data, i, device="cpu",
+                                             sharding=tokens_sharding))
+        meta[f"grouped/counters{i}"] = counters.delta(before)
+        one, m1 = one_fn(one, make_batch(gcfg, data, i, device="cpu"))
+        for k in ("loss", "grad_norm", "lr"):
+            out[f"grouped/{k}{i}"] = m[k].numpy()
+            out[f"grouped/one/{k}{i}"] = m1[k].numpy()
+    for k, v in _flat_state(state).items():
+        out[f"grouped/state/{k}"] = v
+    for k, v in _flat_state(one).items():
+        out[f"grouped/one/state/{k}"] = v
 
     # 4. the pipeline over the 4 stages of each data row
     per_stage = [{"w": torch.from_numpy(x[f"pipe/w{i}"]),

@@ -322,3 +322,45 @@ def test_train_state_rules_on_a_reduced_config_count_the_bytes():
     got = sh.spec_bytes(state, {"data": 2, "model": 2})
     assert whole // 4 * 3 <= got < 3 * whole
     assert sh.spec_bytes(state, {"data": 1, "model": 1}) == 3 * whole + 4
+
+
+# the moe's capacity slots on the production meshes (the dry run's cells):
+# an expert's capacity padded to a multiple of the DP ranks, where it is
+# not one already (the capacity is a multiple of 8, so only at 16 and 32)
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b")
+MOE_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DP_RANKS = {"pod": 16, "multipod": 32}
+PADDED = {("kimi-k2-1t-a32b", "train_4k", "pod"): (3416, 3424),
+          ("kimi-k2-1t-a32b", "train_4k", "multipod"): (3416, 3424),
+          ("kimi-k2-1t-a32b", "decode_32k", "pod"): (8, 16),
+          ("kimi-k2-1t-a32b", "decode_32k", "multipod"): (8, 32),
+          ("kimi-k2-1t-a32b", "prefill_32k", "multipod"): (27312, 27328),
+          ("qwen3-moe-235b-a22b", "decode_32k", "multipod"): (16, 32)}
+
+
+@pytest.mark.parametrize("mesh", sorted(DP_RANKS))
+@pytest.mark.parametrize("arch,shape", [(a, s) for a in MOE_ARCHS
+                                        for s in MOE_SHAPES])
+def test_moe_capacity_padding_and_windows(arch, shape, mesh):
+    """``padded_capacity`` and ``slot_window`` at the moe cells' global
+    token counts (a microbatch's in training): the capacity padded only
+    in the six cells listed, to the next multiple of the DP ranks; the
+    ranks' windows the same size, disjoint, covering the padded slots in
+    flat order."""
+    from repro_torch.models.moe import capacity, padded_capacity, \
+        slot_window
+    cfg = registry.get_config(arch)
+    spec = registry.SHAPE_BY_NAME[shape]
+    tokens = spec.global_batch * (1 if spec.kind == "decode"
+                                  else spec.seq_len)
+    if spec.kind == "train":
+        tokens //= cfg.accum_steps
+    n = DP_RANKS[mesh]
+    cap = capacity(tokens, cfg)
+    pad = padded_capacity(cap, n)
+    assert (cap, pad) == PADDED.get((arch, shape, mesh), (cap, cap))
+    assert pad % n == 0 and 0 <= pad - cap < n
+    windows = [slot_window(cap, n, i) for i in range(n)]
+    assert [w.start for w in windows] == [i * pad // n for i in range(n)]
+    assert all(w.stop - w.start == pad // n for w in windows)
+    assert windows[-1].stop == pad
