@@ -161,12 +161,19 @@ each printing JSON lines with its wall time:
    microbatches, 8 B5 and 8 B6 launches a rank, bitwise the blocks in
    order; and ``sharding.decode_step`` with parameters at
    ``params_specs`` and f32 caches at ``cache_specs`` within
-   ``SHARD_DECODE_TOL`` of one device. The first sharded step runs
-   inside ``record_transport()`` (its backward on autograd's device
-   thread): its "model" all-reduces are TP's, equal to
+   ``SHARD_DECODE_TOL`` of one device: flash-decoding on each rank's
+   block of the caches' sequence, each rank's cache bytes equal to its
+   spec's blocks', a step's ``collective.bytes`` and each decode op's
+   bytes (``decode q``, ``decode kv token``, ``decode combine``: obs
+   events, to the byte), no k or v leaf gathered (``decode caches``, the
+   whole-cache route's gather, at 0 bytes; the SSM state, whose 50
+   heads divide model 2, under ``decode ssm state``). The first sharded
+   step runs inside ``record_transport()`` and an obs trace (its backward on
+   autograd's device thread): its "model" all-reduces are TP's, equal to
    ``shard.tp_all_reduce_bytes``, and the grad norm's scalar, its gathers
    over "data" each block's leaves twice (remat's recompute) and the
-   root's once. Then the moe
+   root's once, and its ``shard.redistribute`` events, backward's and
+   recompute's included, carry ``shard.redistribute_bytes``. Then the moe
    with its experts split over "model" in E, each DP rank multiplying its
    window of the capacity slots exchanged over "data": (a) the families
    phase's reduced moe at capacity factors ``SHARD_MOE_FACTORS`` (0.5
@@ -205,7 +212,11 @@ each printing JSON lines with its wall time:
    to the live rank 0's, its state bytes to the live ``spec_bytes``, its
    peak within ``DRYRUN_MEM_TOL`` of the live rank's; (c) hymba-1.5b
    ``train_4k`` on the ``pod`` mesh (a fake world of 256): its row and
-   its trace seconds, beside the ZeRO-3 route's row (``DRYRUN_POD_ZERO3``).
+   its trace seconds, beside the ZeRO-3 route's row (``DRYRUN_POD_ZERO3``);
+   (d) the shard phase's decode step (``shard_cfg()``, ``SHARD_DECODE``'s
+   batch and cache length, on a fake world of 4): its
+   ``collective.bytes``, ``shard.redistribute_bytes`` and
+   ``shard.decode_bytes`` equal to the live rank 0's a step.
 14. ``times``: each kernel at its path's shapes against its plain version,
    a library call and its roofline bound: B1 at every compiled tile, B2
    at five trailing updates the drivers launch beside the two-call
@@ -222,6 +233,7 @@ exits non-zero; without a CUDA card, or without the rest of the checkout,
 it exits non-zero before printing any result.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -395,7 +407,7 @@ SHARD_MESH = (2, 2)
 SHARD_LAYERS = 4
 SHARD_TIMED = 2
 SHARD_MICRO = 8
-SHARD_DECODE = (4, 6, 64)
+SHARD_DECODE = (4, 6, 64)       # batch, steps, cache slots
 SHARD_DECODE_TOL = (2e-3, "absolute, the reference's bound "
                           "(tests/test_distributed.py:93-94): f32 on both "
                           "sides, the rows and the cache's halves summed in "
@@ -3881,6 +3893,7 @@ def shard_train(rows, mesh, rank, directory):
     specs), then 1 + SHARD_TIMED steps on TRAIN's tokens (each rank its
     rows), the agreement read after TRAIN_AGREE_STEPS: this rank's
     parameter blocks against the one-device run's."""
+    from repro_torch import obs
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding as sh
@@ -3910,11 +3923,11 @@ def shard_train(rows, mesh, rank, directory):
         batch = make_batch(cfg, data, i, device="cuda", sharding=bsh)
         mesh_barrier()
         before = counters.snapshot()
-        with coll.record_transport() as moved:
+        with coll.record_transport() as moved, obs.trace() as tr:
             (state, m), secs = sync_time(lambda: step_fn(state, batch))
         ctr = counters.delta(before)
         if i == 0:                      # the untimed step's records
-            transport = shard_transport(moved, ctr, state, mesh)
+            transport = shard_transport(moved, ctr, state, mesh, tr)
         steps.append({"step": i, "wall_s": secs,
                       **{k: m[k].item() for k in ("loss", "grad_norm", "lr")},
                       "collective_bytes": ctr.get("collective.bytes", 0),
@@ -3946,13 +3959,16 @@ def shard_train(rows, mesh, rank, directory):
     return state
 
 
-def shard_transport(moved, ctr, state, mesh):
-    """A sharded step's ``record_transport()`` records (its backward on
-    autograd's device thread) against its counters: the "model"
-    all-reduces are TP's, equal to ``shard.tp_all_reduce_bytes``, and the
-    grad norm's one f32 scalar; the gathers over "data" each block's
-    leaves twice (forward and remat's recompute) and the root's once;
-    one reduce-scatter a leaf."""
+def shard_transport(moved, ctr, state, mesh, tr):
+    """A sharded step's ``record_transport()`` records and obs trace
+    ``tr`` (its backward and remat's recompute on autograd's device
+    thread) against its counters: the "model" all-reduces are TP's,
+    equal to ``shard.tp_all_reduce_bytes``, and the grad norm's one f32
+    scalar; the gathers over "data" each block's leaves twice (forward
+    and remat's recompute) and the root's once; one reduce-scatter a
+    leaf; the ``shard.redistribute`` events' bytes (the backward's gathers
+    of ``attention wo input`` and ``mamba out_proj input`` among them)
+    equal to ``shard.redistribute_bytes``."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.train import optimizer
 
@@ -3976,17 +3992,22 @@ def shard_transport(moved, ctr, state, mesh):
                   and t.axis == "data")
     scatters = sum(1 for t in moved if t.kind == "reduce_scatter"
                    and t.axis == "data")
-    row = {"leg": "transport records of the first sharded step (its "
-                  "backward on autograd's device thread)",
+    events = sum(e.attrs["bytes"] for e in tr.spans("shard.redistribute"))
+    row = {"leg": "transport records and obs events of the first sharded "
+                  "step (its backward on autograd's device thread)",
            "model_all_reduces": len(reduces),
            "recorded_tp_bytes": recorded - norm,
            "tp_all_reduce_bytes": ctr.get("shard.tp_all_reduce_bytes", 0),
            "data_all_gathers": gathers, "data_reduce_scatters": scatters,
            "want_gathers": 2 * blocks + root,
-           "want_reduce_scatters": blocks + root}
+           "want_reduce_scatters": blocks + root,
+           "redistribute_event_bytes": events,
+           "redistribute_bytes": ctr.get("shard.redistribute_bytes", 0),
+           "redistribute_events": len(tr.spans("shard.redistribute"))}
     row["ok"] = (recorded - norm == row["tp_all_reduce_bytes"] > 0
                  and gathers == 2 * blocks + root
-                 and scatters == blocks + root)
+                 and scatters == blocks + root
+                 and events == row["redistribute_bytes"] > 0)
     return row
 
 
@@ -4286,10 +4307,32 @@ def shard_pipeline(rows, rank):
     torch.cuda.empty_cache()
 
 
+def decode_op_bytes(cfg, rows, nmodel):
+    """The bytes each decode op brings a rank over "model" a step, f32
+    compute (hymba's 25 heads do not divide model, so q is wq's output
+    columns gathered): q's columns, the token's k and v columns, and the
+    combine's three all-reduces (m, l: rows x Hq; o: rows x Hq x hd), each
+    layer."""
+    n = nmodel - 1
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    combine = sum(2 * n * e * 4 // nmodel
+                  for e in (rows * hq, rows * hq, rows * hq * hd))
+    return {"decode q": cfg.n_layers * n * rows * hq * hd // nmodel * 4,
+            "decode kv token": cfg.n_layers * 2 * n * rows * hkv * hd
+            // nmodel * 4,
+            "decode combine": cfg.n_layers * combine}
+
+
 def shard_decode(rows, mesh):
     """The 4-layer model (f32) decoding SHARD_DECODE's tokens with its
     parameters at params_specs and f32 caches at cache_specs, against the
-    same model's one-device decode."""
+    same model's one-device decode: flash-decoding on each rank's block
+    of the k / v caches' sequence. Each rank's cache bytes against its
+    spec's blocks', each step's counters and decode ops (obs events) to
+    the byte, no k or v leaf gathered (``decode caches``)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import obs
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import model_zoo
     from repro_torch.obs import counters
@@ -4303,29 +4346,57 @@ def shard_decode(rows, mesh):
                                    dtype=torch.float32)
     scaches = sh.place_caches(model_zoo.init_caches(
         model, cfg, b, max_len, dtype=torch.float32), mesh)
+    leaves = pytree.tree_leaves(scaches)
+    specs = pytree.tree_leaves(sh.cache_specs(caches, mesh),
+                               is_leaf=lambda x: isinstance(x, sh.P))
+    local = sum(sh.local_bytes(t) for t in leaves)
+    spec = sum(t.numel() * t.element_size() // math.prod(
+        sh._axsize(mesh, e) for e in sp) for t, sp in zip(leaves, specs))
+    whole = sum(t.numel() * t.element_size() for t in leaves)
     want = [model_zoo.decode_step(model, toks[:, i:i + 1], cfg, caches, i)[0]
             for i in range(n)]
     sh.shard_model(model, mesh)
-    got, secs, ctr = [], [], {}
+    nmodel = dict(zip(mesh.mesh_dim_names, map(int, mesh.shape)))["model"]
+    want_ops = decode_op_bytes(cfg, b // SHARD_MESH[0], nmodel)
+    got, secs, steps = [], [], []
     for i in range(n):
         mesh_barrier()
         before = counters.snapshot()
-        (logits, _), s = sync_time(lambda: sh.decode_step(
-            model, toks[:, i:i + 1], cfg, scaches, i))
+        with obs.trace() as tr:
+            (logits, _), s = sync_time(lambda: sh.decode_step(
+                model, toks[:, i:i + 1], cfg, scaches, i))
         ctr = counters.delta(before)
+        ops, moved = {}, {}
+        for name, into in (("shard.decode", ops),
+                           ("shard.redistribute", moved)):
+            for e in tr.spans(name):
+                op = e.attrs["op"]
+                into[op] = into.get(op, 0) + e.attrs["bytes"]
+        steps.append({"step": i, "wall_s": s, "ops": ops,
+                      "redistributed": moved,
+                      "collective_bytes": ctr.get("collective.bytes", 0),
+                      "redistribute_bytes": ctr.get(
+                          "shard.redistribute_bytes", 0),
+                      "decode_bytes": ctr.get("shard.decode_bytes", 0)})
         got.append(logits)
         secs.append(s)
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    ok_ops = all(st["ops"] == want_ops
+                 and st["decode_bytes"] == sum(want_ops.values())
+                 and st["redistributed"].get("decode caches", 0) == 0
+                 for st in steps)
     ok = err <= SHARD_DECODE_TOL[0] and all(
-        bool(torch.isfinite(g).all()) for g in got)
+        bool(torch.isfinite(g).all()) for g in got) and local == spec \
+        and ok_ops
     rows.append({"leg": f"sharded decode hymba-1.5b {SHARD_LAYERS} layers "
                         f"(f32) batch {b}, {n} tokens, f32 caches of "
-                        f"{max_len} at cache_specs", "max_abs_err": err,
+                        f"{max_len} at cache_specs: flash-decoding on each "
+                        f"rank's sequence block", "max_abs_err": err,
                  "tol": SHARD_DECODE_TOL[0], "reason": SHARD_DECODE_TOL[1],
-                 "step_s": statistics.median(secs[1:]),
-                 "last_step_collective_bytes": ctr.get("collective.bytes", 0),
-                 "last_step_redistribute_bytes": ctr.get(
-                     "shard.redistribute_bytes", 0), "ok": ok})
+                 "cache_local_bytes": local, "cache_spec_bytes": spec,
+                 "cache_whole_bytes": whole, "want_ops": want_ops,
+                 "decode_steps": steps,
+                 "step_s": statistics.median(secs[1:]), "ok": ok})
     assert ok, rows[-1]
 
 
@@ -4656,10 +4727,12 @@ def phase_analysis(smi):
     emit(phase="analysis", wall_s=time.perf_counter() - t0, card=smi)
 
 
-def dryrun_child(out, world, mesh_shape, overrides, global_batch):
+def dryrun_child(out, world, mesh_shape, overrides, global_batch,
+                 shape="train_4k", seq_len=None):
     """One child of the dryrun phase (spawned): a fake world of ``world``
-    ranks, hymba-1.5b's ``train_4k`` cell on ``mesh_shape`` (None: the
-    pod mesh) traced once, its row and counts to ``out``."""
+    ranks, hymba-1.5b's ``shape`` cell (its cache cut to ``seq_len``
+    where given) on ``mesh_shape`` (None: the pod mesh) traced once, its
+    row and counts to ``out``."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
@@ -4669,9 +4742,10 @@ def dryrun_child(out, world, mesh_shape, overrides, global_batch):
     dev = dryrun.trace_device().type
     mesh = make_production_mesh(device_type=dev) if mesh_shape is None \
         else make_debug_mesh(*mesh_shape, device_type=dev)
-    trace, row = dryrun.lower_cell("hymba-1.5b", "train_4k", mesh,
+    trace, row = dryrun.lower_cell("hymba-1.5b", shape, mesh,
                                    overrides=overrides,
-                                   global_batch=global_batch)
+                                   global_batch=global_batch,
+                                   seq_len=seq_len)
     with open(out, "w") as f:
         json.dump({"row": row.to_dict(), "counters": trace.counters,
                    "launches": len(trace.launches),
@@ -4711,7 +4785,8 @@ def dryrun_spawn(top, cells):
 
 def phase_dryrun(smi, train, shard):
     """The dry run held to the card (phase 13): ``train`` is the train
-    phase's reading, ``shard`` the shard phase's rank 0 rows."""
+    phase's reading, ``shard`` the shard phase's rank 0 rows (its train
+    step's and its decode step's)."""
     import dataclasses
     import shutil
     import tempfile
@@ -4730,7 +4805,9 @@ def phase_dryrun(smi, train, shard):
             "one": (1, (1, 1), None, TRAIN[0]),
             "shard": (SHARD_MESH[0] * SHARD_MESH[1], SHARD_MESH, overrides,
                       TRAIN[0]),
-            "pod": (256, None, None, None)})
+            "pod": (256, None, None, None),
+            "decode": (SHARD_MESH[0] * SHARD_MESH[1], SHARD_MESH, overrides,
+                       SHARD_DECODE[0], "decode_32k", SHARD_DECODE[2])})
     finally:
         shutil.rmtree(top, ignore_errors=True)
     tol = DRYRUN_MEM_TOL[0]
@@ -4780,7 +4857,25 @@ def phase_dryrun(smi, train, shard):
              "hlo_flops": row["hlo_flops"], "compute_s": row["compute_s"],
              "memory_s": row["memory_s"],
              "collective_s": row["collective_s"]})
-    assert ok_a and ok_b and not pod["launches"], (ok_a, ok_b)
+    # (d) the shard phase's decode step: rank 0's counters a step
+    leg = next(r for r in shard if "decode_steps" in r)
+    live = {(s["collective_bytes"], s["redistribute_bytes"],
+             s["decode_bytes"]) for s in leg["decode_steps"]}
+    dry = got["decode"]
+    ctr = (dry["counters"].get("collective.bytes", 0),
+           dry["counters"].get("shard.redistribute_bytes", 0),
+           dry["counters"].get("shard.decode_bytes", 0))
+    ok_d = live == {ctr} and not dry["launches"]
+    emit(phase="dryrun", check=f"(d) the shard phase's decode step "
+         f"({SHARD_LAYERS} layers, f32, data x model {SHARD_MESH}, batch "
+         f"{SHARD_DECODE[0]}, caches of {SHARD_DECODE[2]} slots) against "
+         f"the live rank 0", card=smi, collective_bytes=ctr[0],
+         redistribute_bytes=ctr[1], decode_bytes=ctr[2],
+         live_per_step=sorted(live),
+         bytes_per_device=dry["row"]["bytes_per_device"],
+         trace_s=dry["trace_s"], ok=ok_d)
+    assert ok_a and ok_b and ok_d and not pod["launches"], (ok_a, ok_b,
+                                                            ok_d)
     emit(phase="dryrun", wall_s=time.perf_counter() - t0, card=smi)
 
 

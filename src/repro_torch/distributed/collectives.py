@@ -34,8 +34,9 @@ final result gathers tagged ``"result"``), every ``reduce_scatter_chunk``
 and ``all_reduce``, and the operand partition each mesh routine takes;
 the static analyzer's CC and SH rules read it, and the dry run holds its
 aten-level collective bytes to it. A backward records into the scope
-that was active at its forward (:func:`transport_scope`), on whatever
-thread autograd runs it.
+that was active at its forward, and emits its obs events into the
+forward's trace (:func:`transport_scope`), on whatever thread autograd
+runs it.
 
 Transport follows the group's backend, never a caught error: NCCL moves
 tensors on the card; gloo moves host memory, so a tensor on the card is
@@ -146,22 +147,34 @@ def record_transport():
         _TRANSPORT.reset(token)
 
 
-def transport_list() -> Optional[List[TransportRecord]]:
-    """The list of the :func:`record_transport` scope active here, or
-    None: what an ``autograd.Function`` keeps at its forward for
+@dataclasses.dataclass(frozen=True)
+class ForwardScopes:
+    """The scopes active at an op's forward that its backward re-enters:
+    the :func:`record_transport` list and obs's trace (each None where
+    none was active)."""
+
+    transport: Optional[List[TransportRecord]]
+    trace: Optional[object]
+
+
+def forward_scopes() -> ForwardScopes:
+    """The :func:`record_transport` list and the obs trace active here:
+    what an ``autograd.Function`` keeps at its forward for
     :func:`transport_scope` to re-enter in its backward."""
-    return _TRANSPORT.get()
+    return ForwardScopes(_TRANSPORT.get(), _obs.current_trace())
 
 
 @contextlib.contextmanager
-def transport_scope(rec: Optional[List[TransportRecord]]):
-    """Record into ``rec`` (a :func:`transport_list`) inside the scope.
-    A backward and remat's recompute run where the forward's scope may be
+def transport_scope(scopes: ForwardScopes):
+    """Record into the forward's transport list and emit obs events into
+    its trace (``scopes``, a :func:`forward_scopes`) inside the scope. A
+    backward and remat's recompute run where the forward's scopes may be
     unseen: on CUDA tensors autograd runs them on its device thread,
     which starts with none of the caller's ContextVars."""
-    token = _TRANSPORT.set(rec)
+    token = _TRANSPORT.set(scopes.transport)
     try:
-        yield rec
+        with _obs.capture(scopes.trace):
+            yield scopes
     finally:
         _TRANSPORT.reset(token)
 
@@ -441,6 +454,35 @@ def flat_index(mesh, axes) -> Tuple[int, int]:
     return idx, n
 
 
+def combine_partials(o, m, l, mesh, axis: str = "model") -> torch.Tensor:
+    """Every rank's partial softmax over its block of the sequence, (o, m,
+    l) as :func:`_partial_softmax_attention` gives them, combined over
+    mesh ``axis``: an ``all_reduce`` MAX of m, then SUMs of l and o, each
+    rescaled by exp(m - max). A rank whose block holds no valid key (m =
+    -1e30) adds exp(-1e30 - max) = 0 of each. Returns (B, Hq, D) in f32."""
+    m_g = all_reduce(m, mesh, axis, dist.ReduceOp.MAX)
+    corr = torch.exp(m - m_g)
+    l_g = all_reduce(l * corr, mesh, axis, dist.ReduceOp.SUM)
+    o_g = all_reduce(o * corr[..., None], mesh, axis, dist.ReduceOp.SUM)
+    safe = torch.where(l_g > 0, l_g, torch.ones_like(l_g))
+    return o_g / safe[..., None]
+
+
+def block_decode_attention(q, k, v, start: int, lens, mesh,
+                           axis: str = "model") -> torch.Tensor:
+    """Flash-decoding on this rank's block of a cache split over mesh
+    ``axis`` along its sequence: q (B, Hq, D) every head; k, v (B, Sc,
+    Hkv, D) the block, its first slot ``start``; ``lens`` (B,) each
+    row's valid length (a key is valid where its position is below it).
+    The partial softmax over the block, combined over ``axis``
+    (:func:`combine_partials`); (B, Hq, D) in f32."""
+    kpos = start + torch.arange(k.shape[1], device=q.device)
+    valid = (kpos[None, :] < lens[:, None])[:, None, :]      # (B, 1, Sc)
+    o, m, l = _partial_softmax_attention(q, k.transpose(1, 2),
+                                         v.transpose(1, 2), valid)
+    return combine_partials(o, m, l, mesh, axis)
+
+
 def sharded_decode_attention(mesh, dp_axes):
     """Builds ``decode_attn(q, k_cache, v_cache, kv_len)`` with the cache's
     S dim sharded over "model" and the batch over the ``dp_axes``.
@@ -450,8 +492,9 @@ def sharded_decode_attention(mesh, dp_axes):
     the mesh calls it with the global arrays and takes its shard: batch
     rows by its index over ``dp_axes``, cache positions by its "model"
     index. The partial softmax of each shard is combined by an
-    ``all_reduce`` MAX, then SUM, over "model"; the (B, Hq, D) output is
-    gathered over the ``dp_axes``, so every rank returns all of it. The
+    ``all_reduce`` MAX, then SUM, over "model"
+    (:func:`block_decode_attention`); the (B, Hq, D) output is gathered
+    over the ``dp_axes``, so every rank returns all of it. The
     reference's ``kv_len_static`` argument, which changes nothing there,
     is left out."""
     dp = tuple(dp_axes)
@@ -469,18 +512,8 @@ def sharded_decode_attention(mesh, dp_axes):
         cols = slice(mi * sl, (mi + 1) * sl)
         lens = torch.as_tensor(kv_len, device=q.device).reshape(-1)
         lens = lens.expand(b)[rows]
-        kpos = mi * sl + torch.arange(sl, device=q.device)
-        valid = (kpos[None, :] < lens[:, None])[:, None, :]   # (bl, 1, sl)
-        kh = k[rows, cols].transpose(1, 2)                    # (bl,Hkv,sl,D)
-        vh = v[rows, cols].transpose(1, 2)
-        o, m, l = _partial_softmax_attention(q[rows], kh, vh, valid)
-        m_g = all_reduce(m, mesh, "model", dist.ReduceOp.MAX)
-        corr = torch.exp(m - m_g)
-        l_g = all_reduce(l * corr, mesh, "model", dist.ReduceOp.SUM)
-        o_g = all_reduce(o * corr[..., None], mesh, "model",
-                         dist.ReduceOp.SUM)
-        safe = torch.where(l_g > 0, l_g, torch.ones_like(l_g))
-        out = (o_g / safe[..., None]).to(q.dtype)
+        out = block_decode_attention(q[rows], k[rows, cols], v[rows, cols],
+                                     mi * sl, lens, mesh).to(q.dtype)
         for a in reversed(dp):
             out = all_gather_cat(out, mesh, a, 0)
         return out

@@ -74,7 +74,8 @@ divided by their size: the mean over the global batch), back to the
 parameter's placements. The transport is
 :mod:`repro_torch.distributed.collectives`' (through pinned host memory
 for gloo on the card); each op whose backward moves bytes keeps the
-``record_transport()`` list of its forward and records into it
+``record_transport()`` list and the obs trace of its forward
+(``collectives.forward_scopes``) and records into them
 (``collectives.transport_scope``), on whatever thread autograd runs it.
 
 **Where the layout is not kept sharded**, each counted under the counter
@@ -94,9 +95,14 @@ non-DP axes) with an obs event ``shard.redistribute`` naming the op:
    ``out_proj``'s input; ``frontend_proj``'s output; the kv heads' columns
    where the q heads divide and the kv heads do not (``attention wk
    columns``: each rank's gradient summed back by a reduce-scatter);
-   prefill's and decode's k and v for their caches, which hold every head;
-3. decode: each cache leaf gathered over "model" (sequence and SSM
-   heads) before the step and cut back after (``decode caches``), and the
+   prefill's k and v for its caches, which hold every head, and decode's
+   where the cache's sequence is whole;
+3. decode: the SSM ``state`` where :func:`cache_specs` splits its heads
+   over "model" (the debug meshes, not the production ones, whose 16
+   divides neither hymba's 50 nor mamba2-130m's 24), gathered over
+   "model" before the step and cut back after (``decode ssm state``; a
+   k / v leaf split over "model" is split along its sequence and stays
+   this rank's block, so no other cache leaf is gathered), and the
    logits gathered over the vocabulary (``decode logits``);
 4. an 8-bit moment's update, which gathers its parameter, gradient and
    codes (``8-bit moment <path>``).
@@ -111,6 +117,32 @@ leaf's gradient where each rank picks its own entries of it), which
 ``shard.tp_all_reduce_bytes`` also counts on their own. Where a dim
 does not divide its axis the spec leaves it whole and the module runs
 the product whole: no error is caught to fall back anywhere.
+
+**Decode** (:func:`decode_step`) runs on the caches at
+:func:`cache_specs`' placements without gathering a k / v leaf whose
+sequence the spec splits over "model" (``k v cross_k cross_v``, where S
+divides the axis): the model gets this rank's block, marked with a
+:class:`SeqSplit` (``layers.mark_seq_split``), and attention's decode
+runs flash-decoding on it, as the reference's
+``sharded_decode_attention`` does: the new token's k and v (every kv
+head, gathered over "model": ``decode kv token``) are written in place
+only by the rank whose block holds the slot (``cache_index % S``, a
+ring of ``min(S, window)`` slots on windowed layers, at
+``slot // S_local``); q of every head of the rank's DP rows (gathered
+over "model" where TP split the heads: ``decode q``) runs the partial
+softmax over the block at global positions ``index * S_local +
+arange(S_local)`` below ``kv_len``, and the partials are combined over
+"model" (MAX, then the rescaled SUMs of l and o: ``decode combine``; a
+rank whose block is wholly past ``kv_len`` adds 0). Each is counted
+under ``collective.bytes`` and ``shard.decode_bytes`` with an obs event
+``shard.decode``. Where the rank runs its own q heads it keeps their
+rows of the result for the row-parallel ``wo``. The other leaves take
+the spec's own degrade rule, as the reference's: a k / v leaf whose S
+does not divide "model", and every leaf under ``seq_shard=False``,
+stays whole over "model" and decodes as before; the SSM ``state``,
+split over "model" by heads where they divide (the debug meshes only),
+is still gathered whole for the step (item 3 below), as is mamba's
+``in_proj`` output (item 2: its columns do not fall on head edges).
 
 :func:`make_shard_fn` is the models' ``shard_fn(x, name)`` hook (a
 :class:`ShardFn`). The port's activations are each rank's rows already
@@ -312,6 +344,8 @@ def batch_specs(batch_shapes, mesh, accum: int = 1):
 # the unstacked rank of each cache leaf; a leading layer dim may precede it
 _CACHE_RANK = {"k": 4, "v": 4, "cross_k": 4, "cross_v": 4, "state": 4,
                "conv": 3}
+# the cache leaves whose sequence cache_specs splits over "model"
+SEQ_LEAVES = ("k", "v", "cross_k", "cross_v")
 
 
 def _cache_leaf_spec(name: str, shape, mesh, seq_shard: bool) -> P:
@@ -324,7 +358,7 @@ def _cache_leaf_spec(name: str, shape, mesh, seq_shard: bool) -> P:
     off = nd - br
     if dp and shape[off] % _axsize(mesh, dp) == 0:
         spec[off] = dp
-    if name in ("k", "v", "cross_k", "cross_v"):             # (B, S, H, hd)
+    if name in SEQ_LEAVES:                                   # (B, S, H, hd)
         if seq_shard and _fits(shape[off + 1], mesh, "model"):
             spec[off + 1] = "model"
     if name == "state":                                      # (B, H, P, N)
@@ -647,7 +681,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, p, axis_bytes, keep=()):
         ctx.mesh, ctx.placements, ctx.shape = (p.device_mesh, p.placements,
                                                p.shape)
-        ctx.keep, ctx.rec = keep, coll.transport_list()
+        ctx.keep, ctx.rec = keep, coll.forward_scopes()
         return _gather(p, axis_bytes, keep)
 
     @staticmethod
@@ -692,7 +726,7 @@ class _TPCopy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rec = mesh, coll.transport_list()
+        ctx.mesh, ctx.rec = mesh, coll.forward_scopes()
         return x
 
     @staticmethod
@@ -724,7 +758,7 @@ class _TPGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim, what, partial):
         ctx.mesh, ctx.dim, ctx.what, ctx.partial = mesh, dim, what, partial
-        ctx.rec = coll.transport_list()
+        ctx.rec = coll.forward_scopes()
         return _tp_all_gather(x, mesh, dim, what)
 
     @staticmethod
@@ -732,9 +766,9 @@ class _TPGather(torch.autograd.Function):
         n, idx = _model_axis(ctx.mesh)
         if not ctx.partial:
             return g.chunk(n, ctx.dim)[idx], None, None, None, None
-        _count({TP_AXIS: (n - 1) * g.numel() * g.element_size() // n},
-               ctx.what)
         with coll.transport_scope(ctx.rec):
+            _count({TP_AXIS: (n - 1) * g.numel() * g.element_size() // n},
+                   ctx.what)
             out = coll.reduce_scatter_chunk(g.contiguous(), ctx.mesh,
                                             TP_AXIS, ctx.dim)
         return out, None, None, None, None
@@ -748,7 +782,7 @@ class _TPScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim, what):
         ctx.mesh, ctx.dim, ctx.what = mesh, dim, what
-        ctx.rec = coll.transport_list()
+        ctx.rec = coll.forward_scopes()
         n, idx = _model_axis(mesh)
         return x.chunk(n, dim)[idx]
 
@@ -767,7 +801,7 @@ class _TPPick(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, mesh, dim, start, stop):
         ctx.mesh, ctx.dim, ctx.start, ctx.shape = mesh, dim, start, w.shape
-        ctx.rec = coll.transport_list()
+        ctx.rec = coll.forward_scopes()
         return w.narrow(dim, start, stop - start)
 
     @staticmethod
@@ -1099,7 +1133,7 @@ class _DPSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rec = mesh, coll.transport_list()
+        ctx.mesh, ctx.rec = mesh, coll.forward_scopes()
         return _dp_all_reduce(x, mesh)
 
     @staticmethod
@@ -1146,7 +1180,7 @@ class _SlotWindow(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rec = mesh, coll.transport_list()
+        ctx.mesh, ctx.rec = mesh, coll.forward_scopes()
         return _dp_scatter(x, mesh)
 
     @staticmethod
@@ -1162,7 +1196,7 @@ class _SlotGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.mesh, ctx.rec = mesh, coll.transport_list()
+        ctx.mesh, ctx.rec = mesh, coll.forward_scopes()
         return _dp_cat(x, mesh)
 
     @staticmethod
@@ -1328,6 +1362,106 @@ def prefill(model: nn.Module, batch: dict, cfg, shard_fn=None,
                                  use_kernels=use_kernels)
 
 
+def _count_decode(moved: int, what: str) -> None:
+    """Count a decode op on sequence-split caches (``what``: ``decode q``,
+    ``decode kv token``, ``decode combine``): the bytes that reach this
+    rank over "model", under ``collective.bytes`` and
+    ``shard.decode_bytes``, with an obs event ``shard.decode``."""
+    _counters.inc("collective.bytes", moved)
+    _counters.inc("shard.decode_bytes", moved)
+    if _obs.enabled():
+        _obs.event("shard.decode", cat="collective", op=what, bytes=moved,
+                   axes=[TP_AXIS])
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A decode cache leaf held as this rank's block of its sequence over
+    "model" (``size`` blocks, this rank's the ``index``-th), as
+    :func:`decode_step` hands it to the model (``layers.mark_seq_split``),
+    and the ops attention's decode runs on it (module docstring,
+    "Decode")."""
+
+    mesh: object
+    size: int
+    index: int
+
+    def gather(self, x, what: str, dim: int = -1):
+        """Every rank's block of ``x`` along ``dim``, concatenated in rank
+        order (an all-gather over "model", counted under ``what``)."""
+        _count_decode((self.size - 1) * x.numel() * x.element_size(), what)
+        return coll.all_gather_cat(x.contiguous(), self.mesh, TP_AXIS,
+                                   dim % x.ndim)
+
+    def gatherer(self, what: str):
+        """:meth:`gather` along the last dim, counted under ``what``."""
+        return lambda x: self.gather(x, what)
+
+    def write(self, cache, slot: int, x) -> None:
+        """Write ``x`` (B, 1, ...) at slot ``slot`` of the whole sequence,
+        in place, where this rank's block ``cache`` (B, Sc, ...) holds
+        it; the other ranks write nothing."""
+        sc = cache.shape[1]
+        if slot // sc == self.index:
+            at = slot % sc
+            cache[:, at:at + 1] = x.to(cache.dtype)
+
+    def attend(self, q, k, v, kv_len: int):
+        """q (B, Hq, D) of every head against this rank's block k, v (B,
+        Sc, Hkv, D) of a cache whose first ``kv_len`` slots are valid:
+        flash-decoding, the partials combined over "model"
+        (``collectives.block_decode_attention``, counted as ``decode
+        combine``). Returns (B, Hq, D) in q's dtype."""
+        b, hq, d = q.shape
+        moved = sum(2 * (self.size - 1) * n * 4 // self.size
+                    for n in (b * hq, b * hq, b * hq * d))     # m, l, o
+        _count_decode(moved, "decode combine")
+        lens = torch.full((b,), kv_len, dtype=torch.int64, device=q.device)
+        return coll.block_decode_attention(
+            q, k, v, self.index * k.shape[1], lens, self.mesh,
+            TP_AXIS).to(q.dtype)
+
+
+def _seq_split_of(t: DTensor) -> Optional[SeqSplit]:
+    """The :class:`SeqSplit` of a k / v cache leaf whose sequence dim
+    (``(..., B, S, Hkv, hd)``) its placements split over "model", or
+    None."""
+    names = t.device_mesh.mesh_dim_names
+    for m, pl in enumerate(t.placements):
+        if isinstance(pl, Shard) and names[m] == TP_AXIS \
+                and pl.dim == t.ndim - 3 and int(t.device_mesh.shape[m]) > 1:
+            size, idx = _model_axis(t.device_mesh)
+            return SeqSplit(t.device_mesh, size, idx)
+    return None
+
+
+def _decode_leaves(tree, axis_bytes: Dict[str, int], blocks: dict,
+                   name: str = ""):
+    """The caches as the model decodes on them: a k / v leaf whose
+    sequence is split over "model" as a view of this rank's block,
+    marked (``layers.mark_seq_split``; ``blocks`` maps the DTensor's id
+    to it); every other DTensor leaf gathered over its non-DP axes
+    (counted into ``axis_bytes``); plain leaves as they are."""
+    from repro_torch.models.layers import mark_seq_split
+    if isinstance(tree, Mapping):
+        return {k: _decode_leaves(v, axis_bytes, blocks, str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_decode_leaves(v, axis_bytes, blocks, name)
+                          for v in tree)
+    if not isinstance(tree, DTensor):
+        return tree
+    split = _seq_split_of(tree) if name in SEQ_LEAVES else None
+    if split is None:
+        return _gather(tree, axis_bytes, keep=DP_AXES)
+    with torch.no_grad():
+        block = tree.to_local()
+    view = mark_seq_split(block.view(block.shape), split)
+    blocks[id(tree)] = view
+    return view
+
+
+@torch.no_grad()
 def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
                 cache_index: int, shard_fn=None):
     """``model_zoo.decode_step`` on a mesh (the same arguments): every rank
@@ -1335,12 +1469,16 @@ def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
     placements and the caches at :func:`place_caches`' (or plain caches,
     whole on every rank). The rank decodes its DP rows: the parameters
     swapped in (``model parameters``: the TP leaves this rank's blocks,
-    the products TP), each cache leaf gathered over its non-DP axes
-    (``decode caches``; the new token's k and v are gathered over "model"
-    before they are written), the step run, the caches' blocks written
-    back in place; the logits are gathered over the vocabulary and the
-    rows, so every rank returns all (B, 1, V) of them. ``shard_fn``: the
-    models' hook (default :func:`make_shard_fn`)."""
+    the products TP). A k / v leaf whose sequence :func:`cache_specs`
+    split over "model" stays this rank's block: the model writes the
+    token into it where the block holds the slot, and attends on it by
+    flash-decoding (:class:`SeqSplit`, module docstring, "Decode"). Every
+    other cache leaf is gathered over its non-DP axes (``decode ssm
+    state``: the SSM state where its heads are split) and its block
+    written back after the step. The logits are gathered
+    over the vocabulary and the rows, so every rank returns all (B, 1, V)
+    of them. ``shard_fn``: the models' hook (default
+    :func:`make_shard_fn`)."""
     mesh = model_mesh(model) or tree_mesh(caches)
     token = full_tensor(token)
     n = token.shape[0]
@@ -1350,9 +1488,9 @@ def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
     hook = rows_hook(make_shard_fn(mesh) if shard_fn is None else shard_fn,
                      split)
     axis_bytes: Dict[str, int] = {}
-    work = pytree.tree_map(lambda t: _gather(t, axis_bytes, keep=DP_AXES)
-                           if isinstance(t, DTensor) else t, caches)
-    _count(axis_bytes, "decode caches")
+    blocks: Dict[int, DTensor] = {}
+    work = _decode_leaves(caches, axis_bytes, blocks)
+    _count(axis_bytes, "decode ssm state")
     with _swapped(_owners(model), "model parameters"):
         logits, work = model.decode_step(token[rows], work, cache_index,
                                          shard_fn=hook)
@@ -1366,6 +1504,10 @@ def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
         if isinstance(old, list):
             for i in range(len(old)):
                 old[i] = put_back(old[i], new[i])
+            return old
+        if id(old) in blocks:
+            if new is not blocks[id(old)]:      # replaced, not written in
+                old.to_local().copy_(new)       # place: this rank's block
             return old
         if isinstance(old, DTensor):
             old.to_local().copy_(_nondp_cut(new, old))

@@ -27,7 +27,10 @@ this module:
    ``make_train_step`` with ``make_shard_fn(mesh, model_axis_residual=)``;
    prefill is ``sharding.prefill(..., use_kernels=False)`` (the
    reference's ``use_pallas=False``) on this rank's rows of the batch;
-   decode is ``sharding.decode_step``; each runs its products
+   decode is ``sharding.decode_step``, flash-decoding on the rank's block
+   of each cache whose sequence ``cache_specs`` splits over "model"
+   (rank 0 holds the first block; the step's token, at ``seq_len - 1``,
+   is the last rank's to write); each runs its products
    tensor-parallel over "model" (``sharding``'s docstring);
 4. **prices the counts** as a :class:`repro_torch.core.roofline.Roofline`
    row (:func:`repro_torch.core.roofline.from_trace`, on the ``"h100"``
@@ -230,7 +233,8 @@ def _step(kind, cfg, shape, specs, mesh, shard_fn, accum, fsdp,
 def lower_cell(arch: str, shape_name: str, mesh, *, accum=None,
                model_axis_residual: bool = False, fsdp: bool = True,
                seq_shard_cache: bool = True, extra_tags=None,
-               overrides=None, global_batch: Optional[int] = None):
+               overrides=None, global_batch: Optional[int] = None,
+               seq_len: Optional[int] = None):
     """Trace rank 0's step of one cell on fake tensors; returns
     ``(trace, row)``: a :class:`DryTrace` and its
     :class:`~repro_torch.core.roofline.Roofline`. ``mesh`` is a
@@ -239,7 +243,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, accum=None,
     ``overrides``: ``dataclasses.replace`` kwargs applied to the arch
     config (remat_policy, accum_steps, dtype, ...); ``accum`` sets the
     config's microbatches too, so the step matches its batch;
-    ``global_batch`` cuts the shape's batch."""
+    ``global_batch`` cuts the shape's batch, ``seq_len`` its sequence
+    (a decode cell's cache slots)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.distributed.collectives import record_transport
@@ -258,6 +263,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, accum=None,
     shape = registry.SHAPE_BY_NAME[shape_name]
     if global_batch:
         shape = dataclasses.replace(shape, global_batch=global_batch)
+    if seq_len:
+        shape = dataclasses.replace(shape, seq_len=seq_len)
     kind, specs = registry.input_specs(arch, shape_name, accum=accum,
                                        global_batch=global_batch)
     shard_fn = sh.make_shard_fn(mesh, model_axis_residual=model_axis_residual)

@@ -22,6 +22,18 @@ core runs whole, and ``wo`` runs row-parallel on the rank's slice of its
 input. The gathers are counted as redistributions. Decode writes the new
 token's k and v with every kv head (gathered) into its cache, which holds
 every head on a mesh too (``sharding.decode_step``).
+
+Where ``sharding.decode_step`` hands decode a cache leaf that is this
+rank's block of the sequence over "model" (``layers.seq_split`` marks
+it), decode is flash-decoding on the block: the token's k and v, every
+kv head, are written only by the rank whose block holds the slot; q of
+every head (gathered over "model" where TP split the heads) runs the
+partial softmax over the block, and the partials are combined over
+"model" (``collectives.block_decode_attention``); where the rank runs
+its own q heads it keeps their rows for the row-parallel ``wo``. The
+gathers and the combine are counted as decode ops (``decode q``,
+``decode kv token``, ``decode combine``). The cross K / V are handled
+alike where their frames are split.
 """
 from __future__ import annotations
 
@@ -32,8 +44,9 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (linear, param, rope, row_linear,
-                                       tp_split, truncated_normal_)
+from repro_torch.models.layers import (cache_slots, linear, param, rope,
+                                       row_linear, seq_split, tp_split,
+                                       truncated_normal_)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -103,18 +116,21 @@ class Attention(nn.Module):
         qa, qb = tp.span(hq)
         return tp, ((qa, qb), (qa // g, (qb - 1) // g + 1))
 
-    def _cols(self, x, xc, tp, name: str, bias, span=None):
+    def _cols(self, x, xc, tp, name: str, bias, span=None, gather=None):
         """Columns ``span`` (head indices; None: every head) of x @ w (+
         bias), w = ``getattr(self, name)``: from w's block, from its
         columns gathered over "model" or from a whole leaf's entries where
         ``span`` is this rank's heads; every column, gathered over
-        "model" where w is split. ``xc`` is ``tp.copy(x)``."""
+        "model" where w is split (by ``gather``, default ``tp.gather``
+        counted as a redistribution). ``xc`` is ``tp.copy(x)``."""
         w, hd = getattr(self, name), self.cfg.hd
         rec = None if tp is None else tp_split(self, name)
         if span is None:
             if rec is None:
                 return linear(x, w, bias)
-            y = tp.gather(linear(xc, w), f"attention {name} output")
+            y = linear(xc, w)
+            y = tp.gather(y, f"attention {name} output") if gather is None \
+                else gather(y)
             return y if bias is None else y + bias.to(y.dtype)
         lo, hi = span[0] * hd, span[1] * hd
         if rec is None:
@@ -154,26 +170,28 @@ class Attention(nn.Module):
         return q, k, v, tp, heads is not None
 
     def _q(self, x, xc, tp, heads, positions, use_rope: bool = True,
-           bias: bool = True):
+           bias: bool = True, gather=None):
         """q (B, S, heads, hd): this rank's q heads, or every head."""
         cfg = self.cfg
         q = self._cols(x, xc, tp, "wq", self.bq if bias else None,
-                       None if heads is None else heads[0])
+                       None if heads is None else heads[0], gather)
         q = q.reshape(x.shape[0], x.shape[1], -1, cfg.hd)
         if use_rope and cfg.pos == "rope":
             q = rope(q, positions, cfg.rope_theta)
         return q
 
     def _kv(self, src, sc, tp, heads, positions, use_rope: bool = True,
-            bias: bool = True):
+            bias: bool = True, gather=None):
         """k and v (B, S, heads, hd) of ``src``: the kv heads this rank's q
         heads read, or every kv head (``heads`` None). ``sc`` is
         ``tp.copy(src)``."""
         cfg = self.cfg
         span = None if heads is None else heads[1]
         b, s = src.shape[:2]
-        k = self._cols(src, sc, tp, "wk", self.bk if bias else None, span)
-        v = self._cols(src, sc, tp, "wv", self.bv if bias else None, span)
+        k = self._cols(src, sc, tp, "wk", self.bk if bias else None, span,
+                       gather)
+        v = self._cols(src, sc, tp, "wv", self.bv if bias else None, span,
+                       gather)
         k, v = k.reshape(b, s, -1, cfg.hd), v.reshape(b, s, -1, cfg.hd)
         if use_rope and cfg.pos == "rope":
             k = rope(k, positions, cfg.rope_theta)
@@ -228,19 +246,29 @@ class Attention(nn.Module):
         returned. Keys are stored rotated at their absolute positions, so
         ring-buffer slot order does not matter. On a mesh the token's k
         and v are written with every kv head, and this rank's q heads read
-        theirs from the cache.
+        theirs from the cache, or from every rank's block of it (module
+        docstring).
         """
         b = x.shape[0]
         positions = torch.full((b, 1), position, dtype=torch.int32,
                                device=x.device)
         tp, heads = self._tp()
         xc = x if tp is None else tp.copy(x)
-        q = self._q(x, xc, tp, heads, positions)
-        k, v = self._kv(x, xc, tp, None, positions)
-        cache["k"][:, write_idx:write_idx + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, write_idx:write_idx + 1] = v.to(cache["v"].dtype)
-        o = self._attend_cache(q, cache["k"], cache["v"], heads, kv_len,
-                               x.dtype)
+        seq = seq_split(cache["k"])
+        q = self._q(x, xc, tp, heads, positions,
+                    gather=seq and seq.gatherer("decode q"))
+        k, v = self._kv(x, xc, tp, None, positions,
+                        gather=seq and seq.gatherer("decode kv token"))
+        if seq is None:
+            cache["k"][:, write_idx:write_idx + 1] = k.to(cache["k"].dtype)
+            cache["v"][:, write_idx:write_idx + 1] = v.to(cache["v"].dtype)
+            o = self._attend_cache(q, cache["k"], cache["v"], heads, kv_len,
+                                   x.dtype)
+        else:
+            seq.write(cache["k"], write_idx, k)
+            seq.write(cache["v"], write_idx, v)
+            o = self._attend_block(q, cache["k"], cache["v"], seq, heads,
+                                   kv_len, x.dtype)
         return self._out(o, tp, heads is not None), cache
 
     def _attend_cache(self, q, ck, cv, heads, kv_len: int, dtype):
@@ -255,6 +283,20 @@ class Attention(nn.Module):
                                     ck.movedim(2, 1).to(dtype),
                                     cv.movedim(2, 1).to(dtype), kv_len)
         return o.movedim(1, 2).reshape(q.shape[0], 1, -1)
+
+    def _attend_block(self, q, ck, cv, seq, heads, kv_len: int, dtype):
+        """q (B, 1, Hq_local, hd) against this rank's sequence block (B,
+        Sc, Hkv, hd) of a cache with every kv head (``seq``): every q head
+        (gathered over "model" where the rank runs its own) over the
+        block, the partials combined over "model"; this rank's q heads'
+        rows of the result. Returns (B, 1, Hq_local * hd)."""
+        if heads is not None:
+            q = seq.gather(q, "decode q", dim=2)
+        o = seq.attend(q[:, 0], ck.to(dtype), cv.to(dtype), kv_len)
+        if heads is not None:
+            (qa, qb) = heads[0]
+            o = o[:, qa:qb]
+        return o.reshape(q.shape[0], 1, -1)
 
     def cross(self, x: torch.Tensor, memory: torch.Tensor,
               use_kernels: Optional[bool] = None) -> torch.Tensor:
@@ -273,9 +315,16 @@ class Attention(nn.Module):
                      cv: torch.Tensor) -> torch.Tensor:
         """One decoder token x (B, 1, d) against the cross K / V (B, Sm,
         Hkv, hd) projected from the memory once: no RoPE, no biases, every
-        memory row valid."""
+        memory row valid; on a mesh, their block of the frames where they
+        are split (module docstring)."""
         tp, heads = self._tp()
         xc = x if tp is None else tp.copy(x)
-        q = self._q(x, xc, tp, heads, None, use_rope=False, bias=False)
-        o = self._attend_cache(q, ck, cv, heads, ck.shape[1], x.dtype)
+        seq = seq_split(ck)
+        q = self._q(x, xc, tp, heads, None, use_rope=False, bias=False,
+                    gather=seq and seq.gatherer("decode q"))
+        if seq is None:
+            o = self._attend_cache(q, ck, cv, heads, ck.shape[1], x.dtype)
+        else:
+            o = self._attend_block(q, ck, cv, seq, heads, cache_slots(ck),
+                                   x.dtype)
         return self._out(o, tp, heads is not None)

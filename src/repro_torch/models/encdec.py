@@ -17,7 +17,9 @@ On a mesh the three attentions and the FFNs run tensor-parallel as the
 decoder-only families' do (:mod:`repro_torch.models.attention`,
 :mod:`repro_torch.models.layers`); the embedding is vocab-parallel and
 the head column-parallel where their specs split V (whisper's 51865
-does not divide).
+does not divide). Decode attends on each rank's block of the self and
+cross caches where ``sharding.decode_step`` splits their sequence over
+"model" (whisper's 1500 frames divide 2, not 16).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (FFN, Embedding, RMSNorm, param,
+from repro_torch.models.layers import (FFN, Embedding, RMSNorm,
+                                       cache_slots, layer_view, param,
                                        sinusoidal_positions, tp_split,
                                        truncated_normal_)
 from repro_torch.models.transformer import (identity_shard, logits_of,
@@ -175,21 +178,23 @@ class EncDec(nn.Module):
         (logits (B, 1, V), caches updated in place)."""
         cfg, dtype = self.cfg, self.dtype
         cache_index = int(cache_index)
-        smax = caches["self"]["k"].shape[2]
+        smax = cache_slots(caches["self"]["k"], 2)
         # the reference's dynamic_slice clamps a start past the table
         table = sinusoidal_positions(smax, cfg.d_model, dtype, token.device)
         x = shard_fn(self.embed(token, dtype)
                      + table[min(cache_index, smax - 1)], "residual")
         kv_len = min(cache_index + 1, smax)
         for i, blk in enumerate(self.dec_blocks):
-            self_cache = {k: v[i] for k, v in caches["self"].items()}
+            self_cache = {k: layer_view(v, i)
+                          for k, v in caches["self"].items()}
             y, nc = blk.attn.decode(blk.ln1(x), dict(self_cache),
                                     cache_index % smax, cache_index, kv_len)
             for k, v in nc.items():
                 if v is not self_cache[k]:     # replaced, not written in place
                     caches["self"][k][i].copy_(v)
             x = x + y
-            x = x + blk.xattn.cross_decode(blk.ln_x(x), caches["cross_k"][i],
-                                           caches["cross_v"][i])
+            x = x + blk.xattn.cross_decode(
+                blk.ln_x(x), layer_view(caches["cross_k"], i),
+                layer_view(caches["cross_v"], i))
             x = x + blk.ffn(blk.ln2(x))
         return self._logits(x), caches

@@ -16,7 +16,7 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, param
+from repro_torch.models.layers import RMSNorm, cache_slots, param
 
 
 def init_hybrid_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -64,7 +64,7 @@ class Hybrid(nn.Module):
                ) -> Tuple[torch.Tensor, Dict]:
         """One-token decode; the attention cache is a ring buffer of its
         own length (RoPE at absolute positions keeps offsets exact)."""
-        smax = cache["attn"]["k"].shape[1]
+        smax = cache_slots(cache["attn"]["k"])
         ya, kv = self.attn.decode(x, cache["attn"], cache_index % smax,
                                   cache_index, min(cache_index + 1, smax))
         ys, st = self.ssm.decode(x, cache["ssm"])

@@ -84,6 +84,36 @@ def vocab_split(logits: torch.Tensor):
     return getattr(logits, "_vocab_split", None)
 
 
+def mark_seq_split(cache: torch.Tensor, split) -> torch.Tensor:
+    """Mark a decode cache leaf (k or v, (..., B, S, Hkv, hd)) as this
+    rank's block of its sequence over "model" (a ``sharding.SeqSplit``:
+    the axis's size, this rank's index and the decode ops), for
+    attention's decode (``sharding.decode_step`` marks them)."""
+    cache._seq_split = split
+    return cache
+
+
+def seq_split(cache: torch.Tensor):
+    """The record of a cache leaf held as this rank's sequence block
+    (:func:`mark_seq_split`), or None (the whole sequence)."""
+    return getattr(cache, "_seq_split", None)
+
+
+def cache_slots(cache: torch.Tensor, dim: int = 1) -> int:
+    """The slots of a decode cache along its sequence ``dim``: the whole
+    sequence's, where the leaf holds this rank's block of it."""
+    split = seq_split(cache)
+    return cache.shape[dim] * (1 if split is None else split.size)
+
+
+def layer_view(cache: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked cache leaf, its sequence block's mark
+    kept."""
+    split = seq_split(cache)
+    view = cache[i]
+    return view if split is None else mark_seq_split(view, split)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d: int, eps: float = 1e-6, device=None):
         super().__init__()

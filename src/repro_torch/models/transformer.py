@@ -42,6 +42,7 @@ from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (FFN, Embedding, RMSNorm,
+                                       cache_slots, layer_view,
                                        mark_vocab_split, param, tp_split,
                                        truncated_normal_)
 
@@ -80,7 +81,8 @@ def maybe_remat(block: nn.Module, cfg: ModelConfig, *args, **kwargs):
     (or ``cfg.remat`` off) saves everything. Remat applies only while
     autograd records the block (grad mode on, and a parameter or input
     that requires grad); serving runs the block as it is. The recompute
-    records its collectives into the transport scope of the forward."""
+    records its collectives into the transport scope of the forward and
+    its obs events into the forward's trace."""
     recording = torch.is_grad_enabled() and (
         any(isinstance(a, torch.Tensor) and a.requires_grad for a in args)
         or any(p.requires_grad for p in block.parameters()))
@@ -100,11 +102,11 @@ def maybe_remat(block: nn.Module, cfg: ModelConfig, *args, **kwargs):
 
 def _scoped(contexts):
     """``contexts()``'s (forward, recompute) contexts, the recompute's
-    inside the transport scope active now: the recompute runs on
-    autograd's thread, which on CUDA tensors sees none of this one's
-    ContextVars (``collectives.transport_scope``)."""
+    inside the transport scope and the obs trace active now: the
+    recompute runs on autograd's thread, which on CUDA tensors sees none
+    of this one's ContextVars (``collectives.transport_scope``)."""
     forward, recompute = contexts()
-    rec = coll.transport_list()
+    rec = coll.forward_scopes()
 
     @contextlib.contextmanager
     def recompute_scoped():
@@ -181,7 +183,7 @@ class Block(nn.Module):
         elif self.mix is not None:
             y, nc = self.mix.decode(h, cache, cache_index)
         else:
-            smax = cache["k"].shape[1]
+            smax = cache_slots(cache["k"])
             y, nc = self.attn.decode(h, cache, cache_index % smax,
                                      cache_index, min(cache_index + 1, smax))
         x, aux = self._ffn(x + y, shard_fn)
@@ -315,7 +317,7 @@ class LM(nn.Module):
                 x, _, caches[i] = blk.decode(x, caches[i], cache_index,
                                              shard_fn)
             else:
-                views = {k: v[i] for k, v in caches.items()}
+                views = {k: layer_view(v, i) for k, v in caches.items()}
                 x, _, nc = blk.decode(x, dict(views), cache_index, shard_fn)
                 for k, v in nc.items():
                     if v is not views[k]:      # replaced, not written in place

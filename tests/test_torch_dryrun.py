@@ -5,7 +5,7 @@ model 1) and (data 2, model 2). Each side runs in its own subprocesses:
 the reference's ``lower_cell`` on XLA host devices (its import asks for
 512), the port's on a fake world of 4 ranks.
 
-Per-chip flops are compared net of four documented differences, each
+Per-chip flops are compared net of three documented differences, each
 asserted on its own:
 
 * **converts**: XLA's fused HLO holds a dtype ``convert`` once in every
@@ -23,21 +23,23 @@ asserted on its own:
   it, since a rank there runs twice the rows.
 * **the decode-cache write**: at model 2 the cache's sequence is split
   over "model"; the reference writes the new token by ``select``s over
-  the rank's whole block of k and v (two each), the port into one slot of
-  the cache it gathered. The reference's selects are taken out and
-  asserted to be 4 x B / data x S / model x Hkv x hd a layer exactly.
-* **hymba's decode core**: its 25 heads do not divide the model axis, so
-  a port rank runs decode's attention core on every head over the whole
-  cache it gathered, where the reference's reads its sequence block; the
-  port's core (every op inside it, its converts aside) is taken out (1 -
-  1/model) times, and its products asserted to be 4 x B / data x Hq x hd
-  x the layers' cache lengths exactly.
+  the rank's whole block of k and v (two each), the port into one slot
+  of the block that holds it (none on rank 0, which the trace follows:
+  the last slot is the last rank's). The reference's selects are taken
+  out and asserted to be 4 x B / data x S / model x Hkv x hd a layer
+  exactly.
 
 At model 2 the port runs TP over "model" (Megatron column and row
 products, attention on each rank's heads where they divide, the
 vocab-parallel embedding, head and loss), so every cell comes within 10 %
 of the reference's flops a chip net of those differences; in train and
-prefill both sides run hymba's attention core whole. The moe's experts
+prefill both sides run hymba's attention core whole. Decode at model 2
+runs flash-decoding on the rank's sequence block of the caches
+(``sharding.decode_step``), as the reference's partitioner splits its
+decode attention: every q head over S / model slots of each layer, so
+the core's products a rank are 4 x B / data x Hq x hd x the layers'
+cache lengths / model exactly, on every arch (hymba's 25 heads, which do
+not divide the axis, too). The moe's experts
 split over "model" in E and each DP rank multiplies its window of their
 capacity slots, exchanged over the DP axes, as the reference's
 partitioner splits the expert products over every chip: the port's
@@ -148,8 +150,8 @@ _PORT = textwrap.dedent("""
     # and both gradients)
     expert, dims = [0.0], [None]
     # the attention core's flops (its converts aside) and products: every
-    # op inside the full-sequence core (ops.attention) or decode's cached
-    # one
+    # op inside the full-sequence core (ops.attention), decode's cached
+    # one or its flash-decoding on a sequence block
     core, inside = [0.0, 0.0], [0]
     def scoped(fn):
         def run(*a, **k):
@@ -162,6 +164,9 @@ _PORT = textwrap.dedent("""
     attention.ops.attention = scoped(attention.ops.attention)
     attention.masked_decode_attention = scoped(
         attention.masked_decode_attention)
+    from repro_torch.distributed import collectives
+    collectives.block_decode_attention = scoped(
+        collectives.block_decode_attention)
     op_cost = aten_cost.op_cost
     def counting(func, args, kwargs, out):
         c = op_cost(func, args, kwargs, out)
@@ -317,26 +322,12 @@ def _cache_select(arch, shape, data):
                      for n in _cache_lengths(arch, shape))
 
 
-def _whole_core(arch, shape, data):
-    """Where the q heads do not divide the model axis, a decode rank's
-    attention core reads the whole sequence of every head from the cache
-    it gathered (``sharding.decode_step``); the reference's reads its
-    sequence block: the port runs (1 - 1/model) of its core beyond."""
-    model = 4 // data
-    if model == 1 or _cfg(arch).n_heads % model == 0 \
-            or not shape.startswith("decode"):
-        return 0.0
-    return 1.0 - 1.0 / model
-
-
 def _net(sides, arch, shape, data):
-    """The port's flops on a (data, 4 / data) mesh less its converts,
-    hymba's decode core beyond the reference's and, for hymba's train and
-    prefill, the global layer's extra flops: the module docstring's
-    differences."""
+    """The port's flops on a (data, 4 / data) mesh less its converts and,
+    for hymba's train and prefill, the global layer's extra flops: the
+    module docstring's differences."""
     cell = sides["port"][arch][f"{data}x{4 // data}/{shape}"]
     net = cell["flops"] - cell["convert"]
-    net -= _whole_core(arch, shape, data) * cell["core"]
     if arch == "hymba-1.5b" and shape != "decode_32k":
         full, windowed = (sides[s][arch][f"4x1/{shape}"]
                           for s in ("port", "windowed"))
@@ -389,20 +380,21 @@ def test_cache_select_difference(sides, arch, shape, mesh):
 
 
 def test_whole_core_difference(sides):
-    """The size of the decode core's difference: hymba's 25 heads do not
-    divide the model axis, so at (data 2, model 2) a rank's core products
-    are its rows' q x K and P x V over every head and each layer's whole
-    cache, exactly; the other cells run none of it whole."""
+    """The decode core is no longer whole anywhere: at (data 2, model 2) a
+    rank's core products are its rows' q x K and P x V over every head
+    and its block of each layer's cache (S / model slots), exactly, as
+    the reference's partitioner reads its sequence block: hymba, whose
+    25 heads do not divide the model axis, and every other arch alike."""
     from repro_torch.configs import registry
-    cfg = _cfg("hymba-1.5b")
     rows = registry.SHAPE_BY_NAME["decode_32k"].global_batch // 2
-    want = 4 * rows * cfg.n_heads * cfg.hd * sum(
-        _cache_lengths("hymba-1.5b", "decode_32k"))
-    cell = sides["port"]["hymba-1.5b"]["2x2/decode_32k"]
-    assert cell["core_products"] == want
-    assert 0 < cell["core_products"] <= cell["core"]
-    assert [(a, s) for a, s in CELLS if _whole_core(a, s, 2)] == \
-        [("hymba-1.5b", "decode_32k")]
+    for arch in ARCHS:
+        cfg = _cfg(arch)
+        want = 4 * rows * cfg.n_heads * cfg.hd * sum(
+            _cache_lengths(arch, "decode_32k")) // 2
+        cell = sides["port"][arch]["2x2/decode_32k"]
+        assert cell["core_products"] == want, (arch, cell["core_products"],
+                                               want)
+        assert 0 < cell["core_products"] <= cell["core"]
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])

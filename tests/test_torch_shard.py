@@ -95,6 +95,13 @@ SPEC = {
     "data": dict(vocab=97, global_batch=8, seq_len=32),
     "data_tp": dict(vocab=96, global_batch=8, seq_len=32),
     "steps": 2, "loop_steps": 6, "decode_batch": 4, "decode_len": 64,
+    # the hybrid's decode: its global layer's 16 slots and its windowed
+    # layer's ring of 8 over model 4 (2 slots a block), 10 steps, so the
+    # ring wraps from the last rank's block into the first's
+    "hybrid_decode_len": 16, "hybrid_decode_steps": 10,
+    # the encoder-decoder's decode on (data 4, model 2): the self caches'
+    # 64 slots and the cross K / V's 16 frames split over model
+    "encdec_decode_steps": 4,
 }
 
 
@@ -119,6 +126,13 @@ def _inputs():
     rng = np.random.default_rng(0)
     x["decode_tokens"] = rng.integers(0, 97, size=(SPEC["decode_batch"], 3)
                                       ).astype(np.int32)
+    x["hdecode_tokens"] = rng.integers(
+        0, 96, size=(SPEC["decode_batch"], SPEC["hybrid_decode_steps"])
+    ).astype(np.int32)
+    enc = SPEC["cfg_encdec"]
+    x["edecode_memory"] = (0.5 * rng.normal(size=(
+        SPEC["decode_batch"], enc["encoder_seq"], enc["d_model"]))
+    ).astype(np.float32)
     for i in range(4):
         x[f"pipe/w{i}"] = (rng.normal(size=(16, 16)) / 4).astype(np.float32)
         x[f"pipe/b{i}"] = rng.normal(size=(16,)).astype(np.float32)
@@ -308,6 +322,41 @@ REFERENCE = textwrap.dedent("""
                                  jnp.int32(i))
         out[f"vdecode/logits{i}"] = np.asarray(logits)
 
+    # decode at cache_specs: the hybrid (its ring wrapping across the
+    # blocks), the moe, the dense model with seq_shard off and the
+    # encoder-decoder on (data 4, model 2), its cross K / V split
+    def decode(tag, dcfg, params, toks, s, dmesh, seq_shard=True,
+               memory=None):
+        p_sh = sh.to_shardings(sh.params_specs(params, dmesh), dmesh)
+        caches = zoo.init_caches(params, dcfg, toks.shape[0], s,
+                                 memory=memory, dtype=jnp.float32)
+        c_sh = sh.to_shardings(sh.cache_specs(caches, dmesh, seq_shard),
+                               dmesh)
+        params_s = jax.tree.map(jax.device_put, params, p_sh)
+        caches_s = jax.tree.map(jax.device_put, caches, c_sh)
+        f = jax.jit(lambda p, t, c, i: zoo.decode_step(p, t, dcfg, c, i),
+                    in_shardings=(p_sh, None, c_sh, None),
+                    out_shardings=(None, c_sh))
+        for i in range(toks.shape[1]):
+            with dmesh:
+                logits, caches_s = f(params_s, toks[:, i:i + 1], caches_s,
+                                     jnp.int32(i))
+            out[f"{tag}/logits{i}"] = np.asarray(logits)
+
+    htoks = jnp.asarray(x["hdecode_tokens"])
+    decode("hdecode", ModelConfig(**cfg_of(spec["cfg_hybrid"])),
+           nested("hybrid_init"), htoks, spec["hybrid_decode_len"], mesh)
+    decode("mdecode", ModelConfig(**spec["cfg_moe"]), nested("moe_init"),
+           toks, s, mesh)
+    decode("wdecode", dcfg, nested("decode"), toks, s, mesh,
+           seq_shard=False)
+    decode("odecode", dcfg, nested("decode"), toks[:3], s, mesh)
+    decode("edecode", ModelConfig(**cfg_of(spec["cfg_encdec"])),
+           nested("encdec_init"),
+           htoks[:, :spec["encdec_decode_steps"]], s,
+           make_debug_mesh(data=4, model=2),
+           memory=jnp.asarray(x["edecode_memory"]))
+
     pmesh = jax.make_mesh((4,), ("stage",))
     per_stage = [{"w": jnp.asarray(x[f"pipe/w{i}"]),
                   "b": jnp.asarray(x[f"pipe/b{i}"])} for i in range(4)]
@@ -471,26 +520,168 @@ def test_global_batch_shards_are_the_references(runs):
                               full.reshape(2, b // 2, -1)[idx])
 
 
+DECODE_OPS = ["decode combine", "decode kv token", "decode q"]
+
+
+def _decode_op_bytes(rows, hq, hd, n_kv, model, layers, heads_split,
+                     cross=False):
+    """The bytes each decode op brings a rank over "model" a step, f32: q
+    of its heads' columns gathered (every head's q where TP split the
+    heads, else wq's output columns), the token's k and v columns, and
+    the combine's three all-reduces (m, l: rows x Hq; o: rows x Hq x
+    hd), a layer; cross-attention gathers q and combines again."""
+    n = model - 1
+    q = n * rows * hq * hd // model * 4
+    kv = 2 * n * rows * n_kv * hd // model * 4
+    combine = sum(2 * n * e * 4 // model
+                  for e in (rows * hq, rows * hq, rows * hq * hd))
+    passes = 2 if cross else 1
+    return {"decode q": layers * passes * q, "decode kv token": layers * kv,
+            "decode combine": layers * passes * combine}
+
+
+def _decode_agrees(runs, tag, steps, want_ops=None, state=0):
+    """``tag``'s decode on every rank: each step's logits within 2e-3 of
+    the port's one-device decode and of the reference's sharded decode;
+    the caches gathered within 1e-6 of one device's; each rank's cache
+    leaves their spec's blocks; each step's decode ops those named, with
+    ``want_ops``' bytes where given; no k or v gathered (``decode
+    caches``, the whole-cache route's gather, at 0 bytes, and no
+    attention projection's output redistributed) and ``decode ssm
+    state`` at ``state``."""
+    for out, meta in zip(runs["port"], runs["meta"]):
+        facts = meta[tag]
+        for i in range(steps):
+            got = out[f"{tag}/logits{i}"]
+            np.testing.assert_allclose(got, out[f"{tag}/one/logits{i}"],
+                                       atol=DECODE_ATOL, rtol=0)
+            np.testing.assert_allclose(got, runs["ref"][f"{tag}/logits{i}"],
+                                       atol=DECODE_ATOL, rtol=0)
+            assert sorted(facts["ops"][i]) == DECODE_OPS
+            if want_ops is not None:
+                assert facts["ops"][i] == want_ops, (facts["ops"][i],
+                                                     want_ops)
+            assert facts["counters"][i]["shard.decode_bytes"] == \
+                sum(facts["ops"][i].values())
+            assert facts["decode_caches"][i] == 0
+            assert not any(op.startswith("attention")
+                           for op in facts["redistributed"][i])
+            assert facts["decode_state"][i] == state
+        assert facts["local"] == facts["block"]
+    port = runs["port"][0]
+    keys = [k for k in port if k.startswith(f"{tag}/cache/")]
+    assert keys
+    for k in keys:
+        np.testing.assert_allclose(port[k], port[k.replace(
+            f"{tag}/", f"{tag}/one/", 1)], atol=1e-6, err_msg=k)
+
+
 def test_sharded_decode(runs):
     """Three decode steps with parameters at params_specs and f32 caches
     at cache_specs: the logits within the reference test's 2e-3 of the
     port's one-device decode and of the reference's sharded decode, on
     every rank; the caches written as one device writes them; each rank
-    holding a quarter of the sequence and half of the batch."""
+    holding a quarter of the sequence and half of the batch. The three
+    steps' keys lie in the first rank's block of 16 (the others are
+    wholly masked). No cache leaf is gathered: the counted ops are the
+    new ones, q (the rank's one head of 4) and the token's k and v (its
+    16 columns of each) gathered over "model" and the combine, exactly,
+    and nothing is redistributed."""
+    b, s = SPEC["decode_batch"], SPEC["decode_len"]
+    cfg = SPEC["cfg_decode"]
+    want = _decode_op_bytes(b // 2, cfg["n_heads"], 16, cfg["n_kv"], 4,
+                            cfg["n_layers"], True)
+    _decode_agrees(runs, "decode", 3, want)
+    for meta in runs["meta"]:
+        assert list(meta["decode"]["local"].values()) == \
+            [[2, b // 2, s // 4, 4, 16]] * 2
+        for c in meta["decode"]["counters"]:
+            assert "shard.redistribute_bytes" not in c
+            assert c["collective.bytes"] > c["shard.decode_bytes"] > 0
+    one = runs["port"][0]["decode/one/cache/k"]
+    assert np.abs(one[:, :, 3:]).max() == 0 < np.abs(one[:, :, :3]).max()
+
+
+def test_decode_on_sequence_blocks(runs):
+    """The hybrid on 2 x 4 over 10 steps: its global layer's 16 slots and
+    its windowed layer's ring of 8 (2 a rank) split over "model", the
+    ring wrapping from the last rank's block into the first's; its 5
+    heads do not divide model 4, so q of every head is wq's output
+    gathered and the core runs every head over the rank's block; its SSM
+    state (8 heads, split over "model") still gathered (``decode ssm
+    state``: its bytes exactly). Against the reference's sharded decode
+    and one device's, every step."""
+    cfg = SPEC["cfg_hybrid"]
+    steps, b = SPEC["hybrid_decode_steps"], SPEC["decode_batch"]
+    assert steps > cfg["window"]
+    rows, model = b // 2, 4
+    heads = 2 * cfg["d_model"] // cfg["ssm_head_dim"]
+    state = (model - 1) * rows * heads // model * cfg["ssm_head_dim"] \
+        * cfg["ssm_state"] * 4 * cfg["n_layers"]
+    want = _decode_op_bytes(rows, cfg["n_heads"], cfg["head_dim"],
+                            cfg["n_kv"], model, cfg["n_layers"], False)
+    _decode_agrees(runs, "hdecode", steps, want, state=state)
+    for meta in runs["meta"]:
+        local = meta["hdecode"]["local"]
+        assert local["0/attn/k"] == [rows, 16 // model, 1, 16]
+        assert local["1/attn/k"] == [rows, 8 // model, 1, 16]
+
+
+def test_encdec_decode_on_split_cross_caches(runs):
+    """The encoder-decoder on (data 4, model 2): its self caches' 64 slots
+    and its cross K / V's 16 frames split over "model" (8 a rank), q
+    gathered for both attentions; against the reference's sharded
+    decode and one device's, every step."""
+    cfg = SPEC["cfg_encdec"]
+    b, s = SPEC["decode_batch"], SPEC["decode_len"]
+    want = _decode_op_bytes(b // 4, cfg["n_heads"], 16, cfg["n_kv"], 2,
+                            cfg["n_layers"], True, cross=True)
+    _decode_agrees(runs, "edecode", SPEC["encdec_decode_steps"], want)
+    for meta in runs["meta"]:
+        local = meta["edecode"]["local"]
+        assert local["cross_k"] == [2, 1, cfg["encoder_seq"] // 2, 4, 16]
+        assert local["self/k"] == [2, 1, s // 2, 4, 16]
+
+
+@pytest.mark.parametrize("tag", ["mdecode", "vdecode"])
+def test_moe_and_vocab_decode_on_sequence_blocks(runs, tag):
+    """The moe (experts over "model") and the vocab-split model decode on
+    the caches' blocks too: three steps against the reference's sharded
+    decode and one device's."""
+    _decode_agrees(runs, tag, 3)
+
+
+def test_decode_with_rows_whole(runs):
+    """3 rows do not divide "data" 2: the caches' batch stays whole and
+    every rank decodes every row, on its block of the sequence still;
+    against the reference's sharded decode and one device's."""
+    s = SPEC["decode_len"]
+    _decode_agrees(runs, "odecode", 3)
+    for meta in runs["meta"]:
+        assert list(meta["odecode"]["local"].values()) == \
+            [[2, 3, s // 4, 4, 16]] * 2
+
+
+def test_seq_shard_off_keeps_the_whole_cache_route(runs):
+    """``seq_shard=False``: the caches whole over "model" (batch over
+    "data" only), decode as before: the token's k and v columns gathered
+    as redistributions, no decode op; the logits within 2e-3 of the
+    reference's decode at the same specs and of one device's."""
     b, s = SPEC["decode_batch"], SPEC["decode_len"]
     for out, meta in zip(runs["port"], runs["meta"]):
+        facts = meta["wdecode"]
         for i in range(3):
-            got = out[f"decode/logits{i}"]
-            np.testing.assert_allclose(got, out[f"decode/one/logits{i}"],
+            got = out[f"wdecode/logits{i}"]
+            np.testing.assert_allclose(got, out[f"wdecode/one/logits{i}"],
                                        atol=DECODE_ATOL, rtol=0)
-            np.testing.assert_allclose(got, runs["ref"][f"decode/logits{i}"],
+            np.testing.assert_allclose(got,
+                                       runs["ref"][f"wdecode/logits{i}"],
                                        atol=DECODE_ATOL, rtol=0)
-        assert meta["decode/cache_local"] == [[2, b // 2, s // 4, 4, 16]] * 2
-        assert meta["decode/counters0"]["shard.redistribute_bytes"] > 0
-    port = runs["port"][0]
-    for k in ("k", "v"):
-        np.testing.assert_allclose(port[f"decode/cache/{k}"],
-                                   port[f"decode/one/cache/{k}"], atol=1e-6)
+            assert facts["ops"][i] == {}
+            assert "shard.decode_bytes" not in facts["counters"][i]
+            assert facts["redistributed"][i] == ["attention wk output",
+                                                 "attention wv output"]
+        assert list(facts["local"].values()) == [[2, b // 2, s, 4, 16]] * 2
 
 
 def test_moe_forward_on_expert_sharded_leaves(runs):
@@ -518,11 +709,12 @@ def test_moe_serving_on_expert_sharded_leaves(runs):
         np.testing.assert_allclose(out["moe/prefill"], out["moe/one/prefill"],
                                    atol=DECODE_ATOL, rtol=0)
         for i in range(3):
-            np.testing.assert_allclose(out[f"moe/decode{i}"],
-                                       out[f"moe/one/decode{i}"],
+            np.testing.assert_allclose(out[f"mdecode/logits{i}"],
+                                       out[f"mdecode/one/logits{i}"],
                                        atol=DECODE_ATOL, rtol=0)
         window = (data - 1) * e // model * 8 // data * dm * 4
-        assert meta["moe/decode_counters"]["shard.expert_exchange_bytes"] \
+        assert sum(c["shard.expert_exchange_bytes"]
+                   for c in meta["mdecode"]["counters"]) \
             == 3 * cfg["n_layers"] * 2 * window
 
 
@@ -640,6 +832,24 @@ def test_moe_step_exchange_and_redistribution(runs):
             for layer in range(cfg["n_layers"]):
                 assert moved[f"blocks/{layer} parameters"] == \
                     2 * (model - 1) * router
+
+
+@pytest.mark.parametrize("tag", ["f32", "moe"])
+def test_backward_events_reach_the_forwards_trace(runs, tag):
+    """A sharded step's backward on a fresh thread emits its obs events
+    into the forward's trace: its ``shard.redistribute`` events (the
+    kv heads' columns summed back, n_kv 2 on model 4) and the moe's
+    ``shard.expert_exchange`` events carry the bytes its counters moved,
+    as on the calling thread; over the whole step too."""
+    for meta in runs["meta"]:
+        for fresh in ("false", "true"):
+            events = meta[f"thread/{tag}"][fresh]["events"]
+            for name, e in events.items():
+                assert e["bwd_events"] == e["bwd_counter"], (name, e)
+                assert e["events"] == e["counter"], (name, e)
+            assert events["shard.redistribute"]["bwd_events"] > 0
+            if tag == "moe":
+                assert events["shard.expert_exchange"]["bwd_events"] > 0
 
 
 @pytest.mark.parametrize("tag", ["f32", "moe"])

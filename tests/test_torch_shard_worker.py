@@ -159,12 +159,15 @@ def _tp_ops(mesh):
 
 def _backward_records(cfg, state, batch, mesh, fresh):
     """One sharded step's forward on this thread inside a
-    ``record_transport()`` scope and its backward on this thread or on a
-    fresh one (which starts with no ContextVars, as autograd's device
-    thread does): (the forward's records, the backward's, the counters'
-    deltas)."""
+    ``record_transport()`` scope and an obs trace, and its backward on
+    this thread or on a fresh one (which starts with no ContextVars, as
+    autograd's device thread does): (the forward's records, the
+    backward's, the counters' deltas, and per obs event name the bytes
+    its events carry and the counter's delta, the backward's alone
+    beside the whole step's)."""
     import threading
 
+    from repro_torch import obs
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding as sh
     from repro_torch.obs import counters
@@ -176,10 +179,11 @@ def _backward_records(cfg, state, batch, mesh, fresh):
     hook = ts._hook(sh.make_shard_fn(mesh), mesh, batch)
     rows = {k: sh.local(v) for k, v in batch.items()}
     before = counters.snapshot()
-    with coll.record_transport() as moved:
+    with coll.record_transport() as moved, obs.trace() as tr:
         with torch.enable_grad():
             loss = ts._loss(model, rows, cfg, hook)
-        n_fwd = len(moved)
+        n_fwd, n_events = len(moved), len(tr.events)
+        mid = counters.snapshot()
         errors = []
 
         def backward():
@@ -196,7 +200,81 @@ def _backward_records(cfg, state, batch, mesh, fresh):
             backward()
         if errors:
             raise errors[0]
-    return moved[:n_fwd], moved[n_fwd:], counters.delta(before)
+        bwd = counters.delta(mid)
+    step = counters.delta(before)
+    events = {}
+    for name, counter in (("shard.redistribute", "shard.redistribute_bytes"),
+                          ("shard.expert_exchange",
+                           "shard.expert_exchange_bytes")):
+        events[name] = {
+            "bwd_events": sum(e.attrs["bytes"] for e in
+                              tr.events[n_events:] if e.name == name),
+            "bwd_counter": bwd.get(counter, 0),
+            "events": sum(e.attrs["bytes"] for e in tr.spans(name)),
+            "counter": step.get(counter, 0)}
+    return moved[:n_fwd], moved[n_fwd:], step, events
+
+
+def _leaves(tree, prefix=""):
+    """{path: leaf} of a tree of mappings and lists."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _leaves(sub, f"{prefix}{key}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _leaves(sub, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def _decode_case(tag, model, smodel, cfg, mesh, toks, caches_of, out,
+                 meta, seq_shard=True):
+    """Decode ``toks`` (B, n) a step at a time on one device (``model``)
+    and on ``mesh`` (``smodel``, the caches at cache_specs or, with
+    ``seq_shard`` off, whole over "model"), from the caches
+    ``caches_of()`` builds: each step's logits, counters, the decode ops'
+    bytes by name (``shard.decode`` events), the redistributions' names
+    and the bytes of ``decode caches`` and ``decode ssm state``; then
+    each cache leaf gathered
+    beside one device's, and each rank's local shape beside its spec's
+    block."""
+    from repro_torch import obs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import model_zoo
+    from repro_torch.obs import counters
+
+    caches = caches_of()
+    scaches = sh.place_caches(caches_of(), mesh, seq_shard=seq_shard)
+    facts = {"counters": [], "ops": [], "redistributed": [],
+             "decode_caches": [], "decode_state": []}
+    for i in range(toks.shape[1]):
+        want, _ = model_zoo.decode_step(model, toks[:, i:i + 1], cfg,
+                                        caches, i)
+        before = counters.snapshot()
+        with obs.trace() as tr:
+            got, _ = sh.decode_step(smodel, toks[:, i:i + 1], cfg, scaches,
+                                    i)
+        facts["counters"].append(counters.delta(before))
+        ops = {}
+        for e in tr.spans("shard.decode"):
+            ops[e.attrs["op"]] = ops.get(e.attrs["op"], 0) + e.attrs["bytes"]
+        facts["ops"].append(ops)
+        moved = tr.spans("shard.redistribute")
+        facts["redistributed"].append(sorted({e.attrs["op"] for e in moved}))
+        for what, op in (("caches", "decode caches"),
+                         ("state", "decode ssm state")):
+            facts[f"decode_{what}"].append(sum(
+                e.attrs["bytes"] for e in moved if e.attrs["op"] == op))
+        out[f"{tag}/logits{i}"] = got.numpy()
+        out[f"{tag}/one/logits{i}"] = want.numpy()
+    mine, one = _leaves(scaches), _leaves(caches)
+    facts["local"], facts["block"] = {}, {}
+    for k, t in mine.items():
+        facts["local"][k] = list(sh.local(t).shape)
+        facts["block"][k] = [ix.stop - ix.start for ix in sh.local_index(
+            t.shape, t.placements, t.device_mesh)]
+        out[f"{tag}/cache/{k}"] = sh.full_tensor(t).numpy()
+        out[f"{tag}/one/cache/{k}"] = one[k].numpy()
+    meta[tag] = facts
 
 
 def _record_view(recs):
@@ -450,10 +528,11 @@ def run(rank, world, d):
                            sharding=tokens_sharding)
         views = {}
         for fresh in (False, True):
-            fwd, bwd, ctr = _backward_records(tcfg, state, batch, mesh24,
-                                              fresh)
+            fwd, bwd, ctr, events = _backward_records(tcfg, state, batch,
+                                                      mesh24, fresh)
             views[fresh] = {"fwd": _record_view(fwd),
-                            "bwd": _record_view(bwd), "counters": ctr}
+                            "bwd": _record_view(bwd), "counters": ctr,
+                            "events": events}
         meta[f"thread/{tag}"] = views
 
     # 2. global_batch: this rank's block of the step's tokens, and of the
@@ -474,33 +553,56 @@ def run(rank, world, d):
         mesh24)]
 
     # 3. sharded decode on 2 x 4: parameters at params_specs, f32 caches
-    #    at cache_specs, against the one-device decode
+    #    at cache_specs (the sequence's blocks of 16 over "model": the
+    #    three steps' keys all in the first), against the one-device decode
     dcfg = ModelConfig(**spec["cfg_decode"])
     dparams = _nested(x, "decode")
     b, s = spec["decode_batch"], spec["decode_len"]
     model = convert.from_jax_params(dparams, dcfg, "cpu")
     smodel = sh.shard_model(convert.from_jax_params(dparams, dcfg, "cpu"),
                             mesh24)
-    caches = model_zoo.init_caches(model, dcfg, b, s, dtype=torch.float32)
-    cspecs = sh.cache_specs(caches, mesh24)
-    scaches = {k: sh.distribute(v, sh.NamedSharding(mesh24, cspecs[k]))
-               for k, v in model_zoo.init_caches(
-                   model, dcfg, b, s, dtype=torch.float32).items()}
-    meta["decode/cache_local"] = [list(sh.local(v).shape)
-                                  for v in scaches.values()]
     toks = torch.from_numpy(x["decode_tokens"])
-    for i in range(toks.shape[1]):
-        want, _ = model_zoo.decode_step(model, toks[:, i:i + 1], dcfg,
-                                        caches, i)
-        before = counters.snapshot()
-        got, _ = sh.decode_step(smodel, toks[:, i:i + 1], dcfg, scaches,
-                                i)
-        meta[f"decode/counters{i}"] = counters.delta(before)
-        out[f"decode/logits{i}"] = got.numpy()
-        out[f"decode/one/logits{i}"] = want.numpy()
-    for k, v in scaches.items():
-        out[f"decode/cache/{k}"] = sh.full_tensor(v).numpy()
-        out[f"decode/one/cache/{k}"] = caches[k].numpy()
+    _decode_case("decode", model, smodel, dcfg, mesh24, toks,
+                 lambda: model_zoo.init_caches(model, dcfg, b, s,
+                                               dtype=torch.float32),
+                 out, meta)
+    # ... with seq_shard off: the caches whole over "model"
+    _decode_case("wdecode", model, smodel, dcfg, mesh24, toks,
+                 lambda: model_zoo.init_caches(model, dcfg, b, s,
+                                               dtype=torch.float32),
+                 out, meta, seq_shard=False)
+    # ... and 3 rows, which do not divide "data": every rank runs them all
+    _decode_case("odecode", model, smodel, dcfg, mesh24, toks[:3],
+                 lambda: model_zoo.init_caches(model, dcfg, 3, s,
+                                               dtype=torch.float32),
+                 out, meta)
+
+    # 3e. the hybrid (5 heads on model 4: q of every head gathered; its
+    #     windowed layer's ring wrapping across the blocks) on 2 x 4, and
+    #     the encoder-decoder on 4 x 2 (its cross K / V split over model)
+    hcfg = ModelConfig(**cfg_of(spec["cfg_hybrid"]))
+    hinit = _nested(x, "hybrid_init")
+    model = convert.from_jax_params(hinit, hcfg, "cpu")
+    smodel = sh.shard_model(convert.from_jax_params(hinit, hcfg, "cpu"),
+                            mesh24)
+    htoks = torch.from_numpy(x["hdecode_tokens"])
+    hs = spec["hybrid_decode_len"]
+    _decode_case("hdecode", model, smodel, hcfg, mesh24, htoks,
+                 lambda: model_zoo.init_caches(model, hcfg, b, hs,
+                                               dtype=torch.float32),
+                 out, meta)
+    ecfg = ModelConfig(**cfg_of(spec["cfg_encdec"]))
+    einit = _nested(x, "encdec_init")
+    model = convert.from_jax_params(einit, ecfg, "cpu")
+    smodel = sh.shard_model(convert.from_jax_params(einit, ecfg, "cpu"),
+                            mesh42)
+    memory = torch.from_numpy(x["edecode_memory"])
+    _decode_case("edecode", model, smodel, ecfg, mesh42,
+                 htoks[:, :spec["encdec_decode_steps"]],
+                 lambda: model_zoo.init_caches(model, ecfg, b, s,
+                                               memory=memory,
+                                               dtype=torch.float32),
+                 out, meta)
 
     # 3a. the vocab-split model's prefill (each rank its rows, logits its
     #     vocabulary block, gathered here) and decode on 2 x 4
@@ -524,15 +626,10 @@ def run(rank, world, d):
     out["prefill/one/logits"] = want[0].numpy()
     for k in ("k", "v"):
         out[f"prefill/one/{k}"] = want[2][k].numpy()
-    caches = model_zoo.init_caches(model, vcfg, b, s, dtype=torch.float32)
-    scaches = sh.place_caches(model_zoo.init_caches(
-        model, vcfg, b, s, dtype=torch.float32), mesh24)
-    for i in range(toks.shape[1]):
-        want, _ = model_zoo.decode_step(model, toks[:, i:i + 1], vcfg,
-                                        caches, i)
-        got, _ = sh.decode_step(smodel, toks[:, i:i + 1], vcfg, scaches, i)
-        out[f"vdecode/logits{i}"] = got.numpy()
-        out[f"vdecode/one/logits{i}"] = want.numpy()
+    _decode_case("vdecode", model, smodel, vcfg, mesh24, toks,
+                 lambda: model_zoo.init_caches(model, vcfg, b, s,
+                                               dtype=torch.float32),
+                 out, meta)
 
     # 3b. a moe model (capacity factor 1.25, as registered) with its
     #     experts sharded over "model" in E: each rank's rows of a forward
@@ -565,17 +662,10 @@ def run(rank, world, d):
         out["moe/prefill"] = got.numpy()
         out["moe/one/prefill"] = model_zoo.prefill(
             one_moe, {"tokens": mtok}, mcfg)[0][rows].numpy()
-    caches = model_zoo.init_caches(one_moe, mcfg, b, s, dtype=torch.float32)
-    scaches = sh.place_caches(model_zoo.init_caches(
-        one_moe, mcfg, b, s, dtype=torch.float32), mesh24)
-    before = counters.snapshot()
-    for i in range(toks.shape[1]):
-        want, _ = model_zoo.decode_step(one_moe, toks[:, i:i + 1], mcfg,
-                                        caches, i)
-        got, _ = sh.decode_step(smoe, toks[:, i:i + 1], mcfg, scaches, i)
-        out[f"moe/decode{i}"] = got.numpy()
-        out[f"moe/one/decode{i}"] = want.numpy()
-    meta["moe/decode_counters"] = counters.delta(before)
+    _decode_case("mdecode", one_moe, smoe, mcfg, mesh24, toks,
+                 lambda: model_zoo.init_caches(one_moe, mcfg, b, s,
+                                               dtype=torch.float32),
+                 out, meta)
     opt = AdamWConfig(**spec["opt"])
     state = sh.place_state(ts.state_for(convert.from_jax_params(
         minit, mcfg, "cpu"), opt), mesh24)
