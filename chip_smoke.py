@@ -51,10 +51,19 @@ each printing JSON lines with its wall time:
    orthogonality and A - QR checked in f64), one device-only profile of the
    8192 call, a cold-start ``tuned`` QR at 4096 f32 bitwise the model's;
    ``linalg.lstsq`` 8192 x 4096 f32 with 16 right-hand sides against the
-   f64 solution; ``batched_cholesky`` / ``batched_lu`` of 64 x 512 f32
-   (B2 three times per item), ``batched_qr`` of 64 x 512 x 256 and their
-   ``batched_solve`` with 8 right-hand sides (B1 ``gemv`` per TRSM
-   update); the level-1 routines at n = 2^26 f32 against f64 (none
+   f64 solution; ``batched_cholesky`` / ``batched_lu`` of 64 x 512 f32,
+   ``batched_qr`` of 64 x 512 x 256 and their ``batched_solve`` with 8
+   right-hand sides, each in lockstep: B2 three times for the whole batch,
+   B1 twice per QR step, B1 ``gemv`` once per TRSM update (the per-item
+   loop launched 64 times as many), each call's seconds and device-busy ms
+   beside the loop's (``BATCHED_LOOP_S``); before them each batched
+   kernel launch held bitwise, item by item, to the 2-D launch on that
+   item (B1 ``ffma`` at the first QR step's V^T C, ``dmma`` f64 at a
+   ragged m read through a row window, ``gemv`` at a solve's TRSM update,
+   B2 ``syrk`` and ``lu`` at the first trailing updates), the first two
+   timed beside their bound, ``torch.bmm`` and the per-item loop of 2-D
+   launches (``batched_rows``); the level-1 routines at n = 2^26 f32
+   against f64 (none
    launches a kernel of the port), ms per call beside the bytes bound; and
    a traced 4096 f32 QR written by both exporters and read back.
 5. ``tune``: with the launch counts zeroed, ``tune_gemm`` at 4096^3 in
@@ -191,10 +200,12 @@ each printing JSON lines with its wall time:
    co-resident CTAs at every shared-memory size its plans take, B4's
    resident CTAs per SM, B6's shared memory per pass - held to the card's
    and the C functions' answers, exactly. ``gemm`` 8192^3 f32, ``cholesky``
-   8192 f32, ``qr`` 2048 f32 and one hymba-1.5b prefill (``PREFILL``) run
-   for real under ``record_launches`` and traced on fake CUDA tensors (the
-   two large fake traces in the worker pool); the records must agree
-   kernel by kernel (variant, tile, grid, shared memory). Then the whole
+   8192 f32, ``qr`` 2048 f32, one hymba-1.5b prefill (``PREFILL``) and the
+   three batched drivers at the lapack phase's sizes (``ANALYSIS_BATCHED``)
+   run for real under ``record_launches`` and traced on fake CUDA tensors
+   (the large fake traces in the worker pool); the records must agree
+   kernel by kernel (variant, tile, grid with the batch, shared memory).
+   Then the whole
    surface grid on the card route (``ANALYSIS_WORKERS`` processes for the
    fake-traced no-mesh legs, 8 gloo ranks on the card for the mesh legs
    and ``pdgemm`` / ``pdtrsm``) and the BY001 lint, with the committed
@@ -358,6 +369,14 @@ TUNE_N = 4096                  # the tune phase's sweep shape (n^3)
 LSTSQ = (8192, 4096, 16)
 BATCHED = (64, 512, 8)
 BATCHED_TALL = 256
+# the batched calls' seconds when they looped the 2-D drivers over the items
+# (PERF.md section 5, PR 18 run 1; NVIDIA H100 80GB HBM3, 700.00 W): the
+# lockstep calls print theirs beside these
+BATCHED_LOOP_S = {"batched_cholesky": 2.805, "batched_lu": 6.292,
+                  "batched_qr": 5.478}
+# the f64 "dmma" batch check: items, rows (ragged against the 128-row tile,
+# read through a row window of taller items), k, n
+BATCHED_DMMA = (8, 200, 96, 160)
 LEVEL1_N = 2 ** 26
 # QR's residuals |A - QR|/|A| and |Q^TQ - I|/sqrt(n): the Cholesky limits
 LAPACK_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
@@ -455,6 +474,11 @@ SHARD_NOTE = ("four ranks share one card over gloo (host loopback, each "
 ANALYSIS_WORKERS = 8
 ANALYSIS_TIMEOUT_S = 600
 ANALYSIS_CALLS = (("gemm", N), ("cholesky", N), ("qr", 2048))
+# the batched drivers whose real and fake records must agree: the lapack
+# phase's batches
+ANALYSIS_BATCHED = (("batched_cholesky", (64, 512, 512)),
+                    ("batched_lu", (64, 512, 512)),
+                    ("batched_qr", (64, 512, 256)))
 # the dryrun phase: each child's deadline; a traced peak's distance from
 # the card's max_memory_allocated of the same step
 DRYRUN_TIMEOUT_S = 300
@@ -1064,7 +1088,8 @@ def lapack_plans():
     """The launch counts the lapack phase's calls imply under the card's
     machine: B1 twice per QR panel with trailing columns (V^T C and V W),
     "gemv" once per off-diagonal update of a TRSM with <= 16 right-hand
-    sides, B2 once per fused trailing update of a batched item."""
+    sides, B2 once per fused trailing update; a batched call launches
+    each of these once for the whole batch (lockstep)."""
     from repro_torch.lapack.cholesky import default_block
     from repro_torch.tune import dispatch as td
 
@@ -1091,7 +1116,8 @@ def lapack_plans():
                       "gemv": trsm_updates(k, lrhs, torch.float32)},
             "batched items": facts,
             "batched_qr item": qr(n, BATCHED_TALL, torch.float32),
-            # lower + upper solve per item of potrf / getrf, one of geqrf
+            # lower + upper solve of potrf / getrf, one of geqrf: the
+            # launches of one item's solve, and of the whole batch's
             "batched_solve gemv per item": {
                 "potrf": 2 * trsm_updates(n, nrhs, torch.float32),
                 "getrf": 2 * trsm_updates(n, nrhs, torch.float32),
@@ -1115,9 +1141,10 @@ def phase_lapack():
     implies (:func:`lapack_plans`). Before each driver call, every kernel
     it runs is held to its plain version at the operands the driver hands
     it (:func:`qr_update_checks`, :func:`b2_walk`,
-    :func:`trsm_gemv_checks`). Its inputs come from a generator of its own,
-    seeded with ``SEED``, so the later phases draw what they drew without
-    it."""
+    :func:`trsm_gemv_checks`), and each batched launch item by item to
+    the 2-D launches (:func:`batched_rows`). Its inputs come from a
+    generator of its own, seeded with ``SEED``, so the later phases draw
+    what they drew without it. Returns the batched kernels' times rows."""
     import math
     import tempfile
 
@@ -1219,6 +1246,8 @@ def phase_lapack():
     b2_walk("potrf", spd[0], blocks["potrf"])
     b2_walk("getrf", g[0], blocks["getrf"])
     qr_update_checks(tall[0], plans["batched_qr item"]["block"], "ffma")
+    rows = batched_rows(gen, spd, g, tall, blocks,
+                        plans["batched_qr item"]["block"], nrhs)
     batched = {}
     for kind, routine, a in (("potrf", "batched_cholesky", spd),
                              ("getrf", "batched_lu", g),
@@ -1228,10 +1257,22 @@ def phase_lapack():
                 f"{routine} {items}x{tuple(a.shape[1:])} f32",
                 lambda: getattr(linalg, routine)(a))
             batched[routine] = launches
+            # lockstep: each trailing update one launch for the batch
             if kind == "geqrf":
-                only(launches, ffma=items * plans["batched_qr item"]["b1"])
+                only(launches, ffma=plans["batched_qr item"]["b1"])
             else:
-                only(launches, trsm_gemm=items * fused[kind])
+                only(launches, trsm_gemm=fused[kind])
+            prof = profile_call(lambda: getattr(linalg, routine)(a),
+                                cpu=False, match=("gemm_ffma", "trsm_gemm"))
+            _, secs = sync_time(lambda: getattr(linalg, routine)(a))
+            emit(call=f"{routine} {items}x{tuple(a.shape[1:])} f32 "
+                 f"(lockstep)", wall_s=secs,
+                 device_busy_ms=prof["device_busy_ms"],
+                 device_idle_share=prof["device_idle_share"],
+                 kernel_launches=prof["kernel_launches"],
+                 matched=prof["matched"], loop_wall_s=BATCHED_LOOP_S[routine],
+                 loop_source="the per-item loop, PERF.md section 5 (PR 18 "
+                             "run 1; NVIDIA H100 80GB HBM3, 700.00 W)")
             # the solve's triangular factors of the first item, as
             # potrs / getrs / geqrs hand them to the blocked TRSM
             f0 = res.factors[0]
@@ -1245,7 +1286,7 @@ def phase_lapack():
             x, launches = counted(f"batched_solve ({kind}) nrhs={nrhs}",
                                   lambda: linalg.batched_solve(res, rhs))
             batched[f"batched_solve ({kind})"] = launches
-        only(launches, gemv=items * per_item[kind])
+        only(launches, gemv=per_item[kind])
         a64, x64, r64 = a.double(), x.double(), rhs.double()
         check(f"{routine} max_i |A_i - rebuilt|/|A_i|",
               max(rel(d) / rel(s) for d, s in
@@ -1272,6 +1313,9 @@ def phase_lapack():
     level1_checks(gen, check)
     emit(phase="lapack", wall_s=time.perf_counter() - t_phase,
          batched_launches=batched, residuals=checks)
+    for row in rows:
+        row["launches"] = batched[row.pop("call")][row["name"]]
+    emit(phase="times (lapack batched)", rows=rows)
 
 
 def path_gemm_check(name, x, y, variant):
@@ -1339,6 +1383,175 @@ def b2_walk(kind, a, block):
         else:
             a[j0:j1, j1:] = xp
         a[j1:, j1:] = cp
+
+
+def bitwise_items(name, got, launch_2d, variant=None):
+    """Each item of a batched launch's output against the 2-D launch on
+    that item (``launch_2d(i)``), bitwise; with ``variant``, the 2-D
+    launches must take it too. One line."""
+    from repro_torch.kernels import gemm as gk
+
+    outs = got if isinstance(got, tuple) else (got,)
+    worst = 0.0
+    for i in range(outs[0].shape[0]):
+        want = launch_2d(i)
+        want = want if isinstance(want, tuple) else (want,)
+        if variant is not None:
+            assert gk.gemm.last_launch["variant"] == variant, \
+                (name, gk.gemm.last_launch)
+        for o, w in zip(outs, want):
+            if not torch.equal(o[i], w):
+                worst = max(worst, (o[i].double() - w.double()).abs().max()
+                            .item())
+    emit(check=f"{name}: each of {outs[0].shape[0]} items bitwise the 2-D "
+               f"launch on it", max_abs_diff=worst, ok=worst == 0.0)
+    assert worst == 0.0, (name, worst)
+
+
+def batched_rows(gen, spd, g, tall, blocks, qr_block, nrhs):
+    """Each batched kernel launch of the lapack phase's drivers, at the
+    operands the drivers hand it, against its plain version and, item by
+    item and bitwise, against the 2-D launch on that item: B1 ``ffma`` at
+    the first QR step's V^T C (64 items), ``dmma`` f64 at a ragged m read
+    through a row window of taller items (``BATCHED_DMMA``: the rows past
+    m are the item's own, which the 3-D TMA map must read as zeros),
+    ``gemv`` at a solve's last lower TRSM update, B2 ``syrk`` at
+    ``batched_cholesky``'s first trailing update and ``lu`` at
+    ``batched_lu``'s. Returns the times rows of the ``ffma`` and ``syrk``
+    launches (ms beside the plain version, the bound, ``torch.bmm`` for
+    B1 and the per-item loop of 2-D launches; ``call`` names the lapack
+    call whose launch count the row takes)."""
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.lapack import cholesky as lc
+    from repro_torch.lapack import lu as ll
+    from repro_torch.lapack import qr as lq
+    from repro_torch.tune import dispatch as td
+
+    items = spd.shape[0]
+    rows = []
+
+    def plan_of(x, y):
+        return td.resolve("gemm", (x.shape[-2], y.shape[-1], x.shape[-1]),
+                          x.dtype, policy="model", backend="cuda").gemm_plan
+
+    # B1 "ffma": V^T C of batched_qr's first step
+    nb = qr_block
+    panel, tau = lq.geqrf_unblocked(tall[..., :nb])
+    vt, _, _, c = lq.wy_operands(torch.cat([panel, tall[..., nb:]], -1), 0,
+                                 nb, tau)
+    plan = plan_of(vt, c)
+    got = gk.gemm(vt, c, plan=plan)
+    launch = dict(gk.gemm.last_launch)
+    assert launch["variant"] == "ffma", launch
+    tag = (f"gemm batched {items} x {tuple(vt.shape[1:])}x"
+           f"{tuple(c.shape[1:])} strides {vt.stride()} {c.stride()} "
+           f"[ffma {launch['tile']}] batched_qr V^T C")
+    err = compare(tag, got, gk.gemm_plain(vt, c))
+    bitwise_items(tag, got, lambda i: gk.gemm(vt[i], c[i], plan=plan),
+                  "ffma")
+    m, k, n = vt.shape[1], vt.shape[2], c.shape[2]
+    b_ms, b_by = bound(2.0 * items * m * n * k,
+                       items * (m * k + k * n + m * n) * 4, torch.float32)
+    rows.append(dict(
+        name="gemm", call="batched_qr",
+        shape=f"{items} x {m}x{n}x{k} float32 (batched_qr's first V^T C, "
+              f"one launch)",
+        ms=cuda_ms(lambda: gk.gemm(vt, c, plan=plan)),
+        plain_ms=cuda_ms(lambda: gk.gemm_plain(vt, c)),
+        library_ms=cuda_ms(lambda: torch.bmm(vt, c)),
+        library="torch.bmm",
+        kernel_ms=kernel_ms(lambda: gk.gemm(vt, c, plan=plan), "gemm_ffma"),
+        loop_ms=cuda_ms(lambda: [gk.gemm(vt[i], c[i], plan=plan)
+                                 for i in range(items)]),
+        loop="the per-item loop of 2-D launches",
+        bound_ms=b_ms, bound_by=b_by, variant="ffma", tile=launch["tile"],
+        grid=list(gk.launch_grid("ffma", launch["tile"], m, n, None,
+                                 items)),
+        max_abs_err=err))
+    del panel, tau, vt, c, got
+
+    # B1 "dmma": f64 at a ragged m, each item a row window of a taller one
+    bi, m, k, n = BATCHED_DMMA
+    tall64 = torch.randn(bi, m + 64, k, generator=gen, device="cuda",
+                         dtype=torch.float64)
+    a = tall64[:, 32:32 + m]
+    b = torch.randn(bi, k, n, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    plan = plan_of(a, b)
+    got = gk.gemm(a, b, plan=plan)
+    assert gk.gemm.last_launch["variant"] == "dmma", gk.gemm.last_launch
+    tag = (f"gemm batched {bi} x {m}x{n}x{k} float64 ragged m, row windows "
+           f"strides {a.stride()} [dmma {gk.gemm.last_launch['tile']}]")
+    compare(tag, got, gk.gemm_plain(a, b))
+    bitwise_items(tag, got, lambda i: gk.gemm(a[i], b[i], plan=plan), "dmma")
+    del tall64, a, b, got
+
+    # B1 "gemv": a solve's last lower TRSM update, a row window of the
+    # factors times the solved rows
+    blk = td.resolve("trsm", (g.shape[-1], nrhs), torch.float32,
+                     policy="model", backend="cuda").block
+    i0 = (g.shape[-1] - 1) // blk * blk
+    win = g[:, i0:, :i0]
+    x = torch.randn(items, i0, nrhs, generator=gen, device="cuda")
+    got = gk.gemm(win, x)
+    assert gk.gemm.last_launch["variant"] == "gemv", gk.gemm.last_launch
+    tag = (f"gemm batched {items} x {tuple(win.shape[1:])}x{nrhs} TRSM "
+           f"update strides {win.stride()} [gemv split "
+           f"{gk.gemm.last_launch.get('split')}]")
+    compare(tag, got, gk.gemm_plain(win, x))
+    bitwise_items(tag, got, lambda i: gk.gemm(win[i], x[i]), "gemv")
+    del win, x, got
+
+    # B2: the first trailing update of batched_cholesky ("syrk") and of
+    # batched_lu ("lu"), on the views the drivers hand over
+    nb = blocks["potrf"]
+    a = spd.clone()
+    a[..., :nb, :nb] = lc.potrf_unblocked(a[..., :nb, :nb])
+    syrk = (a[..., :nb, :nb], a[..., nb:, :nb].mT, None, a[..., nb:, nb:])
+    nb_lu = blocks["getrf"]
+    lu_a = g.clone()
+    for kk in range(nb_lu):
+        ll._pivot_step(lu_a, kk, nb_lu)
+    lu = (lu_a[..., :nb_lu, :nb_lu], lu_a[..., :nb_lu, nb_lu:],
+          lu_a[..., nb_lu:, :nb_lu], lu_a[..., nb_lu:, nb_lu:])
+    item = lambda args, i: [None if t is None else t[i] for t in args]
+    errs, grids = {}, {}
+    for form, args, unit in (("syrk", syrk, False), ("lu", lu, True)):
+        got = fk.trsm_gemm(*args, form=form, unit_diag=unit)
+        grids[form] = fk.trsm_gemm.last_launch.get("grid")
+        want = fk.trsm_gemm_plain(*args, form=form, unit_diag=unit)
+        tag = (f"trsm_gemm batched {items} x nb={args[0].shape[-1]} "
+               f"n={args[3].shape[-1]} {form} unit={unit} grid "
+               f"{grids[form]}")
+        errs[form] = max(compare(tag + " X", got[0], want[0]),
+                         compare(tag + " C", got[1], want[1]))
+        bitwise_items(tag, got, lambda i: fk.trsm_gemm(
+            *item(args, i), form=form, unit_diag=unit))
+    n = spd.shape[-1] - nb
+    b_ms, b_by = bound(items * (nb * nb * n + 2.0 * n * n * nb),
+                       items * (nb * nb + 2 * nb * n + 2 * n * n) * 4,
+                       torch.float32)
+    run = lambda: fk.trsm_gemm(*syrk, form="syrk")
+    loop = lambda: [fk.trsm_gemm(*item(syrk, i), form="syrk")
+                    for i in range(items)]
+    rows.append(dict(
+        name="trsm_gemm", call="batched_cholesky",
+        shape=f"{items} x nb={nb} n={n} m={n} float32 syrk unit=False "
+              f"(batched_cholesky's first trailing update, one launch)",
+        ms=cuda_ms(run),
+        plain_ms=cuda_ms(lambda: fk.trsm_gemm_plain(*syrk, form="syrk")),
+        library_ms=None, kernel_ms=kernel_ms(run, "trsm_gemm"),
+        loop_ms=cuda_ms(loop),
+        loop_kernel_ms=kernel_ms(loop, "trsm_gemm") * items,
+        loop="the per-item loop of 2-D launches (no single PyTorch call "
+             "computes the fused function)",
+        bound_ms=b_ms, bound_by=b_by, variant="ffma", grid=grids["syrk"],
+        max_abs_err=errs["syrk"]))
+    for row in rows:
+        row.update(route="cuda", source=REPLACES[row["name"]][0],
+                   replaces=REPLACES[row["name"]][1])
+    return rows
 
 
 def trsm_gemv_checks(gen, t, lower, nrhs, tag):
@@ -4529,15 +4742,16 @@ def phase_shard(smi):
 
 def analysis_fake_keys(routine, n):
     """The launch records' keys of ``routine`` on an n x n f32 operand (n^3
-    for ``gemm``) traced on fake CUDA tensors (a worker of the analysis
-    phase's pool, or for ``gemm`` this process; no value is computed,
-    nothing launches)."""
+    for ``gemm``; ``n`` a shape for the batched drivers) traced on fake
+    CUDA tensors (a worker of the analysis phase's pool, or for ``gemm``
+    this process; no value is computed, nothing launches)."""
     from repro_torch import linalg
     from repro_torch.analysis import fake_card
     from repro_torch.kernels import launch_record as lr
 
     def build():
-        a = torch.empty((n, n), dtype=torch.float32, device="cuda")
+        a = torch.empty((n, n) if isinstance(n, int) else n,
+                        dtype=torch.float32, device="cuda")
         fn = getattr(linalg, routine)
         return fn, ((a, a) if routine == "gemm" else (a,)), {}
     with linalg.use(policy="model"):
@@ -4598,12 +4812,14 @@ def analysis_counterparts(smi):
 
 
 def analysis_real_keys(routine, n, gen):
-    """The launch records' keys of one real call on the card."""
+    """The launch records' keys of one real call on the card (``n`` a
+    shape for the batched drivers)."""
     from repro_torch import linalg
     from repro_torch.kernels import launch_record as lr
-    a = torch.randn(n, n, generator=gen, device="cuda")
-    if routine == "cholesky":
-        a = a @ a.T / n + torch.eye(n, device="cuda")
+    shape = (n, n) if isinstance(n, int) else n
+    a = torch.randn(*shape, generator=gen, device="cuda")
+    if routine in ("cholesky", "batched_cholesky"):
+        a = a @ a.mT / shape[-1] + torch.eye(shape[-1], device="cuda")
     counts = zero_launches()
     with linalg.use(policy="model"), lr.record_launches() as rec:
         getattr(linalg, routine)(*((a, a) if routine == "gemm" else (a,)))
@@ -4681,11 +4897,11 @@ def phase_analysis(smi):
         # the two large fake traces first (the longest tasks), then the
         # surface's no-mesh legs, one (routine, dtype) a task
         big = {r: pool.submit(analysis_fake_keys, r, n)
-               for r, n in ANALYSIS_CALLS if r != "gemm"}
+               for r, n in ANALYSIS_CALLS + ANALYSIS_BATCHED if r != "gemm"}
         t_base = time.perf_counter()
         base = sweep.submit_base_legs(pool, device="cuda")
         # meanwhile, here: the real calls on the card and the small traces
-        for routine, n in ANALYSIS_CALLS:
+        for routine, n in ANALYSIS_CALLS + ANALYSIS_BATCHED:
             real = analysis_real_keys(routine, n, gen)
             fake = analysis_fake_keys(routine, n) if routine == "gemm" \
                 else big[routine].result(timeout=ANALYSIS_TIMEOUT_S)

@@ -5,8 +5,11 @@ Every kernel-shaped core resolves through :mod:`repro_torch.tune.dispatch`:
 kernel at the planned config, ``"tuned"`` the registry's config (cold
 start == model). ``syrk`` and ``trsm`` thread the same policy through
 their internal GEMMs, so a blocked factorization dispatches every
-trailing flop onto the kernels. The public, context-scoped front-end is
-:mod:`repro_torch.linalg`.
+trailing flop onto the kernels. ``gemm``, ``trsm`` and
+``mirror_triangle`` also take a batch, operands with a leading (B,) axis
+(the reference ``vmap``s them): one blocked computation over the batch,
+each GEMM-shaped step one launch for all its items. The public,
+context-scoped front-end is :mod:`repro_torch.linalg`.
 """
 from __future__ import annotations
 
@@ -23,9 +26,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
          alpha=1.0, beta=0.0, transa: bool = False, transb: bool = False,
          policy: Optional[str] = None, registry=None) -> torch.Tensor:
     """C <- alpha * op(A) op(B) + beta * C (BLAS GEMM core); ``transa`` /
-    ``transb`` pass transposed views, which the kernel reads in place."""
-    op_a = a.T if transa else a
-    op_b = b.T if transb else b
+    ``transb`` pass transposed views, which the kernel reads in place. A
+    batch (B, m, k) @ (B, k, n) is one launch."""
+    op_a = a.mT if transa else a
+    op_b = b.mT if transb else b
     out = alpha * _tune.dispatch("gemm", op_a, op_b, policy=policy,
                                  registry=registry)
     if c is not None:
@@ -56,11 +60,11 @@ def syrk(a: torch.Tensor, c: Optional[torch.Tensor] = None, alpha=1.0,
 
 
 def mirror_triangle(full: torch.Tensor, lower: bool) -> torch.Tensor:
-    """Keep the authoritative triangle of ``full``, mirror it across the
-    diagonal."""
-    keep = torch.ones(full.shape, dtype=torch.bool, device=full.device)
+    """Keep the authoritative triangle of ``full`` (or of each item of a
+    batch), mirror it across the diagonal."""
+    keep = torch.ones(full.shape[-2:], dtype=torch.bool, device=full.device)
     keep = keep.tril() if lower else keep.triu()
-    return torch.where(keep, full, full.T)
+    return torch.where(keep, full, full.mT)
 
 
 def trsm(a: torch.Tensor, b: torch.Tensor, lower: bool = True,
@@ -74,16 +78,18 @@ def trsm(a: torch.Tensor, b: torch.Tensor, lower: bool = True,
     either); off-diagonal updates are GEMMs that follow the policy onto
     the kernel. ``block=None`` resolves the width through
     :func:`repro_torch.tune.dispatch.resolve` (64 under ``reference``).
-    The solution blocks are written into one output tensor in place.
+    The solution blocks are written into one output tensor in place. A
+    batch, T (B, n, n) and B (B, n, k), runs the row loop once for all
+    items, each off-diagonal update one launch.
     """
     if not left:
         # X T = B  <=>  T^T X^T = B^T
-        return trsm(a.T, b.T, lower=not lower, unit_diag=unit_diag,
-                    left=True, block=block, policy=policy,
-                    registry=registry).T
-    n = a.shape[0]
+        return _t(trsm(_t(a), _t(b), lower=not lower, unit_diag=unit_diag,
+                       left=True, block=block, policy=policy,
+                       registry=registry))
+    n = a.shape[-1]
     if block is None:
-        nrhs = b.shape[1] if b.ndim == 2 else 1
+        nrhs = b.shape[-1] if b.ndim == a.ndim else 1
         res = _tune.resolve("trsm", (n, nrhs), a.dtype, policy=policy,
                             registry=registry, backend=a.device.type)
         pol, block = res.policy, res.block
@@ -92,31 +98,48 @@ def trsm(a: torch.Tensor, b: torch.Tensor, lower: bool = True,
     if n <= block:
         return _trsm_unblocked(a, b, lower=lower, unit_diag=unit_diag)
     blocks = list(range(0, n, block))
+    two_d = a.ndim == 2
+    rows = lambda t, i0, i1: t[i0:i1] if two_d else t[:, i0:i1]
     x = torch.zeros_like(b)
     for i0 in (blocks if lower else blocks[::-1]):
         i1 = min(i0 + block, n)
-        rhs = b[i0:i1]
+        rhs = rows(b, i0, i1)
         if lower and i0 > 0:
-            rhs = rhs - gemm(a[i0:i1, :i0], x[:i0], policy=pol,
+            rhs = rhs - gemm(a[..., i0:i1, :i0], rows(x, 0, i0), policy=pol,
                              registry=registry)
         elif not lower and i1 < n:
-            rhs = rhs - gemm(a[i0:i1, i1:], x[i1:], policy=pol,
+            rhs = rhs - gemm(a[..., i0:i1, i1:], rows(x, i1, n), policy=pol,
                              registry=registry)
-        x[i0:i1] = _trsm_unblocked(a[i0:i1, i0:i1], rhs, lower=lower,
-                                   unit_diag=unit_diag)
+        sol = _trsm_unblocked(a[..., i0:i1, i0:i1], rhs, lower=lower,
+                              unit_diag=unit_diag)
+        if two_d:
+            x[i0:i1] = sol
+        else:
+            x[:, i0:i1] = sol
     return x
+
+
+def _t(x: torch.Tensor) -> torch.Tensor:
+    """The transpose of a matrix or of each item of a batch; a vector as
+    it is."""
+    return x if x.ndim < 2 else x.mT
 
 
 def _trsm_unblocked(a: torch.Tensor, b: torch.Tensor, lower: bool,
                     unit_diag: bool) -> torch.Tensor:
-    """Row-sequential substitution (the reference's ``lax.scan``)."""
-    n = a.shape[0]
-    diag = torch.diagonal(a)
-    strict = a - torch.diag(diag)
+    """Row-sequential substitution (the reference's ``lax.scan``), on one
+    system or a batch, T (B, n, n) and B (B, n, k)."""
+    n = a.shape[-1]
+    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    strict = a - torch.diag_embed(diag)
     x = torch.zeros_like(b)
     for i in (range(n) if lower else range(n - 1, -1, -1)):
-        s = b[i] - strict[i] @ x
-        x[i] = s if unit_diag else s / diag[i]
+        if a.ndim == 2:
+            s = b[i] - strict[i] @ x
+            x[i] = s if unit_diag else s / diag[i]
+        else:
+            s = b[:, i] - (strict[:, i, None] @ x)[:, 0]
+            x[:, i] = s if unit_diag else s / diag[:, i, None]
     return x
 
 

@@ -52,6 +52,23 @@
 //
 // The bias (length n, contiguous) and the activation are applied to the
 // register accumulator, in the accumulator type, before the single store.
+//
+// Batched products (repro_gemm, repro_gemv; the counterpart of vmap over
+// the TPU kernel's pallas_call): `batch` items, each operand at its own
+// batch stride in elements (0 broadcasts it to every item). The item comes
+// from a grid axis of its own (y for "ffma" and "dmma", z for "simt" and
+// "gemv"), so each item runs the tile, the K order and the K split of a
+// 2-D launch on it: item i of a batched launch is bitwise the 2-D launch on
+// item i. "dmma" reads A and B through 3-D tensor maps, the batch
+// outermost, so a ragged tile edge reads zeros and never the next item's
+// rows. "wgmma" stays 2-D (the batched drivers run f32 and f64). The grid's
+// y and z axes stop at 65535 items; the wrapper cuts a larger batch.
+// "simt", "dmma" and "gemv" are templates on BATCHED: a launch of one item
+// runs the 2-D instantiation, whose code has no item offsets and reads
+// "dmma"'s operands through 2-D maps (a "gemv" with the offsets in
+// measured slower at the TRSM update's shape). "ffma" is one kernel that
+// always offsets by blockIdx.y (0 for one item): its split form measured
+// slower at 8192^3 than this one (PERF.md, PR 28).
 #include <cstring>
 
 #include "common.cuh"
@@ -90,15 +107,21 @@ namespace simt {
 constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
 }
 
-template <typename T, typename Acc, typename TO>
+template <typename T, typename Acc, typename TO, bool BATCHED>
 __global__ void __launch_bounds__(simt::THREADS)
 gemm_simt_kernel(const T* __restrict__ a, long long sa0, long long sa1,
                  const T* __restrict__ b, long long sb0, long long sb1,
                  const T* __restrict__ bias, int epilogue,
-                 TO* __restrict__ c, long long sc0, int m, int n, int k) {
+                 TO* __restrict__ c, long long sc0, int m, int n, int k,
+                 long long sab, long long sbb, long long scb) {
   using namespace simt;
   __shared__ Acc As[BK][BM + 1];
   __shared__ Acc Bs[BK][BN + 1];
+  if constexpr (BATCHED) {                 // this CTA's item
+    a += blockIdx.z * sab;
+    b += blockIdx.z * sbb;
+    c += blockIdx.z * scb;
+  }
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
@@ -380,10 +403,14 @@ __global__ void __launch_bounds__(Ff<BM>::THREADS, 1)
 gemm_ffma_kernel(const float* __restrict__ a, long long sa0,
                  const float* __restrict__ b, long long sb0,
                  const float* __restrict__ bias, int epilogue,
-                 float* __restrict__ c, long long sc0, int m, int n, int k) {
+                 float* __restrict__ c, long long sc0, int m, int n, int k,
+                 long long sab, long long sbb, long long scb) {
   using F = Ff<BM>;
   constexpr int BN = F::BN, BK = F::BK, STAGES = F::STAGES;
   extern __shared__ __align__(16) uint8_t smem_raw[];
+  a += blockIdx.y * sab;                   // this CTA's item
+  b += blockIdx.y * sbb;
+  c += blockIdx.y * scb;
   auto* st = reinterpret_cast<typename F::Stage*>(smem_raw);
   int tm, tn;
   tile_of(blockIdx.x, (m + BM - 1) / BM, (n + BN - 1) / BN, tm, tn);
@@ -500,12 +527,13 @@ __device__ __forceinline__ void dmma_stage(const uint8_t* sa, const uint8_t* sb,
   }
 }
 
-template <int BM>
+template <int BM, bool BATCHED>
 __global__ void __launch_bounds__(Dm<BM>::THREADS, 1)
 gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const double* __restrict__ bias, int epilogue,
-                 double* __restrict__ c, long long sc0, int m, int n, int k) {
+                 double* __restrict__ c, long long sc0, int m, int n, int k,
+                 int bcast_a, int bcast_b, long long scb) {
   using namespace hopper;
   using D = Dm<BM>;
   extern __shared__ uint8_t smem_raw[];
@@ -513,6 +541,11 @@ gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
   uint64_t* full =
       reinterpret_cast<uint64_t*>(smem + D::STAGES * D::STAGE_BYTES);
   uint64_t* empty = full + D::STAGES;
+  // this CTA's item: the 3-D maps' outermost coordinate (0 for a
+  // broadcast operand) and C's offset
+  const int item = blockIdx.y;
+  const int ia = bcast_a ? 0 : item, ib = bcast_b ? 0 : item;
+  if constexpr (BATCHED) c += item * scb;
   int tm, tn;
   tile_of(blockIdx.x, (m + BM - 1) / BM, (n + D::BN - 1) / D::BN, tm, tn);
   const int ktiles = (k + D::BK - 1) / D::BK;
@@ -537,12 +570,21 @@ gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
       if (lane == 0) mbar_expect_tx(&full[s], D::STAGE_BYTES);
       __syncwarp();
       if (lane < D::BK / 4) {                // lane q: A box q, B boxes 4q..
-        tma_load_2d(sa + lane * D::A_BOX, &map_a, &full[s],
-                    t * D::BK + 4 * lane, tm * BM);
+        if constexpr (BATCHED)
+          tma_load_3d(sa + lane * D::A_BOX, &map_a, &full[s],
+                      t * D::BK + 4 * lane, tm * BM, ia);
+        else
+          tma_load_2d(sa + lane * D::A_BOX, &map_a, &full[s],
+                      t * D::BK + 4 * lane, tm * BM);
 #pragma unroll
-        for (int q = 4 * lane; q < 4 * lane + 4; ++q)
-          tma_load_2d(sb + q * D::B_BOX, &map_b, &full[s],
-                      tn * D::BN + 4 * q, t * D::BK);
+        for (int q = 4 * lane; q < 4 * lane + 4; ++q) {
+          if constexpr (BATCHED)
+            tma_load_3d(sb + q * D::B_BOX, &map_b, &full[s],
+                        tn * D::BN + 4 * q, t * D::BK, ib);
+          else
+            tma_load_2d(sb + q * D::B_BOX, &map_b, &full[s],
+                        tn * D::BN + 4 * q, t * D::BK);
+        }
       }
     }
   } else {
@@ -584,35 +626,52 @@ gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// the byte stride of a 3-D map's item axis: the operand's batch stride, or
+// for a broadcast operand (one item) its rows' span rounded up to 16 bytes
+inline cuuint64_t item_stride(long long sb, long long s0, int rows) {
+  if (sb != 0) return cuuint64_t(sb) * 8;
+  return (cuuint64_t(s0) * 8 * cuuint64_t(rows) + 15) / 16 * 16;
+}
+
 template <int BM>
 int launch_dmma(const void* a, long long sa0, const void* b, long long sb0,
                 const void* bias, int epilogue, void* c, long long sc0, int m,
-                int n, int k, cudaStream_t stream) {
+                int n, int k, int batch, long long sab, long long sbb,
+                long long scb, cudaStream_t stream) {
   using D = Dm<BM>;
   CUtensorMap map_a, map_b;
-  const cuuint64_t dims_a[2] = {cuuint64_t(k), cuuint64_t(m)};
-  const cuuint64_t dims_b[2] = {cuuint64_t(n), cuuint64_t(k)};
-  const cuuint64_t stride_a[1] = {cuuint64_t(sa0) * 8};
-  const cuuint64_t stride_b[1] = {cuuint64_t(sb0) * 8};
-  const cuuint32_t box_a[2] = {4, BM}, box_b[2] = {4, D::BK};
-  int err = hopper::make_map(&map_a, a, 2, dims_a, stride_a, box_a,
+  // (k, m, items) and (n, k, items), one item for a broadcast operand;
+  // the 2-D launch reads (k, m) and (n, k)
+  const bool batched = batch > 1;
+  const int rank = batched ? 3 : 2;
+  const cuuint64_t dims_a[3] = {cuuint64_t(k), cuuint64_t(m),
+                                cuuint64_t(sab != 0 ? batch : 1)};
+  const cuuint64_t dims_b[3] = {cuuint64_t(n), cuuint64_t(k),
+                                cuuint64_t(sbb != 0 ? batch : 1)};
+  const cuuint64_t stride_a[2] = {cuuint64_t(sa0) * 8,
+                                  item_stride(sab, sa0, m)};
+  const cuuint64_t stride_b[2] = {cuuint64_t(sb0) * 8,
+                                  item_stride(sbb, sb0, k)};
+  const cuuint32_t box_a[3] = {4, BM, 1}, box_b[3] = {4, D::BK, 1};
+  int err = hopper::make_map(&map_a, a, rank, dims_a, stride_a, box_a,
                              CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
                              CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err == 0)
-    err = hopper::make_map(&map_b, b, 2, dims_b, stride_b, box_b,
+    err = hopper::make_map(&map_b, b, rank, dims_b, stride_b, box_b,
                            CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
                            CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err;
+  auto kernel = batched ? gemm_dmma_kernel<BM, true>
+                        : gemm_dmma_kernel<BM, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_dmma_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      D::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long tiles = static_cast<long long>((m + BM - 1) / BM) *
                           ((n + D::BN - 1) / D::BN);
-  gemm_dmma_kernel<BM><<<static_cast<unsigned>(tiles), D::THREADS, D::SMEM,
-                         stream>>>(map_a, map_b,
-                                   static_cast<const double*>(bias), epilogue,
-                                   static_cast<double*>(c), sc0, m, n, k);
+  const dim3 grid(static_cast<unsigned>(tiles), batch);
+  kernel<<<grid, D::THREADS, D::SMEM, stream>>>(
+      map_a, map_b, static_cast<const double*>(bias), epilogue,
+      static_cast<double*>(c), sc0, m, n, k, sab == 0, sbb == 0, scb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -650,15 +709,24 @@ __device__ __forceinline__ void load_row(const T* p, Acc (&out)[V]) {
   }
 }
 
-template <typename T, typename Acc, typename TO, int NB, int V>
+template <typename T, typename Acc, typename TO, int NB, int V, bool BATCHED>
 __global__ void __launch_bounds__(gv::THREADS)
 gemm_gemv_kernel(const T* __restrict__ a, long long sa0,
                  const T* __restrict__ b, long long sb0, long long sb1,
                  const T* __restrict__ bias, int epilogue,
                  TO* __restrict__ c, long long sc0,
-                 Acc* __restrict__ partials, int m, int n, int k, int ks) {
+                 Acc* __restrict__ partials, int m, int n, int k, int ks,
+                 long long sab, long long sbb, long long scb) {
   using namespace gv;
   __shared__ __align__(16) Acc bs[NB][KC];
+  if constexpr (BATCHED) {
+    // this CTA's item; its partials follow the previous items' segments
+    a += blockIdx.z * sab;
+    b += blockIdx.z * sbb;
+    c += blockIdx.z * scb;
+    if (partials != nullptr)
+      partials += static_cast<long long>(blockIdx.z) * gridDim.x * m * n;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.y * BM + warp * ROWS;
   const int kbeg = blockIdx.x * ks, kend = min(k, kbeg + ks);
@@ -720,13 +788,17 @@ gemm_gemv_kernel(const T* __restrict__ a, long long sa0,
 }
 
 // C[row, j] = epilogue(sum over segments, in order, of the partials)
-template <typename T, typename Acc, typename TO>
+template <typename T, typename Acc, typename TO, bool BATCHED>
 __global__ void __launch_bounds__(gv::THREADS)
 gemm_gemv_final(const Acc* __restrict__ partials, int segs,
                 const T* __restrict__ bias, int epilogue, TO* __restrict__ c,
-                long long sc0, int m, int n) {
+                long long sc0, int m, int n, long long scb) {
   const int i = blockIdx.x * gv::THREADS + threadIdx.x;
   if (i >= m * n) return;
+  if constexpr (BATCHED) {                 // this CTA's item
+    partials += static_cast<long long>(blockIdx.y) * segs * m * n;
+    c += blockIdx.y * scb;
+  }
   const int row = i / n, j = i % n;
   Acc s = Acc(0);
   for (int seg = 0; seg < segs; ++seg)
@@ -734,27 +806,39 @@ gemm_gemv_final(const Acc* __restrict__ partials, int segs,
   finish(&c[row * sc0 + j], s, bias, j, epilogue);
 }
 
+// the batch's shape and strides, in elements, as the entry points take it
+struct Batch {
+  int count;
+  long long sa, sb, sc;
+};
+
 template <typename T, typename Acc, typename TO, int NB>
 int launch_gemv_nb(bool vec, const void* a, long long sa0, const void* b,
                    long long sb0, long long sb1, const void* bias,
                    int epilogue, void* c, long long sc0, void* partials,
-                   int m, int n, int k, int ks, cudaStream_t stream) {
+                   int m, int n, int k, int ks, Batch bt,
+                   cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const int segs = (k + ks - 1) / ks;
-  const dim3 grid(segs, (m + gv::BM - 1) / gv::BM);
-  auto kernel = vec ? gemm_gemv_kernel<T, Acc, TO, NB, V>
-                    : gemm_gemv_kernel<T, Acc, TO, NB, 1>;
+  const dim3 grid(segs, (m + gv::BM - 1) / gv::BM, bt.count);
+  const bool batched = bt.count > 1;
+  auto kernel = vec ? (batched ? gemm_gemv_kernel<T, Acc, TO, NB, V, true>
+                               : gemm_gemv_kernel<T, Acc, TO, NB, V, false>)
+                    : (batched ? gemm_gemv_kernel<T, Acc, TO, NB, 1, true>
+                               : gemm_gemv_kernel<T, Acc, TO, NB, 1, false>);
   kernel<<<grid, gv::THREADS, 0, stream>>>(
       static_cast<const T*>(a), sa0, static_cast<const T*>(b), sb0, sb1,
       static_cast<const T*>(bias), epilogue, static_cast<TO*>(c), sc0,
-      static_cast<Acc*>(partials), m, n, k, ks);
+      segs > 1 ? static_cast<Acc*>(partials) : nullptr, m, n, k, ks, bt.sa,
+      bt.sb, bt.sc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || segs == 1) return static_cast<int>(err);
-  gemm_gemv_final<T, Acc, TO>
-      <<<(m * n + gv::THREADS - 1) / gv::THREADS, gv::THREADS, 0, stream>>>(
-          static_cast<const Acc*>(partials), segs,
-          static_cast<const T*>(bias), epilogue, static_cast<TO*>(c), sc0, m,
-          n);
+  const dim3 fgrid((m * n + gv::THREADS - 1) / gv::THREADS, bt.count);
+  auto final_pass = batched ? gemm_gemv_final<T, Acc, TO, true>
+                            : gemm_gemv_final<T, Acc, TO, false>;
+  final_pass<<<fgrid, gv::THREADS, 0, stream>>>(
+      static_cast<const Acc*>(partials), segs, static_cast<const T*>(bias),
+      epilogue, static_cast<TO*>(c), sc0, m, n, bt.sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -762,18 +846,18 @@ template <typename T, typename Acc, typename TO>
 int launch_gemv(bool vec, const void* a, long long sa0, const void* b,
                 long long sb0, long long sb1, const void* bias, int epilogue,
                 void* c, long long sc0, void* partials, int m, int n, int k,
-                int ks, cudaStream_t s) {
+                int ks, Batch bt, cudaStream_t s) {
   if (n <= 1)
     return launch_gemv_nb<T, Acc, TO, 1>(vec, a, sa0, b, sb0, sb1, bias,
                                          epilogue, c, sc0, partials, m, n, k,
-                                         ks, s);
+                                         ks, bt, s);
   if (n <= 4)
     return launch_gemv_nb<T, Acc, TO, 4>(vec, a, sa0, b, sb0, sb1, bias,
                                          epilogue, c, sc0, partials, m, n, k,
-                                         ks, s);
+                                         ks, bt, s);
   return launch_gemv_nb<T, Acc, TO, 16>(vec, a, sa0, b, sb0, sb1, bias,
                                         epilogue, c, sc0, partials, m, n, k,
-                                        ks, s);
+                                        ks, bt, s);
 }
 
 // -------------------------------- dispatch -----------------------------------
@@ -782,44 +866,52 @@ bool aligned16(const void* p, long long stride, int elem) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (stride * elem) % 16 == 0;
 }
 
+// a batch the grid can carry on one axis (1 to 65535 items)
+bool batch_ok(long long batch) { return batch >= 1 && batch <= 65535; }
+
 int gemv(int dtype, int out_dtype, const void* a, long long sa0,
          const void* b, long long sb0, long long sb1, const void* bias,
          int epilogue, void* c, long long sc0, void* partials, int m, int n,
-         int k, int ks, cudaStream_t s) {
+         int k, int ks, Batch bt, cudaStream_t s) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (n < 1 || n > 16 || k < 1 || ks < 1 || ks % gv::KC != 0 ||
       ((k + ks - 1) / ks > 1 && partials == nullptr))
     return bad;
   const int elem = dtype == kF64 ? 8 : dtype == kF32 ? 4 : 2;
-  const bool vec = aligned16(a, sa0, elem);
+  // 16-byte loads need every item's rows aligned
+  const bool vec = aligned16(a, sa0, elem) && (bt.sa * elem) % 16 == 0;
   if (dtype == kF32 && out_dtype == kF32)
     return launch_gemv<float, float, float>(vec, a, sa0, b, sb0, sb1, bias,
                                             epilogue, c, sc0, partials, m, n,
-                                            k, ks, s);
+                                            k, ks, bt, s);
   if (dtype == kF64 && out_dtype == kF64)
     return launch_gemv<double, double, double>(vec, a, sa0, b, sb0, sb1, bias,
                                                epilogue, c, sc0, partials, m,
-                                               n, k, ks, s);
+                                               n, k, ks, bt, s);
   if (dtype == kBF16 && out_dtype == kBF16)
     return launch_gemv<__nv_bfloat16, float, __nv_bfloat16>(
         vec, a, sa0, b, sb0, sb1, bias, epilogue, c, sc0, partials, m, n, k,
-        ks, s);
+        ks, bt, s);
   if (dtype == kBF16 && out_dtype == kF32)
     return launch_gemv<__nv_bfloat16, float, float>(
         vec, a, sa0, b, sb0, sb1, bias, epilogue, c, sc0, partials, m, n, k,
-        ks, s);
+        ks, bt, s);
   return bad;
 }
 
 template <typename T, typename Acc, typename TO>
 int launch_simt(const void* a, long long sa0, long long sa1, const void* b,
                 long long sb0, long long sb1, const void* bias, int epilogue,
-                void* c, long long sc0, int m, int n, int k,
+                void* c, long long sc0, int m, int n, int k, Batch bt,
                 cudaStream_t stream) {
-  const dim3 grid((n + simt::BN - 1) / simt::BN, (m + simt::BM - 1) / simt::BM);
-  gemm_simt_kernel<T, Acc, TO><<<grid, simt::THREADS, 0, stream>>>(
+  const dim3 grid((n + simt::BN - 1) / simt::BN, (m + simt::BM - 1) / simt::BM,
+                  bt.count);
+  auto kernel = bt.count > 1 ? gemm_simt_kernel<T, Acc, TO, true>
+                             : gemm_simt_kernel<T, Acc, TO, false>;
+  kernel<<<grid, simt::THREADS, 0, stream>>>(
       static_cast<const T*>(a), sa0, sa1, static_cast<const T*>(b), sb0, sb1,
-      static_cast<const T*>(bias), epilogue, static_cast<TO*>(c), sc0, m, n, k);
+      static_cast<const T*>(bias), epilogue, static_cast<TO*>(c), sc0, m, n, k,
+      bt.sa, bt.sb, bt.sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -852,19 +944,19 @@ int launch_wgmma(const void* a, long long sa0, const void* b, long long sb0,
 template <int BM>
 int launch_ffma(const void* a, long long sa0, const void* b, long long sb0,
                 const void* bias, int epilogue, void* c, long long sc0, int m,
-                int n, int k, cudaStream_t stream) {
+                int n, int k, Batch bt, cudaStream_t stream) {
   using F = Ff<BM>;
+  auto kernel = gemm_ffma_kernel<BM>;
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_ffma_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      F::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long tiles = static_cast<long long>((m + BM - 1) / BM) *
                           ((n + F::BN - 1) / F::BN);
-  gemm_ffma_kernel<BM><<<static_cast<unsigned>(tiles), F::THREADS, F::SMEM,
-                         stream>>>(static_cast<const float*>(a), sa0,
-                                   static_cast<const float*>(b), sb0,
-                                   static_cast<const float*>(bias), epilogue,
-                                   static_cast<float*>(c), sc0, m, n, k);
+  const dim3 grid(static_cast<unsigned>(tiles), bt.count);
+  kernel<<<grid, F::THREADS, F::SMEM, stream>>>(
+      static_cast<const float*>(a), sa0, static_cast<const float*>(b), sb0,
+      static_cast<const float*>(bias), epilogue, static_cast<float*>(c), sc0,
+      m, n, k, bt.sa, bt.sb, bt.sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -882,29 +974,34 @@ bool is_tile(int bm, int bn, int bk) {
 int dispatch(int variant, int bm, int bn, int bk, int dtype, int out_dtype,
              const void* a, long long sa0, long long sa1, const void* b,
              long long sb0, long long sb1, const void* bias, int epilogue,
-             void* c, long long sc0, int m, int n, int k, void* stream) {
+             void* c, long long sc0, int m, int n, int k, Batch bt,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (variant == kSimt) {
     if (bm != simt::BM || bn != simt::BN || bk != simt::BK) return bad;
     if (dtype == kF32 && out_dtype == kF32)
       return launch_simt<float, float, float>(a, sa0, sa1, b, sb0, sb1, bias,
-                                              epilogue, c, sc0, m, n, k, s);
+                                              epilogue, c, sc0, m, n, k, bt,
+                                              s);
     if (dtype == kF64 && out_dtype == kF64)
       return launch_simt<double, double, double>(
-          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, s);
+          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, bt, s);
     if (dtype == kBF16 && out_dtype == kBF16)
       return launch_simt<__nv_bfloat16, float, __nv_bfloat16>(
-          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, s);
+          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, bt, s);
     if (dtype == kBF16 && out_dtype == kF32)
       return launch_simt<__nv_bfloat16, float, float>(
-          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, s);
+          a, sa0, sa1, b, sb0, sb1, bias, epilogue, c, sc0, m, n, k, bt, s);
     return bad;
   }
   const int elem = dtype == kF64 ? 8 : dtype == kF32 ? 4 : 2;
+  // every item's rows 16-byte aligned (TMA, cp.async)
   if (sa1 != 1 || sb1 != 1 || !aligned16(a, sa0, elem) ||
-      !aligned16(b, sb0, elem))
+      !aligned16(b, sb0, elem) || (bt.sa * elem) % 16 != 0 ||
+      (bt.sb * elem) % 16 != 0)
     return bad;
+  if (variant == kWgmma && bt.count > 1) return bad;   // 2-D only
   if (variant == kWgmma && dtype == kBF16 &&
       (out_dtype == kBF16 || out_dtype == kF32)) {
     const bool f32 = out_dtype == kF32;
@@ -925,19 +1022,19 @@ int dispatch(int variant, int bm, int bn, int bk, int dtype, int out_dtype,
   if (variant == kFfma && dtype == kF32 && out_dtype == kF32) {
     if (is_tile<Ff<128>>(bm, bn, bk))
       return launch_ffma<128>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
-                              s);
+                              bt, s);
     if (is_tile<Ff<64>>(bm, bn, bk))
       return launch_ffma<64>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
-                             s);
+                             bt, s);
     return bad;
   }
   if (variant == kDmma && dtype == kF64 && out_dtype == kF64) {
     if (is_tile<Dm<128>>(bm, bn, bk))
       return launch_dmma<128>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
-                              s);
+                              bt.count, bt.sa, bt.sb, bt.sc, s);
     if (is_tile<Dm<64>>(bm, bn, bk))
       return launch_dmma<64>(a, sa0, b, sb0, bias, epilogue, c, sc0, m, n, k,
-                             s);
+                             bt.count, bt.sa, bt.sb, bt.sc, s);
     return bad;
   }
   return bad;
@@ -946,30 +1043,38 @@ int dispatch(int variant, int bm, int bn, int bk, int dtype, int out_dtype,
 }  // namespace
 }  // namespace repro
 
-// C[m, n] (row stride sc0, unit column stride) = A[m, k] @ B[k, n] on
-// `variant` (repro::Variant) at the CTA tile (bm, bn, bk). Returns the
-// cudaError_t of the launch (0 on success).
+// C[i] (row stride sc0, unit column stride) = A[i] @ B[i] for the `batch`
+// items i (A[i] at a + i * sab, B[i] at b + i * sbb, C[i] at c + i * scb,
+// in elements; a batch stride of 0 broadcasts the operand), on `variant`
+// (repro::Variant) at the CTA tile (bm, bn, bk). A 2-D product is batch 1.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_gemm(int variant, int bm, int bn, int bk, int dtype,
                           int out_dtype, const void* a, long long sa0,
                           long long sa1, const void* b, long long sb0,
                           long long sb1, void* c, long long sc0, int m, int n,
-                          int k, void* stream) {
+                          int k, long long batch, long long sab, long long sbb,
+                          long long scb, void* stream) {
+  if (!repro::batch_ok(batch)) return static_cast<int>(cudaErrorInvalidValue);
   return repro::dispatch(variant, bm, bn, bk, dtype, out_dtype, a, sa0, sa1, b,
                          sb0, sb1, nullptr, repro::kNone, c, sc0, m, n, k,
-                         stream);
+                         {static_cast<int>(batch), sab, sbb, scb}, stream);
 }
 
 // C = act(A @ B + bias) on the "gemv" variant (n <= 16, A with a unit
-// column stride). ks is the K segment (a multiple of 256); when k > ks,
-// partials holds ceil(k / ks) * m * n accumulator-width values. Returns the
-// cudaError_t of the launches (0 on success).
+// column stride), for `batch` items as repro_gemm. ks is the K segment (a
+// multiple of 256); when k > ks, partials holds batch * ceil(k / ks) * m * n
+// accumulator-width values. Returns the cudaError_t of the launches (0 on
+// success).
 extern "C" int repro_gemv(int dtype, int out_dtype, const void* a,
                           long long sa0, const void* b, long long sb0,
                           long long sb1, const void* bias, int epilogue,
                           void* partials, int ks, void* c, long long sc0,
-                          int m, int n, int k, void* stream) {
+                          int m, int n, int k, long long batch, long long sab,
+                          long long sbb, long long scb, void* stream) {
+  if (!repro::batch_ok(batch)) return static_cast<int>(cudaErrorInvalidValue);
   return repro::gemv(dtype, out_dtype, a, sa0, b, sb0, sb1, bias, epilogue, c,
                      sc0, partials, m, n, k, ks,
+                     {static_cast<int>(batch), sab, sbb, scb},
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -983,5 +1088,6 @@ extern "C" int repro_gemm_bias_act(int variant, int bm, int bn, int bk,
                                    int epilogue, void* c, long long sc0, int m,
                                    int n, int k, void* stream) {
   return repro::dispatch(variant, bm, bn, bk, dtype, out_dtype, a, sa0, sa1, b,
-                         sb0, sb1, bias, epilogue, c, sc0, m, n, k, stream);
+                         sb0, sb1, bias, epilogue, c, sc0, m, n, k,
+                         {1, 0, 0, 0}, stream);
 }

@@ -40,6 +40,20 @@
 // output is one fixed-order sum and a result depends only on the inputs.
 // All blocks run at once (a cooperative launch): a grid larger than what
 // fits is refused by the runtime and the wrapper raises.
+//
+// A batch of independent updates (the batched drivers' lockstep panels;
+// the counterpart of vmap over the TPU kernel) is the same one launch: the
+// item is folded into the task index of both phases, so the CTAs stride
+// over (item, solve block or transpose tile), then over (item, C tile),
+// with the one grid.sync() between. Each input has its own batch stride;
+// the outputs and the workspaces hold the items one after another. A CTA
+// stages an item's L11 in shared memory when its first solve task of that
+// item comes. Every item's blocks run the tile, the K order and the
+// substitution of a launch on that item alone, so item i of a batched
+// launch is bitwise the 2-D launch on item i. A batch is its own kernel
+// (trsm_gemm_batched_kernel, the same device functions on each item's
+// pointers); one item runs trsm_gemm_kernel, the code a 2-D launch ran
+// before the batch axis, its pointers read from the launch's parameters.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -90,7 +104,25 @@ struct Params {
   void* xw;         // nbp x ldx, accumulator dtype
   void* blt;        // nbp x ldm, accumulator dtype ("lu")
   int nb, nbp, m, n, ldx, ldm, width, l_smem, syrk, unit_diag;
+  int batch;        // items; the inputs' batch strides, in elements
+  long long slb, sapb, sblb, scb;
 };
+
+// p's pointers moved to item `item`: the inputs by their batch strides, the
+// outputs (x, cout) and the workspaces (xw, blt) by one item's extent
+template <typename T, typename Acc>
+__device__ __forceinline__ Params at_item(const Params& p, long long item) {
+  Params q = p;
+  q.l = static_cast<const T*>(p.l) + item * p.slb;
+  q.ap = static_cast<const T*>(p.ap) + item * p.sapb;
+  q.bl = static_cast<const T*>(p.bl) + item * p.sblb;
+  q.c = static_cast<const T*>(p.c) + item * p.scb;
+  q.x = static_cast<T*>(p.x) + item * p.nb * p.n;
+  q.cout = static_cast<T*>(p.cout) + item * p.m * p.n;
+  q.xw = static_cast<Acc*>(p.xw) + item * p.nbp * p.ldx;
+  if (p.blt != nullptr) q.blt = static_cast<Acc*>(p.blt) + item * p.nbp * p.ldm;
+  return q;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -430,6 +462,40 @@ __device__ void update_tile(const Params& p, double* smem, int row0,
 
 // ------------------------------ the kernel -----------------------------------
 
+// L11's lower triangle (of the item p points at) into ls, all loads in
+// flight; the block's previous reads of ls are done (every task ends on a
+// barrier)
+template <typename T, typename Acc>
+__device__ void load_l11(const Params& p, Acc* ls) {
+  const T* l = static_cast<const T*>(p.l);
+  if constexpr (sizeof(T) == sizeof(Acc)) {
+    for (int i = threadIdx.x; i < p.nb * p.nb; i += THREADS) {
+      const int r = i / p.nb, q = i % p.nb;
+      if (q <= r) cp_async_elem<sizeof(T)>(&ls[i], &l[r * p.sl0 + q * p.sl1]);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {                                 // bf16: eight loads in flight
+    constexpr int U = 8;
+    const int count = p.nb * p.nb;
+    for (int i0 = threadIdx.x; i0 < count; i0 += U * THREADS) {
+      Acc v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * THREADS, r = i / p.nb, q = i % p.nb;
+        v[u] = i < count && q <= r ? to_acc(__ldg(&l[r * p.sl0 + q * p.sl1]))
+                                   : Acc(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * THREADS < count) ls[i0 + u * THREADS] = v[u];
+    }
+  }
+  __syncthreads();
+}
+
+// one launch on one item (p.batch == 1): the kernel as it was before the
+// batch axis, with p's pointers read straight from the launch's parameters
 template <typename T, typename Acc>
 __global__ void __launch_bounds__(THREADS, sizeof(Acc) == 4 ? 2 : 1)
 trsm_gemm_kernel(const Params p) {
@@ -440,40 +506,9 @@ trsm_gemm_kernel(const Params p) {
 
   // phase 1: L11 into shared memory (when it fits and this CTA solves),
   // then the column blocks, then BL's transpose tiles
-  const Acc* ls = nullptr;
-  Acc* xs = smem;
-  if (p.l_smem) {
-    Acc* lsm = smem;
-    xs = smem + static_cast<size_t>(p.nb) * p.nb;
-    if (blockIdx.x < solves) {           // its lower triangle, all in flight
-      const T* l = static_cast<const T*>(p.l);
-      if constexpr (sizeof(T) == sizeof(Acc)) {
-        for (int i = threadIdx.x; i < p.nb * p.nb; i += THREADS) {
-          const int r = i / p.nb, q = i % p.nb;
-          if (q <= r) cp_async_elem<sizeof(T)>(&lsm[i], &l[r * p.sl0 + q * p.sl1]);
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-      } else {                             // bf16: eight loads in flight
-        constexpr int U = 8;
-        const int count = p.nb * p.nb;
-        for (int i0 = threadIdx.x; i0 < count; i0 += U * THREADS) {
-          Acc v[U];
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int i = i0 + u * THREADS, r = i / p.nb, q = i % p.nb;
-            v[u] = i < count && q <= r ? to_acc(__ldg(&l[r * p.sl0 + q * p.sl1]))
-                                       : Acc(0);
-          }
-#pragma unroll
-          for (int u = 0; u < U; ++u)
-            if (i0 + u * THREADS < count) lsm[i0 + u * THREADS] = v[u];
-        }
-      }
-      __syncthreads();
-    }
-    ls = lsm;
-  }
+  Acc* ls = smem;
+  Acc* xs = p.l_smem ? smem + static_cast<size_t>(p.nb) * p.nb : smem;
+  if (p.l_smem && blockIdx.x < solves) load_l11<T, Acc>(p, ls);
   for (int task = blockIdx.x; task < solves + tk * tr; task += gridDim.x) {
     if (task < solves && p.l_smem) {
       solve_block<T, Acc, true>(p, ls, xs, task * p.width);
@@ -494,9 +529,58 @@ trsm_gemm_kernel(const Params p) {
     update_tile<T>(p, smem, (tile / tiles_n) * BM, (tile % tiles_n) * BN);
 }
 
+// a batch of items (p.batch > 1), each task on its item's pointers
+template <typename T, typename Acc>
+__global__ void __launch_bounds__(THREADS, sizeof(Acc) == 4 ? 2 : 1)
+trsm_gemm_batched_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Acc* smem = reinterpret_cast<Acc*>(smem_raw);
+  const int solves = p.ldx / p.width;
+  const int tk = (p.nbp + TT - 1) / TT, tr = p.syrk ? 0 : p.ldm / TT;
+  const int per_item = solves + tk * tr;
+
+  // phase 1, over (item, task): an item's L11 into shared memory (when it
+  // fits) before this CTA's first solve of that item, then the column
+  // blocks, then BL's transpose tiles
+  Acc* ls = smem;
+  Acc* xs = p.l_smem ? smem + static_cast<size_t>(p.nb) * p.nb : smem;
+  long long staged = -1;                   // the item whose L11 is in ls
+  for (long long task = blockIdx.x; task < 1LL * p.batch * per_item;
+       task += gridDim.x) {
+    const long long item = task / per_item;
+    const int t = static_cast<int>(task % per_item);
+    const Params q = at_item<T, Acc>(p, item);
+    if (t < solves && p.l_smem) {
+      if (item != staged) {
+        load_l11<T, Acc>(q, ls);
+        staged = item;
+      }
+      solve_block<T, Acc, true>(q, ls, xs, t * p.width);
+    } else if (t < solves) {
+      solve_block<T, Acc, false>(q, ls, xs, t * p.width);
+    } else {
+      const int id = t - solves;
+      transpose_tile<T, Acc>(q, xs, (id / tr) * TT, (id % tr) * TT);
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // phase 2, over (item, C tile): each item's tiles row-major
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = p.m > 0 ? ((p.m + BM - 1) / BM) * tiles_n : 0;
+  for (long long task = blockIdx.x; task < 1LL * p.batch * tiles;
+       task += gridDim.x) {
+    const int tile = static_cast<int>(task % tiles);
+    update_tile<T>(at_item<T, Acc>(p, task / tiles), smem,
+                   (tile / tiles_n) * BM, (tile % tiles_n) * BN);
+  }
+}
+
 template <typename T, typename Acc>
 int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
-  auto kernel = trsm_gemm_kernel<T, Acc>;
+  auto kernel = p.batch > 1 ? trsm_gemm_batched_kernel<T, Acc>
+                            : trsm_gemm_kernel<T, Acc>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -506,16 +590,28 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
       static_cast<size_t>(smem), stream));
 }
 
-template <typename T, typename Acc>
-int co_resident(int smem) {
-  auto kernel = trsm_gemm_kernel<T, Acc>;
+// blocks per SM of one kernel at `smem` bytes, or minus the cudaError_t
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int per_sm = 0, dev = 0, sms = 0;
+  int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         THREADS, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
+}
+
+// the fewer of the two kernels' (a grid sized by it launches either)
+template <typename T, typename Acc>
+int co_resident(int smem) {
+  int per_sm = blocks_per_sm(trsm_gemm_kernel<T, Acc>, smem);
+  const int batched = blocks_per_sm(trsm_gemm_batched_kernel<T, Acc>, smem);
+  if (per_sm < 0) return per_sm;
+  if (batched < 0) return batched;
+  if (batched < per_sm) per_sm = batched;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
@@ -537,13 +633,15 @@ extern "C" int repro_trsm_gemm_co_resident(int dtype, int smem) {
 }
 
 // X (nb x n, contiguous) and C' (m x n, contiguous) from L11 (nb x nb),
-// AP (nb x n), BL (m x nb, ignored when syrk) and C (m x n), all strided.
-// xw (nbp x ldx) and, for "lu", blt (nbp x ldm) are accumulator-width
-// workspaces: nbp = nb rounded up to 16, ldx = n and ldm = m rounded up to
-// 128. width (a power of two up to 32), l_smem, smem and grid come from
-// kernels/fused.py::trsm_gemm_plan and trsm_gemm_grid; a plan that does not
-// fit its smem is refused. Returns the cudaError_t of the launch (0 on
-// success).
+// AP (nb x n), BL (m x nb, ignored when syrk) and C (m x n), all strided,
+// for each of `batch` items: item i's inputs at the batch strides slb,
+// sapb, sblb, scb (elements) from the first's, its outputs and workspaces
+// after the previous items'. xw (nbp x ldx a item) and, for "lu", blt
+// (nbp x ldm a item) are accumulator-width workspaces: nbp = nb rounded up
+// to 16, ldx = n and ldm = m rounded up to 128. width (a power of two up to
+// 32), l_smem, smem and grid come from kernels/fused.py::trsm_gemm_plan and
+// trsm_gemm_grid; a plan that does not fit its smem is refused. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int repro_trsm_gemm(int dtype, int syrk, int unit_diag,
                                const void* l, long long sl0, long long sl1,
                                const void* ap, long long sap0, long long sap1,
@@ -551,18 +649,22 @@ extern "C" int repro_trsm_gemm(int dtype, int syrk, int unit_diag,
                                const void* c, long long sc0, long long sc1,
                                void* x, void* cout, void* xw, void* blt,
                                int nb, int m, int n, int width, int l_smem,
-                               int smem, int grid, void* stream) {
+                               int smem, int grid, long long batch,
+                               long long slb, long long sapb, long long sblb,
+                               long long scb, void* stream) {
   using namespace repro;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const size_t need = dtype == kF64 ? smem_bytes<double>(nb, width, l_smem)
                                     : smem_bytes<float>(nb, width, l_smem);
   if (width < 1 || width > 32 || (width & (width - 1)) != 0 || grid < 1 ||
-      need > static_cast<size_t>(smem) || (!syrk && m > 0 && blt == nullptr))
+      need > static_cast<size_t>(smem) || (!syrk && m > 0 && blt == nullptr) ||
+      batch < 1 || batch > (1LL << 30))
     return bad;
   Params p{l, sl0, sl1, ap, sap0, sap1, bl, sbl0, sbl1, c, sc0, sc1, x,
            cout, xw, blt, nb, (nb + BK - 1) / BK * BK, m, n,
            (n + PAD - 1) / PAD * PAD, (m + PAD - 1) / PAD * PAD, width,
-           l_smem, syrk, unit_diag};
+           l_smem, syrk, unit_diag, static_cast<int>(batch), slb, sapb, sblb,
+           scb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return launch<float, float>(p, grid, smem, s);

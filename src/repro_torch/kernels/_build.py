@@ -42,16 +42,17 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "gemm": {
         "repro_gemm": ([I, I, I, I, I, I, P, LL, LL, P, LL, LL, P, LL, I, I,
-                        I, P], I),
+                        I, LL, LL, LL, LL, P], I),
         "repro_gemm_bias_act": (
             [I, I, I, I, I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I, P],
             I),
         "repro_gemv": ([I, I, P, LL, P, LL, LL, P, I, P, I, P, LL, I, I, I,
-                        P], I),
+                        LL, LL, LL, LL, P], I),
     },
     "trsm_gemm": {
         "repro_trsm_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, LL, P,
-                             LL, LL, P, P, P, P, I, I, I, I, I, I, I, P], I),
+                             LL, LL, P, P, P, P, I, I, I, I, I, I, I, LL, LL,
+                             LL, LL, LL, P], I),
         "repro_trsm_gemm_co_resident": ([I, I], I),
     },
     "dotp": {

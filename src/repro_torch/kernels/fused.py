@@ -27,7 +27,11 @@
     ``dmma`` mma.sync shape (f64) over K = nb. Bound by operations; see the
     note in ``csrc/trsm_gemm.cu``. Its shared memory per CTA is
     :func:`repro_torch.core.codesign.trsm_gemm_smem`, the formula the
-    chain planner prices it with.
+    chain planner prices it with. A batch of updates (every operand with
+    a leading (B,) axis: the batched drivers' lockstep trailing updates,
+    ``vmap`` of the TPU kernel in the reference) is the same one launch,
+    the item folded into both phases' task indices; item i is bitwise the
+    launch on item i alone.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`gemm_bias_act_plain`, :func:`trsm_gemm_plain`)
@@ -49,9 +53,9 @@ from repro_torch.core.codesign import (TRSM_GEMM_TILE, TRSM_GEMM_TT,
 from repro_torch.kernels import _build
 from repro_torch.kernels import launch_record as _rec
 from repro_torch.kernels.gemm import (DTYPE_CODES, accumulator_dtype,
-                                      check_operands, default_plan,
-                                      gemm_plain, gemm_variant, launch,
-                                      record_call, reset_launches)
+                                      batch_stride, check_operands,
+                                      default_plan, gemm_plain, gemm_variant,
+                                      launch, record_call, reset_launches)
 
 EPILOGUES = ("none", "relu", "gelu")     # index = csrc/common.cuh code
 SMEM_LIMIT = 232448                      # dynamic shared memory per block
@@ -111,6 +115,9 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"unknown epilogue {epilogue!r}; "
                          f"expected one of {EPILOGUES}")
     out_dtype = check_operands(a, b, out_dtype)
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"gemm_bias_act takes 2-D operands (no batch "
+                         f"axis); got {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
     if bias is not None and (bias.shape != (n,) or bias.dtype != a.dtype
@@ -139,13 +146,20 @@ gemm_bias_act.last_launch = None
 
 # -------------------------------- trsm -> gemm -------------------------------
 
+def row_times(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """v @ m for a row v (k,) and m (k, n), or for each item of a batch,
+    v (B, k) and m (B, k, n)."""
+    return v @ m if v.ndim == 1 else (v.unsqueeze(-2) @ m).squeeze(-2)
+
+
 def _forward_substitution(l: torch.Tensor, ap: torch.Tensor,
                           unit_diag: bool) -> torch.Tensor:
-    """X = L^{-1} AP, row by row (the serial divider chain)."""
+    """X = L^{-1} AP, row by row (the serial divider chain), on one
+    panel or a batch of them."""
     x = torch.zeros_like(ap)
-    for r in range(l.shape[0]):
-        s = ap[r] - l[r, :r] @ x[:r]
-        x[r] = s if unit_diag else s / l[r, r]
+    for r in range(l.shape[-1]):
+        s = ap[..., r, :] - row_times(l[..., r, :r], x[..., :r, :])
+        x[..., r, :] = s if unit_diag else s / l[..., r, r].unsqueeze(-1)
     return x
 
 
@@ -153,10 +167,11 @@ def trsm_gemm_plain(l11: torch.Tensor, a_panel: torch.Tensor,
                     b_left: Optional[torch.Tensor], c: torch.Tensor,
                     form: str = "lu",
                     unit_diag: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: the solve and the update at the accumulator width."""
+    """Plain version: the solve and the update at the accumulator width
+    (2-D operands, or a batch of them)."""
     acc = accumulator_dtype(c.dtype)
     x = _forward_substitution(l11.to(acc), a_panel.to(acc), unit_diag)
-    upd = (x.T if form == "syrk" else b_left.to(acc)) @ x
+    upd = (x.mT if form == "syrk" else b_left.to(acc)) @ x
     return x.to(c.dtype), (c.to(acc) - upd).to(c.dtype)
 
 
@@ -189,25 +204,27 @@ def trsm_gemm_plan(dtype: torch.dtype, nb: int, form: str) -> TrsmGemmPlan:
 
 
 def trsm_gemm_grid(co_resident: int, plan: TrsmGemmPlan, m: int, n: int,
-                   form: str) -> int:
+                   form: str, batch: int = 1) -> int:
     """CTAs of the cooperative launch: as many as fit on the card at once
     (``co_resident``), but no more than the larger phase has tasks (solve
-    blocks plus BL transpose tiles, or C tiles)."""
+    blocks plus BL transpose tiles, or C tiles) over the ``batch`` items;
+    a larger batch costs more strides, never a refused launch."""
     pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
     solve = pad(n) // plan.width
     if form == "lu":
         solve += -(-plan.nb_padded // TRSM_GEMM_TT) * (pad(m) // TRSM_GEMM_TT)
     bm, bn, _ = TRSM_GEMM_TILE
     update = -(-m // bm) * -(-n // bn)
-    return max(1, min(co_resident, max(solve, update)))
+    return max(1, min(co_resident, batch * max(solve, update)))
 
 
-# registers per thread of csrc/trsm_gemm.cu's kernel (ptxas, sm_90a) and
-# the H100 SM's limits the occupancy query applies: what
-# co_resident_ctas, the query's Python counterpart, needs. chip_smoke.py's
-# analysis phase holds it to the card's answer.
+# registers per thread of csrc/trsm_gemm.cu's kernels (ptxas, sm_90a; the
+# larger of the 2-D and the batched kernel's, whose fewer co-resident CTAs
+# the query answers) and the H100 SM's limits the occupancy query applies:
+# what co_resident_ctas, the query's Python counterpart, needs.
+# chip_smoke.py's analysis phase holds it to the card's answer.
 TRSM_GEMM_REGISTERS = {torch.float32: 128, torch.bfloat16: 128,
-                       torch.float64: 244}
+                       torch.float64: 254}
 _SM_REGISTERS, _SM_SMEM, _SM_THREADS, _SM_CTAS = 65536, 233472, 2048, 32
 _REG_UNIT, _SMEM_RESERVED, _TRSM_THREADS = 256, 1024, 256
 
@@ -253,35 +270,43 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
 
     l11 : (nb, nb) lower triangle; a_panel : (nb, n); b_left : (m, nb)
     for ``form="lu"``, ``None`` (and m == n) for ``form="syrk"``; c :
-    (m, n). Any strides. ``row_block`` (the chain plan's block) is
+    (m, n). Any strides. A batch gives every operand a leading (B,) axis
+    and is still one launch. ``row_block`` (the chain plan's block) is
     recorded beside the launch's :func:`trsm_gemm_plan` (either route) and
     its grid (the card).
-    Returns (x (nb, n), c_out (m, n)), both new contiguous tensors.
+    Returns (x (nb, n), c_out (m, n)) (with the batch axis for a batch),
+    both new contiguous tensors.
     """
     if form not in ("lu", "syrk"):
         raise ValueError(f"unknown trsm+gemm form {form!r}; "
                          f"expected 'lu' or 'syrk'")
-    nb, n, m = l11.shape[0], a_panel.shape[1], c.shape[0]
+    nb, n, m = l11.shape[-1], a_panel.shape[-1], c.shape[-2]
     operands = [l11, a_panel, c] + ([] if b_left is None else [b_left])
-    if l11.shape != (nb, nb) or a_panel.shape[0] != nb or c.shape[1] != n:
+    lead = tuple(c.shape[:-2])           # () or the batch, (B,)
+    if c.ndim not in (2, 3) or any(t.ndim != c.ndim for t in operands) \
+            or l11.shape != (*lead, nb, nb) \
+            or a_panel.shape != (*lead, nb, n):
         raise ValueError(f"trsm_gemm shapes: l11 {tuple(l11.shape)}, "
                          f"a_panel {tuple(a_panel.shape)}, c {tuple(c.shape)}")
     if form == "syrk" and (b_left is not None or m != n):
         raise ValueError("form='syrk' takes b_left=None and a square c")
-    if form == "lu" and (b_left is None or b_left.shape != (m, nb)):
-        raise ValueError(f"form='lu' needs b_left of shape {(m, nb)}")
+    if form == "lu" and (b_left is None or b_left.shape != (*lead, m, nb)):
+        raise ValueError(f"form='lu' needs b_left of shape "
+                         f"{(*lead, m, nb)}")
     if any(t.dtype != c.dtype or t.device != c.device for t in operands) \
             or c.dtype not in DTYPE_CODES:
         raise ValueError("trsm_gemm operands must share one device and one "
                          f"of {tuple(DTYPE_CODES)}")
     if c.device.type not in ("cpu", "cuda"):
         raise ValueError(f"trsm_gemm runs on cuda or cpu, not {c.device}")
-    if n == 0:
-        return (torch.empty((nb, 0), dtype=c.dtype, device=c.device),
-                torch.empty((m, 0), dtype=c.dtype, device=c.device))
+    if n == 0 or 0 in lead:
+        return (torch.empty((*lead, nb, n), dtype=c.dtype, device=c.device),
+                torch.empty((*lead, m, n), dtype=c.dtype, device=c.device))
     plan = trsm_gemm_plan(c.dtype, nb, form)
+    batch = lead[0] if lead else 1
     trsm_gemm.last_launch = {"row_block": row_block, "form": form,
-                             "device": c.device.type, "plan": plan}
+                             "device": c.device.type, "plan": plan,
+                             "batch": lead[0] if lead else None}
     if c.device.type == "cpu":
         return trsm_gemm_plain(l11, a_panel, b_left, c, form, unit_diag)
     recording = _rec.active()
@@ -289,17 +314,18 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     ptr = _rec.address if fake else torch.Tensor.data_ptr
     acc = accumulator_dtype(c.dtype)
     pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
-    x = torch.empty((nb, n), dtype=c.dtype, device=c.device)
-    c_out = torch.empty((m, n), dtype=c.dtype, device=c.device)
-    xw = torch.empty((plan.nb_padded, pad(n)), dtype=acc, device=c.device)
-    blt = torch.empty((plan.nb_padded, pad(m)), dtype=acc,
+    x = torch.empty((*lead, nb, n), dtype=c.dtype, device=c.device)
+    c_out = torch.empty((*lead, m, n), dtype=c.dtype, device=c.device)
+    xw = torch.empty((*lead, plan.nb_padded, pad(n)), dtype=acc,
+                     device=c.device)
+    blt = torch.empty((*lead, plan.nb_padded, pad(m)), dtype=acc,
                       device=c.device) if form == "lu" and m else None
     bl = c if b_left is None else b_left             # unread when syrk
     ops = (l11, a_panel, bl, c, x, c_out, xw, blt)
     if fake:
         grid = trsm_gemm_grid(co_resident_ctas(
             c.dtype, plan.smem_bytes, _rec.h100().pe.sm_count),
-            plan, m, n, form)
+            plan, m, n, form, batch)
         trsm_gemm.last_launch["grid"] = grid
         _trsm_record(_trsm_args(plan, form, unit_diag, ops, grid, ptr, None),
                      plan, grid, (l11, a_panel, b_left, c), True)
@@ -308,7 +334,7 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     with torch.cuda.device(c.device):
         grid = trsm_gemm_grid(_trsm_co_resident(lib, c.device, c.dtype,
                                                 plan.smem_bytes),
-                              plan, m, n, form)
+                              plan, m, n, form, batch)
         trsm_gemm.last_launch["grid"] = grid
         call = _trsm_args(plan, form, unit_diag, ops, grid, ptr,
                           torch.cuda.current_stream().cuda_stream)
@@ -323,17 +349,19 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
 def _trsm_args(plan, form, unit_diag, ops, grid, ptr, stream) -> tuple:
     """The C call's arguments of one :func:`trsm_gemm` launch (``ops``:
     L11, the panel, B_left, C, then the outputs and scratch; ``ptr`` reads
-    each one's address)."""
+    each one's address); the batch (1 for 2-D operands) and the inputs'
+    batch strides go in ``long long`` slots."""
     l11, a_panel, bl, c, x, c_out, xw, blt = ops
     return (DTYPE_CODES[c.dtype], int(form == "syrk"), int(unit_diag),
-            ptr(l11), l11.stride(0), l11.stride(1),
-            ptr(a_panel), a_panel.stride(0), a_panel.stride(1),
-            ptr(bl), bl.stride(0), bl.stride(1),
-            ptr(c), c.stride(0), c.stride(1),
+            ptr(l11), l11.stride(-2), l11.stride(-1),
+            ptr(a_panel), a_panel.stride(-2), a_panel.stride(-1),
+            ptr(bl), bl.stride(-2), bl.stride(-1),
+            ptr(c), c.stride(-2), c.stride(-1),
             ptr(x), ptr(c_out), ptr(xw),
-            None if blt is None else ptr(blt), l11.shape[0], c.shape[0],
-            c.shape[1], plan.width, int(plan.l_in_smem), plan.smem_bytes,
-            grid, stream)
+            None if blt is None else ptr(blt), l11.shape[-1], c.shape[-2],
+            c.shape[-1], plan.width, int(plan.l_in_smem), plan.smem_bytes,
+            grid, c.shape[0] if c.ndim == 3 else 1,
+            *(batch_stride(t) for t in (l11, a_panel, bl, c)), stream)
 
 
 def _trsm_record(call, plan, grid, operands, fake):

@@ -26,6 +26,16 @@ axis. The source has five variants (:data:`VARIANTS`), and
 :func:`gemm` launches the kernel for CUDA tensors and runs
 :func:`gemm_plain` (the same function in plain PyTorch) for CPU tensors;
 there is no other path, and a variant that refuses its operands raises.
+
+A batch, (B, m, k) @ (B, k, n) with either operand 2-D and broadcast, is
+one launch (the counterpart of ``vmap`` over the TPU kernel's
+``pallas_call``, which adds a batch axis to its grid): the variant and the
+tile come from one item's (m, n, k) and layout, each item runs the 2-D
+launch's tile and K order on a grid axis of its own, so item i is bitwise
+the 2-D launch on item i. A batch of more than :data:`MAX_BATCH` items
+is cut into launches of at most that many, each counted. The batched
+drivers run f32 and f64; a batched bf16 product on the tensor cores
+(``"wgmma"``, 2-D TMA maps only) raises.
 ``gemm.launches`` counts kernel launches on the card (the CPU route
 counts nothing), ``gemm.variant_launches`` the same per variant, and
 ``gemm.last_launch`` records, on both routes, the
@@ -66,6 +76,7 @@ OUT_DTYPES = {torch.float32: (torch.float32,),
               torch.float64: (torch.float64,),
               torch.bfloat16: (torch.bfloat16, torch.float32)}
 _MAX_ROW_BLOCKS = 65535                 # gridDim.y limit of "simt"
+MAX_BATCH = 65535       # items per launch: gridDim.y / gridDim.z limit
 
 
 def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -84,8 +95,11 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor,
 
 def check_operands(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.dtype:
     """Validate a GEMM's operands for the kernel; returns the output dtype."""
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"gemm needs (m, k) @ (k, n); got "
+    if a.ndim not in (2, 3) or b.ndim not in (2, 3) \
+            or a.shape[-1] != b.shape[-2] \
+            or (a.ndim == b.ndim == 3 and a.shape[0] != b.shape[0]):
+        raise ValueError(f"gemm needs (m, k) @ (k, n) or a batch (B, m, k) "
+                         f"@ (B, k, n), either side 2-D and broadcast; got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in DTYPE_CODES:
         raise ValueError(f"gemm operands must share one of "
@@ -102,25 +116,40 @@ def check_operands(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.dtype:
     return out_dtype
 
 
+def batch_of(a: torch.Tensor, b: torch.Tensor) -> Optional[int]:
+    """The batch of A @ B: its items when either operand is 3-D, None for
+    a 2-D product."""
+    return a.shape[0] if a.ndim == 3 else b.shape[0] if b.ndim == 3 else None
+
+
+def batch_stride(t: torch.Tensor) -> int:
+    """Elements between the items of ``t`` as the kernel reads them: 0 for
+    a 2-D operand (broadcast) or a batch of one."""
+    return t.stride(0) if t.ndim == 3 and t.shape[0] > 1 else 0
+
+
 def rows_aligned(t: torch.Tensor) -> bool:
     """Can TMA / 16-byte cp.async read ``t`` row by row: unit column
-    stride, row stride and base address multiples of 16 bytes?"""
-    return (t.stride(1) == 1 and t.stride(0) * t.element_size() % 16 == 0
+    stride, row stride, base address and (for a batch) the items' stride
+    multiples of 16 bytes?"""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.stride(-2) * size % 16 == 0
+            and batch_stride(t) * size % 16 == 0
             and _rec.address(t) % 16 == 0)
 
 
 def gemm_variant(a: torch.Tensor, b: torch.Tensor) -> str:
-    """The csrc/gemm.cu variant for A @ B, from dtype, shape and layout
-    alone: ``"gemv"`` for ``n <= SKINNY < m`` with A's column stride 1;
-    else the dtype's tiled variant (:data:`TILED`) when both operands are
-    :func:`rows_aligned` and the product is neither skinny nor empty in k;
-    else ``"simt"``."""
-    m, k = a.shape
-    n = b.shape[1]
+    """The csrc/gemm.cu variant for A @ B (2-D or a batch, from one item's
+    shape), from dtype, shape and layout alone: ``"gemv"`` for ``n <=
+    SKINNY < m`` with A's column stride 1; else the dtype's tiled variant
+    (:data:`TILED`) when both operands are :func:`rows_aligned` and the
+    product is neither skinny nor empty in k; else ``"simt"``."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
     if k == 0 or m <= SKINNY:
         return "simt"
     if n <= SKINNY:
-        return "gemv" if a.stride(1) == 1 else "simt"
+        return "gemv" if a.stride(-1) == 1 else "simt"
     if not (rows_aligned(a) and rows_aligned(b)):
         return "simt"
     return TILED[a.dtype]
@@ -140,9 +169,10 @@ def gemv_split(m: int, k: int, sms: int) -> tuple:
 
 
 def default_plan(a: torch.Tensor, b: torch.Tensor) -> GemmPlan:
-    """:func:`plan_gemm` for A @ B at a's dtype under the ambient machine of
-    a's device (``"h100"`` on the card, unless a scope names another)."""
-    return plan_gemm(a.shape[0], b.shape[1], a.shape[1], dtype=a.dtype,
+    """:func:`plan_gemm` for A @ B (one item's shape) at a's dtype under
+    the ambient machine of a's device (``"h100"`` on the card, unless a
+    scope names another)."""
+    return plan_gemm(a.shape[-2], b.shape[-1], a.shape[-1], dtype=a.dtype,
                      machine=_arch.resolve_machine(None, a.device))
 
 
@@ -174,17 +204,21 @@ def reset_launches(wrapper) -> None:
 
 
 def launch_grid(variant: str, tile: tuple, m: int, n: int,
-                split: Optional[tuple] = None) -> tuple:
+                split: Optional[tuple] = None,
+                batch: Optional[int] = None) -> tuple:
     """The grid csrc/gemm.cu launches ``variant`` with for an (m, n)
     output: one CTA per ``tile`` of C (1-D) for the tiled variants, (column
     blocks, row blocks) for ``"simt"``, (K segments, row groups) for
     ``"gemv"`` (``split`` = :func:`gemv_split`'s, whose second pass sums the
-    segments when there is more than one)."""
+    segments when there is more than one); a launch of ``batch`` items adds
+    its axis last (y for the tiled variants, z for the others)."""
     if variant == "gemv":
-        return (split[0], -(-m // tile[0]))
-    if variant == "simt":
-        return (-(-n // tile[1]), -(-m // tile[0]))
-    return (-(-m // tile[0]) * -(-n // tile[1]),)
+        grid = (split[0], -(-m // tile[0]))
+    elif variant == "simt":
+        grid = (-(-n // tile[1]), -(-m // tile[0]))
+    else:
+        grid = (-(-m // tile[0]) * -(-n // tile[1]),)
+    return grid if batch is None else grid + (batch,)
 
 
 def launch_smem(variant: str, tile: tuple, dtype: torch.dtype) -> int:
@@ -211,15 +245,24 @@ def launch(wrapper, entry: str, variant: str, tile: tuple, a: torch.Tensor,
     ``repro_gemm_bias_act``); ``"gemv"`` goes to ``repro_gemv`` with its K
     split. Raises on a refused launch, and counts the launch in ``wrapper``
     (total and per variant) once it has gone through. The tiled variants
-    run ``tile`` (bm, bn, bk), the one :func:`record_call` returned.
+    run ``tile`` (bm, bn, bk), the one :func:`record_call` returned. A
+    batch (``c`` 3-D) is cut into launches of at most :data:`MAX_BATCH`
+    items, each launched, counted and recorded as one.
     Fake operands (the analyzer's trace) record the launch
     (:mod:`repro_torch.kernels.launch_record`) and launch nothing."""
-    m, k = a.shape
-    n = b.shape[1]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
     if variant == "simt" and -(-m // TILES["simt"][0]) > _MAX_ROW_BLOCKS:
         raise ValueError(f"gemm takes at most "
                          f"{_MAX_ROW_BLOCKS * TILES['simt'][0]} rows on the "
                          f"simt variant, got {m}")
+    if c.ndim == 3 and c.shape[0] > MAX_BATCH:
+        for i0 in range(0, c.shape[0], MAX_BATCH):
+            i1 = min(i0 + MAX_BATCH, c.shape[0])
+            launch(wrapper, entry, variant, tile,
+                   *(t[i0:i1] if t.ndim == 3 else t for t in (a, b, c)),
+                   bias, epilogue)
+        return
     recording = _rec.active()
     fake = recording and _rec.is_fake(a)
     ptr = _rec.address if fake else torch.Tensor.data_ptr
@@ -228,9 +271,9 @@ def launch(wrapper, entry: str, variant: str, tile: tuple, a: torch.Tensor,
         sms = _rec.h100().pe.sm_count if fake else \
             torch.cuda.get_device_properties(a.device).multi_processor_count
         split = gemv_split(m, k, sms)
-        partials = torch.empty((split[0], m, n) if split[0] > 1 else (0,),
-                               dtype=accumulator_dtype(a.dtype),
-                               device=a.device)
+        partials = torch.empty(
+            (*c.shape[:-2], split[0], m, n) if split[0] > 1 else (0,),
+            dtype=accumulator_dtype(a.dtype), device=a.device)
         wrapper.last_launch["split"] = split
         entry = "repro_gemv"
     if fake:
@@ -253,26 +296,31 @@ def launch(wrapper, entry: str, variant: str, tile: tuple, a: torch.Tensor,
 def _args(entry, variant, tile, a, b, c, bias, epilogue, split, partials,
           ptr, stream) -> tuple:
     """The C call's arguments of one :func:`launch` (``ptr`` reads each
-    operand's address)."""
-    m, k = a.shape
-    n = b.shape[1]
+    operand's address); the batch (1 for a 2-D product) and the operands'
+    batch strides (:func:`batch_stride`) go in ``long long`` slots."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = (c.shape[0] if c.ndim == 3 else 1, batch_stride(a),
+             batch_stride(b), batch_stride(c))
     if variant == "gemv":
         return (DTYPE_CODES[a.dtype], DTYPE_CODES[c.dtype],
-                ptr(a), a.stride(0), ptr(b), b.stride(0), b.stride(1),
+                ptr(a), a.stride(-2), ptr(b), b.stride(-2), b.stride(-1),
                 bias, epilogue, ptr(partials) if split[0] > 1 else None,
-                split[1], ptr(c), c.stride(0), m, n, k, stream)
+                split[1], ptr(c), c.stride(-2), m, n, k, *batch, stream)
     return (VARIANTS.index(variant), *tile, DTYPE_CODES[a.dtype],
-            DTYPE_CODES[c.dtype], ptr(a), a.stride(0), a.stride(1),
-            ptr(b), b.stride(0), b.stride(1),
+            DTYPE_CODES[c.dtype], ptr(a), a.stride(-2), a.stride(-1),
+            ptr(b), b.stride(-2), b.stride(-1),
             *(() if entry == "repro_gemm" else (bias, epilogue)),
-            ptr(c), c.stride(0), m, n, k, stream)
+            ptr(c), c.stride(-2), m, n, k,
+            *(batch if entry == "repro_gemm" else ()), stream)
 
 
 def _record(wrapper, entry, variant, tile, a, b, c, split, call, fake):
-    m, n = c.shape
+    m, n = c.shape[-2:]
     _rec.emit(wrapper.__module__, wrapper.__name__, "gemm", entry, call,
               variant=variant, tile=tile,
-              grid=launch_grid(variant, tile, m, n, split),
+              grid=launch_grid(variant, tile, m, n, split,
+                               c.shape[0] if c.ndim == 3 else None),
               smem_bytes=launch_smem(variant, tile, a.dtype),
               operands=(a, b, c), fake=fake)
 
@@ -280,7 +328,8 @@ def _record(wrapper, entry, variant, tile, a, b, c, split, call, fake):
 def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = A @ B: the CUDA kernel for CUDA tensors, :func:`gemm_plain` for
-    CPU tensors.
+    CPU tensors. (m, k) @ (k, n), or a batch (B, m, k) @ (B, k, n) with
+    either side 2-D and broadcast: (B, m, n), one launch.
 
     The variant comes from dtype, shape and layout (:func:`gemm_variant`);
     the CTA tile from ``plan`` (default: :func:`default_plan`, the
@@ -289,17 +338,24 @@ def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,
     (:data:`TILE_SETS`), else its default tile (:data:`TILES`), and
     ``last_launch["tile_source"]`` says which (:func:`launch_tile`)."""
     out_dtype = check_operands(a, b, out_dtype)
-    m, k = a.shape
-    n = b.shape[1]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = batch_of(a, b)
+    shape = (m, n) if batch is None else (batch, m, n)
     if plan is None:
         plan = default_plan(a, b)
-    if m == 0 or n == 0:
-        return torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0 or batch == 0:
+        return torch.empty(shape, dtype=out_dtype, device=a.device)
     variant = gemm_variant(a, b)
+    if batch is not None and variant == "wgmma" and a.device.type == "cuda":
+        raise ValueError("gemm: a batched bf16 product would take 'wgmma', "
+                         "whose TMA maps are 2-D: the batch axis is limited "
+                         "to f32 ('ffma') and f64 ('dmma') on the tiled "
+                         "variants")
     tile = record_call(gemm, plan, variant, a.device)
     if a.device.type == "cpu":
         return gemm_plain(a, b, out_dtype)
-    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    c = torch.empty(shape, dtype=out_dtype, device=a.device)
     launch(gemm, "repro_gemm", variant, tile, a, b, c)
     return c
 

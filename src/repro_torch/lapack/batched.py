@@ -2,10 +2,13 @@
 
 Many independent small or medium factorizations (mixture-of-experts
 solves, per-head whitening, ensemble Kalman updates) of one (B, m, n)
-tensor. The reference ``vmap``s the blocked drivers, so the whole batch's
-panels run in lockstep; here each item runs the 2-D driver in turn, which
-gives the same numbers with B times the launches (the trailing updates of
-``potrf`` / ``getrf`` on B2 and of ``geqrf`` on B1, per item).
+tensor, run as ONE blocked computation. The reference ``vmap``s the
+blocked drivers; here the drivers of :mod:`repro_torch.lapack` take the
+(B, m, n) tensor itself, so the panels of the whole batch run in lockstep
+(each panel column one set of launches for all items) and each trailing
+update is one kernel launch for the whole batch: B2 for ``potrf`` /
+``getrf``, B1 twice for ``geqrf``, and B1's ``gemv`` once per TRSM update
+of a solve.
 
 All entry points share one result type, :class:`FactorizationResult`,
 tagged with the factorization kind, so ``batched_solve`` and
@@ -64,9 +67,8 @@ def batched_potrf(a: torch.Tensor, block: Optional[int] = None,
     """Cholesky of a (B, n, n) SPD batch; factors holds L (lower). NaNs
     for a non-SPD item, LAPACK-style."""
     nb = _batch(a, "potrf", block, square=True)
-    pol = resolve_policy(policy)
-    factors = torch.stack([cholesky.potrf(x, block=nb, policy=pol,
-                                          registry=registry) for x in a])
+    factors = cholesky.potrf(a, block=nb, policy=resolve_policy(policy),
+                             registry=registry)
     return FactorizationResult(factors, None, None, "potrf", nb)
 
 
@@ -76,11 +78,9 @@ def batched_getrf(a: torch.Tensor, block: Optional[int] = None,
     """LU with partial pivoting of a (B, m, n) batch: packed L\\U factors
     and (B, min(m, n)) int32 ipiv."""
     nb = _batch(a, "getrf", block)
-    pol = resolve_policy(policy)
-    packed, piv = zip(*(lu.getrf(x, block=nb, policy=pol, registry=registry)
-                        for x in a))
-    return FactorizationResult(torch.stack(packed), torch.stack(piv), None,
-                               "getrf", nb)
+    packed, piv = lu.getrf(a, block=nb, policy=resolve_policy(policy),
+                           registry=registry)
+    return FactorizationResult(packed, piv, None, "getrf", nb)
 
 
 def batched_geqrf(a: torch.Tensor, block: Optional[int] = None,
@@ -88,11 +88,9 @@ def batched_geqrf(a: torch.Tensor, block: Optional[int] = None,
                   registry=None) -> FactorizationResult:
     """Householder QR of a (B, m, n) batch (packed R/V and tau per item)."""
     nb = _batch(a, "geqrf", block)
-    pol = resolve_policy(policy)
-    packed, tau = zip(*(qr.geqrf(x, block=nb, policy=pol, registry=registry)
-                        for x in a))
-    return FactorizationResult(torch.stack(packed), None, torch.stack(tau),
-                               "geqrf", nb)
+    packed, tau = qr.geqrf(a, block=nb, policy=resolve_policy(policy),
+                           registry=registry)
+    return FactorizationResult(packed, None, tau, "geqrf", nb)
 
 
 def batched_solve(res: FactorizationResult, b: torch.Tensor,
@@ -109,25 +107,23 @@ def batched_solve(res: FactorizationResult, b: torch.Tensor,
     pol = resolve_policy(policy)
     m, n = res.factors.shape[1:]
     if res.kind == "potrf":
-        items = [solve.potrs(l, r, policy=pol, registry=registry)
-                 for l, r in zip(res.factors, rhs)]
+        x = solve.potrs(res.factors, rhs, policy=pol, registry=registry)
     elif res.kind == "getrf":
         if m != n:
             raise ValueError(
                 f"batched_solve(getrf) needs square factors; got "
                 f"{tuple(res.factors.shape)} (use geqrf for least squares)")
-        items = [solve.getrs(p, piv, r, policy=pol, registry=registry)
-                 for p, piv, r in zip(res.factors, res.pivots, rhs)]
+        x = solve.getrs(res.factors, res.pivots, rhs, policy=pol,
+                        registry=registry)
     elif res.kind == "geqrf":
         if m < n:
             raise ValueError(
                 f"batched_solve(geqrf) is a least-squares solve and needs "
                 f"m >= n; got factors of shape {tuple(res.factors.shape)}")
-        items = [solve.geqrs(p, t, r, policy=pol, registry=registry)
-                 for p, t, r in zip(res.factors, res.tau, rhs)]
+        x = solve.geqrs(res.factors, res.tau, rhs, policy=pol,
+                        registry=registry)
     else:
         raise ValueError(f"unknown factorization kind: {res.kind!r}")
-    x = torch.stack(items)
     return x[:, :, 0] if vec else x
 
 
@@ -135,11 +131,9 @@ def reconstruct(res: FactorizationResult) -> torch.Tensor:
     """Rebuild the (B, m, n) input batch from its factors (testing
     oracle)."""
     if res.kind == "potrf":
-        return res.factors @ res.factors.transpose(1, 2)
+        return res.factors @ res.factors.mT
     if res.kind == "getrf":
-        return torch.stack([lu.lu_reconstruct(p, piv)
-                            for p, piv in zip(res.factors, res.pivots)])
+        return lu.lu_reconstruct(res.factors, res.pivots)
     if res.kind == "geqrf":
-        return torch.stack([qr.q_from_geqrf(p, t) @ torch.triu(p)
-                            for p, t in zip(res.factors, res.tau)])
+        return qr.q_from_geqrf(res.factors, res.tau) @ torch.triu(res.factors)
     raise ValueError(f"unknown factorization kind: {res.kind!r}")

@@ -4,9 +4,10 @@ drivers per rank (port of ``repro.lapack.distributed``).
 Many independent factorizations have no cross-item dependence, so the
 mesh mapping is pure data parallelism: the batch axis is sharded over
 every mesh axis (flattened, row-major), and each rank runs
-:mod:`repro_torch.lapack.batched` on its slab - the trailing updates on B2
-(``potrf`` / ``getrf``) and B1 (``geqrf``) under the kernel policies,
-zero collectives in the factorization. Batches that do not divide the
+:mod:`repro_torch.lapack.batched` on its slab in lockstep - each trailing
+update one B2 (``potrf`` / ``getrf``) or B1 (``geqrf``) launch for the
+slab under the kernel policies, as the reference's ``vmap`` - with zero
+collectives in the factorization. Batches that do not divide the
 rank count are padded with identity matrices (SPD, invertible: safe for
 every kind) and the pad is cut from the result.
 

@@ -25,6 +25,12 @@ for finite input:
   columns of Q left of k are still unit vectors on rows >= k, so the rest
   of the reference's full-size update adds exact zeros. It can stop at the
   first ``ncols`` columns, which left-multiplication leaves independent.
+
+Every function here takes one matrix or a batch (B, m, n) with (B, k)
+taus: the batch runs in lockstep (the reference ``vmap``s the 2-D
+driver), each Householder column one set of launches for all items (the
+rank-1 updates batched with ``baddbmm_``) and each trailing product one
+B1 launch.
 """
 from __future__ import annotations
 
@@ -40,61 +46,83 @@ from repro_torch.tune.policy import resolve_policy
 
 def _house_column(a: torch.Tensor, k: int,
                   row0: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Householder reflector for column ``k`` of ``a``, rows >= row0.
+    """Householder reflector for column ``k`` of ``a`` (or of each item),
+    rows >= row0.
 
     Returns (v, tau) with v the reflector's rows row0.. (v[0] = 1; the
     reference returns it at full height, zeros above) and tau a 0-d
-    tensor: H = I - tau v v^T maps the column to -sign(x0) ||x|| e_row0.
-    No host synchronisation: every scalar stays on a's device.
+    tensor, (B,) for a batch: H = I - tau v v^T maps the column to
+    -sign(x0) ||x|| e_row0. No host synchronisation: every scalar stays on
+    a's device.
     """
-    x = a[row0:, k]
-    normx = torch.sqrt(torch.sum(x * x))     # not vector_norm: it rescales
-    x0 = x[0]
+    x = a[..., row0:, k]
+    # not vector_norm: it rescales
+    normx = torch.sqrt(torch.sum(x * x) if x.ndim == 1
+                       else torch.sum(x * x, -1))
+    x0 = x[..., 0]
     alpha = x0 + torch.where(x0 >= 0, normx, -normx)   # sign +1 at x0 == 0
     safe = alpha.abs() > torch.finfo(a.dtype).tiny
     alpha = torch.where(safe, alpha, torch.ones_like(alpha))
-    v = torch.cat([torch.ones_like(x[:1]), x[1:] / alpha])
-    tau = torch.where(safe & (normx > 0), 2.0 / torch.sum(v * v),
-                      torch.zeros_like(alpha))
+    v = torch.cat([torch.ones_like(x[..., :1]),
+                   x[..., 1:] / alpha.unsqueeze(-1)], -1)
+    vv = torch.sum(v * v) if v.ndim == 1 else torch.sum(v * v, -1)
+    tau = torch.where(safe & (normx > 0), 2.0 / vv, torch.zeros_like(alpha))
     return v, tau
+
+
+def _reflect(block: torch.Tensor, v: torch.Tensor,
+             tau: torch.Tensor) -> None:
+    """block <- (I - tau v v^T) block in place, for one block or each item
+    of a batch (v (B, rows), tau (B,)): the rank-1 update ``addr_``, or
+    its batched form ``baddbmm_``."""
+    if v.ndim == 1:
+        block.addr_(v, tau * (v @ block), alpha=-1)
+    else:
+        w = tau.unsqueeze(-1) * (v.unsqueeze(-2) @ block).squeeze(-2)
+        block.baddbmm_(v.unsqueeze(-1), w.unsqueeze(-2), alpha=-1)
 
 
 def _factor_columns(a: torch.Tensor, j0: int, nb: int,
                     col_end: int) -> torch.Tensor:
-    """Householder steps for columns j0 .. j0+nb-1 of ``a`` in place, each
-    reflector applied to the columns from its own up to ``col_end``; the
-    reflector tails are stored below the diagonal. Returns the nb taus."""
-    tau = torch.zeros((nb,), dtype=a.dtype, device=a.device)
+    """Householder steps for columns j0 .. j0+nb-1 of ``a`` (or of each
+    item) in place, each reflector applied to the columns from its own up
+    to ``col_end``; the reflector tails are stored below the diagonal.
+    Returns the nb taus ((B, nb) for a batch)."""
+    tau = torch.zeros((*a.shape[:-2], nb), dtype=a.dtype, device=a.device)
     for k in range(nb):
         c = j0 + k
         v, tk = _house_column(a, c, c)
-        block = a[c:, c:col_end]
-        w = tk * (v @ block)
-        block.addr_(v, w, alpha=-1)
-        a[c + 1:, c] = v[1:]
-        tau[k] = tk
+        _reflect(a[..., c:, c:col_end], v, tk)
+        a[..., c + 1:, c] = v[..., 1:]
+        tau[..., k] = tk
     return tau
 
 
 def geqrf_unblocked(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Unblocked Householder QR of one (m, n) matrix in LAPACK packed
-    layout: (packed, tau) with R on and above the diagonal, the reflector
-    tails below it, and tau the min(m, n) reflector scales."""
+    """Unblocked Householder QR of one (m, n) matrix (or a batch) in
+    LAPACK packed layout: (packed, tau) with R on and above the diagonal,
+    the reflector tails below it, and tau the min(m, n) reflector
+    scales."""
     a = a.clone()
-    return a, _factor_columns(a, 0, min(a.shape), a.shape[1])
+    return a, _factor_columns(a, 0, min(a.shape[-2:]), a.shape[-1])
 
 
 def _larft(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-    """Forward compact-WY T factor: Q = I - V T V^T (T upper triangular).
+    """Forward compact-WY T factor: Q = I - V T V^T (T upper triangular;
+    one per item of a batch).
 
     Column k of V^T V is the reference's per-step ``v.T @ v[:, k]``; it is
     formed once (plain PyTorch, as the reference's is plain jnp)."""
-    nb = tau.shape[0]
-    g = v.T @ v
-    t = torch.zeros((nb, nb), dtype=v.dtype, device=v.device)
+    nb = tau.shape[-1]
+    g = v.mT @ v
+    t = torch.zeros((*v.shape[:-2], nb, nb), dtype=v.dtype, device=v.device)
     for k in range(nb):
-        t[:k, k] = -tau[k] * (t[:k, :k] @ g[:k, k])
-        t[k, k] = tau[k]
+        if v.ndim == 2:
+            t[:k, k] = -tau[k] * (t[:k, :k] @ g[:k, k])
+        else:
+            t[:, :k, k] = -tau[:, k, None] * (t[:, :k, :k]
+                                              @ g[:, :k, k, None])[..., 0]
+        t[..., k, k] = tau[..., k]
     return t
 
 
@@ -102,12 +130,13 @@ def wy_operands(a: torch.Tensor, j0: int, nb: int, tau: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """The trailing update's operands after the panel at column j0 of the
-    packed ``a``, as :func:`geqrf` hands them over: (V^T as its own
-    contiguous (nb, m - j0) tensor, V, the compact-WY T, the window
-    C = a[j0:, j0 + nb:] of ``a``)."""
-    v = torch.tril(a[j0:, j0:j0 + nb], -1)
-    v.diagonal().fill_(1)
-    return v.T.contiguous(), v, _larft(v, tau), a[j0:, j0 + nb:]
+    packed ``a`` (one matrix or a batch), as :func:`geqrf` hands them
+    over: (V^T as its own contiguous (nb, m - j0) tensor, V, the
+    compact-WY T, the window C = a[j0:, j0 + nb:] of ``a``), each with the
+    batch axis for a batch."""
+    v = torch.tril(a[..., j0:, j0:j0 + nb], -1)
+    v.diagonal(dim1=-2, dim2=-1).fill_(1)
+    return v.mT.contiguous(), v, _larft(v, tau), a[..., j0:, j0 + nb:]
 
 
 def geqrf(a: torch.Tensor, block: Optional[int] = None,
@@ -119,48 +148,53 @@ def geqrf(a: torch.Tensor, block: Optional[int] = None,
     of a's device. Each trailing update C <- C - V T^T (V^T C) runs its
     two large products on the GEMM path under ``policy`` (the small
     T^T W in plain PyTorch, as the reference). Returns (packed, tau) with
-    the contract of :func:`geqrf_unblocked`.
+    the contract of :func:`geqrf_unblocked`. A batch (B, m, n) runs in
+    lockstep, two B1 launches per trailing update for all its items.
     """
     pol = resolve_policy(policy)
-    m, n = a.shape
+    m, n = a.shape[-2:]
     kmax = min(m, n)
     if block is None:
         block = default_block(kmax, "geqrf", a.dtype, a.device)
     if kmax <= block:
         return geqrf_unblocked(a)
     a = a.clone()
+    items = a.shape[0] if a.ndim == 3 else 1
     taus = []
     for j0 in range(0, kmax, block):
         nb = min(block, kmax - j0)
         with _obs.span("geqrf.panel", cat="panel", j0=j0, nb=nb,
-                       flops=2 * (m - j0) * nb * nb):
+                       flops=items * 2 * (m - j0) * nb * nb):
             tau = _factor_columns(a, j0, nb, j0 + nb)
         taus.append(tau)
         if j0 + nb < n:
             rest = n - j0 - nb              # trailing columns
             with _obs.span("geqrf.trailing", cat="trailing", j0=j0, nb=nb,
-                           flops=4 * m * nb * rest + 2 * nb * nb * rest):
+                           flops=items * (4 * m * nb * rest
+                                          + 2 * nb * nb * rest)):
                 vt, v, t, c = wy_operands(a, j0, nb, tau)
                 w = gemm(vt, c, policy=pol,
                          registry=registry)       # (nb, rest)    GEMM
-                w = t.T @ w                       # small (nb x nb) GEMM
+                w = t.mT @ w                      # small (nb x nb) GEMM
                 c -= gemm(v, w, policy=pol, registry=registry)   # GEMM
-    return a, torch.cat(taus)
+    return a, torch.cat(taus, -1)
 
 
 def q_from_geqrf(packed: torch.Tensor, tau: torch.Tensor,
                  ncols: Optional[int] = None) -> torch.Tensor:
-    """The orthogonal Q of a packed :func:`geqrf` result, reflectors
-    applied in reverse (LAPACK DORGQR): all m columns by default (the
-    reference's (m, m) Q), or the first ``ncols``."""
-    m = packed.shape[0]
+    """The orthogonal Q of a packed :func:`geqrf` result (one, or each
+    item of a batch), reflectors applied in reverse (LAPACK DORGQR): all m
+    columns by default (the reference's (m, m) Q), or the first
+    ``ncols``."""
+    m = packed.shape[-2]
     ncols = m if ncols is None else ncols
     q = torch.eye(m, ncols, dtype=packed.dtype, device=packed.device)
-    one = torch.ones((1,), dtype=packed.dtype, device=packed.device)
-    for k in reversed(range(min(tau.shape[0], ncols))):
-        v = torch.cat([one, packed[k + 1:, k]])
-        block = q[k:, k:]
-        block.addr_(v, tau[k] * (v @ block), alpha=-1)
+    q = q.repeat(*packed.shape[:-2], 1, 1)
+    one = torch.ones((*packed.shape[:-2], 1), dtype=packed.dtype,
+                     device=packed.device)
+    for k in reversed(range(min(tau.shape[-1], ncols))):
+        v = torch.cat([one, packed[..., k + 1:, k]], -1)
+        _reflect(q[..., k:, k:], v, tau[..., k])
     return q
 
 

@@ -5,6 +5,8 @@ and the batched drivers share.
 
 The policy is threaded through every factorization and triangular solve,
 so every GEMM-shaped step resolves through :mod:`repro_torch.tune.dispatch`.
+The solve halves also take a batch, factors (B, n, n) and right-hand sides
+(B, n, k), solved in lockstep (each TRSM update one launch for all items).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ def potrs(l: torch.Tensor, rhs: torch.Tensor, policy: Optional[str] = None,
     unit stride (the ``gemv`` variant, not ``simt``)."""
     y = trsm(l, rhs, lower=True, unit_diag=False, left=True, policy=policy,
              registry=registry)
-    return trsm(l.T.contiguous(), y, lower=False, unit_diag=False,
+    return trsm(l.mT.contiguous(), y, lower=False, unit_diag=False,
                 left=True, policy=policy, registry=registry)
 
 
@@ -45,10 +47,10 @@ def geqrs(packed: torch.Tensor, tau: torch.Tensor, rhs: torch.Tensor,
     result of an (m, n) matrix with m >= n; rhs is (m, k). Only Q's first
     n columns are formed: the rest meet rows of Q^T B that the solve
     drops."""
-    n = packed.shape[1]
+    n = packed.shape[-1]
     q = q_from_geqrf(packed, tau, n)
-    qtb = q.T @ rhs                 # plain PyTorch, as the reference's jnp
-    r = torch.triu(packed)[:n, :n]
+    qtb = q.mT @ rhs                # plain PyTorch, as the reference's jnp
+    r = torch.triu(packed)[..., :n, :n]
     return trsm(r, qtb, lower=False, unit_diag=False, left=True,
                 policy=policy, registry=registry)
 

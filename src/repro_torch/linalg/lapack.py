@@ -140,14 +140,14 @@ def lu(a, block: Optional[int] = None, dtype=None, context=None,
 def qr(a, block: Optional[int] = None, dtype=None,
        context=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Thin QR: (Q (m, min(m, n)), R (min(m, n), n)); a 3-D input returns
-    the batched (Q, R) via :func:`batched_qr` and a per-item Q."""
+    the batched (Q, R) via :func:`batched_qr`, Q formed for the batch in
+    lockstep."""
     ctx = current(context)
     store, (a_,) = _operands(ctx, dtype, a)
     if a_.ndim == 3:
         res = batched_qr(a_, block=block, context=ctx)
         kmin = min(a_.shape[1:])
-        q = torch.stack([_qr.q_from_geqrf(p, t, kmin)
-                         for p, t in zip(res.factors, res.tau)])
+        q = _qr.q_from_geqrf(res.factors, res.tau, kmin)
         r = torch.triu(res.factors)[:, :kmin, :]
         return _cast(q, store), _cast(r, store)
     q, r = _qr.qr(a_, block=block, **_kw(ctx))

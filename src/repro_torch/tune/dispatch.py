@@ -228,7 +228,7 @@ def _gemm_exec(a: torch.Tensor, b: torch.Tensor, res: Resolution) -> torch.Tenso
         # left) launch nothing; the plain product handles empties
         return a @ b
     _counters.inc("kernel.launch")
-    if b.ndim == 1:                                 # matvec as an (n, 1) GEMM
+    if a.ndim == 2 and b.ndim == 1:                 # matvec as an (n, 1) GEMM
         return _gk.gemm(a, b[:, None], plan=res.gemm_plan)[:, 0]
     return _gk.gemm(a, b, plan=res.gemm_plan)
 
@@ -256,6 +256,10 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
 
     The registry backend is the operands' device type. An explicit
     ``machine`` scopes the whole call; ``None`` uses the ambient machine.
+    ``"gemm"`` and ``"trsm+gemm"`` also take a batch, every operand with a
+    leading (B,) axis (a 2-D ``gemm`` operand broadcasts): they resolve on
+    one item's shape, as the reference resolves inside ``vmap``, and run
+    the batch in one launch.
     """
     if machine is not None:
         with _arch.machine_scope(machine):
@@ -263,8 +267,8 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
     backend = args[0].device.type
     if op == "gemm":
         a, b = args
-        n_out = b.shape[1] if b.ndim == 2 else 1
-        res = resolve("gemm", (a.shape[0], n_out, a.shape[1]), a.dtype,
+        n_out = 1 if a.ndim == 2 and b.ndim == 1 else b.shape[-1]
+        res = resolve("gemm", (a.shape[-2], n_out, a.shape[-1]), a.dtype,
                       policy, registry, backend)
         return _gemm_exec(a, b, res)
     if op == "syrk":
@@ -317,20 +321,21 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
         form = kw.pop("form", "lu")
         unit_diag = kw.pop("unit_diag", False)
         fuse = kw.pop("fuse", None)
-        res = resolve("trsm+gemm", (c.shape[0], c.shape[1], l11.shape[0]),
-                      c.dtype, policy, registry, backend, form=form)
+        m, n, nb = c.shape[-2], c.shape[-1], l11.shape[-1]
+        res = resolve("trsm+gemm", (m, n, nb), c.dtype, policy, registry,
+                      backend, form=form)
         do_fuse = res.fused if fuse is None \
             else (bool(fuse) and res.use_pallas)
-        if c.shape[0] == 0:
+        if m == 0:
             # degenerate wide-LU trailing block (columns remain, rows do
             # not): the staged chain handles the empty GEMM
             do_fuse = False
         if do_fuse:
             _counters.inc("kernel.launch")
-            m, n, nb = c.shape[0], c.shape[1], l11.shape[0]
+            items = c.shape[0] if c.ndim == 3 else 1
             with _fk.fused_span("trsm_gemm", res.chain, form=form,
-                                flops=nb * nb * n + 2 * m * n * nb,
-                                bytes=res.chain.fused_hbm_bytes):
+                                flops=items * (nb * nb * n + 2 * m * n * nb),
+                                bytes=items * res.chain.fused_hbm_bytes):
                 return _fk.trsm_gemm(l11, a_panel, b_left, c, form=form,
                                      unit_diag=unit_diag,
                                      row_block=res.block)
@@ -339,7 +344,7 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
         from repro_torch.blas import level3         # lazy: avoid import cycle
         x = level3.trsm(l11, a_panel, lower=True, unit_diag=unit_diag,
                         left=True, policy=res.policy, registry=registry)
-        bl = x.T if form == "syrk" else b_left
+        bl = x.mT if form == "syrk" else b_left
         upd = dispatch("gemm", bl, x, policy=res.policy, registry=registry)
         return x, c - upd
     raise ValueError(f"unknown op {op!r}; expected one of {OPS}")

@@ -138,7 +138,8 @@ def test_kl002_shared_memory_over_budget_fires_on_both_sides():
     def hog(x):
         launch_record.emit("repro_torch.kernels.gemm", "gemm", "gemm",
                            "repro_gemm", (0, 128, 128, 16, 0, 0, 0, 1, 1, 0,
-                                          1, 1, 0, 1, 8, 8, 8, None),
+                                          1, 1, 0, 1, 8, 8, 8, 1, 0, 0, 0,
+                                          None),
                            variant="ffma", tile=(128, 128, 16), grid=(1,),
                            smem_bytes=300_000, operands=(x, x, x), fake=True)
         return x * 2
@@ -475,7 +476,7 @@ def test_f32_model_surface_is_silent_with_the_committed_allowlist():
     # solve traces: its pivot read is the one suppressed finding
     (sup,) = rep.suppressed
     assert (sup.rule, sup.routine) == ("DF004", "solve")
-    assert sup.location == "repro_torch/lapack/lu.py:102"
+    assert sup.location == "repro_torch/lapack/lu.py:122"
     assert sup.suppressed_by.startswith("allowlist:")
 
 

@@ -702,3 +702,79 @@ def test_prefill_plain_route_launches_no_kernel(card, arch):
     want = model_zoo.prefill(cpu, {k: v.cpu() for k, v in batch.items()},
                              cfg)[0]
     _close(plain, want, "float32", 10.0)
+
+
+# ------------------------- the batch axis (B1, B2) --------------------------
+
+# (items, m, k, n, dtype, variant): the tiled variants at ragged shapes (m
+# not a multiple of the tile), "gemv" at a TRSM update, "simt" at m <= 16
+BATCHED_GEMM_CASES = [(5, 200, 96, 160, "float32", "ffma"),
+                      (5, 200, 96, 160, "float64", "dmma"),
+                      (3, 130, 300, 8, "float32", "gemv"),
+                      (3, 130, 1000, 4, "float64", "gemv"),
+                      (4, 12, 40, 70, "float32", "simt")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("items,m,k,n,dtype,variant", BATCHED_GEMM_CASES)
+def test_batched_gemm_is_bitwise_the_2d_launch_per_item(card, items, m, k,
+                                                        n, dtype, variant):
+    """One launch for the batch; A a row window of taller items (so a
+    tile past m would read the item's own next rows, never zeros, were
+    the batch not its own TMA axis); each item bitwise the 2-D launch on
+    it and close to the plain version; a 2-D B broadcast too."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tdt = getattr(torch, dtype)
+    tall = torch.randn(items, m + 48, k, generator=g, device=card).to(tdt)
+    a = tall[:, 16:16 + m]
+    b = torch.randn(items, k, n, generator=g, device=card).to(tdt)
+    for bb in (b, b[0]):
+        before = gk.gemm.launches
+        got = gk.gemm(a, bb)
+        assert gk.gemm.launches == before + 1
+        assert gk.gemm.last_launch["variant"] == variant
+        _close(got, gk.gemm_plain(a, bb), dtype, 4.0)
+        for i in range(items):
+            want = gk.gemm(a[i], bb if bb.ndim == 2 else bb[i])
+            assert gk.gemm.last_launch["variant"] == variant
+            assert torch.equal(got[i], want), (variant, i)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_batched_gemm_refuses_bf16_on_the_tensor_cores(card):
+    a = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="'wgmma'"):
+        gk.gemm(a, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_trsm_gemm_is_bitwise_the_2d_launch_per_item(card, dtype):
+    """B2 on the batched drivers' views (a batch of windows), one launch
+    for the batch, each item bitwise the 2-D launch on it, both forms."""
+    rng = np.random.default_rng(6)
+    items, nb, n = 6, 64, 200
+    a = torch.from_numpy(rng.normal(size=(items, nb + n, nb + n))).to(
+        card, getattr(torch, dtype))
+    a[:, :nb, :nb] = torch.from_numpy(
+        np.tril(rng.normal(size=(items, nb, nb)), -1) / nb
+        + np.eye(nb) * (1 + rng.uniform(size=(items, 1, nb)))).to(a)
+    for form, views in (
+            ("syrk", (a[:, :nb, :nb], a[:, nb:, :nb].mT, None,
+                      a[:, nb:, nb:])),
+            ("lu", (a[:, :nb, :nb], a[:, :nb, nb:], a[:, nb:, :nb],
+                    a[:, nb:, nb:]))):
+        unit = form == "lu"
+        before = fk.trsm_gemm.launches
+        x, c = fk.trsm_gemm(*views, form=form, unit_diag=unit)
+        assert fk.trsm_gemm.launches == before + 1
+        xp, cp = fk.trsm_gemm_plain(*views, form=form, unit_diag=unit)
+        _close(x, xp, dtype, 4.0)
+        _close(c, cp, dtype, 8.0)
+        for i in range(items):
+            xi, ci = fk.trsm_gemm(*(None if v is None else v[i]
+                                    for v in views), form=form,
+                                  unit_diag=unit)
+            assert torch.equal(x[i], xi) and torch.equal(c[i], ci), (form, i)
+    torch.cuda.synchronize()

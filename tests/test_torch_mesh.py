@@ -287,20 +287,6 @@ def runs(tmp_path_factory):
             "port_meta": [meta(f"rank{r}") for r in range(WORLD)]}
 
 
-def _items_per_rank(spec):
-    """How many batch items each rank's slab holds (1 outside the batched
-    drivers). The reference vmaps a driver over its slab and traces its
-    resolutions and launches once; the port loops the 2-D driver over
-    the items (ROADMAP.md A.6a), so its dispatch and launch counters are
-    the reference's times this count. Collective counters are not."""
-    batched = spec["op"] in ("potrf", "getrf", "geqrf", "solve") or (
-        spec["op"] == "linalg" and spec["fn"].startswith("batched"))
-    if not batched:
-        return 1
-    ranks = RANKS[tuple(spec["mesh"])]
-    return -(-BATCH // ranks)
-
-
 def _close(got, want, scale, msg=""):
     rtol, atol = dtype_tolerances(np.float32, scale)
     np.testing.assert_allclose(np.asarray(got, np.float64),
@@ -334,9 +320,10 @@ def test_case_matches_reference(runs, case):
         for r in ranks[1:]:
             assert np.array_equal(runs["port"][r][key], got), (key, r)
     want_meta = runs["ref_meta"][case]
-    per_rank = _items_per_rank(spec)
-    want_counters = {k: v if k.startswith("collective.") else v * per_rank
-                     for k, v in want_meta["counters"].items()}
+    # the batched drivers run each rank's slab in lockstep, as the
+    # reference's vmap: their dispatch and launch counters are the
+    # reference's, not its times the items a rank holds
+    want_counters = want_meta["counters"]
     for r in ranks:
         got_meta = runs["port_meta"][r][case]
         assert got_meta["records"] == want_meta["records"], (case, r)

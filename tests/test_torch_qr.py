@@ -141,9 +141,9 @@ def test_lstsq_matches_reference(m, n, block, nrhs):
 
 
 def test_linalg_qr_and_lstsq_take_batches():
-    """A 3-D input runs each item through the 2-D path (bitwise); the
-    batched drivers themselves meet the reference in
-    tests/test_torch_batched.py."""
+    """A 3-D input runs the batch in lockstep, each item within the
+    dtype's tolerance of the 2-D path on it; the batched drivers
+    themselves meet the reference in tests/test_torch_batched.py."""
     rng = np.random.default_rng(5)
     a3 = rng.normal(size=(2, 30, 20)).astype(np.float32)
     b3 = rng.normal(size=(2, 30, 2)).astype(np.float32)
@@ -152,13 +152,16 @@ def test_linalg_qr_and_lstsq_take_batches():
         x3 = tl.lstsq(a3, b3, block=8)
         v3 = tl.lstsq(a3, b3[:, :, 0], block=8)
         for i in range(2):
-            assert torch.equal(x3[i], tl.lstsq(a3[i], b3[i], block=8))
-            assert torch.equal(v3[i], tl.lstsq(a3[i], b3[i, :, 0], block=8))
+            _close(x3[i], tl.lstsq(a3[i], b3[i], block=8).numpy(), 64.0)
+            _close(v3[i], tl.lstsq(a3[i], b3[i, :, 0], block=8).numpy(),
+                   64.0)
         for x in (a3, w3):                  # tall and wide
             q3, r3 = tl.qr(x, block=8)
             for i in range(x.shape[0]):
                 q, r = tl.qr(x[i], block=8)
-                assert torch.equal(q3[i], q) and torch.equal(r3[i], r)
+                assert q3[i].shape == q.shape and r3[i].shape == r.shape
+                _close(q3[i], q.numpy(), 16.0)
+                _close(r3[i], r.numpy(), 16.0)
 
 
 def test_spans_and_flops_match_reference():
