@@ -124,7 +124,8 @@ each printing JSON lines with its wall time:
    exactly to its plain version (two depths per sweep at n = 100, all of
    fig 12's dgemm, every sweep in full at n = 48), B4 and B1 to theirs,
    and per sweep CPI, TPI, the best depth by TPI beside the eq.-7 depths
-   of its section-4 profile, and B8's ms.
+   of its section-4 profile, and B8's ms (the mean of 5 launches) with
+   its cycles a step beside the bound's.
 10. ``mesh``: the paper's workload on a mesh, each rank a spawned process
    (the kernels already built). A (1, 1) mesh on one NCCL rank: ``gemm``
    8192^3 f32 under ``use(mesh=(1, 1))`` is one B1 launch with zero hops,
@@ -389,12 +390,15 @@ PAPER_DEPTHS = [2, 4, 6, 8, 12, 16, 24]
 SEC5_DEPTHS = {"mul": 5, "add": 4}
 QUICK_DOT_N, QUICK_GEMM_N = 4096, 2048
 # B8's least time per instruction: the recurrence's dependent chain of one
-# step with ready[] on chip, a shared-memory load-to-use (assumed 30
-# cycles, the Hopper microbenchmark literature's figure) then a max and an
-# add on the integer pipe (assumed 4 cycles each, as the FPU-chain probe
-# reads for FADD / FMUL), at the card's maximum SM clock (nvidia-smi
-# clocks.max.sm, read in the run)
-PE_STEP_CYCLES = 30 + 2 * 4
+# step, issue[i] = max(issue[i-1] + a[i], m[i]), an integer add and a max:
+# one VIADDMNMX (__viaddmax_s32), whose dependent chain
+# src/repro_torch/tools/int_chain.cu measured at 4.0334 cycles a step, its
+# loop included (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6), at
+# the card's maximum SM clock (nvidia-smi clocks.max.sm, read in the run).
+# It was 38 while the bound assumed a shared-memory load-to-use a step (30
+# cycles; the probe reads 28.58) then a max and an add.
+PE_STEP_CYCLES = 4
+PE_TIMING_REPS = 5
 # the mesh phase: SPMD ranks, each a spawned process. (1, 1) is one NCCL
 # rank; (2, 2) is four gloo ranks sharing the one card; the gradient sync
 # runs over a 4-rank "pod" axis, flash-decoding over a 4-rank "model" axis
@@ -3212,12 +3216,15 @@ def phase_paper():
                  [pe.simulate(stream, SEC5_DEPTHS)])
     emit(paper_checks_n48_s=time.perf_counter() - t1)
 
-    # the figures, each sweep's kernel timed on its own inputs
+    # the figures, each sweep's kernel timed on its own inputs (the mean of
+    # PE_TIMING_REPS launches after one), its cycles a step beside the
+    # bound's
     kernel_ms = {}
     for tag, stream, units, prof in sweeps:
         res = results[tag]
         args = pe_args(stream, res)
-        kernel_ms[tag] = cuda_ms(lambda: ps.pe_scoreboard(*args), reps=1)
+        kernel_ms[tag] = cuda_ms(lambda: ps.pe_scoreboard(*args),
+                                 reps=PE_TIMING_REPS)
         emit(paper=tag, n=PAPER_N, instructions=stream.n_instructions,
              units=list(units), depths=PAPER_DEPTHS,
              cycles=[r.cycles for r in res], stalls=[r.stalls for r in res],
@@ -3226,6 +3233,8 @@ def phase_paper():
              eq7_optimal_depths=prof.optimal_depths(),
              eq7_popt_closed_form=prof.popt_closed_form(),
              hazard_ratios=prof.hazard_ratios(), kernel_ms=kernel_ms[tag],
+             kernel_cycles_per_step=kernel_ms[tag] * 1e-3 * clock_mhz * 1e6
+             / stream.n_instructions, bound_cycles_per_step=PE_STEP_CYCLES,
              entry_point_wall_s=walls[tag])
     r4, r1 = results["dot4"], results["scalar"]
     emit(paper="section 5: DOT4 vs scalar dgemm", n=PAPER_N,
@@ -3248,10 +3257,11 @@ def phase_paper():
                ms=kernel_ms[tag], plain_ms=plain[tag][0] * 1e3,
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                max_abs_err=plain[tag][1],
-               timing="ms: CUDA events over one launch after one warm-up "
-                      "(the wrapper's zeroed ready[] scratch included); "
-                      "plain_ms: the plain version on the CPU, once",
-               bound=f"{PE_STEP_CYCLES} cycles per dependent step at "
+               timing=f"ms: CUDA events, the mean of {PE_TIMING_REPS} "
+                      f"launches after one warm-up; plain_ms: the plain "
+                      f"version on the CPU, once",
+               bound=f"{PE_STEP_CYCLES} cycles per dependent step (one "
+                     f"VIADDMNMX, src/repro_torch/tools/int_chain.cu) at "
                      f"{clock_mhz} MHz")
     emit(phase="times (paper)", rows=[row])
     return row, launches

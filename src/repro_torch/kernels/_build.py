@@ -76,6 +76,7 @@ SIGNATURES = {
     },
     "pe_scoreboard": {
         "repro_pe_scoreboard": ([P, P, P, I, P, I, P, P, P, P], I),
+        "repro_pe_scoreboard_geometry": ([I], I),
     },
 }
 

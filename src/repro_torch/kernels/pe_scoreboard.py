@@ -14,18 +14,25 @@ stall-on-use recurrence::
 
 gives ``cycles[c] = max(ready)`` and ``stalls[c] = sum(issue[i] -
 issue[i-1] - 1)`` (``issue[-1] = -1``), int32 as the reference. Inputs
-outside a compiled stream's range follow the reference's gathers (a
-negative opcode wraps once and is clamped to [0, 6], a source >= n reads
-``ready[n-1]``, a not-yet-produced operand reads 0); an empty stream is
-refused, as the reference's ``max`` over no instructions is.
+outside a compiled stream's range follow the reference's gathers: a
+negative opcode wraps once and is clamped to [0, 6]; a negative source
+reads 0; a source at or after its own instruction (``src >= i``, ``src >=
+n`` included, which the reference clamps to a slot still 0) reads 0. An
+empty stream is refused, as the reference's ``max`` over no instructions
+is.
 
-:func:`pe_scoreboard` launches the kernel for CUDA tensors (one CTA per
-configuration; a C x n int32 ``ready`` scratch allocated here) and runs
+:func:`pe_scoreboard` launches the kernel for CUDA tensors and runs
 :func:`pe_scoreboard_plain` (the same recurrence in Python over the
-stream's ``.tolist()``) for CPU tensors; there is no other path.
-``pe_scoreboard.launches`` counts kernel launches on the card. What
-bounds the kernel, and its design, are in the note at the top of the
-source.
+stream's ``.tolist()``) for CPU tensors; there is no other path, and a
+refused shared-memory opt-in or launch raises. The kernel (one CTA per
+configuration, one thread walking the recurrence) keeps ``ready[]`` on
+chip: the last :data:`WINDOW` values in a shared-memory ring, the last
+:data:`NEAR` issues in registers, and sources further back than the ring
+staged as values by the CTA's other warps, :data:`CHUNK` instructions at a
+time, from a C x n device-memory copy allocated here (written before any
+slot of it is read: not zeroed). ``pe_scoreboard.launches`` counts kernel
+launches on the card. What bounds the kernel, and the design in full, are
+in the note at the top of the source.
 """
 from __future__ import annotations
 
@@ -37,6 +44,11 @@ import torch
 from repro_torch.kernels import _build
 
 N_OPCODES = 7          # NOP, MUL, ADD, DIV, SQRT, FMA, DOT4 (core/isa.py)
+# the kernel's geometry (csrc/pe_scoreboard.cu; the card tests hold these
+# to repro_pe_scoreboard_geometry and build streams at their edges):
+# instructions staged per buffer, ready[] values in the shared-memory ring,
+# issues kept in registers (sources 1..NEAR back), steps per unrolled group
+CHUNK, WINDOW, NEAR, UNROLL = 1024, 32768, 4, 8
 
 
 def _check(opcode, src1, src2, lat) -> Tuple[int, int]:
@@ -120,7 +132,7 @@ def pe_scoreboard(opcode: torch.Tensor, src1: torch.Tensor,
                          f"(plain version), not {dev}")
     opcode, src1, src2, lat = (t.contiguous()
                                for t in (opcode, src1, src2, lat))
-    ready = torch.zeros((configs, n), dtype=torch.int32, device=dev)
+    ready = torch.empty((configs, n), dtype=torch.int32, device=dev)
     cycles = torch.empty(configs, dtype=torch.int32, device=dev)
     stalls = torch.empty(configs, dtype=torch.int32, device=dev)
     lib = _build.library("pe_scoreboard")

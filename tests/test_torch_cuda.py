@@ -504,17 +504,58 @@ def _pe_random_stream(rng, n):
             src[0].astype(np.int32), src[1].astype(np.int32))
 
 
+def _pe_edge_stream(rng, n, dists):
+    """A stream of n instructions whose sources lie ``dists`` back (drawn
+    per source; negative where that reaches before instruction 0), one in
+    five replaced by a source the reference reads as 0: at the instruction
+    itself, after it, at or past n, or below -1 (INT32_MIN included); the
+    opcodes run from -9 to 9 (negative ones wrap, large ones clamp)."""
+    i = np.arange(n)
+    out = [rng.integers(-9, 10, size=n).astype(np.int32)]
+    for _ in range(2):
+        s = i - rng.choice(np.asarray(dists), size=n)
+        pick = rng.random(n)
+        s = np.where(pick < 0.05, i, s)
+        s = np.where((pick >= 0.05) & (pick < 0.1),
+                     i + rng.integers(1, 50, n), s)
+        s = np.where((pick >= 0.1) & (pick < 0.15),
+                     n + rng.integers(0, 5, n), s)
+        s = np.where((pick >= 0.15) & (pick < 0.2), rng.choice(
+            [-1, -2, -7, np.iinfo(np.int32).min], size=n), s)
+        out.append(s.astype(np.int32))
+    return tuple(out)
+
+
+def _pe_kernel_edge_streams(rng):
+    """Streams at the kernel's edges (kernels/pe_scoreboard.py's CHUNK,
+    WINDOW, NEAR): sources at the register / ring boundary (NEAR, NEAR + 1)
+    and at W - 1, W and W + 1 back in a stream longer than 2W; sources
+    straddling every chunk boundary; n = 1, CHUNK and CHUNK + 1; each with
+    forward and negative sources and negative opcodes."""
+    ch, w, near = ps.CHUNK, ps.WINDOW, ps.NEAR
+    window = [1, 2, near, near + 1, near + 2, w - 1, w, w + 1, w + near,
+              w + near + 1, ch - 1, ch, ch + 1, 3 * ch + 1]
+    straddle = list(range(1, 2 * ps.UNROLL + near + 1)) + [ch - 1, ch + 1]
+    out = [_pe_edge_stream(rng, 2 * w + 3 * ch + 5, window),
+           _pe_edge_stream(rng, 4 * ch + 7, straddle)]
+    out += [_pe_edge_stream(rng, n, straddle) for n in (1, ch, ch + 1)]
+    return out
+
+
 def _pe_streams(rng):
-    """Random streams (one past a staged chunk of 1024, one of several
-    chunks) and compiled BLAS/LAPACK streams of every compiler form."""
+    """Random streams (one past a staged chunk, one of several chunks), the
+    kernel's edge streams, and compiled BLAS/LAPACK streams of every
+    compiler form, the paper's dgeqrf at n = 100 among them (sources up to
+    39,687 back, past the shared-memory ring)."""
     out = [_pe_random_stream(rng, n) for n in (1, 37, 1025, 5000)]
+    out += _pe_kernel_edge_streams(rng)
     for s in (isa.compile_ddot(300, schedule="sequential"),
               isa.compile_ddot(300, dot4=True),
               isa.compile_ddot(300, fma=True),
               isa.compile_dgemm(16, 16, 16, unroll=4),
               isa.compile_dgemm(12, 12, 12, dot4=True),
               isa.compile_dgeqrf(24), isa.compile_dgetrf(24),
-              isa.compile_dpotrf(24)):
+              isa.compile_dpotrf(24), isa.compile_dgeqrf(100)):
         out.append((s.opcode, s.src1, s.src2))
     return out
 
@@ -522,9 +563,11 @@ def _pe_streams(rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("configs", [1, 3, 8])
 def test_pe_scoreboard_matches_plain_exactly(card, configs):
+    """Every stream of _pe_streams, cycles and stalls exactly the plain
+    version's; the latencies include negative ones and 0."""
     rng = np.random.default_rng(configs)
     for opcode, src1, src2 in _pe_streams(rng):
-        lat = rng.integers(1, 40, size=(configs, isa.N_OPCODES)).astype(
+        lat = rng.integers(-5, 40, size=(configs, isa.N_OPCODES)).astype(
             np.int32)
         args = [torch.from_numpy(a) for a in (opcode, src1, src2, lat)]
         before = ps.pe_scoreboard.launches
@@ -550,6 +593,19 @@ def test_pe_sweeps_launch_once_each(card):
         got = call()
         assert ps.pe_scoreboard.launches == before + 1
         assert got == call(device="cpu")
+
+
+@pytest.mark.cuda
+def test_pe_scoreboard_geometry_matches_kernel(card):
+    """The wrapper's CHUNK / WINDOW / NEAR / UNROLL (which the edge streams
+    are built from) are the kernel's, and its shared memory fits a CTA."""
+    from repro_torch.kernels import _build
+    geometry = _build.library("pe_scoreboard").repro_pe_scoreboard_geometry
+    assert [geometry(k) for k in range(4)] == [ps.CHUNK, ps.WINDOW, ps.NEAR,
+                                               ps.UNROLL]
+    props = torch.cuda.get_device_properties(card)
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    assert ps.WINDOW * 4 < geometry(4) <= optin
 
 
 @pytest.mark.cuda

@@ -50,6 +50,71 @@ def test_plain_scoreboard_matches_reference_random(seed, n):
             scoreboard_reference(opcode, src1, src2, lat)
 
 
+# the kernel's distance classes (kernels/pe_scoreboard.py: a source 1 back
+# joins the walk's chain, 2..NEAR from registers, up to WINDOW from the
+# shared-memory ring, further as a staged value), each edge and a chunk's
+DISTANCES = [1, 2, 3, ps.NEAR, ps.NEAR + 1, ps.NEAR + 2, 2 * ps.UNROLL,
+             100, ps.CHUNK - 1, ps.CHUNK, ps.CHUNK + 1, ps.WINDOW - 1,
+             ps.WINDOW, ps.WINDOW + 1, ps.WINDOW + ps.NEAR + 1, 40_000]
+LONG_N = 50_000
+
+
+def _distance_stream(rng, n, forward):
+    """n instructions whose sources are drawn half from DISTANCES back and
+    half uniformly from 1..n back (-1 where that reaches before the
+    stream). With ``forward``, one source in six is one the reference
+    reads as 0 (at or after its own instruction, at or past n, below -1)
+    and opcodes run from -9 to 9."""
+    i = np.arange(n)
+    srcs = []
+    for _ in range(2):
+        d = np.where(rng.random(n) < 0.5, rng.choice(DISTANCES, n),
+                     rng.integers(1, n, n))
+        s = np.where(i - d < 0, -1, i - d)
+        if forward:
+            pick = rng.random(n)
+            s = np.where(pick < 0.05, i, s)
+            s = np.where((pick >= 0.05) & (pick < 0.1),
+                         i + rng.integers(1, 100, n), s)
+            s = np.where((pick >= 0.1) & (pick < 0.13),
+                         n + rng.integers(0, 3, n), s)
+            s = np.where((pick >= 0.13) & (pick < 0.17), rng.choice(
+                [-2, -7, np.iinfo(np.int32).min], n), s)
+        srcs.append(s.astype(np.int32))
+    lo = -9 if forward else 0
+    return (rng.integers(lo, jisa.N_OPCODES if not forward else 10, n)
+            .astype(np.int32), *srcs)
+
+
+@pytest.mark.parametrize("forward", [False, True],
+                         ids=["backward", "forward"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_scoreboard_matches_reference_long(seed, forward):
+    """About 50,000 instructions with sources in every distance class the
+    card's kernel tells apart (W - 1, W and W + 1 back included): the plain
+    version B8 is held to on the card equals the reference's jitted scan
+    exactly, and the brute-force oracle on backward-only streams (the
+    oracle has no slot for a source at or after its instruction)."""
+    rng = np.random.default_rng(100 + seed)
+    opcode, src1, src2 = _distance_stream(rng, LONG_N, forward)
+    d = np.arange(LONG_N) - src1
+    assert {ps.WINDOW - 1, ps.WINDOW, ps.WINDOW + 1} <= set(d.tolist())
+    lats = np.stack([jpe._latency_vector(_random_depths(rng))
+                     for _ in range(3)])
+    if forward:
+        lats[1] -= 6        # latencies of 0 and below as well
+    cycles, stalls = ps.pe_scoreboard(_t(opcode), _t(src1), _t(src2),
+                                      _t(lats))
+    jc, js = jpe._scoreboard_sweep(jnp.asarray(opcode), jnp.asarray(src1),
+                                   jnp.asarray(src2), jnp.asarray(lats))
+    assert cycles.tolist() == np.asarray(jc).tolist()
+    assert stalls.tolist() == np.asarray(js).tolist()
+    if not forward:
+        for c, lat in enumerate(lats):
+            assert (cycles[c].item(), stalls[c].item()) == \
+                scoreboard_reference(opcode, src1, src2, lat)
+
+
 COMPILED = [
     ("ddot16 sequential", lambda m: m.compile_ddot(16, schedule="sequential")),
     ("ddot16 strided", lambda m: m.compile_ddot(16, "strided", 3)),
