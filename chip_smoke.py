@@ -1274,6 +1274,9 @@ def phase_lapack():
                  device_busy_ms=prof["device_busy_ms"],
                  device_idle_share=prof["device_idle_share"],
                  kernel_launches=prof["kernel_launches"],
+                 # each batched B2 launch zeroes its ticket and counters
+                 # first: one fill kernel among the eager ones
+                 b2_workspace_fills=launches["trsm_gemm"],
                  matched=prof["matched"], loop_wall_s=BATCHED_LOOP_S[routine],
                  loop_source="the per-item loop, PERF.md section 5 (PR 18 "
                              "run 1; NVIDIA H100 80GB HBM3, 700.00 W)")
@@ -1421,10 +1424,11 @@ def batched_rows(gen, spd, g, tall, blocks, qr_block, nrhs):
     m are the item's own, which the 3-D TMA map must read as zeros),
     ``gemv`` at a solve's last lower TRSM update, B2 ``syrk`` at
     ``batched_cholesky``'s first trailing update and ``lu`` at
-    ``batched_lu``'s. Returns the times rows of the ``ffma`` and ``syrk``
-    launches (ms beside the plain version, the bound, ``torch.bmm`` for
-    B1 and the per-item loop of 2-D launches; ``call`` names the lapack
-    call whose launch count the row takes)."""
+    ``batched_lu``'s. Returns the times rows of the ``ffma``, ``syrk``
+    and ``lu`` launches (ms beside the plain version, the bound,
+    ``torch.bmm`` for B1 and the per-item loop of 2-D launches, B2's
+    device ms by the profiler and the seconds its row took; ``call``
+    names the lapack call whose launch count the row takes)."""
     from repro_torch.kernels import fused as fk
     from repro_torch.kernels import gemm as gk
     from repro_torch.lapack import cholesky as lc
@@ -1532,26 +1536,37 @@ def batched_rows(gen, spd, g, tall, blocks, qr_block, nrhs):
                          compare(tag + " C", got[1], want[1]))
         bitwise_items(tag, got, lambda i: fk.trsm_gemm(
             *item(args, i), form=form, unit_diag=unit))
-    n = spd.shape[-1] - nb
-    b_ms, b_by = bound(items * (nb * nb * n + 2.0 * n * n * nb),
-                       items * (nb * nb + 2 * nb * n + 2 * n * n) * 4,
-                       torch.float32)
-    run = lambda: fk.trsm_gemm(*syrk, form="syrk")
-    loop = lambda: [fk.trsm_gemm(*item(syrk, i), form="syrk")
-                    for i in range(items)]
-    rows.append(dict(
-        name="trsm_gemm", call="batched_cholesky",
-        shape=f"{items} x nb={nb} n={n} m={n} float32 syrk unit=False "
-              f"(batched_cholesky's first trailing update, one launch)",
-        ms=cuda_ms(run),
-        plain_ms=cuda_ms(lambda: fk.trsm_gemm_plain(*syrk, form="syrk")),
-        library_ms=None, kernel_ms=kernel_ms(run, "trsm_gemm"),
-        loop_ms=cuda_ms(loop),
-        loop_kernel_ms=kernel_ms(loop, "trsm_gemm") * items,
-        loop="the per-item loop of 2-D launches (no single PyTorch call "
-             "computes the fused function)",
-        bound_ms=b_ms, bound_by=b_by, variant="ffma", grid=grids["syrk"],
-        max_abs_err=errs["syrk"]))
+    for form, args, call in (("syrk", syrk, "batched_cholesky"),
+                             ("lu", lu, "batched_lu")):
+        unit = form == "lu"
+        bnb, n = args[0].shape[-1], args[3].shape[-1]
+        m = args[3].shape[-2]
+        # the solve (nb^2 n), the update (2 m n nb); L11, AP, BL ("lu"),
+        # X, C and C' each moved once
+        b_ms, b_by = bound(
+            items * (bnb * bnb * n + 2.0 * m * n * bnb),
+            items * (bnb * bnb + 2 * bnb * n + (m * bnb if unit else 0)
+                     + 2 * m * n) * 4, torch.float32)
+        run = lambda: fk.trsm_gemm(*args, form=form, unit_diag=unit)
+        loop = lambda: [fk.trsm_gemm(*item(args, i), form=form,
+                                     unit_diag=unit) for i in range(items)]
+        t0 = time.perf_counter()
+        rows.append(dict(
+            name="trsm_gemm", call=call,
+            shape=f"{items} x nb={bnb} n={n} m={m} float32 {form} "
+                  f"unit={unit} ({call}'s first trailing update, one "
+                  f"launch)",
+            ms=cuda_ms(run),
+            plain_ms=cuda_ms(lambda: fk.trsm_gemm_plain(
+                *args, form=form, unit_diag=unit)),
+            library_ms=None, kernel_ms=kernel_ms(run, "trsm_gemm"),
+            loop_ms=cuda_ms(loop),
+            loop_kernel_ms=kernel_ms(loop, "trsm_gemm") * items,
+            loop="the per-item loop of 2-D launches (no single PyTorch "
+                 "call computes the fused function)",
+            bound_ms=b_ms, bound_by=b_by, variant="ffma", grid=grids[form],
+            max_abs_err=errs[form],
+            seconds_to_time=time.perf_counter() - t0))
     for row in rows:
         row.update(route="cuda", source=REPLACES[row["name"]][0],
                    replaces=REPLACES[row["name"]][1])
@@ -4777,19 +4792,60 @@ def analysis_counterparts(smi):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert sms == H100.pe.sm_count, (sms, H100.pe.sm_count)
     lib = _build.library("trsm_gemm")
+    # each B2 kernel's own occupancy answer (the 2-D kernel's, and the
+    # batched kernel's at each width and L11 placement that fits) against
+    # its Python counterpart, at every plan of nb = 8 .. 512
     co = {}
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        code = fk.DTYPE_CODES[dtype]
         for nb in range(8, 513, 8):
             for form in ("lu", "syrk"):
-                try:
-                    plan = fk.trsm_gemm_plan(dtype, nb, form)
-                except ValueError:
-                    continue
-                co[dtype, plan.smem_bytes] = (
+                plan = fk.trsm_gemm_plan(dtype, nb, form)
+                co["2d", dtype, plan.smem_bytes] = (
                     fk.co_resident_ctas(dtype, plan.smem_bytes, sms),
-                    lib.repro_trsm_gemm_co_resident(
-                        fk.DTYPE_CODES[dtype], plan.smem_bytes))
-    bad_co = {f"{d} {s}": v for (d, s), v in co.items() if v[0] != v[1]}
+                    lib.repro_trsm_gemm_co_resident(code, plan.smem_bytes))
+                # every batched instantiation that fits at this nb
+                for width, l_smem in fk.TRSM_GEMM_BATCHED_WIDTHS:
+                    smem = fk.trsm_gemm_batched_smem(
+                        fk.accumulator_dtype(dtype).itemsize, nb, width,
+                        l_smem)
+                    if smem > fk.SMEM_LIMIT:
+                        continue
+                    plan = fk.TrsmGemmPlan(
+                        width, l_smem, -(-nb // 16) * 16, smem,
+                        "dmma" if dtype == torch.float64 else "ffma",
+                        "X^T" if form == "syrk" else "BL")
+                    co["batched", dtype, plan] = (
+                        fk.co_resident_ctas(dtype, smem, sms, plan),
+                        lib.repro_trsm_gemm_batched_co_resident(
+                            code, width, int(l_smem), int(form == "syrk"),
+                            smem))
+    bad_co = {" ".join(map(str, k)): v for k, v in co.items()
+              if v[0] != v[1]}
+    # each B2 kernel's registers and local-memory bytes per thread
+    # (cudaFuncGetAttributes): the batched kernel keeps no per-task copy
+    # of its parameters, so its local memory is 0 in every instantiation
+    attrs, bad_attrs = {}, {}
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        regs, local = fk.trsm_gemm_attributes(dtype)
+        attrs[f"2d {str(dtype)[6:]}"] = [regs, local]
+        if regs != fk.trsm_gemm_registers(dtype):
+            bad_attrs[f"2d {dtype}"] = (regs, fk.trsm_gemm_registers(dtype))
+        for width, l_smem in fk.TRSM_GEMM_BATCHED_WIDTHS:
+            for a_operand in ("X^T", "BL"):
+                plan = fk.TrsmGemmPlan(width, l_smem, 0, 0, "", a_operand)
+                regs, local = fk.trsm_gemm_attributes(dtype, plan)
+                key = (f"batched {str(dtype)[6:]} w{width} l_smem={l_smem} "
+                       f"A={a_operand}")
+                attrs[key] = [regs, local]
+                if local != 0 or regs != fk.trsm_gemm_registers(dtype, plan):
+                    bad_attrs[key] = (regs, local,
+                                      fk.trsm_gemm_registers(dtype, plan))
+    emit(phase="analysis", check="B2 kernels' registers and local-memory "
+         "bytes per thread (cudaFuncGetAttributes)", card=smi,
+         registers_local_bytes=attrs, mismatch=bad_attrs,
+         ok=not bad_attrs)
+    assert not bad_attrs, bad_attrs
     dl = _build.library("dotp")
     per_sm = {(d, v): dl.repro_dotp_blocks_per_sm(dk.DTYPE_CODES[d], int(v))
               for d, v in dk.BLOCKS_PER_SM}

@@ -63,8 +63,11 @@ def _layout_refusal(rec: Dict) -> Optional[str]:
                     f"{ops[1][2]} (address mod 16 {ops[1][3]}) take "
                     f"{chosen!r}, not {variant!r}")
     elif kernel == "trsm_gemm":
-        if tuple(tile) != tuple(TRSM_GEMM_TILE):
-            return f"CTA tile {tile} is not B2's {TRSM_GEMM_TILE}"
+        from repro_torch.kernels.fused import TRSM_GEMM_BATCHED_TILE
+        batched = len(ops[-1][0]) == 3 and ops[-1][0][0] > 1
+        want = TRSM_GEMM_BATCHED_TILE[variant] if batched else TRSM_GEMM_TILE
+        if tuple(tile) != tuple(want):
+            return f"CTA tile {tile} is not B2's {tuple(want)}"
     elif kernel == "attention":
         d = ops[0][0][3]
         if tuple(tile) != tuple(_fa.tile(variant, d)):

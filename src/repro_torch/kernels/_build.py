@@ -52,8 +52,10 @@ SIGNATURES = {
     "trsm_gemm": {
         "repro_trsm_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, LL, P,
                              LL, LL, P, P, P, P, I, I, I, I, I, I, I, LL, LL,
-                             LL, LL, LL, P], I),
+                             LL, LL, LL, P, P], I),
         "repro_trsm_gemm_co_resident": ([I, I], I),
+        "repro_trsm_gemm_batched_co_resident": ([I, I, I, I, I], I),
+        "repro_trsm_gemm_attributes": ([I, I, I, I, I, P], I),
     },
     "dotp": {
         "repro_dotp": ([I, I, P, LL, P, LL, LL, I, P, P, P, P], I),

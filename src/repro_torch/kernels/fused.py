@@ -29,9 +29,14 @@
     :func:`repro_torch.core.codesign.trsm_gemm_smem`, the formula the
     chain planner prices it with. A batch of updates (every operand with
     a leading (B,) axis: the batched drivers' lockstep trailing updates,
-    ``vmap`` of the TPU kernel in the reference) is the same one launch,
-    the item folded into both phases' task indices; item i is bitwise the
-    launch on item i alone.
+    ``vmap`` of the TPU kernel in the reference) is one launch of a kernel
+    of its own, with no grid barrier: CTAs claim tasks from one list by
+    ticket (item i's solve blocks ahead of its C tiles), and a tile waits
+    only for its own item's X (a counter per item, in a zeroed workspace,
+    ``sync``: one fill launch beside the kernel). It reads BL in place,
+    solves :data:`TRSM_GEMM_BATCHED_WIDTHS` columns a block
+    (:func:`trsm_gemm_batched_plan`) and asks its own occupancy; item i is
+    bitwise the launch on item i alone.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`gemm_bias_act_plain`, :func:`trsm_gemm_plain`)
@@ -41,15 +46,16 @@ call on either route.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import obs as _obs
-from repro_torch.core.codesign import (TRSM_GEMM_TILE, TRSM_GEMM_TT,
-                                       TRSM_GEMM_WIDTHS, GemmPlan,
-                                       trsm_gemm_footprint)
+from repro_torch.core.codesign import (TRSM_GEMM_STAGES, TRSM_GEMM_TILE,
+                                       TRSM_GEMM_TT, TRSM_GEMM_WIDTHS,
+                                       GemmPlan, trsm_gemm_footprint)
 from repro_torch.kernels import _build
 from repro_torch.kernels import launch_record as _rec
 from repro_torch.kernels.gemm import (DTYPE_CODES, accumulator_dtype,
@@ -205,37 +211,123 @@ def trsm_gemm_plan(dtype: torch.dtype, nb: int, form: str) -> TrsmGemmPlan:
 
 def trsm_gemm_grid(co_resident: int, plan: TrsmGemmPlan, m: int, n: int,
                    form: str, batch: int = 1) -> int:
-    """CTAs of the cooperative launch: as many as fit on the card at once
-    (``co_resident``), but no more than the larger phase has tasks (solve
-    blocks plus BL transpose tiles, or C tiles) over the ``batch`` items;
-    a larger batch costs more strides, never a refused launch."""
+    """CTAs of one launch: as many as fit on the card at once
+    (``co_resident``), but no more than it has tasks. One item (the 2-D
+    kernel) has the larger phase's: solve blocks plus BL transpose tiles,
+    or C tiles. A batch (the batched kernel) has one list: every item's
+    solve blocks and C tiles (:data:`TRSM_GEMM_BATCHED_TILE`)."""
     pad = lambda v: -(-v // _TRSM_PAD) * _TRSM_PAD
     solve = pad(n) // plan.width
+    bm, bn, _ = (TRSM_GEMM_BATCHED_TILE[plan.update] if batch > 1
+                 else TRSM_GEMM_TILE)
+    update = -(-m // bm) * -(-n // bn)
+    if batch > 1:
+        return max(1, min(co_resident, batch * (solve + update)))
     if form == "lu":
         solve += -(-plan.nb_padded // TRSM_GEMM_TT) * (pad(m) // TRSM_GEMM_TT)
-    bm, bn, _ = TRSM_GEMM_TILE
-    update = -(-m // bm) * -(-n // bn)
-    return max(1, min(co_resident, batch * max(solve, update)))
+    return max(1, min(co_resident, max(solve, update)))
 
 
-# registers per thread of csrc/trsm_gemm.cu's kernels (ptxas, sm_90a; the
-# larger of the 2-D and the batched kernel's, whose fewer co-resident CTAs
-# the query answers) and the H100 SM's limits the occupancy query applies:
-# what co_resident_ctas, the query's Python counterpart, needs.
-# chip_smoke.py's analysis phase holds it to the card's answer.
+# The batched kernel's update tile by variant: 64 x 128 for f32 and bf16
+# (B1's "ffma" 64 x 128 x 16), 128 x 128 for f64 ("dmma"). Its solve widths
+# (X columns a block) and L11's place (staged in shared memory or read
+# through the cache), in the order its plan tries them, as csrc/trsm_gemm.cu
+# instantiates them. Its shared memory per CTA
+# (csrc/trsm_gemm.cu::batched_smem_bytes): the larger of the solve (an X
+# block of width + 2 columns a row, and L11 staged beside it as a packed
+# lower triangle, each row padded to a multiple of 4) and the update (syrk:
+# A's and B's rings; lu: B's ring, one A stage and a ring of BL's raw
+# [rows][BK] windows, rows of BK * 8 + 16 bytes; and the C tile its epilogue
+# reads, beside them in f32 and bf16, over them in f64), then a 16-byte
+# ticket slot
+TRSM_GEMM_BATCHED_TILE = {"ffma": (64, 128, 16), "dmma": (128, 128, 16)}
+TRSM_GEMM_BATCHED_WIDTHS = ((64, True), (64, False), (32, False))
+
+
+def _packed_rows(r: int) -> int:
+    """csrc/trsm_gemm.cu::l_row: where row r of the packed L11 starts."""
+    return 4 * (r // 4 + 1) * (2 * (r // 4) + r % 4)
+
+
+def trsm_gemm_batched_smem(acc_bytes: int, nb: int, width: int,
+                           l_smem: bool) -> int:
+    bm, bn, bk = TRSM_GEMM_BATCHED_TILE["dmma" if acc_bytes == 8 else "ffma"]
+    nbp = -(-nb // bk) * bk
+    solve = (nbp * (width + 2) + (_packed_rows(nbp) if l_smem else 0)) \
+        * acc_bytes
+    ring_a = bk * (bm + 4 if acc_bytes == 8 else bm) * acc_bytes
+    ring_b = bk * (bn + 4 if acc_bytes == 8 else bn) * acc_bytes
+    stages = TRSM_GEMM_STAGES
+    rings = max(stages * (ring_a + ring_b),
+                stages * ring_b + ring_a + stages * bm * (bk * 8 + 16))
+    ctile = bm * bn * acc_bytes       # beside the rings (f32, bf16) or over
+    update = rings + ctile if acc_bytes == 4 else max(rings, ctile)
+    return max(solve, update) + 16
+
+
+def trsm_gemm_batched_plan(dtype: torch.dtype, nb: int,
+                           form: str) -> TrsmGemmPlan:
+    """The batched kernel's plan: the first of
+    :data:`TRSM_GEMM_BATCHED_WIDTHS` that fits the shared memory (64
+    columns of X with L11 staged, then 64 or 32 with L11 read through the
+    cache); raises when not even 32 columns of X fit (nb past about 1700
+    f32 / 850 f64)."""
+    acc = accumulator_dtype(dtype).itemsize
+    bk = TRSM_GEMM_TILE[2]
+    for width, l_smem in TRSM_GEMM_BATCHED_WIDTHS:
+        smem = trsm_gemm_batched_smem(acc, nb, width, l_smem)
+        if smem <= SMEM_LIMIT:
+            return TrsmGemmPlan(width, l_smem, -(-nb // bk) * bk, smem,
+                                "dmma" if dtype == torch.float64 else "ffma",
+                                "X^T" if form == "syrk" else "BL")
+    raise ValueError(f"trsm_gemm: a batch at panel width nb={nb} leaves no "
+                     f"room for a 32-column X block in {SMEM_LIMIT} bytes of "
+                     f"shared memory ({dtype})")
+
+
+# registers per thread of csrc/trsm_gemm.cu's kernels (ptxas, sm_90a): the
+# 2-D kernel's by dtype, the batched kernel's by dtype, solve width, L11's
+# place and form (its A operand); and the H100 SM's limits the occupancy query
+# applies: what co_resident_ctas, the query's Python counterpart, needs.
+# chip_smoke.py's analysis phase holds it to the card's answers.
 TRSM_GEMM_REGISTERS = {torch.float32: 128, torch.bfloat16: 128,
-                       torch.float64: 254}
+                       torch.float64: 246}
+TRSM_GEMM_BATCHED_REGISTERS = {
+    (dtype, width, l_smem, a_operand): regs
+    for dtype, table in (
+        (torch.float32, {(True, "X^T"): 123, (False, "X^T"): 105,
+                         (True, "BL"): 128, (False, "BL"): 128}),
+        (torch.bfloat16, {(True, "X^T"): 107, (False, "X^T"): 95,
+                          (True, "BL"): 128, (False, "BL"): 128}),
+        (torch.float64, {(True, "X^T"): 255, (False, "X^T"): 254,
+                         (True, "BL"): 250, (False, "BL"): 254}))
+    for (l_smem, a_operand), regs in table.items()
+    for width in ((64,) if l_smem else (64, 32))}
 _SM_REGISTERS, _SM_SMEM, _SM_THREADS, _SM_CTAS = 65536, 233472, 2048, 32
 _REG_UNIT, _SMEM_RESERVED, _TRSM_THREADS = 256, 1024, 256
 
 
-def co_resident_ctas(dtype: torch.dtype, smem: int, sms: int) -> int:
+def trsm_gemm_registers(dtype: torch.dtype,
+                        plan: Optional[TrsmGemmPlan] = None) -> int:
+    """Registers per thread of the 2-D kernel (``plan`` None) or of the
+    batched kernel that runs ``plan``."""
+    if plan is None:
+        return TRSM_GEMM_REGISTERS[dtype]
+    return TRSM_GEMM_BATCHED_REGISTERS[dtype, plan.width, plan.l_in_smem,
+                                       plan.a_operand]
+
+
+def co_resident_ctas(dtype: torch.dtype, smem: int, sms: int,
+                     plan: Optional[TrsmGemmPlan] = None) -> int:
     """CTAs of B2 that fit on an H100 of ``sms`` SMs at once with ``smem``
-    bytes of dynamic shared memory: the occupancy query
-    (``repro_trsm_gemm_co_resident``) in Python, bounded per SM by
-    registers (allocated per warp in units of 256), shared memory (1 KB
-    reserved per CTA), threads and 32 CTAs."""
-    warp_regs = -(-TRSM_GEMM_REGISTERS[dtype] * 32 // _REG_UNIT) * _REG_UNIT
+    bytes of dynamic shared memory: the occupancy query in Python, of the
+    2-D kernel (``repro_trsm_gemm_co_resident``) or, given a batched
+    ``plan``, of the batched kernel that runs it
+    (``repro_trsm_gemm_batched_co_resident``); bounded per SM by registers
+    (allocated per warp in units of 256), shared memory (1 KB reserved per
+    CTA), threads and 32 CTAs."""
+    regs = trsm_gemm_registers(dtype, plan)
+    warp_regs = -(-regs * 32 // _REG_UNIT) * _REG_UNIT
     warps = _TRSM_THREADS // 32
     per_sm = min(_SM_REGISTERS // (warp_regs * warps),
                  _SM_SMEM // (smem + _SMEM_RESERVED),
@@ -247,17 +339,42 @@ _co_resident = {}
 
 
 def _trsm_co_resident(lib, device: torch.device, dtype: torch.dtype,
-                      smem: int) -> int:
-    """CTAs of B2 that fit on ``device`` at once (the occupancy query),
-    cached per (device, dtype, smem); raises if the query failed."""
-    key = (device.index, dtype, smem)
+                      plan: TrsmGemmPlan, batched: bool) -> int:
+    """CTAs of the kernel that runs ``plan`` (the batched one when
+    ``batched``) that fit on ``device`` at once (its occupancy query),
+    cached per (device, kernel, dtype, plan); raises if the query
+    failed."""
+    key = (device.index, batched, dtype, plan)
     if key not in _co_resident:
-        got = lib.repro_trsm_gemm_co_resident(DTYPE_CODES[dtype], smem)
+        code = DTYPE_CODES[dtype]
+        got = lib.repro_trsm_gemm_batched_co_resident(
+            code, plan.width, int(plan.l_in_smem),
+            int(plan.a_operand == "X^T"), plan.smem_bytes) \
+            if batched else lib.repro_trsm_gemm_co_resident(
+                code, plan.smem_bytes)
         if got < 1:
             raise RuntimeError(f"trsm_gemm: occupancy query gave {got} "
-                               f"(smem {smem} bytes, {dtype})")
+                               f"({'batched ' if batched else ''}"
+                               f"plan {plan}, {dtype})")
         _co_resident[key] = got
     return _co_resident[key]
+
+
+def trsm_gemm_attributes(dtype: torch.dtype,
+                         plan: Optional[TrsmGemmPlan] = None
+                         ) -> Tuple[int, int]:
+    """(registers, local-memory bytes) per thread of the 2-D kernel
+    (``plan`` None) or of the batched kernel that runs ``plan``, as the
+    card's ``cudaFuncGetAttributes`` reports them (builds the library)."""
+    out = (ctypes.c_int * 2)()
+    lib = _build.library("trsm_gemm")
+    err = lib.repro_trsm_gemm_attributes(
+        int(plan is not None), DTYPE_CODES[dtype],
+        0 if plan is None else plan.width,
+        0 if plan is None else int(plan.l_in_smem),
+        0 if plan is None else int(plan.a_operand == "X^T"), out)
+    _build.check(err, "repro_trsm_gemm_attributes")
+    return out[0], out[1]
 
 
 def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
@@ -302,8 +419,10 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     if n == 0 or 0 in lead:
         return (torch.empty((*lead, nb, n), dtype=c.dtype, device=c.device),
                 torch.empty((*lead, m, n), dtype=c.dtype, device=c.device))
-    plan = trsm_gemm_plan(c.dtype, nb, form)
     batch = lead[0] if lead else 1
+    batched = batch > 1
+    plan = (trsm_gemm_batched_plan if batched else trsm_gemm_plan)(
+        c.dtype, nb, form)
     trsm_gemm.last_launch = {"row_block": row_block, "form": form,
                              "device": c.device.type, "plan": plan,
                              "batch": lead[0] if lead else None}
@@ -319,13 +438,18 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     xw = torch.empty((*lead, plan.nb_padded, pad(n)), dtype=acc,
                      device=c.device)
     blt = torch.empty((*lead, plan.nb_padded, pad(m)), dtype=acc,
-                      device=c.device) if form == "lu" and m else None
+                      device=c.device) \
+        if form == "lu" and m and not batched else None
+    # the batched kernel's ticket and per-item solve counts, zeroed (one
+    # fill launch)
+    sync = torch.zeros(1 + batch, dtype=torch.int32, device=c.device) \
+        if batched else None
     bl = c if b_left is None else b_left             # unread when syrk
-    ops = (l11, a_panel, bl, c, x, c_out, xw, blt)
+    ops = (l11, a_panel, bl, c, x, c_out, xw, blt, sync)
     if fake:
         grid = trsm_gemm_grid(co_resident_ctas(
-            c.dtype, plan.smem_bytes, _rec.h100().pe.sm_count),
-            plan, m, n, form, batch)
+            c.dtype, plan.smem_bytes, _rec.h100().pe.sm_count,
+            plan if batched else None), plan, m, n, form, batch)
         trsm_gemm.last_launch["grid"] = grid
         _trsm_record(_trsm_args(plan, form, unit_diag, ops, grid, ptr, None),
                      plan, grid, (l11, a_panel, b_left, c), True)
@@ -333,7 +457,7 @@ def trsm_gemm(l11: torch.Tensor, a_panel: torch.Tensor,
     lib = _build.library("trsm_gemm")
     with torch.cuda.device(c.device):
         grid = trsm_gemm_grid(_trsm_co_resident(lib, c.device, c.dtype,
-                                                plan.smem_bytes),
+                                                plan, batched),
                               plan, m, n, form, batch)
         trsm_gemm.last_launch["grid"] = grid
         call = _trsm_args(plan, form, unit_diag, ops, grid, ptr,
@@ -350,8 +474,9 @@ def _trsm_args(plan, form, unit_diag, ops, grid, ptr, stream) -> tuple:
     """The C call's arguments of one :func:`trsm_gemm` launch (``ops``:
     L11, the panel, B_left, C, then the outputs and scratch; ``ptr`` reads
     each one's address); the batch (1 for 2-D operands) and the inputs'
-    batch strides go in ``long long`` slots."""
-    l11, a_panel, bl, c, x, c_out, xw, blt = ops
+    batch strides go in ``long long`` slots, the batched kernel's ``sync``
+    workspace (None for one item) last before the stream."""
+    l11, a_panel, bl, c, x, c_out, xw, blt, sync = ops
     return (DTYPE_CODES[c.dtype], int(form == "syrk"), int(unit_diag),
             ptr(l11), l11.stride(-2), l11.stride(-1),
             ptr(a_panel), a_panel.stride(-2), a_panel.stride(-1),
@@ -361,12 +486,16 @@ def _trsm_args(plan, form, unit_diag, ops, grid, ptr, stream) -> tuple:
             None if blt is None else ptr(blt), l11.shape[-1], c.shape[-2],
             c.shape[-1], plan.width, int(plan.l_in_smem), plan.smem_bytes,
             grid, c.shape[0] if c.ndim == 3 else 1,
-            *(batch_stride(t) for t in (l11, a_panel, bl, c)), stream)
+            *(batch_stride(t) for t in (l11, a_panel, bl, c)),
+            None if sync is None else ptr(sync), stream)
 
 
 def _trsm_record(call, plan, grid, operands, fake):
+    batched = operands[-1].ndim == 3 and operands[-1].shape[0] > 1
     _rec.emit(__name__, "trsm_gemm", "trsm_gemm", "repro_trsm_gemm", call,
-              variant=plan.update, tile=TRSM_GEMM_TILE, grid=(grid,),
+              variant=plan.update,
+              tile=(TRSM_GEMM_BATCHED_TILE[plan.update] if batched
+                    else TRSM_GEMM_TILE), grid=(grid,),
               smem_bytes=plan.smem_bytes,
               operands=[t for t in operands if t is not None], fake=fake)
 

@@ -6,11 +6,16 @@ paper's sweeps, to set two checkouts of the port side by side on one card.
 
 prints one JSON line: the name, the card's name and power limit
 (``nvidia-smi``), and the milliseconds per call (CUDA events over 10 calls
-after one warm-up; 5 for the large products and for B8) of B1 ``ffma`` at
-8192^3 f32 and ``dmma`` at 4096^3 f64, of B1 ``gemv`` at the TRSM update's
-128 x 1 x 8064 f32 (20 calls in one CUDA graph, replayed: its host time
-exceeds the kernel's), of B2 at the drivers' trailing updates (nb 128:
-syrk and lu at n' = 8064, syrk at 1024 f32, syrk at 3968 f64), on inputs
+after one warm-up; 5 for the large products and for B8; B2 also as device
+ms per launch from ``torch.profiler``, free of the wrapper's host time) of
+B1 ``ffma`` at 8192^3 f32 and ``dmma`` at 4096^3 f64, of B1 ``gemv`` at
+the TRSM update's 128 x 1 x 8064 f32 (20 calls in one CUDA graph,
+replayed: its host time exceeds the kernel's), of B2 at the drivers'
+trailing updates (nb 128: syrk and lu at n' = 8064, syrk at 1024 f32,
+syrk at 3968 f64), of the batched B2 at the batched drivers' trailing
+updates (64 items of nb 128 on the views ``batched_cholesky`` /
+``batched_lu`` hand over: syrk and lu at n' = 384, 256 and 128 f32 and
+at 384 f64, and the solve alone, lu at m = 0, n' = 384 f32), on inputs
 drawn from seed 0, and of B8 at the five depth sweeps of figs 12-13
 (chip_smoke.py's paper phase: n = 100, the joint depths 2-24, seven
 configurations a launch) with each sweep's instructions. Run it with the
@@ -53,6 +58,69 @@ def graph_ms(fn, reps=20):
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, 5) / reps
+
+
+def device_ms(fn, match, reps=10):
+    """Device milliseconds per launch of the kernels whose name holds
+    ``match`` over ``reps`` calls of ``fn`` under ``torch.profiler``,
+    after 32 tiny kernels that take the place of the records a trace on
+    the card can lose first; None when the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    filler = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            filler.add_(1)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = count = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and match in e.name():
+            ns += e.duration_ns()
+            count += 1
+    return ns / 1e6 / count if count else None
+
+
+BATCH, BATCH_NB = 64, 128
+
+
+def batched_trsm_gemm(out: dict, rnd) -> None:
+    """The batched B2 on the views the batched drivers hand over: 64
+    items of nb 128, syrk (``batched_cholesky``) and lu (``batched_lu``)
+    at n' = 384, 256, 128 f32 and 384 f64, and lu at m = 0 (the solve
+    alone) at n' = 384 f32."""
+    nb = BATCH_NB
+    for n, dtype, forms in ((384, torch.float32, ("syrk", "lu", "solve")),
+                            (256, torch.float32, ("syrk", "lu")),
+                            (128, torch.float32, ("syrk", "lu")),
+                            (384, torch.float64, ("syrk", "lu"))):
+        a = rnd(BATCH, nb + n, nb + n, dtype=dtype)
+        a[:, :nb, :nb] = (torch.tril(a[:, :nb, :nb], -1) / nb
+                          + 1.5 * torch.eye(nb, device="cuda", dtype=dtype))
+        for form in forms:
+            if form == "syrk":
+                args = (a[:, :nb, :nb], a[:, nb:, :nb].mT, None,
+                        a[:, nb:, nb:])
+            elif form == "lu":
+                args = (a[:, :nb, :nb], a[:, :nb, nb:], a[:, nb:, :nb],
+                        a[:, nb:, nb:])
+            else:                              # lu at m = 0: X alone
+                args = (a[:, :nb, :nb], a[:, :nb, nb:], a[:, nb:nb, :nb],
+                        a[:, nb:nb, nb:])
+            kind = "syrk" if form == "syrk" else "lu"
+            call = lambda: fk.trsm_gemm(*args, form=kind,
+                                        unit_diag=kind == "lu")
+            tag = (f"trsm_gemm batched {BATCH}x nb={nb} n={n} "
+                   f"{'lu m=0' if form == 'solve' else form} "
+                   f"{str(dtype)[6:]}")
+            out[tag] = cuda_ms(call)
+            out[tag + " device"] = device_ms(call, "trsm_gemm")
+        del a
 
 
 PAPER_N, PAPER_DEPTHS = 100, [2, 4, 6, 8, 12, 16, 24]
@@ -114,9 +182,13 @@ def main(label: str, only=("gemm", "trsm_gemm", "pe_scoreboard")) -> dict:
         args = (l11, rnd(n, nb, dtype=dtype).T,
                 rnd(n, nb, dtype=dtype) if form == "lu" else None,
                 rnd(n, n, dtype=dtype))
-        out[f"trsm_gemm {form} n={n} {str(dtype)[6:]}"] = cuda_ms(
-            lambda: fk.trsm_gemm(*args, form=form, unit_diag=form == "lu"))
+        call = lambda: fk.trsm_gemm(*args, form=form, unit_diag=form == "lu")
+        out[f"trsm_gemm {form} n={n} {str(dtype)[6:]}"] = cuda_ms(call)
+        out[f"trsm_gemm {form} n={n} {str(dtype)[6:]} device"] = device_ms(
+            call, "trsm_gemm")
         del l11, args
+    if "trsm_gemm" in only:
+        batched_trsm_gemm(out, rnd)
     if "pe_scoreboard" in only:
         pe_sweeps(out)
     return out

@@ -18,7 +18,9 @@ numpy seed:
 (c) the launch records of the card route traced on fake CUDA tensors
     (no card, no build): B2 once per trailing update with 3-D operands and
     the batched grid, B1 twice per QR step, ``gemv`` once per TRSM update,
-    the batch cut at 65535 items a launch, a batched bf16 product refused.
+    the batch cut at 65535 items a launch, a batched bf16 product refused;
+    and the batched B2's own plan, occupancy table, grid, argument tuple
+    (its zeroed ``sync`` workspace, no BL transpose workspace) and record.
 """
 import ast
 import inspect
@@ -342,11 +344,11 @@ def test_b2_once_per_trailing_update_for_the_batch(no_library, routine,
              for j1 in range(nb, n, nb)]
     assert all(fused) and len(fused) == n // nb - 1
     assert _kinds(tr) == {"trsm_gemm/ffma": n // nb - 1}
-    plan = tfk.trsm_gemm_plan(torch.float32, nb, form)
-    co = tfk.co_resident_ctas(torch.float32, plan.smem_bytes,
-                              launch_record.h100().pe.sm_count)
+    sms = launch_record.h100().pe.sm_count
     for rec, j1 in zip(tr.launches, range(nb, n, nb)):
         r = n - j1
+        plan = tfk.trsm_gemm_batched_plan(torch.float32, nb, form)
+        co = tfk.co_resident_ctas(torch.float32, plan.smem_bytes, sms, plan)
         shapes = [o[0] for o in rec["operands"]]
         want = [(b, nb, nb), (b, nb, r)] + \
             ([(b, r, nb)] if form == "lu" else []) + [(b, r, r)]
@@ -415,3 +417,129 @@ def test_batched_variant_reads_each_items_alignment():
     assert tgk.gemm_variant(odd, torch.zeros(3, 36, 32)) == "simt"
     assert tgk.gemm_variant(odd[:1], torch.zeros(1, 36, 32)) == "ffma"
     assert tgk.batch_stride(odd[:1]) == 0 and tgk.batch_stride(a[0]) == 0
+
+
+# --------------------- (d) the batched B2's own launch -----------------------
+
+@pytest.mark.parametrize("dtype,nb,width,l_smem", [
+    (torch.float32, 128, 64, True), (torch.bfloat16, 128, 64, True),
+    (torch.float64, 128, 64, True), (torch.float32, 32, 64, True),
+    (torch.float32, 50, 64, True), (torch.float32, 300, 64, False),
+    (torch.float64, 200, 64, False), (torch.float32, 1000, 32, False),
+    (torch.float64, 600, 32, False)])
+def test_batched_b2_plan(dtype, nb, width, l_smem):
+    """64 columns of X with L11 staged (a packed lower triangle, rows
+    padded to multiples of 4), else 64 or 32 with L11 read through the
+    cache; the shared memory is the kernel's formula."""
+    for form in ("syrk", "lu"):
+        plan = tfk.trsm_gemm_batched_plan(dtype, nb, form)
+        assert (plan.width, plan.l_in_smem) == (width, l_smem)
+        assert plan.nb_padded == -(-nb // 16) * 16
+        acc = 8 if dtype == torch.float64 else 4
+        nbp = plan.nb_padded
+        packed = sum(-(-(r + 1) // 4) * 4 for r in range(nbp))
+        solve = (nbp * (width + 2) + (packed if l_smem else 0)) * acc
+        mb = 128 if acc == 8 else 64
+        ring_a = 16 * (132 if acc == 8 else 64) * acc
+        ring_b = 16 * (132 if acc == 8 else 128) * acc
+        rings = max(3 * (ring_a + ring_b), 3 * ring_b + ring_a + 3 * mb * 144)
+        update = (rings + mb * 128 * acc if acc == 4
+                  else max(rings, mb * 128 * acc))
+        assert plan.smem_bytes == max(solve, update) + 16
+        assert plan.smem_bytes <= tfk.SMEM_LIMIT
+        assert plan.update == ("dmma" if dtype == torch.float64 else "ffma")
+        assert plan.a_operand == ("X^T" if form == "syrk" else "BL")
+
+
+def test_batched_b2_plan_refuses_panels_past_32_columns():
+    with pytest.raises(ValueError, match="32-column X block"):
+        tfk.trsm_gemm_batched_plan(torch.float32, 1800, "syrk")
+    assert tfk.trsm_gemm_plan(torch.float32, 1800, "syrk").width >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_batched_b2_occupancy_is_its_own(dtype, monkeypatch):
+    """Each kernel's co-resident CTAs come from its own registers and
+    shared memory: a batched kernel that needed more registers would
+    shrink its own grid, never a 2-D launch's."""
+    sms = launch_record.h100().pe.sm_count
+    plan2 = tfk.trsm_gemm_plan(dtype, 128, "syrk")
+    planb = tfk.trsm_gemm_batched_plan(dtype, 128, "syrk")
+    two_d = tfk.co_resident_ctas(dtype, plan2.smem_bytes, sms)
+    both = tfk.co_resident_ctas(dtype, planb.smem_bytes, sms, planb)
+    per_sm = 2 if dtype != torch.float64 else 1
+    assert two_d == both == per_sm * sms
+    assert tfk.trsm_gemm_registers(dtype) == tfk.TRSM_GEMM_REGISTERS[dtype]
+    assert tfk.trsm_gemm_registers(dtype, planb) == \
+        tfk.TRSM_GEMM_BATCHED_REGISTERS[dtype, 64, True, "X^T"]
+    heavy = dict(tfk.TRSM_GEMM_BATCHED_REGISTERS)
+    heavy[dtype, planb.width, planb.l_in_smem, planb.a_operand] = 255
+    monkeypatch.setattr(tfk, "TRSM_GEMM_BATCHED_REGISTERS", heavy)
+    assert tfk.co_resident_ctas(dtype, planb.smem_bytes, sms, planb) == sms
+    assert tfk.co_resident_ctas(dtype, plan2.smem_bytes, sms) == two_d
+
+
+@pytest.mark.parametrize("m,n,batch", [(384, 384, 64), (128, 128, 64),
+                                       (0, 384, 64), (40, 40, 300),
+                                       (200, 200, 2), (384, 384, 1)])
+def test_batched_b2_grid_is_one_task_list(m, n, batch):
+    """A batch's grid is the co-resident CTAs or its whole task list
+    (every item's solve blocks and C tiles), whichever is fewer; one item
+    keeps the 2-D kernel's larger phase."""
+    co = 264
+    plan = (tfk.trsm_gemm_batched_plan if batch > 1 else
+            tfk.trsm_gemm_plan)(torch.float32, 128, "lu")
+    solves = -(-n // 128) * 128 // plan.width
+    rows = 64 if batch > 1 else 128        # the batched f32 tile: 64 x 128
+    tiles = -(-m // rows) * -(-n // 128)
+    grid = tfk.trsm_gemm_grid(co, plan, m, n, "lu", batch)
+    if batch > 1:
+        assert grid == min(co, batch * (solves + tiles))
+    else:
+        transposes = 128 // 32 * (-(-m // 128) * 128 // 32)
+        assert grid == min(co, max(solves + transposes, tiles))
+
+
+@pytest.mark.parametrize("form", ["syrk", "lu"])
+def test_batched_b2_arguments_and_record(no_library, form):
+    """The batched launch's C arguments: no BL transpose workspace, the
+    zeroed ``sync`` workspace (the ticket, then one count per item) last
+    before the stream; its record carries the batched plan's shared
+    memory and grid, and its int slots the batched width."""
+    b, nb, n = 5, 64, 200
+    seen = {}
+    real_args = tfk._trsm_args
+
+    def spy(plan, form_, unit, ops, grid, ptr, stream):
+        seen["ops"], seen["plan"] = ops, plan
+        seen["call"] = real_args(plan, form_, unit, ops, grid, ptr, stream)
+        return seen["call"]
+
+    def build():
+        a = torch.empty((b, nb + n, nb + n), device="cuda")
+        views = (a[:, :nb, :nb], a[:, nb:, :nb].mT, None, a[:, nb:, nb:]) \
+            if form == "syrk" else (a[:, :nb, :nb], a[:, :nb, nb:],
+                                    a[:, nb:, :nb], a[:, nb:, nb:])
+        return tfk.trsm_gemm, views, {"form": form,
+                                      "unit_diag": form == "lu"}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfk, "_trsm_args", spy)
+        tr = fake_card.run(build, CARD)
+    (rec,) = tr.launches
+    plan = tfk.trsm_gemm_batched_plan(torch.float32, nb, form)
+    assert seen["plan"] == plan
+    sync, blt = seen["ops"][8], seen["ops"][7]
+    assert blt is None
+    assert sync.shape == (1 + b,) and sync.dtype == torch.int32
+    call = seen["call"]
+    assert call[18] is None                       # blt
+    assert call[-2] == launch_record.address(sync)
+    assert call[-1] is None                       # the fake launch's stream
+    assert call[26] == b and call[22] == plan.width
+    co = tfk.co_resident_ctas(torch.float32, plan.smem_bytes,
+                              launch_record.h100().pe.sm_count, plan)
+    assert rec["grid"] == (tfk.trsm_gemm_grid(co, plan, n, n, form, b),)
+    assert rec["smem_bytes"] == plan.smem_bytes
+    assert rec["ints"][:3] == (0, int(form == "syrk"), int(form == "lu"))
+    assert plan.width in rec["ints"]

@@ -804,33 +804,76 @@ def test_batched_gemm_refuses_bf16_on_the_tensor_cores(card):
         gk.gemm(a, a)
 
 
+# (dtype, items, nb, n', forms) of the batched B2: the drivers' views in
+# f32, f64 and bf16; a batch whose tasks exceed the grid many times; nb not
+# a multiple of 16; n' < 128; L11 too large to stage (read through the
+# cache, 64- and 32-column X blocks); the solve alone (lu at m = 0)
+BATCHED_TRSM_CASES = [
+    ("float32", 6, 64, 200, ("syrk", "lu")),
+    ("float64", 6, 64, 200, ("syrk", "lu")),
+    ("bfloat16", 6, 64, 200, ("syrk", "lu")),
+    ("float32", 300, 32, 40, ("syrk", "lu")),
+    ("float32", 5, 50, 200, ("syrk", "lu")),
+    ("float32", 4, 64, 100, ("syrk", "lu")),
+    ("float32", 3, 300, 150, ("syrk", "lu")),
+    ("float32", 2, 1000, 60, ("syrk", "lu")),
+    ("float32", 6, 64, 200, ("lu m=0",)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_batched_trsm_gemm_is_bitwise_the_2d_launch_per_item(card, dtype):
+@pytest.mark.parametrize("dtype,items,nb,n,forms", BATCHED_TRSM_CASES)
+def test_batched_trsm_gemm_is_bitwise_the_2d_launch_per_item(card, dtype,
+                                                             items, nb, n,
+                                                             forms):
     """B2 on the batched drivers' views (a batch of windows), one launch
-    for the batch, each item bitwise the 2-D launch on it, both forms."""
+    for the batch, each item bitwise the 2-D launch on it."""
     rng = np.random.default_rng(6)
-    items, nb, n = 6, 64, 200
     a = torch.from_numpy(rng.normal(size=(items, nb + n, nb + n))).to(
         card, getattr(torch, dtype))
     a[:, :nb, :nb] = torch.from_numpy(
         np.tril(rng.normal(size=(items, nb, nb)), -1) / nb
         + np.eye(nb) * (1 + rng.uniform(size=(items, 1, nb)))).to(a)
-    for form, views in (
-            ("syrk", (a[:, :nb, :nb], a[:, nb:, :nb].mT, None,
-                      a[:, nb:, nb:])),
-            ("lu", (a[:, :nb, :nb], a[:, :nb, nb:], a[:, nb:, :nb],
-                    a[:, nb:, nb:]))):
+    views = {"syrk": (a[:, :nb, :nb], a[:, nb:, :nb].mT, None,
+                      a[:, nb:, nb:]),
+             "lu": (a[:, :nb, :nb], a[:, :nb, nb:], a[:, nb:, :nb],
+                    a[:, nb:, nb:]),
+             "lu m=0": (a[:, :nb, :nb], a[:, :nb, nb:], a[:, nb:nb, :nb],
+                        a[:, nb:nb, nb:])}
+    for name in forms:
+        form = name.split()[0]
         unit = form == "lu"
         before = fk.trsm_gemm.launches
-        x, c = fk.trsm_gemm(*views, form=form, unit_diag=unit)
+        x, c = fk.trsm_gemm(*views[name], form=form, unit_diag=unit)
         assert fk.trsm_gemm.launches == before + 1
-        xp, cp = fk.trsm_gemm_plain(*views, form=form, unit_diag=unit)
+        assert fk.trsm_gemm.last_launch["plan"] == \
+            fk.trsm_gemm_batched_plan(getattr(torch, dtype), nb, form)
+        xp, cp = fk.trsm_gemm_plain(*views[name], form=form, unit_diag=unit)
         _close(x, xp, dtype, 4.0)
         _close(c, cp, dtype, 8.0)
         for i in range(items):
             xi, ci = fk.trsm_gemm(*(None if v is None else v[i]
-                                    for v in views), form=form,
+                                    for v in views[name]), form=form,
                                   unit_diag=unit)
-            assert torch.equal(x[i], xi) and torch.equal(c[i], ci), (form, i)
+            assert torch.equal(x[i], xi) and torch.equal(c[i], ci), (name, i)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+def test_batched_trsm_gemm_uses_no_local_memory(card, dtype):
+    """Every instantiation of the batched B2 keeps its parameters and
+    operands' addresses in registers (no per-task copy in local memory),
+    and each B2 kernel's registers are the Python occupancy table's."""
+    tdt = getattr(torch, dtype)
+    regs, local = fk.trsm_gemm_attributes(tdt)
+    assert regs == fk.TRSM_GEMM_REGISTERS[tdt]
+    got = {}
+    for width, l_smem in fk.TRSM_GEMM_BATCHED_WIDTHS:
+        for a_operand in ("X^T", "BL"):
+            plan = fk.TrsmGemmPlan(width, l_smem, 128, 0, "", a_operand)
+            got[width, l_smem, a_operand] = \
+                fk.trsm_gemm_attributes(tdt, plan), \
+                fk.trsm_gemm_registers(tdt, plan)
+    bad = {k: v for k, v in got.items() if v[0][1] != 0 or v[0][0] != v[1]}
+    assert not bad, bad
