@@ -66,6 +66,19 @@ each printing JSON lines with its wall time:
    against f64 (none
    launches a kernel of the port), ms per call beside the bytes bound; and
    a traced 4096 f32 QR written by both exporters and read back.
+   Then ``linalg3d``, a short phase of its own: the 3-D ``linalg`` BLAS
+   calls at 64 items (``LINALG3D_CALLS``: ``gemm`` f32 512^3, bf16
+   1024^3, f64 256^3, ``gemm_bias_act`` f32 512^3 gelu + bias, ``syrk``
+   512 x 512, ``trsm`` 512 x 128, ``gemv`` 512 x 512), each counted on its
+   own against its plan (one B1 or B3 launch per GEMM-shaped step for the
+   whole batch), each item bitwise the 2-D call on it (``trsm`` within the
+   f32 tolerance: its diagonal blocks are eager PyTorch), its seconds (the
+   median of 3 warm calls) beside the per-item loop of 2-D calls; the
+   batched ``wgmma`` (64 x 1024^3 bf16) and B3 (64 x 512^3 f32) rows
+   against their plain versions, ``torch.bmm`` / ``torch.baddbmm`` +
+   ``gelu`` and their bounds; and ``examples/torch/quickstart.py`` and
+   ``factorization_demo.py`` run on the card at their default sizes, their
+   exit codes checked.
 5. ``tune``: with the launch counts zeroed, ``tune_gemm`` at 4096^3 in
    f32, bf16 and f64 into a temporary registry (each candidate's tile,
    median, spread, modeled seconds and residual), a ``linalg.gemm`` under
@@ -239,7 +252,8 @@ each printing JSON lines with its wall time:
    three launches per call) and by the profiler's device ms per call;
    B8's row comes from the paper phase; B5 at the families' forms last.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
+Then one ``{"kernels": [...]}`` line (the first row of each kernel's
+name, then the batched ``wgmma`` and B3 rows), the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the rest of the checkout,
 it exits non-zero before printing any result.
@@ -379,6 +393,25 @@ BATCHED_LOOP_S = {"batched_cholesky": 2.805, "batched_lu": 6.292,
 # read through a row window of taller items), k, n
 BATCHED_DMMA = (8, 200, 96, 160)
 LEVEL1_N = 2 ** 26
+# the linalg3d phase: the 3-D linalg BLAS calls' items and each call's
+# operands (tag -> routine, dtype, operand shapes; a 1-D operand is shared
+# by every item), the warm calls whose median is each call's seconds, and
+# the examples run on the card as scripts at their default sizes
+LINALG3D_ITEMS = 64
+LINALG3D_CALLS = {
+    "gemm f32 512^3": ("gemm", torch.float32, ((512, 512), (512, 512))),
+    "gemm bf16 1024^3": ("gemm", torch.bfloat16, ((1024, 1024),
+                                                  (1024, 1024))),
+    "gemm f64 256^3": ("gemm", torch.float64, ((256, 256), (256, 256))),
+    "gemm_bias_act f32 512^3 gelu": ("gemm_bias_act", torch.float32,
+                                     ((512, 512), (512, 512), None)),
+    "syrk f32 512x512": ("syrk", torch.float32, ((512, 512),)),
+    "trsm f32 512x128": ("trsm", torch.float32, ((512, 512), (512, 128))),
+    "gemv f32 512x512": ("gemv", torch.float32, ((512, 512), (512,))),
+}
+LINALG3D_REPS = 3
+EXAMPLES = ("quickstart.py", "factorization_demo.py")
+EXAMPLES_TIMEOUT_S = 300
 # QR's residuals |A - QR|/|A| and |Q^TQ - I|/sqrt(n): the Cholesky limits
 LAPACK_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 # the paper phase: figs 12-13 at the paper's n = 100 (joint depths of the
@@ -1323,6 +1356,209 @@ def phase_lapack():
     for row in rows:
         row["launches"] = batched[row.pop("call")][row["name"]]
     emit(phase="times (lapack batched)", rows=rows)
+
+
+def linalg3d_operands(gen, items, routine, dtype, shapes):
+    """One 3-D call's operands: each shape with the batch in front (a
+    triangular T for ``trsm``), a ``None`` shape the shared length-n bias,
+    a 1-D shape a vector per item."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.float64).to(dtype)
+    ops = []
+    for shape in shapes:
+        if shape is None:
+            ops.append(rnd(shapes[1][-1]))
+        else:
+            ops.append(rnd(items, *shape))
+    if routine == "trsm":
+        n = shapes[0][0]
+        ops[0] = (ops[0].tril() / n + 2 * torch.eye(
+            n, device="cuda", dtype=dtype))
+    return ops
+
+
+def linalg3d_expected(routine, ops):
+    """The launches a 3-D call's plan implies, {wrapper: {variant: count}}:
+    one B1 or B3 launch per GEMM-shaped step for the whole batch (a
+    trsm's off-diagonal block updates, the blocked solve's resolved
+    block)."""
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.tune import dispatch as td
+
+    a = ops[0]
+    if routine in ("gemm", "gemm_bias_act"):
+        return {routine: {gk.gemm_variant(a, ops[1]): 1}}
+    if routine == "syrk":
+        return {"gemm": {gk.gemm_variant(a, a.mT): 1}}
+    if routine == "gemv":
+        return {"gemm": {gk.gemm_variant(a, ops[1][..., None]): 1}}
+    n, nrhs = ops[1].shape[-2:]
+    block = td.resolve("trsm", (n, nrhs), a.dtype, policy="model",
+                       backend="cuda").block
+    step = ops[1][:, :block]
+    return {"gemm": {gk.gemm_variant(a[:, block:2 * block, :block], step):
+                     -(-n // block) - 1}}
+
+
+def phase_linalg3d():
+    """The 3-D ``linalg`` BLAS calls in lockstep (``LINALG3D_CALLS``, 64
+    items each, under ``h100`` and ``policy="model"``): each call counted
+    on its own (:func:`counted`) against the launches its plan implies
+    (:func:`linalg3d_expected`: one per GEMM-shaped step for the batch);
+    the per-item loop of 2-D calls the front-end ran before (one call per
+    item, stacked) computed once, each item held bitwise to it (``trsm``
+    within the f32 tolerance: its eager diagonal blocks' batched products
+    sum in another order); the call's seconds (the median of
+    ``LINALG3D_REPS`` warm calls) beside the loop's (its second call). Then the two new batched kernel forms' times
+    rows at the bf16 gemm's and the gelu gemm_bias_act's operands, and
+    ``EXAMPLES`` run as scripts on the card at their default sizes.
+    Returns the two rows."""
+    from repro_torch import linalg
+    from repro_torch.kernels import fused as fk
+    from repro_torch.kernels import gemm as gk
+    from repro_torch.tune import dispatch as td
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    items = LINALG3D_ITEMS
+    t_phase = time.perf_counter()
+    calls = {"gemm": lambda a, b: linalg.gemm(a, b),
+             "gemm_bias_act": lambda a, b, bias: linalg.gemm_bias_act(
+                 a, b, bias, "gelu"),
+             "syrk": lambda a: linalg.syrk(a),
+             "trsm": lambda t, r: linalg.trsm(t, r),
+             "gemv": lambda a, x: linalg.gemv(a, x)}
+    legs, kept = {}, {}
+    for tag, (routine, dtype, shapes) in LINALG3D_CALLS.items():
+        ops = linalg3d_operands(gen, items, routine, dtype, shapes)
+        fn = calls[routine]
+        per_item = lambda i: [o if o.ndim == 1 else o[i] for o in ops]
+        with linalg.use(policy="model", device="cuda"):
+            got, launches = counted(f"linalg3d {tag} x {items}",
+                                    lambda: fn(*ops))
+            seen = launches_of(launches)
+            expected = linalg3d_expected(routine, ops)
+            assert seen == expected, (tag, seen, expected)
+            loop = lambda: torch.stack([fn(*per_item(i))
+                                        for i in range(items)])
+            want = loop()
+            loop_s = sync_time(loop)[1]
+            secs = statistics.median(sync_time(lambda: fn(*ops))[1]
+                                     for _ in range(LINALG3D_REPS))
+        bitwise = torch.equal(got, want)
+        if routine == "trsm":
+            err = compare(f"linalg3d {tag}: each item against the 2-D call",
+                          got, want)
+        else:
+            err = 0.0
+            bitwise_items(f"linalg3d {tag}", got, lambda i: want[i])
+        legs[tag] = {"launches": seen, "plan": expected,
+                     "bitwise_per_item": bitwise, "max_abs_diff": err,
+                     "seconds": secs, "loop_seconds": loop_s,
+                     "loop": "the per-item loop of 2-D calls (the "
+                             "front-end's path before the lockstep)"}
+        emit(leg=f"linalg3d {tag} x {items}", **legs[tag])
+        if tag in ("gemm bf16 1024^3", "gemm_bias_act f32 512^3 gelu"):
+            kept[tag] = ops
+        del ops, got, want
+
+    # the two new batched kernel forms, timed at those operands (these
+    # comparison launches are not the main path's)
+    rows = []
+    a, b = kept["gemm bf16 1024^3"]
+    m, k, n = a.shape[1], a.shape[2], b.shape[2]
+    plan = td.resolve("gemm", (m, n, k), a.dtype, policy="model",
+                      backend="cuda").gemm_plan
+    got = gk.gemm(a, b, plan=plan)
+    launch = dict(gk.gemm.last_launch)
+    assert launch["variant"] == "wgmma", launch
+    err = compare(f"gemm batched {items} x {m}x{n}x{k} bf16 [wgmma "
+                  f"{launch['tile']}] vs plain", got, gk.gemm_plain(a, b))
+    b_ms, b_by = bound(2.0 * items * m * n * k,
+                       items * (m * k + k * n + m * n) * 2, torch.bfloat16)
+    rows.append(dict(
+        name="gemm [batched wgmma]", leg="gemm bf16 1024^3",
+        shape=f"{items} x {m}x{n}x{k} bfloat16 (the linalg3d leg's, one "
+              f"launch)",
+        ms=cuda_ms(lambda: gk.gemm(a, b, plan=plan)),
+        plain_ms=cuda_ms(lambda: gk.gemm_plain(a, b)),
+        library_ms=cuda_ms(lambda: torch.bmm(a, b)), library="torch.bmm",
+        loop_ms=cuda_ms(lambda: [gk.gemm(a[i], b[i], plan=plan)
+                                 for i in range(items)]),
+        loop="the per-item loop of 2-D launches",
+        bound_ms=b_ms, bound_by=b_by, variant="wgmma", tile=launch["tile"],
+        grid=list(gk.launch_grid("wgmma", launch["tile"], m, n, None,
+                                 items)), max_abs_err=err))
+    a, b, bias = kept["gemm_bias_act f32 512^3 gelu"]
+    m, k, n = a.shape[1], a.shape[2], b.shape[2]
+    res = td.resolve("gemm+epilogue", (m, n, k), a.dtype, policy="model",
+                     backend="cuda", epilogue="gelu", has_bias=True)
+    run = lambda: fk.gemm_bias_act(a, b, bias, "gelu", plan=res.gemm_plan)
+    got = run()
+    launch = dict(fk.gemm_bias_act.last_launch)
+    err = compare(f"gemm_bias_act batched {items} x {m}x{n}x{k} f32 gelu "
+                  f"[{launch['variant']} {launch['tile']}] vs plain", got,
+                  fk.gemm_bias_act_plain(a, b, bias, "gelu"))
+    b_ms, b_by = bound(2.0 * items * m * n * k,
+                       items * (m * k + k * n + m * n) * 4 + n * 4,
+                       torch.float32)
+    rows.append(dict(
+        name="gemm_bias_act [batched]", leg="gemm_bias_act f32 512^3 gelu",
+        shape=f"{items} x {m}x{n}x{k} float32 gelu + bias (the linalg3d "
+              f"leg's, one launch)",
+        ms=cuda_ms(run),
+        plain_ms=cuda_ms(lambda: fk.gemm_bias_act_plain(a, b, bias,
+                                                        "gelu")),
+        library_ms=cuda_ms(lambda: F.gelu(torch.baddbmm(bias, a, b),
+                                          approximate="tanh")),
+        library="torch.baddbmm + gelu",
+        loop_ms=cuda_ms(lambda: [fk.gemm_bias_act(a[i], b[i], bias, "gelu",
+                                                  plan=res.gemm_plan)
+                                 for i in range(items)]),
+        loop="the per-item loop of 2-D launches",
+        bound_ms=b_ms, bound_by=b_by, variant=launch["variant"],
+        tile=launch["tile"], max_abs_err=err))
+    for row in rows:
+        base = row["name"].split()[0]
+        row.update(route="cuda", source=REPLACES[base][0],
+                   replaces=REPLACES[base][1],
+                   launches=sum(legs[row["leg"]]["launches"].get(base,
+                                                                 {}).values()))
+    del kept, a, b, bias, got
+    torch.cuda.empty_cache()
+    emit(phase="times (linalg3d batched)", rows=rows)
+
+    # the examples on the card, as a user runs them (the kernels are built)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", "torch", name)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name in EXAMPLES}
+    for name, p in procs.items():
+        out, err_text = p.communicate(timeout=EXAMPLES_TIMEOUT_S)
+        emit(example=f"examples/torch/{name}", exit_code=p.returncode,
+             seconds=time.perf_counter() - t0,
+             last_lines=out.strip().splitlines()[-3:])
+        assert p.returncode == 0, (name, err_text[-3000:])
+    emit(phase="linalg3d", wall_s=time.perf_counter() - t_phase, legs=legs)
+    return rows
+
+
+def launches_of(launches):
+    """A :func:`counted` call's launches as {wrapper: {variant: count}}:
+    B1 and B3 by variant, the other wrappers under their own name."""
+    from repro_torch.kernels import fused as fk
+
+    out = {name: {name: c} for name, c in launches.items()
+           if name not in ("gemm", "gemm_variants", "gemm_bias_act") and c}
+    if launches["gemm"]:
+        out["gemm"] = dict(launches["gemm_variants"])
+    if launches["gemm_bias_act"]:
+        out["gemm_bias_act"] = {v: c for v, c in
+                                fk.gemm_bias_act.variant_launches.items()
+                                if c}
+    return out
 
 
 def path_gemm_check(name, x, y, variant):
@@ -5185,6 +5421,9 @@ def main() -> int:
     phase_lapack()
     emit(phase_done="lapack", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
+    batched_rows_3d = phase_linalg3d()
+    emit(phase_done="linalg3d", wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
     launches["fpu_chain"] = phase_tune(gen)["fpu_chain"]
     emit(phase_done="tune", wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -5219,11 +5458,12 @@ def main() -> int:
     # the kernels line holds one row per kernel, the first of its name:
     # gemm at 8192^3 f32 on the main path's tile, attention on the
     # windowed layers (29 of 32), fpu_chain's mul class; the other dtypes',
-    # tiles', classes' and the global layers' rows are in the times lines
+    # tiles', classes' and the global layers' rows are in the times lines;
+    # then the batched forms of B1 on "wgmma" and of B3 (linalg3d)
     first = {}
     for r in rows:
         first.setdefault(r["name"], r)
-    rows = list(first.values())
+    rows = list(first.values()) + batched_rows_3d
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

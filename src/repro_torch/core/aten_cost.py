@@ -286,6 +286,28 @@ def _storage_key(t) -> Optional[int]:
         return None
 
 
+def cost_of_table(ops: Dict[str, List[float]]) -> Cost:
+    """The :class:`Cost` a :class:`CostMode`'s per-op table ``ops`` adds
+    up to ({name: [calls, flops, bytes, bytes_fused, coll bytes]}, as the
+    dry run writes it beside each row): a c10d op's collective bytes go
+    under its kind (:data:`COLLECTIVE_OPERAND`). The counts are whole
+    numbers, so the sum is the trace's own in any order."""
+    total = Cost()
+    for name, (_, flops, nbytes, fused, coll) in ops.items():
+        kinds = {}
+        if coll:
+            namespace, _, op = name.partition("::")
+            kind = COLLECTIVE_OPERAND.get(op.split(".")[0]) \
+                if namespace in _C10D else None
+            if kind is None:
+                raise ValueError(f"per-op table: {name} moves {coll} "
+                                 f"collective bytes but is no collective "
+                                 f"of {tuple(COLLECTIVE_OPERAND)}")
+            kinds = {kind[0]: float(coll)}
+        total += Cost(float(flops), float(nbytes), float(fused), kinds)
+    return total
+
+
 class CostMode(TorchDispatchMode):
     """Prices every aten op dispatched inside it into ``cost`` (module
     docstring) and per op name into ``ops`` ({name: [calls, flops, bytes,

@@ -53,22 +53,24 @@
 // The bias (length n, contiguous) and the activation are applied to the
 // register accumulator, in the accumulator type, before the single store.
 //
-// Batched products (repro_gemm, repro_gemv; the counterpart of vmap over
-// the TPU kernel's pallas_call): `batch` items, each operand at its own
-// batch stride in elements (0 broadcasts it to every item). The item comes
-// from a grid axis of its own (y for "ffma" and "dmma", z for "simt" and
-// "gemv"), so each item runs the tile, the K order and the K split of a
-// 2-D launch on it: item i of a batched launch is bitwise the 2-D launch on
-// item i. "dmma" reads A and B through 3-D tensor maps, the batch
-// outermost, so a ragged tile edge reads zeros and never the next item's
-// rows. "wgmma" stays 2-D (the batched drivers run f32 and f64). The grid's
-// y and z axes stop at 65535 items; the wrapper cuts a larger batch.
-// "simt", "dmma" and "gemv" are templates on BATCHED: a launch of one item
-// runs the 2-D instantiation, whose code has no item offsets and reads
-// "dmma"'s operands through 2-D maps (a "gemv" with the offsets in
-// measured slower at the TRSM update's shape). "ffma" is one kernel that
-// always offsets by blockIdx.y (0 for one item): its split form measured
-// slower at 8192^3 than this one (PERF.md, PR 28).
+// Batched products (every entry; the counterpart of vmap over the TPU
+// kernel's pallas_call): `batch` items, each operand at its own batch
+// stride in elements (0 broadcasts it to every item). The item comes from
+// a grid axis of its own (y for "ffma", "dmma" and "wgmma", z for "simt"
+// and "gemv"), so each item runs the tile, the K order and the K split of
+// a 2-D launch on it: item i of a batched launch is bitwise the 2-D launch
+// on item i. "wgmma" and "dmma" read A and B through 3-D tensor maps, the
+// batch outermost, so a ragged tile edge reads zeros and never the next
+// item's rows (a row window of taller items included: the map's row extent
+// is the window's, the item stride the taller item's). The grid's y and z
+// axes stop at 65535 items; the wrapper cuts a larger batch. The epilogue's
+// bias is one length-n vector shared by every item (B3 over a batch).
+// "simt", "wgmma", "dmma" and "gemv" are templates on BATCHED: a launch of
+// one item runs the 2-D instantiation, whose code has no item offsets and
+// reads "wgmma"'s and "dmma"'s operands through 2-D maps (a "gemv" with
+// the offsets in measured slower at the TRSM update's shape). "ffma" is
+// one kernel that always offsets by blockIdx.y (0 for one item): its split
+// form measured slower at 8192^3 than this one (PERF.md, section 6).
 #include <cstring>
 
 #include "common.cuh"
@@ -193,12 +195,13 @@ struct Wg {
   static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 };
 
-template <int BN, typename TO>
+template <int BN, typename TO, bool BATCHED>
 __global__ void __launch_bounds__(Wg<BN>::THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
                   const __nv_bfloat16* __restrict__ bias, int epilogue,
-                  TO* __restrict__ c, long long sc0, int m, int n, int k) {
+                  TO* __restrict__ c, long long sc0, int m, int n, int k,
+                  int bcast_a, int bcast_b, long long scb) {
   using W = Wg<BN>;
   using namespace hopper;
   constexpr int BM = W::BM, BK = W::BK, STAGES = W::STAGES;
@@ -208,6 +211,11 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   uint8_t* smem = hopper::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
   uint64_t* empty = full + STAGES;
+  // this CTA's item: the 3-D maps' outermost coordinate (0 for a
+  // broadcast operand) and C's offset
+  const int item = blockIdx.y;
+  const int ia = bcast_a ? 0 : item, ib = bcast_b ? 0 : item;
+  if constexpr (BATCHED) c += item * scb;
   int tm, tn;
   tile_of(blockIdx.x, (m + BM - 1) / BM, (n + BN - 1) / BN, tm, tn);
   const int ktiles = (k + BK - 1) / BK;
@@ -228,11 +236,19 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
         uint8_t* sa = smem + s * STAGE_BYTES;
         mbar_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_2d(sa, &map_a, &full[s], t * BK, tm * BM);
+        if constexpr (BATCHED)
+          tma_load_3d(sa, &map_a, &full[s], t * BK, tm * BM, ia);
+        else
+          tma_load_2d(sa, &map_a, &full[s], t * BK, tm * BM);
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(sa + A_BYTES + j * B_CHUNK, &map_b, &full[s],
-                      tn * BN + 64 * j, t * BK);
+        for (int j = 0; j < BN / 64; ++j) {
+          if constexpr (BATCHED)
+            tma_load_3d(sa + A_BYTES + j * B_CHUNK, &map_b, &full[s],
+                        tn * BN + 64 * j, t * BK, ib);
+          else
+            tma_load_2d(sa + A_BYTES + j * B_CHUNK, &map_b, &full[s],
+                        tn * BN + 64 * j, t * BK);
+        }
       }
     }
     return;
@@ -626,11 +642,13 @@ gemm_dmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// the byte stride of a 3-D map's item axis: the operand's batch stride, or
-// for a broadcast operand (one item) its rows' span rounded up to 16 bytes
-inline cuuint64_t item_stride(long long sb, long long s0, int rows) {
-  if (sb != 0) return cuuint64_t(sb) * 8;
-  return (cuuint64_t(s0) * 8 * cuuint64_t(rows) + 15) / 16 * 16;
+// the byte stride of a 3-D map's item axis (elements of `elem` bytes): the
+// operand's batch stride, or for a broadcast operand (one item) its rows'
+// span rounded up to 16 bytes
+inline cuuint64_t item_stride(long long sb, long long s0, int rows,
+                              int elem) {
+  if (sb != 0) return cuuint64_t(sb) * elem;
+  return (cuuint64_t(s0) * elem * cuuint64_t(rows) + 15) / 16 * 16;
 }
 
 template <int BM>
@@ -649,9 +667,9 @@ int launch_dmma(const void* a, long long sa0, const void* b, long long sb0,
   const cuuint64_t dims_b[3] = {cuuint64_t(n), cuuint64_t(k),
                                 cuuint64_t(sbb != 0 ? batch : 1)};
   const cuuint64_t stride_a[2] = {cuuint64_t(sa0) * 8,
-                                  item_stride(sab, sa0, m)};
+                                  item_stride(sab, sa0, m, 8)};
   const cuuint64_t stride_b[2] = {cuuint64_t(sb0) * 8,
-                                  item_stride(sbb, sb0, k)};
+                                  item_stride(sbb, sb0, k, 8)};
   const cuuint32_t box_a[3] = {4, BM, 1}, box_b[3] = {4, D::BK, 1};
   int err = hopper::make_map(&map_a, a, rank, dims_a, stride_a, box_a,
                              CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
@@ -918,26 +936,37 @@ int launch_simt(const void* a, long long sa0, long long sa1, const void* b,
 template <int BN, typename TO>
 int launch_wgmma(const void* a, long long sa0, const void* b, long long sb0,
                  const void* bias, int epilogue, void* c, long long sc0, int m,
-                 int n, int k, cudaStream_t stream) {
+                 int n, int k, Batch bt, cudaStream_t stream) {
   using W = Wg<BN>;
   CUtensorMap map_a, map_b;
-  const cuuint64_t dims_a[2] = {cuuint64_t(k), cuuint64_t(m)};
-  const cuuint64_t dims_b[2] = {cuuint64_t(n), cuuint64_t(k)};
-  const cuuint64_t stride_a[1] = {cuuint64_t(sa0) * 2};
-  const cuuint64_t stride_b[1] = {cuuint64_t(sb0) * 2};
-  const cuuint32_t box_a[2] = {W::BK, W::BM}, box_b[2] = {64, W::BK};
-  int err = hopper::make_map(&map_a, a, 2, dims_a, stride_a, box_a);
-  if (err == 0) err = hopper::make_map(&map_b, b, 2, dims_b, stride_b, box_b);
+  // (k, m, items) and (n, k, items), one item for a broadcast operand;
+  // the 2-D launch reads (k, m) and (n, k)
+  const bool batched = bt.count > 1;
+  const int rank = batched ? 3 : 2;
+  const cuuint64_t dims_a[3] = {cuuint64_t(k), cuuint64_t(m),
+                                cuuint64_t(bt.sa != 0 ? bt.count : 1)};
+  const cuuint64_t dims_b[3] = {cuuint64_t(n), cuuint64_t(k),
+                                cuuint64_t(bt.sb != 0 ? bt.count : 1)};
+  const cuuint64_t stride_a[2] = {cuuint64_t(sa0) * 2,
+                                  item_stride(bt.sa, sa0, m, 2)};
+  const cuuint64_t stride_b[2] = {cuuint64_t(sb0) * 2,
+                                  item_stride(bt.sb, sb0, k, 2)};
+  const cuuint32_t box_a[3] = {W::BK, W::BM, 1}, box_b[3] = {64, W::BK, 1};
+  int err = hopper::make_map(&map_a, a, rank, dims_a, stride_a, box_a);
+  if (err == 0)
+    err = hopper::make_map(&map_b, b, rank, dims_b, stride_b, box_b);
   if (err != 0) return err;
-  auto kernel = gemm_wgmma_kernel<BN, TO>;
+  auto kernel = batched ? gemm_wgmma_kernel<BN, TO, true>
+                        : gemm_wgmma_kernel<BN, TO, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long tiles =
       static_cast<long long>((m + W::BM - 1) / W::BM) * ((n + BN - 1) / BN);
-  kernel<<<static_cast<unsigned>(tiles), W::THREADS, W::SMEM, stream>>>(
+  const dim3 grid(static_cast<unsigned>(tiles), bt.count);
+  kernel<<<grid, W::THREADS, W::SMEM, stream>>>(
       map_a, map_b, static_cast<const __nv_bfloat16*>(bias), epilogue,
-      static_cast<TO*>(c), sc0, m, n, k);
+      static_cast<TO*>(c), sc0, m, n, k, bt.sa == 0, bt.sb == 0, bt.sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1001,22 +1030,21 @@ int dispatch(int variant, int bm, int bn, int bk, int dtype, int out_dtype,
       !aligned16(b, sb0, elem) || (bt.sa * elem) % 16 != 0 ||
       (bt.sb * elem) % 16 != 0)
     return bad;
-  if (variant == kWgmma && bt.count > 1) return bad;   // 2-D only
   if (variant == kWgmma && dtype == kBF16 &&
       (out_dtype == kBF16 || out_dtype == kF32)) {
     const bool f32 = out_dtype == kF32;
     if (is_tile<Wg<256>>(bm, bn, bk))
       return f32 ? launch_wgmma<256, float>(a, sa0, b, sb0, bias, epilogue, c,
-                                            sc0, m, n, k, s)
+                                            sc0, m, n, k, bt, s)
                  : launch_wgmma<256, __nv_bfloat16>(a, sa0, b, sb0, bias,
                                                     epilogue, c, sc0, m, n, k,
-                                                    s);
+                                                    bt, s);
     if (is_tile<Wg<128>>(bm, bn, bk))
       return f32 ? launch_wgmma<128, float>(a, sa0, b, sb0, bias, epilogue, c,
-                                            sc0, m, n, k, s)
+                                            sc0, m, n, k, bt, s)
                  : launch_wgmma<128, __nv_bfloat16>(a, sa0, b, sb0, bias,
                                                     epilogue, c, sc0, m, n, k,
-                                                    s);
+                                                    bt, s);
     return bad;
   }
   if (variant == kFfma && dtype == kF32 && out_dtype == kF32) {
@@ -1038,6 +1066,39 @@ int dispatch(int variant, int bm, int bn, int bk, int dtype, int out_dtype,
     return bad;
   }
   return bad;
+}
+
+// the instantiation of a tiled variant that a launch at the CTA tile (bm,
+// bn, bk) storing out_dtype runs, 2-D or batched, or null
+template <int BN>
+const void* wgmma_kernel(bool f32, bool batched) {
+  if (f32)
+    return batched ? (const void*)gemm_wgmma_kernel<BN, float, true>
+                   : (const void*)gemm_wgmma_kernel<BN, float, false>;
+  return batched ? (const void*)gemm_wgmma_kernel<BN, __nv_bfloat16, true>
+                 : (const void*)gemm_wgmma_kernel<BN, __nv_bfloat16, false>;
+}
+
+template <int BM>
+const void* dmma_kernel(bool batched) {
+  return batched ? (const void*)gemm_dmma_kernel<BM, true>
+                 : (const void*)gemm_dmma_kernel<BM, false>;
+}
+
+const void* tiled_kernel(int variant, int bm, int bn, int bk, int out_dtype,
+                         bool batched) {
+  const bool f32 = out_dtype == kF32;
+  if (variant == kWgmma && (f32 || out_dtype == kBF16)) {
+    if (is_tile<Wg<256>>(bm, bn, bk)) return wgmma_kernel<256>(f32, batched);
+    if (is_tile<Wg<128>>(bm, bn, bk)) return wgmma_kernel<128>(f32, batched);
+  } else if (variant == kFfma && f32) {
+    if (is_tile<Ff<128>>(bm, bn, bk)) return (const void*)gemm_ffma_kernel<128>;
+    if (is_tile<Ff<64>>(bm, bn, bk)) return (const void*)gemm_ffma_kernel<64>;
+  } else if (variant == kDmma && out_dtype == kF64) {
+    if (is_tile<Dm<128>>(bm, bn, bk)) return dmma_kernel<128>(batched);
+    if (is_tile<Dm<64>>(bm, bn, bk)) return dmma_kernel<64>(batched);
+  }
+  return nullptr;
 }
 
 }  // namespace
@@ -1078,16 +1139,39 @@ extern "C" int repro_gemv(int dtype, int out_dtype, const void* a,
                      static_cast<cudaStream_t>(stream));
 }
 
-// C = act(A @ B + bias) at the CTA tile (bm, bn, bk); bias may be null (no
-// bias), epilogue is a repro::Epilogue code.
+// C = act(A @ B + bias) at the CTA tile (bm, bn, bk) for `batch` items as
+// repro_gemm; bias (length n, shared by every item) may be null (no bias),
+// epilogue is a repro::Epilogue code.
 extern "C" int repro_gemm_bias_act(int variant, int bm, int bn, int bk,
                                    int dtype, int out_dtype, const void* a,
                                    long long sa0, long long sa1,
                                    const void* b, long long sb0,
                                    long long sb1, const void* bias,
                                    int epilogue, void* c, long long sc0, int m,
-                                   int n, int k, void* stream) {
+                                   int n, int k, long long batch,
+                                   long long sab, long long sbb,
+                                   long long scb, void* stream) {
+  if (!repro::batch_ok(batch)) return static_cast<int>(cudaErrorInvalidValue);
   return repro::dispatch(variant, bm, bn, bk, dtype, out_dtype, a, sa0, sa1, b,
                          sb0, sb1, bias, epilogue, c, sc0, m, n, k,
-                         {1, 0, 0, 0}, stream);
+                         {static_cast<int>(batch), sab, sbb, scb}, stream);
+}
+
+// out[0], out[1] = registers and local-memory bytes per thread of the
+// tiled variant `variant` ("wgmma", "ffma" or "dmma") compiled for the CTA
+// tile (bm, bn, bk) storing out_dtype, in its 2-D (batched 0) or batched
+// (1) instantiation ("ffma" has one), as cudaFuncGetAttributes reports
+// them. Returns the cudaError_t of the query (cudaErrorInvalidValue for an
+// instantiation that does not exist).
+extern "C" int repro_gemm_attributes(int variant, int bm, int bn, int bk,
+                                     int out_dtype, int batched, int* out) {
+  const void* kernel = repro::tiled_kernel(variant, bm, bn, bk, out_dtype,
+                                           batched != 0);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  return 0;
 }

@@ -44,10 +44,11 @@ SIGNATURES = {
         "repro_gemm": ([I, I, I, I, I, I, P, LL, LL, P, LL, LL, P, LL, I, I,
                         I, LL, LL, LL, LL, P], I),
         "repro_gemm_bias_act": (
-            [I, I, I, I, I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I, P],
-            I),
+            [I, I, I, I, I, I, P, LL, LL, P, LL, LL, P, I, P, LL, I, I, I,
+             LL, LL, LL, LL, P], I),
         "repro_gemv": ([I, I, P, LL, P, LL, LL, P, I, P, I, P, LL, I, I, I,
                         LL, LL, LL, LL, P], I),
+        "repro_gemm_attributes": ([I, I, I, I, I, I, P], I),
     },
     "trsm_gemm": {
         "repro_trsm_gemm": ([I, I, I, P, LL, LL, P, LL, LL, P, LL, LL, P,

@@ -11,7 +11,11 @@
     tile of the plan it is handed when that tile is compiled (as B1,
     :func:`~repro_torch.kernels.gemm.launch_tile`). Bound by operations at
     the main path's shapes, like B1; the epilogue adds n bias reads and a
-    few flops per output.
+    few flops per output. A batch, (B, m, k) @ (B, k, n) with either side
+    2-D and broadcast and one length-n bias shared by every item (``vmap``
+    of the TPU kernel with the bias unmapped, as the reference's
+    ``linalg.gemm_bias_act`` calls it), is one launch on B1's batched
+    loops; item i is bitwise the 2-D launch on item i.
 
 ``trsm_gemm`` (B2, ``csrc/trsm_gemm.cu``)
     Replaces ``repro/kernels/fused.py::trsm_gemm`` (``_trsm_gemm_kernel``).
@@ -59,7 +63,7 @@ from repro_torch.core.codesign import (TRSM_GEMM_STAGES, TRSM_GEMM_TILE,
 from repro_torch.kernels import _build
 from repro_torch.kernels import launch_record as _rec
 from repro_torch.kernels.gemm import (DTYPE_CODES, accumulator_dtype,
-                                      batch_stride, check_operands,
+                                      batch_of, batch_stride, check_operands,
                                       default_plan, gemm_plain, gemm_variant,
                                       launch, record_call, reset_launches)
 
@@ -102,7 +106,8 @@ def gemm_bias_act_plain(a: torch.Tensor, b: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
                         epilogue: str = "none",
                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Plain version: the epilogue on the accumulator-width product."""
+    """Plain version: the epilogue on the accumulator-width product (2-D
+    operands or a batch, the bias shared by every item)."""
     acc = accumulator_dtype(a.dtype)
     out = apply_epilogue(gemm_plain(a, b, acc), epilogue,
                          None if bias is None else bias.to(acc))
@@ -114,31 +119,32 @@ def gemm_bias_act(a: torch.Tensor, b: torch.Tensor,
                   epilogue: str = "none", plan: Optional[GemmPlan] = None,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = act(A @ B + bias) in one launch (CUDA) or its plain version
-    (CPU). ``bias`` is a length-n vector of a's dtype; ``plan`` picks the
-    CTA tile and is recorded beside the variant and the tile, as in B1
+    (CPU). (m, k) @ (k, n), or a batch (B, m, k) @ (B, k, n) with either
+    side 2-D and broadcast: (B, m, n), one launch. ``bias`` is a length-n
+    vector of a's dtype, shared by every item; ``plan`` (one item's) picks
+    the CTA tile and is recorded beside the variant and the tile, as in B1
     (:func:`repro_torch.kernels.gemm.gemm`)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; "
                          f"expected one of {EPILOGUES}")
     out_dtype = check_operands(a, b, out_dtype)
-    if a.ndim != 2 or b.ndim != 2:
-        raise ValueError(f"gemm_bias_act takes 2-D operands (no batch "
-                         f"axis); got {tuple(a.shape)} @ {tuple(b.shape)}")
-    m, k = a.shape
-    n = b.shape[1]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    batch = batch_of(a, b)
+    shape = (m, n) if batch is None else (batch, m, n)
     if bias is not None and (bias.shape != (n,) or bias.dtype != a.dtype
                              or bias.device != a.device):
         raise ValueError(f"bias must be ({n},) {a.dtype} on {a.device}; got "
                          f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
     if plan is None:
         plan = default_plan(a, b)
-    if m == 0 or n == 0:
-        return torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0 or batch == 0:
+        return torch.empty(shape, dtype=out_dtype, device=a.device)
     variant = gemm_variant(a, b)
     tile = record_call(gemm_bias_act, plan, variant, a.device)
     if a.device.type == "cpu":
         return gemm_bias_act_plain(a, b, bias, epilogue, out_dtype)
-    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    c = torch.empty(shape, dtype=out_dtype, device=a.device)
     bias = None if bias is None else bias.contiguous()   # held past launch
     launch(gemm_bias_act, "repro_gemm_bias_act", variant, tile, a, b, c,
            None if bias is None else _rec.address(bias),

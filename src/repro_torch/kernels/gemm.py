@@ -32,10 +32,10 @@ one launch (the counterpart of ``vmap`` over the TPU kernel's
 ``pallas_call``, which adds a batch axis to its grid): the variant and the
 tile come from one item's (m, n, k) and layout, each item runs the 2-D
 launch's tile and K order on a grid axis of its own, so item i is bitwise
-the 2-D launch on item i. A batch of more than :data:`MAX_BATCH` items
-is cut into launches of at most that many, each counted. The batched
-drivers run f32 and f64; a batched bf16 product on the tensor cores
-(``"wgmma"``, 2-D TMA maps only) raises.
+the 2-D launch on item i (``"wgmma"`` and ``"dmma"`` read a batch
+through 3-D TMA maps, the batch outermost). A batch of more than
+:data:`MAX_BATCH` items is cut into launches of at most that many, each
+counted.
 ``gemm.launches`` counts kernel launches on the card (the CPU route
 counts nothing), ``gemm.variant_launches`` the same per variant, and
 ``gemm.last_launch`` records, on both routes, the
@@ -45,6 +45,7 @@ came from (``tile_source``: ``"plan"`` or ``"default"``).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -297,7 +298,8 @@ def _args(entry, variant, tile, a, b, c, bias, epilogue, split, partials,
           ptr, stream) -> tuple:
     """The C call's arguments of one :func:`launch` (``ptr`` reads each
     operand's address); the batch (1 for a 2-D product) and the operands'
-    batch strides (:func:`batch_stride`) go in ``long long`` slots."""
+    batch strides (:func:`batch_stride`) go in ``long long`` slots, in
+    every entry."""
     m, k = a.shape[-2:]
     n = b.shape[-1]
     batch = (c.shape[0] if c.ndim == 3 else 1, batch_stride(a),
@@ -311,8 +313,7 @@ def _args(entry, variant, tile, a, b, c, bias, epilogue, split, partials,
             DTYPE_CODES[c.dtype], ptr(a), a.stride(-2), a.stride(-1),
             ptr(b), b.stride(-2), b.stride(-1),
             *(() if entry == "repro_gemm" else (bias, epilogue)),
-            ptr(c), c.stride(-2), m, n, k,
-            *(batch if entry == "repro_gemm" else ()), stream)
+            ptr(c), c.stride(-2), m, n, k, *batch, stream)
 
 
 def _record(wrapper, entry, variant, tile, a, b, c, split, call, fake):
@@ -323,6 +324,19 @@ def _record(wrapper, entry, variant, tile, a, b, c, split, call, fake):
                                c.shape[0] if c.ndim == 3 else None),
               smem_bytes=launch_smem(variant, tile, a.dtype),
               operands=(a, b, c), fake=fake)
+
+
+def attributes(variant: str, tile: tuple, out_dtype: torch.dtype,
+               batched: bool) -> tuple:
+    """(registers, local-memory bytes) per thread of the tiled variant's
+    instantiation at ``tile`` storing ``out_dtype``, 2-D or batched, as the
+    card's ``cudaFuncGetAttributes`` reports them (builds the library)."""
+    out = (ctypes.c_int * 2)()
+    err = _build.library("gemm").repro_gemm_attributes(
+        VARIANTS.index(variant), *tile, DTYPE_CODES[out_dtype], int(batched),
+        out)
+    _build.check(err, "repro_gemm_attributes")
+    return out[0], out[1]
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,
@@ -347,11 +361,6 @@ def gemm(a: torch.Tensor, b: torch.Tensor, plan: Optional[GemmPlan] = None,
     if m == 0 or n == 0 or batch == 0:
         return torch.empty(shape, dtype=out_dtype, device=a.device)
     variant = gemm_variant(a, b)
-    if batch is not None and variant == "wgmma" and a.device.type == "cuda":
-        raise ValueError("gemm: a batched bf16 product would take 'wgmma', "
-                         "whose TMA maps are 2-D: the batch axis is limited "
-                         "to f32 ('ffma') and f64 ('dmma') on the tiled "
-                         "variants")
     tile = record_call(gemm, plan, variant, a.device)
     if a.device.type == "cpu":
         return gemm_plain(a, b, out_dtype)

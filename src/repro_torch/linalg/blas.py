@@ -9,8 +9,10 @@ Port of ``repro.linalg.blas`` (levels 1-3). Every routine here:
 * resolves policy / registry / accumulation dtype / machine from the
   active :class:`repro_torch.linalg.ExecutionContext` (``context=``
   overrides per call);
-* takes a leading batch axis on the matrix routines (3-D operands loop
-  over the 2-D path - no vmap);
+* takes a leading batch axis on the matrix routines: 3-D operands run as
+  one lockstep computation over the batch, each GEMM-shaped step one
+  launch for all items (the counterpart of the reference's ``vmap``),
+  resolved on one item's shape;
 * routes to the distributed backend when the context carries a mesh
   (``gemm`` -> SUMMA :func:`repro_torch.blas.distributed.pdgemm`,
   ``syrk`` through ``pdgemm``, ``trsm`` ->
@@ -114,10 +116,16 @@ def _dtype_name(*arrays) -> str:
     return _dtype.name(_result_dtype(*arrays))
 
 
+def _items(sa, sb) -> int:
+    """The batch of a product of operands shaped ``sa`` and ``sb`` (either
+    may be 2-D and broadcast), 1 for a 2-D product."""
+    return sa[0] if len(sa) == 3 else sb[0] if len(sb) == 3 else 1
+
+
 def _gemm_info(a, b, c=None, alpha=1.0, beta=0.0, transa=False, transb=False,
                **kw):
     sa, sb = _shape(a), _shape(b)
-    batch = sa[0] if len(sa) == 3 else 1
+    batch = _items(sa, sb)
     m = sa[-1] if transa else sa[-2]
     k = sa[-2] if transa else sa[-1]
     n = sb[-2] if transb else sb[-1]
@@ -130,7 +138,7 @@ def _gemm_info(a, b, c=None, alpha=1.0, beta=0.0, transa=False, transb=False,
 
 def _gemm_bias_act_info(a, b, bias=None, epilogue="none", **kw):
     sa, sb = _shape(a), _shape(b)
-    batch = sa[0] if len(sa) == 3 else 1
+    batch = _items(sa, sb)
     m, k, n = sa[-2], sa[-1], sb[-1]
     out_itemsize = _result_dtype(a, b).itemsize
     return {"shape": ([m, n, k] if batch == 1 else [batch, m, n, k]),
@@ -258,14 +266,6 @@ def _kw(ctx):
     return dict(policy=resolved_policy(ctx), registry=resolved_registry(ctx))
 
 
-def _batched(fn, *arrays):
-    """Loop a 2-D core over the leading axis of 3-D operands (``None``
-    operands pass through)."""
-    n = next(x for x in arrays if x is not None).shape[0]
-    return torch.stack([fn(*(None if x is None else x[i] for x in arrays))
-                        for i in range(n)])
-
-
 # -------------------------------- level 3 -----------------------------------
 
 @_routine("gemm", _gemm_info)
@@ -273,19 +273,13 @@ def gemm(a, b, c=None, alpha=1.0, beta=0.0, transa: bool = False,
          transb: bool = False, dtype=None, context=None) -> torch.Tensor:
     """C <- alpha * op(A) op(B) + beta * C, any supported dtype; with a
     mesh in the context 2-D operands run SUMMA ``pdgemm``; 3-D operands
-    loop the local path over the leading axis."""
+    (either side 2-D and broadcast) run the local path on the batch, one
+    launch."""
     ctx = current(context)
     store, (a_, b_, c_) = _operands(ctx, dtype, a, b, c)
     kw = _kw(ctx)
-    if a_.ndim == 3:
-        out = alpha * _batched(
-            lambda x, y: _l3.gemm(x, y, transa=transa, transb=transb, **kw),
-            a_, b_)
-        if c_ is not None:
-            out = out + beta * c_
-        return _cast(out, store)
     mesh = resolved_mesh(ctx)
-    if mesh is not None:
+    if mesh is not None and a_.ndim == b_.ndim == 2:
         from repro_torch.blas import distributed as _dist
         out = _dist.pdgemm(a_.T if transa else a_, b_.T if transb else b_,
                            mesh, c=c_, alpha=alpha, beta=beta, **kw)
@@ -300,13 +294,12 @@ def gemm_bias_act(a, b, bias=None, epilogue: str = "none", dtype=None,
                   context=None) -> torch.Tensor:
     """C = act(A B + bias): the ``"gemm+epilogue"`` chain (one fused B3
     launch when the chain plan says streaming wins, else the B1 kernel
-    and an epilogue pass); 3-D operands share ``bias``."""
+    and an epilogue pass); 3-D operands share ``bias`` and run as one
+    launch for the batch."""
     ctx = current(context)
     store, (a_, b_, bias_) = _operands(ctx, dtype, a, b, bias)
-    kw = _kw(ctx)
-    core = lambda x, y: _l3.gemm_bias_act(x, y, bias=bias_, epilogue=epilogue,
-                                          **kw)
-    out = _batched(core, a_, b_) if a_.ndim == 3 else core(a_, b_)
+    out = _l3.gemm_bias_act(a_, b_, bias=bias_, epilogue=epilogue,
+                            **_kw(ctx))
     return _cast(out, store)
 
 
@@ -315,7 +308,8 @@ def syrk(a, c=None, alpha=1.0, beta=0.0, lower: bool = True,
          trans: bool = False, dtype=None, context=None) -> torch.Tensor:
     """C <- alpha op(A) op(A)^T + beta C, symmetric output, on the GEMM
     kernel path (and its registry entries); under a mesh the product runs
-    through SUMMA ``pdgemm`` before the triangle mirror."""
+    through SUMMA ``pdgemm`` before the triangle mirror; a 3-D A (with or
+    without a 3-D C) is one product for the batch."""
     ctx = current(context)
     store, (a_, c_) = _operands(ctx, dtype, a, c)
     kw = _kw(ctx)
@@ -327,9 +321,8 @@ def syrk(a, c=None, alpha=1.0, beta=0.0, lower: bool = True,
         if c_ is not None:
             full = full + beta * c_
         return _cast(_l3.mirror_triangle(full, lower), store)
-    core = lambda x, y: _l3.syrk(x, c=y, alpha=alpha, beta=beta, lower=lower,
-                                 trans=trans, **kw)
-    out = _batched(core, a_, c_) if a_.ndim == 3 else core(a_, c_)
+    out = _l3.syrk(a_, c=c_, alpha=alpha, beta=beta, lower=lower,
+                   trans=trans, **kw)
     return _cast(out, store)
 
 
@@ -339,7 +332,9 @@ def trsm(a, b, lower: bool = True, unit_diag: bool = False,
          context=None) -> torch.Tensor:
     """Solve op(T) X = B (or X op(T) = B), blocked; the off-diagonal GEMM
     updates follow the context policy onto the kernel. Under a mesh the
-    right-hand-side columns are sharded (``pdtrsm``)."""
+    right-hand-side columns are sharded (``pdtrsm``). A batch, T (B, n, n)
+    with B (B, n, k) or (B, n), runs the blocked solve once for all items,
+    each off-diagonal update one launch."""
     ctx = current(context)
     store, (a_, b_) = _operands(ctx, dtype, a, b)
     kw = _kw(ctx)
@@ -349,10 +344,10 @@ def trsm(a, b, lower: bool = True, unit_diag: bool = False,
         return _cast(_dist.pdtrsm(a_, b_, mesh, lower=lower,
                                   unit_diag=unit_diag, left=left,
                                   block=block, **kw), store)
-    core = lambda t, r: _l3.trsm(t, r, lower=lower, unit_diag=unit_diag,
-                                 left=left, block=block, **kw)
-    out = _batched(core, a_, b_) if a_.ndim == 3 else core(a_, b_)
-    return _cast(out, store)
+    vectors = a_.ndim == 3 and b_.ndim == 2       # one right-hand side each
+    out = _l3.trsm(a_, b_[..., None] if vectors else b_, lower=lower,
+                   unit_diag=unit_diag, left=left, block=block, **kw)
+    return _cast(out[..., 0] if vectors else out, store)
 
 
 # -------------------------------- level 2 -----------------------------------
@@ -361,17 +356,12 @@ def trsm(a, b, lower: bool = True, unit_diag: bool = False,
 def gemv(a, x, y=None, alpha=1.0, beta=0.0, trans: bool = False,
          dtype=None, context=None) -> torch.Tensor:
     """y <- alpha*op(A) x + beta*y; kernel policies run op(A) x on the GEMM
-    kernel (shared registry entries). 3-D a / 2-D x loop over the batch."""
+    kernel (shared registry entries). 3-D a / 2-D x is one product for the
+    batch (B1's ``gemv`` variant)."""
     ctx = current(context)
     store, (a_, x_, y_) = _operands(ctx, dtype, a, x, y)
-    kw = _kw(ctx)
-    if a_.ndim == 3:
-        out = alpha * _batched(lambda m, v: _l2.gemv(m, v, trans=trans, **kw),
-                               a_, x_)
-        if y_ is not None:
-            out = out + beta * y_
-        return _cast(out, store)
-    out = _l2.gemv(a_, x_, y=y_, alpha=alpha, beta=beta, trans=trans, **kw)
+    out = _l2.gemv(a_, x_, y=y_, alpha=alpha, beta=beta, trans=trans,
+                   **_kw(ctx))
     return _cast(out, store)
 
 

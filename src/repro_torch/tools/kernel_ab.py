@@ -8,7 +8,8 @@ prints one JSON line: the name, the card's name and power limit
 (``nvidia-smi``), and the milliseconds per call (CUDA events over 10 calls
 after one warm-up; 5 for the large products and for B8; B2 also as device
 ms per launch from ``torch.profiler``, free of the wrapper's host time) of
-B1 ``ffma`` at 8192^3 f32 and ``dmma`` at 4096^3 f64, of B1 ``gemv`` at
+B1 ``ffma`` at 8192^3 f32, ``wgmma`` at 8192^3 bf16 and ``dmma`` at
+4096^3 f64, of B1 ``gemv`` at
 the TRSM update's 128 x 1 x 8064 f32 (20 calls in one CUDA graph,
 replayed: its host time exceeds the kernel's), of B2 at the drivers'
 trailing updates (nb 128: syrk and lu at n' = 8064, syrk at 1024 f32,
@@ -18,7 +19,10 @@ updates (64 items of nb 128 on the views ``batched_cholesky`` /
 at 384 f64, and the solve alone, lu at m = 0, n' = 384 f32), on inputs
 drawn from seed 0, and of B8 at the five depth sweeps of figs 12-13
 (chip_smoke.py's paper phase: n = 100, the joint depths 2-24, seven
-configurations a launch) with each sweep's instructions. Run it with the
+configurations a launch) with each sweep's instructions; with ``--only
+batched``, of the batched ``wgmma`` at 64 x 1024^3 bf16 on each compiled
+tile and the batched B3 at 64 x 512^3 f32 gelu (the ``linalg3d`` phase's
+shapes; a checkout before the batched ``wgmma`` refuses them). Run it with the
 ``src`` of each checkout in turn in one machine session (A, B, B, A):
 hosts differ.
 """
@@ -28,6 +32,7 @@ import sys
 
 import torch
 
+from repro_torch.core.codesign import plan_from_blocks
 from repro_torch.kernels import fused as fk
 from repro_torch.kernels import gemm as gk
 
@@ -164,6 +169,8 @@ def main(label: str, only=("gemm", "trsm_gemm", "pe_scoreboard")) -> dict:
     if "gemm" in only:
         a, b = rnd(8192, 8192), rnd(8192, 8192)
         out["ffma 8192^3"] = cuda_ms(lambda: gk.gemm(a, b), 5)
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        out["wgmma 8192^3 bf16"] = cuda_ms(lambda: gk.gemm(a, b), 5)
         a, b = rnd(4096, 4096, dtype=torch.float64), \
             rnd(4096, 4096, dtype=torch.float64)
         out["dmma 4096^3 f64"] = cuda_ms(lambda: gk.gemm(a, b), 5)
@@ -189,6 +196,17 @@ def main(label: str, only=("gemm", "trsm_gemm", "pe_scoreboard")) -> dict:
         del l11, args
     if "trsm_gemm" in only:
         batched_trsm_gemm(out, rnd)
+    if "batched" in only:
+        a, b = (rnd(64, 1024, 1024, dtype=torch.bfloat16) for _ in range(2))
+        for tile in gk.TILE_SETS["wgmma"]:
+            plan = plan_from_blocks(1024, 1024, 1024, *tile,
+                                    dtype=torch.bfloat16, machine="h100")
+            out[f"wgmma batched 64x1024^3 bf16 {tile}"] = cuda_ms(
+                lambda: gk.gemm(a, b, plan=plan))
+        a, b, bias = rnd(64, 512, 512), rnd(64, 512, 512), rnd(512)
+        out["gemm_bias_act batched 64x512^3 f32 gelu"] = cuda_ms(
+            lambda: fk.gemm_bias_act(a, b, bias, "gelu"))
+        del a, b, bias
     if "pe_scoreboard" in only:
         pe_sweeps(out)
     return out

@@ -256,10 +256,13 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
 
     The registry backend is the operands' device type. An explicit
     ``machine`` scopes the whole call; ``None`` uses the ambient machine.
-    ``"gemm"`` and ``"trsm+gemm"`` also take a batch, every operand with a
-    leading (B,) axis (a 2-D ``gemm`` operand broadcasts): they resolve on
-    one item's shape, as the reference resolves inside ``vmap``, and run
-    the batch in one launch.
+    Every op but ``"pdgemm"`` also takes a batch, operands with a leading
+    (B,) axis: ``"gemm"`` and ``"gemm+epilogue"`` with either side 2-D
+    and broadcast (``bias`` one length-n vector for every item),
+    ``"syrk"`` a (B, n, k) A, ``"gemv"`` a (B, m, n) A with x (B, n) or a
+    shared (n,), ``"trsm"`` and ``"trsm+gemm"`` every operand. They
+    resolve on one item's shape, as the reference resolves inside
+    ``vmap``, and run each GEMM-shaped step in one launch for the batch.
     """
     if machine is not None:
         with _arch.machine_scope(machine):
@@ -273,18 +276,18 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
         return _gemm_exec(a, b, res)
     if op == "syrk":
         (a,) = args
-        op_a = a.T if kw.pop("trans", False) else a
-        res = resolve("syrk", (op_a.shape[0], op_a.shape[0], op_a.shape[1]),
-                      a.dtype, policy, registry, backend)
-        return _gemm_exec(op_a, op_a.T, res)
+        op_a = a.mT if kw.pop("trans", False) else a
+        n, k = op_a.shape[-2:]
+        res = resolve("syrk", (n, n, k), a.dtype, policy, registry, backend)
+        return _gemm_exec(op_a, op_a.mT, res)
     if op == "gemv":
         a, x = args
-        op_a = a.T if kw.pop("trans", False) else a
-        res = resolve("gemv", tuple(op_a.shape), a.dtype, policy, registry,
-                      backend)
+        op_a = a.mT if kw.pop("trans", False) else a
+        res = resolve("gemv", tuple(op_a.shape[-2:]), a.dtype, policy,
+                      registry, backend)
         if not res.use_pallas:
-            return op_a @ x
-        return _gemm_exec(op_a, x[:, None], res)[:, 0]
+            return op_a @ x if x.ndim == 1 else (op_a @ x[..., None])[..., 0]
+        return _gemm_exec(op_a, x[..., None], res)[..., 0]
     if op == "trsm":
         a, b = args
         from repro_torch.blas import level3         # lazy: avoid import cycle
@@ -298,18 +301,18 @@ def dispatch(op: str, *args, policy: Optional[str] = None,
         a, b = args
         bias = kw.pop("bias", None)
         epilogue = kw.pop("epilogue", "none")
-        res = resolve("gemm+epilogue", (a.shape[0], b.shape[1], a.shape[1]),
-                      a.dtype, policy, registry, backend, epilogue=epilogue,
-                      has_bias=bias is not None)
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        res = resolve("gemm+epilogue", (m, n, k), a.dtype, policy, registry,
+                      backend, epilogue=epilogue, has_bias=bias is not None)
         if not res.use_pallas:
             return _fk.apply_epilogue(a @ b, epilogue, bias)
         _counters.inc("kernel.launch")
         if res.fused:
+            items = _gk.batch_of(a, b) or 1
             with _fk.fused_span("gemm_bias_act", res.chain,
                                 epilogue=epilogue,
-                                flops=2 * a.shape[0] * b.shape[1]
-                                * a.shape[1],
-                                bytes=res.chain.fused_hbm_bytes):
+                                flops=items * 2 * m * n * k,
+                                bytes=items * res.chain.fused_hbm_bytes):
                 return _fk.gemm_bias_act(a, b, bias=bias, epilogue=epilogue,
                                          plan=res.gemm_plan)
         # staged: the GEMM kernel, then the epilogue as a second pass over

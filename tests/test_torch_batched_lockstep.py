@@ -18,9 +18,10 @@ numpy seed:
 (c) the launch records of the card route traced on fake CUDA tensors
     (no card, no build): B2 once per trailing update with 3-D operands and
     the batched grid, B1 twice per QR step, ``gemv`` once per TRSM update,
-    the batch cut at 65535 items a launch, a batched bf16 product refused;
-    and the batched B2's own plan, occupancy table, grid, argument tuple
-    (its zeroed ``sync`` workspace, no BL transpose workspace) and record.
+    the batch cut at 65535 items a launch, a batched bf16 product as one
+    "wgmma" launch; and the batched B2's own plan, occupancy table, grid,
+    argument tuple (its zeroed ``sync`` workspace, no BL transpose
+    workspace) and record.
 """
 import ast
 import inspect
@@ -400,9 +401,15 @@ def test_batch_is_cut_at_the_grid_limit(no_library):
 
 
 def test_batched_bf16_on_the_tensor_cores_is_refused(no_library):
+    """No longer refused: "wgmma" reads a batch through 3-D TMA maps, so a
+    batched bf16 product is one "wgmma" launch with the batch as its
+    grid's y axis (the name stays from when the card route raised)."""
     a = torch.zeros((2, 64, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="batched bf16 .*'wgmma'"):
-        fake_card.trace(tgk.gemm, (a, a), {}, CARD)
+    tr = fake_card.trace(tgk.gemm, (a, a), {}, CARD)
+    assert [(r["variant"], r["grid"][-1]) for r in tr.launches] == \
+        [("wgmma", 2)]
+    assert tr.launches[0]["grid"] == tgk.launch_grid(
+        "wgmma", tr.launches[0]["tile"], 64, 64, None, 2)
     # the CPU route computes it (the plain version)
     assert tgk.gemm(a, a).shape == (2, 64, 64)
 

@@ -797,11 +797,108 @@ def test_batched_gemm_is_bitwise_the_2d_launch_per_item(card, items, m, k,
     torch.cuda.synchronize()
 
 
+# (items, m, k, n, output dtype, tile) of the batched "wgmma" (bf16 on the
+# tensor cores): both compiled tiles, both output dtypes, m and n ragged
+# against the tile, k ragged against its 64-deep stage
+BATCHED_WGMMA_CASES = [(5, 200, 96, 264, "bfloat16", (128, 256, 64)),
+                       (5, 200, 96, 264, "float32", (128, 256, 64)),
+                       (4, 130, 200, 136, "bfloat16", (128, 128, 64)),
+                       (4, 130, 200, 136, "float32", (128, 128, 64))]
+
+
+def _wgmma_operands(card, items, m, k, n, seed):
+    """A as row windows of taller items (a tile past m would read the
+    item's own next rows, never zeros, were the batch not its own TMA
+    axis), B a batch, both bf16."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tall = torch.randn(items, m + 48, k, generator=g, device=card)
+    a = tall.to(torch.bfloat16)[:, 16:16 + m]
+    b = torch.randn(items, k, n, generator=g, device=card).to(torch.bfloat16)
+    return a, b
+
+
 @pytest.mark.cuda
-def test_batched_gemm_refuses_bf16_on_the_tensor_cores(card):
-    a = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=card)
-    with pytest.raises(ValueError, match="'wgmma'"):
-        gk.gemm(a, a)
+@pytest.mark.parametrize("items,m,k,n,out,tile", BATCHED_WGMMA_CASES)
+def test_batched_wgmma_is_bitwise_the_2d_launch_per_item(card, items, m, k,
+                                                        n, out, tile):
+    """A batched bf16 product is one "wgmma" launch at the plan's tile,
+    through 3-D TMA maps: A a batch of row windows, or a 2-D A broadcast;
+    B a batch, or a 2-D B broadcast. Each item bitwise the 2-D launch on
+    it, and close to the plain version."""
+    a, b = _wgmma_operands(card, items, m, k, n, 2)
+    odt = getattr(torch, out)
+    plan = cd.plan_from_blocks(m, n, k, *tile, dtype=torch.bfloat16,
+                               machine="h100")
+    for aa, bb in ((a, b), (a, b[1]), (a[2], b)):
+        before = gk.gemm.variant_launches["wgmma"]
+        got = gk.gemm(aa, bb, plan=plan, out_dtype=odt)
+        assert gk.gemm.variant_launches["wgmma"] == before + 1
+        assert gk.gemm.last_launch["tile"] == tile
+        _close(got, gk.gemm_plain(aa, bb, odt), out, 4.0)
+        for i in range(items):
+            want = gk.gemm(aa if aa.ndim == 2 else aa[i],
+                           bb if bb.ndim == 2 else bb[i], plan=plan,
+                           out_dtype=odt)
+            assert gk.gemm.last_launch["variant"] == "wgmma"
+            assert torch.equal(got[i], want), (aa.ndim, bb.ndim, i)
+    torch.cuda.synchronize()
+
+
+# (items, m, k, n, dtype, variant) of the batched B3: the tiled variants
+# and "simt" (m <= 16), ragged against their tiles
+BATCHED_B3_CASES = [(5, 200, 96, 264, "bfloat16", "wgmma"),
+                    (5, 200, 96, 160, "float32", "ffma"),
+                    (5, 200, 96, 160, "float64", "dmma"),
+                    (4, 12, 40, 70, "float32", "simt")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("items,m,k,n,dtype,variant", BATCHED_B3_CASES)
+def test_batched_gemm_bias_act_is_bitwise_the_2d_launch_per_item(
+        card, items, m, k, n, dtype, variant):
+    """B3 over a batch, one length-n bias for every item: one launch, A a
+    batch of row windows or a 2-D A broadcast, B a batch or a 2-D B
+    broadcast, each epilogue; each item bitwise the 2-D launch on it, and
+    close to the plain version."""
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tall = torch.randn(items, m + 48, k, generator=g, device=card).to(tdt)
+    a = tall[:, 16:16 + m]
+    b = torch.randn(items, k, n, generator=g, device=card).to(tdt)
+    bias = torch.randn(n, generator=g, device=card).to(tdt)
+    for epilogue, bb, aa in (("gelu", b, a), ("relu", b[1], a),
+                             ("none", b, a[3])):
+        before = fk.gemm_bias_act.launches
+        got = fk.gemm_bias_act(aa, bb, bias, epilogue)
+        assert fk.gemm_bias_act.launches == before + 1
+        assert fk.gemm_bias_act.last_launch["variant"] == variant
+        _close(got, fk.gemm_bias_act_plain(aa, bb, bias, epilogue), dtype,
+               4.0)
+        for i in range(items):
+            want = fk.gemm_bias_act(aa if aa.ndim == 2 else aa[i],
+                                    bb if bb.ndim == 2 else bb[i], bias,
+                                    epilogue)
+            assert torch.equal(got[i], want), (epilogue, i)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_tiled_gemm_instantiations_use_no_local_memory(card):
+    """Every compiled tile of the tiled variants, 2-D and batched, each
+    output dtype: no local memory (the batched "wgmma" added four
+    instantiations; the others had none before it either)."""
+    got = {}
+    for dtype, outs in ((torch.bfloat16, (torch.bfloat16, torch.float32)),
+                        (torch.float32, (torch.float32,)),
+                        (torch.float64, (torch.float64,))):
+        variant = gk.TILED[dtype]
+        for tile in gk.TILE_SETS[variant]:
+            for out in outs:
+                for batched in (False, True):
+                    got[variant, tile, out, batched] = gk.attributes(
+                        variant, tile, out, batched)
+    print("\n" + "\n".join(f"{k}: {v[0]} registers" for k, v in got.items()))
+    assert not {k: v for k, v in got.items() if v[1] != 0}, got
 
 
 # (dtype, items, nb, n', forms) of the batched B2: the drivers' views in
@@ -877,3 +974,49 @@ def test_batched_trsm_gemm_uses_no_local_memory(card, dtype):
                 fk.trsm_gemm_registers(tdt, plan)
     bad = {k: v for k, v in got.items() if v[0][1] != 0 or v[0][0] != v[1]}
     assert not bad, bad
+
+
+# ------------------- the 3-D linalg BLAS calls in lockstep -------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_linalg_3d_blas_is_one_launch_per_step_bitwise_per_item(card,
+                                                                dtype):
+    """``linalg.gemm`` / ``gemm_bias_act`` / ``syrk`` / ``gemv`` on a batch:
+    one B1 or B3 launch for the batch, each item bitwise the 2-D call on
+    it; ``trsm``: one B1 launch per off-diagonal block update for the
+    batch, each item within the dtype's tolerance of the 2-D call (its
+    diagonal blocks are eager PyTorch, whose batched products may sum in
+    another order than the 2-D ones)."""
+    from repro_torch import linalg
+
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=card).to(tdt)
+    items, m, k, n = 6, 200, 96, 160
+    a, b, bias, x = rnd(items, m, k), rnd(items, k, n), rnd(n), rnd(items, k)
+    nt, nrhs, block = 192, 32, 64
+    t = (torch.randn(items, nt, nt, generator=g, device=card).tril() / nt
+         + 2 * torch.eye(nt, device=card)).to(tdt)
+    r = rnd(items, nt, nrhs)
+    calls = {
+        "gemm": (lambda *o: linalg.gemm(*o), (a, b), gk.gemm, 1),
+        "gemm_bias_act": (lambda *o: linalg.gemm_bias_act(*o, "gelu"),
+                          (a, b, bias), fk.gemm_bias_act, 1),
+        "syrk": (lambda *o: linalg.syrk(*o), (a,), gk.gemm, 1),
+        "gemv": (lambda *o: linalg.gemv(*o), (a, x), gk.gemm, 1),
+        "trsm": (lambda *o: linalg.trsm(*o, block=block), (t, r), gk.gemm,
+                 -(-nt // block) - 1),
+    }
+    with linalg.use(policy="model", device="cuda"):
+        for name, (call, ops, wrapper, launches) in calls.items():
+            before = wrapper.launches
+            got = call(*ops)
+            assert wrapper.launches == before + launches, name
+            for i in range(items):
+                want = call(*(o if o.ndim == 1 else o[i] for o in ops))
+                if name == "trsm":
+                    _close(got[i], want, dtype, 8.0)
+                else:
+                    assert torch.equal(got[i], want), (name, i)
+    torch.cuda.synchronize()

@@ -278,11 +278,13 @@ def test_cold_start_tuned_is_bitwise_model(data, registry):
         assert torch.equal(m, t)
 
 
-def test_batched_operands_loop_the_2d_path(data):
-    """3-D operands: the factorizations run the batch in lockstep (one
-    blocked computation, as the reference's vmap), each item within the
-    dtype's tolerance of the 2-D path on it and with its pivots exactly;
-    gemm loops the 2-D path (bitwise)."""
+def test_batched_operands_run_in_lockstep_within_tolerance_of_the_2d_path(
+        data):
+    """3-D operands: the factorizations and gemm run the batch in lockstep
+    (one blocked computation, one product, as the reference's vmap), each
+    item within the dtype's tolerance of the 2-D path on it and with its
+    pivots exactly (on the card each batched launch is bitwise the 2-D
+    launch on the item: tests/test_torch_cuda.py)."""
     d = data
     a3 = np.stack([d["spd"], 2 * d["spd"]])
     b3 = np.stack([d["rhs"], -d["rhs"]])
@@ -297,7 +299,7 @@ def test_batched_operands_loop_the_2d_path(data):
             _close(p3[i], packed.numpy(), 16.0)
             assert torch.equal(piv3[i], piv)
             _close(x3[i], tl.solve(a3[i], b3[i], block=BLOCK).numpy(), 64.0)
-            assert torch.equal(g3[i], tl.gemm(a3[i], b3[i]))
+            _close(g3[i], tl.gemm(a3[i], b3[i]).numpy(), 4.0)
 
 
 def test_dtype_and_accumulation_context(data):
