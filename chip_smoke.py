@@ -175,8 +175,11 @@ each printing JSON lines with its wall time:
    ``TRAIN_TOL`` (metrics) and ``SHARD_PARAM_TOL`` (every parameter
    block; the one-device run's last update, what a dropped one would
    leave, printed beside it), seconds a step, peak memory and the step's
-   ``collective.bytes`` / ``shard.redistribute_bytes`` and the TP
-   all-reduces' share (``shard.tp_all_reduce_bytes``); the (2, 2)
+   ``collective.bytes`` / ``shard.redistribute_bytes`` (by op; mamba's,
+   which runs by head as its 50 SSM heads divide model 2, exactly
+   ``mamba in_proj columns``: the rank's heads' columns of in_proj
+   gathered in the forward and remat's recompute, reduce-scattered back)
+   and the TP all-reduces' share (``shard.tp_all_reduce_bytes``); the (2, 2)
    checkpoint restored onto (4, 1) and onto one device, bitwise, at the
    new specs; ``train_loop`` on the debug mesh failed at step 7 and
    restarted (within 1e-4 of the uninterrupted run); four pipeline stages
@@ -185,12 +188,21 @@ each printing JSON lines with its wall time:
    order; and ``sharding.decode_step`` with parameters at
    ``params_specs`` and f32 caches at ``cache_specs`` within
    ``SHARD_DECODE_TOL`` of one device: flash-decoding on each rank's
-   block of the caches' sequence, each rank's cache bytes equal to its
-   spec's blocks', a step's ``collective.bytes`` and each decode op's
-   bytes (``decode q``, ``decode kv token``, ``decode combine``: obs
-   events, to the byte), no k or v leaf gathered (``decode caches``, the
-   whole-cache route's gather, at 0 bytes; the SSM state, whose 50
-   heads divide model 2, under ``decode ssm state``). The first sharded
+   block of the caches' sequence and mamba on each rank's 25 SSM heads
+   against its block of the state, each cache leaf the spec's block on
+   each rank, a step's ``collective.bytes`` and each decode op's bytes
+   (``decode q``, ``decode kv token``, ``decode combine``: obs events, to
+   the byte), no cache leaf gathered (``decode caches`` and ``decode ssm
+   state`` at 0 bytes), mamba's one redistribution its ``in_proj``
+   output of one token (``mamba in_proj output``, to the byte); then
+   ``sharding.prefill`` of ``TRAIN``'s tokens on the 4-layer model (f32,
+   the kernels on), each SSM layer's scan B6 on the rank's 25 heads (4
+   launches a rank) and attention's core whole (25 heads: 4 B5 ``ffma``
+   launches a rank), each rank's logits within ``SHARD_MOE_TOL`` of the
+   one-device prefill, the first layer's B6 output bitwise heads [lo, hi)
+   of a 50-head launch on the same inputs, and on rank 0 B6's and B5's
+   times at the leg's shapes beside their plain versions and bounds, the
+   leg's seconds printed. The first sharded
    step runs inside ``record_transport()`` and an obs trace (its backward on
    autograd's device thread): its "model" all-reduces are TP's, equal to
    ``shard.tp_all_reduce_bytes``, and the grad norm's scalar, its gathers
@@ -4357,6 +4369,7 @@ def shard_legs(rank, directory):
     shard_restart(rows, directory)
     shard_pipeline(rows, rank)
     shard_decode(rows, mesh)
+    shard_ssm_prefill(rows, mesh, rank, directory)
     shard_moe_train(rows, mesh, directory)
     shard_moe_prefill(rows, mesh, rank, int(mesh.size()), directory)
     return rows
@@ -4390,6 +4403,18 @@ def shard_train(rows, mesh, rank, directory):
     bsh = sh.NamedSharding(mesh, sh.batch_specs({"tokens": TRAIN},
                                                 mesh)["tokens"])
     step_fn = ts.make_train_step(cfg, opt_cfg, sh.make_shard_fn(mesh))
+    # mamba by head (its 50 heads divide model 2): each rank's heads'
+    # in_proj columns from in_proj gathered over model where the rank's
+    # tokens outweigh d_model (4096 over 1600), else from its output, in
+    # the forward and remat's recompute, the gradient reduce-scattered
+    # back; nothing else of mamba's moves
+    nmodel = dict(zip(mesh.mesh_dim_names, map(int, mesh.shape)))["model"]
+    width = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+        + cfg.n_ssm_heads
+    tokens = TRAIN[0] // SHARD_MESH[0] * TRAIN[1]
+    want_mamba = {"mamba in_proj columns" if tokens > cfg.d_model else
+                  "mamba in_proj output": 3 * cfg.n_layers * (nmodel - 1)
+                  * min(tokens, cfg.d_model) * width // nmodel * 4}
     counts = zero_launches()
     torch.cuda.reset_peak_memory_stats()
     steps, p_err = [], None
@@ -4402,7 +4427,11 @@ def shard_train(rows, mesh, rank, directory):
         ctr = counters.delta(before)
         if i == 0:                      # the untimed step's records
             transport = shard_transport(moved, ctr, state, mesh, tr)
-        steps.append({"step": i, "wall_s": secs,
+        by_op = {}
+        for e in tr.spans("shard.redistribute"):
+            by_op[e.attrs["op"]] = by_op.get(e.attrs["op"], 0) + \
+                e.attrs["bytes"]
+        steps.append({"step": i, "wall_s": secs, "redistributed": by_op,
                       **{k: m[k].item() for k in ("loss", "grad_norm", "lr")},
                       "collective_bytes": ctr.get("collective.bytes", 0),
                       "redistribute_bytes": ctr.get(
@@ -4426,8 +4455,12 @@ def shard_train(rows, mesh, rank, directory):
                  "steps": steps, "params_max_abs_after_agree": p_err,
                  "step_s": statistics.median(r["wall_s"] for r in steps[1:]),
                  "peak_bytes": torch.cuda.max_memory_allocated(),
-                 "launches": launches})
+                 "launches": launches, "want_mamba": want_mamba})
     assert not any(launches.values()), launches
+    for st in steps:
+        mamba = {k: v for k, v in st["redistributed"].items()
+                 if k.startswith("mamba")}
+        assert mamba == want_mamba, (st["step"], mamba, want_mamba)
     rows.append(transport)
     assert transport["ok"], transport
     return state
@@ -4440,9 +4473,9 @@ def shard_transport(moved, ctr, state, mesh, tr):
     equal to ``shard.tp_all_reduce_bytes``, and the grad norm's one f32
     scalar; the gathers over "data" each block's leaves twice (forward
     and remat's recompute) and the root's once; one reduce-scatter a
-    leaf; the ``shard.redistribute`` events' bytes (the backward's gathers
-    of ``attention wo input`` and ``mamba out_proj input`` among them)
-    equal to ``shard.redistribute_bytes``."""
+    leaf; the ``shard.redistribute`` events' bytes (the backward's gather
+    of ``attention wo input`` and reduce-scatter of ``mamba in_proj
+    columns`` among them) equal to ``shard.redistribute_bytes``."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.train import optimizer
 
@@ -4801,9 +4834,12 @@ def shard_decode(rows, mesh):
     """The 4-layer model (f32) decoding SHARD_DECODE's tokens with its
     parameters at params_specs and f32 caches at cache_specs, against the
     same model's one-device decode: flash-decoding on each rank's block
-    of the k / v caches' sequence. Each rank's cache bytes against its
-    spec's blocks', each step's counters and decode ops (obs events) to
-    the byte, no k or v leaf gathered (``decode caches``)."""
+    of the k / v caches' sequence, mamba on the rank's 25 of the 50 SSM
+    heads against its block of the state. Each rank's cache leaves their
+    spec's blocks, each step's counters and decode ops (obs events) to
+    the byte, no cache leaf gathered (``decode caches`` and ``decode ssm
+    state`` at 0 bytes): mamba's one redistribution is its ``in_proj``
+    output, one token's (the whole conv tail's columns), exactly."""
     from torch.utils import _pytree as pytree
 
     from repro_torch import obs
@@ -4826,12 +4862,21 @@ def shard_decode(rows, mesh):
     local = sum(sh.local_bytes(t) for t in leaves)
     spec = sum(t.numel() * t.element_size() // math.prod(
         sh._axsize(mesh, e) for e in sp) for t, sp in zip(leaves, specs))
+    blocks = all(list(sh.local(t).shape) == [
+        ix.stop - ix.start for ix in sh.local_index(t.shape, t.placements,
+                                                    mesh)] for t in leaves)
+    states = [list(sh.local(c["ssm"]["state"]).shape) for c in scaches]
     whole = sum(t.numel() * t.element_size() for t in leaves)
     want = [model_zoo.decode_step(model, toks[:, i:i + 1], cfg, caches, i)[0]
             for i in range(n)]
     sh.shard_model(model, mesh)
     nmodel = dict(zip(mesh.mesh_dim_names, map(int, mesh.shape)))["model"]
     want_ops = decode_op_bytes(cfg, b // SHARD_MESH[0], nmodel)
+    # mamba's in_proj output, one token of the rank's rows, gathered
+    width = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+        + cfg.n_ssm_heads
+    want_moved = {"mamba in_proj output": cfg.n_layers * (nmodel - 1) * (
+        b // SHARD_MESH[0]) * width // nmodel * 4}
     got, secs, steps = [], [], []
     for i in range(n):
         mesh_barrier()
@@ -4857,21 +4902,214 @@ def shard_decode(rows, mesh):
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     ok_ops = all(st["ops"] == want_ops
                  and st["decode_bytes"] == sum(want_ops.values())
-                 and st["redistributed"].get("decode caches", 0) == 0
+                 and {k: v for k, v in st["redistributed"].items()
+                      if k.startswith("mamba")} == want_moved
+                 and st["redistributed"].get("decode caches", 0)
+                 == st["redistributed"].get("decode ssm state", 0) == 0
                  for st in steps)
+    ok_states = states == [[b // SHARD_MESH[0], cfg.n_ssm_heads // nmodel,
+                            cfg.ssm_head_dim, cfg.ssm_state]] * cfg.n_layers
     ok = err <= SHARD_DECODE_TOL[0] and all(
         bool(torch.isfinite(g).all()) for g in got) and local == spec \
-        and ok_ops
+        and blocks and ok_states and ok_ops
     rows.append({"leg": f"sharded decode hymba-1.5b {SHARD_LAYERS} layers "
                         f"(f32) batch {b}, {n} tokens, f32 caches of "
                         f"{max_len} at cache_specs: flash-decoding on each "
                         f"rank's sequence block", "max_abs_err": err,
                  "tol": SHARD_DECODE_TOL[0], "reason": SHARD_DECODE_TOL[1],
                  "cache_local_bytes": local, "cache_spec_bytes": spec,
-                 "cache_whole_bytes": whole, "want_ops": want_ops,
+                 "cache_whole_bytes": whole, "cache_blocks": blocks,
+                 "ssm_state_local": states, "want_ops": want_ops,
+                 "want_redistributed": want_moved,
                  "decode_steps": steps,
                  "step_s": statistics.median(secs[1:]), "ok": ok})
     assert ok, rows[-1]
+
+
+def ssm_prefill_tokens(cfg):
+    """The SSM prefill leg's TRAIN tokens, the same on every process."""
+    return torch.randint(0, cfg.vocab, TRAIN, generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 3), device="cuda")
+
+
+def shard_ssm_one_device(path):
+    """The SSM prefill leg's one-device run, in this process: the
+    4-layer model (f32) from SEED prefilling ``ssm_prefill_tokens`` with
+    the kernels on; its logits saved to ``path``, its seconds and
+    launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model_zoo
+
+    cfg = shard_cfg()
+    model = model_zoo.init(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    tokens = ssm_prefill_tokens(cfg)
+    with torch.no_grad():
+        model_zoo.prefill(model, {"tokens": tokens}, cfg)     # warm-up
+        counts = zero_launches()
+        (logits, _, _), secs = sync_time(lambda: model_zoo.prefill(
+            model, {"tokens": tokens}, cfg))
+    launches = {k: w.launches for k, w in counts.items() if w.launches}
+    variants = {k: v for k, v in fa.attention.variant_launches.items() if v}
+    assert launches == {"attention": cfg.n_layers,
+                        "ssd_scan": cfg.n_layers}, launches
+    assert bool(torch.isfinite(logits).all())
+    torch.save(logits.cpu(), path)
+    del model, logits
+    torch.cuda.empty_cache()
+    return {"wall_s": secs, "launches": launches,
+            "attention_variants": variants}
+
+
+def shard_ssm_prefill(rows, mesh, rank, directory):
+    """The SSM by head: the 4-layer model (f32, the kernels on) built
+    from SEED on every rank at params_specs, ``sharding.prefill`` of
+    TRAIN's tokens (each DP rank one row). Its 50 SSM heads divide model
+    2, so each SSM layer launches B6 on the rank's 25 heads; attention's
+    25 do not, so its core runs whole on B5 (``ffma``, f32). This rank's
+    logits against the one-device prefill's (SHARD_MOE_TOL); the first
+    SSM layer's B6 output on the rank's heads bitwise heads [lo, hi) of
+    one 50-head launch on its inputs gathered over "model"; then, on rank
+    0, B6's and B5's times at the leg's shapes beside their plain
+    versions and bounds (the other ranks wait)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import vocab_split
+
+    t0 = time.perf_counter()
+    cfg = shard_cfg()
+    model = sh.shard_model(model_zoo.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda"), mesh)
+    tokens = ssm_prefill_tokens(cfg)
+    placed = sh.distribute(tokens, sh.NamedSharding(mesh, sh.batch_specs(
+        {"tokens": tokens}, mesh)["tokens"]))
+    seen = {}
+
+    def first(name, fn):                   # the first call's operands
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            seen.setdefault(name, (args, kw, out))
+            return out
+        return run
+
+    path_ops = ops.ssd, ops.attention
+    ops.ssd, ops.attention = first("ssd", ops.ssd), first("attention",
+                                                          ops.attention)
+    try:
+        with torch.no_grad():
+            mesh_barrier()
+            counts = zero_launches()
+            (logits, _, _), secs = sync_time(lambda: sh.prefill(
+                model, {"tokens": placed}, cfg))
+        launches = {k: w.launches for k, w in counts.items() if w.launches}
+        variants = {k: v for k, v in fa.attention.variant_launches.items()
+                    if v}
+    finally:
+        ops.ssd, ops.attention = path_ops
+    split = vocab_split(logits)
+    v0, v1 = split.span(cfg.vocab) if split is not None else (0, cfg.vocab)
+    got = logits.float().cpu()
+    want = torch.load(os.path.join(directory, "..", "ssm_prefill_logits.pt"),
+                      mmap=True)[sh.dp_rows(TRAIN[0], mesh), :, v0:v1]
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    # B6 on the rank's heads against one launch on every head
+    (x, a, b, c), kw, y = seen["ssd"]
+    heads = [coll.all_gather_cat(t.contiguous(), mesh, "model", 2)
+             for t in (x, a, b, c)]
+    size, index = sh._model_axis(mesh)
+    lo, hi = index * cfg.n_ssm_heads // size, \
+        (index + 1) * cfg.n_ssm_heads // size
+    with torch.no_grad():
+        whole = ops.ssd(*heads, chunk=kw["chunk"], use_kernels=True)
+    bitwise = torch.equal(whole[:, :, lo:hi], y)
+    head_err = (whole[:, :, lo:hi] - y).abs().max().item()
+    ok = err <= SHARD_MOE_TOL[0] * scale and bitwise \
+        and bool(torch.isfinite(got).all()) and got.shape == want.shape
+    row = {"leg": f"ssm prefill: hymba-1.5b {SHARD_LAYERS} layers (f32, the "
+                  f"kernels on), {TRAIN[0]}x{TRAIN[1]} tokens on data x "
+                  f"model {SHARD_MESH}, sharding.prefill: B6 on the rank's "
+                  f"SSM heads, B5's core whole",
+           "wall_s": secs, "launches": launches,
+           "attention_variants": variants,
+           "b6_x_local": list(x.shape), "b6_heads": [lo, hi],
+           "logits_local": list(got.shape), "vocab_block": [v0, v1],
+           "max_abs_err": err, "max_abs_logit": scale,
+           "tol": SHARD_MOE_TOL[0],
+           "b6_bitwise_whole_launch": bitwise, "b6_max_abs_diff": head_err}
+    del whole, heads, got, want, logits
+    mesh_barrier()
+    if rank == 0:
+        row["times"] = shard_ssm_times(seen)
+    mesh_barrier()
+    row["leg_s"] = time.perf_counter() - t0
+    row["ok"] = ok
+    rows.append(row)
+    assert ok, row
+    assert launches == {"attention": cfg.n_layers, "ssd_scan": cfg.n_layers} \
+        and variants == {"ffma": cfg.n_layers}, (launches, variants)
+    assert list(x.shape) == [TRAIN[0] // SHARD_MESH[0], TRAIN[1],
+                             cfg.n_ssm_heads // size, cfg.ssm_head_dim], \
+        x.shape
+    del model, seen
+    torch.cuda.empty_cache()
+
+
+def shard_ssm_times(seen):
+    """B6 and B5 at the SSM prefill leg's shapes (its first launches'
+    operands): ms beside the plain version, the bound and, for B5, SDPA;
+    each held to its plain version (``CLOSE_TOL``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+
+    def held(got, want):
+        rtol, atol, norm_tol, _ = CLOSE_TOL[want.dtype]
+        g, w = got.double(), want.double()
+        diff = (g - w).abs()
+        rms = w.square().mean().sqrt().item()
+        ok = bool((diff <= rtol * w.abs() + atol * rms).all()) and \
+            diff.norm().item() <= norm_tol * w.norm().item()
+        return diff.max().item(), ok
+
+    (x, a, b, c), kw, _ = seen["ssd"]
+    args = tuple(t.movedim(2, 1) for t in (x, a, b, c))    # kernel layout
+    chunk = kw["chunk"]
+    bsz, h, L, p = args[0].shape
+    flops, nbytes = ssd_work(bsz, h, L, p, args[2].shape[-1], chunk, 4)
+    b_ms, b_by = bound(flops, nbytes, torch.float32)
+    err, ok6 = held(sk.ssd_scan(*args, chunk=chunk),
+                    sk.ssd_scan_plain(*args, chunk=chunk))
+    b6 = {"name": "ssd_scan", "shape": f"x{tuple(args[0].shape)} n="
+          f"{args[2].shape[-1]} chunk={chunk} float32 (the rank's heads)",
+          "ms": graph_ms(lambda: sk.ssd_scan(*args, chunk=chunk)),
+          "plain_ms": cuda_ms(lambda: sk.ssd_scan_plain(*args, chunk=chunk)),
+          "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+          "max_abs_err": err, "ok": ok6,
+          "timing": "ms: 20 calls in one CUDA graph, replayed"}
+    (q, k, v), kw, _ = seen["attention"]
+    causal, window = kw.get("causal", True), kw.get("window")
+    flops, nbytes = attention_work(q.shape[0], q.shape[1], k.shape[1],
+                                   q.shape[2], k.shape[2], q.shape[3], 4,
+                                   causal=causal, window=window)
+    b_ms, b_by = bound(flops, nbytes, torch.float32)
+    err, ok5 = held(fa.attention(q, k, v, causal=causal, window=window),
+                    fa.attention_plain(q, k, v, causal=causal, window=window))
+    b5 = {"name": "attention", "shape": f"q{tuple(q.shape)} "
+          f"k/v{tuple(k.shape)} float32 causal={causal} window={window}",
+          "variant": fa.attention.last_launch["variant"],
+          "ms": cuda_ms(lambda: fa.attention(q, k, v, causal=causal,
+                                             window=window)),
+          "plain_ms": cuda_ms(lambda: fa.attention_plain(
+              q, k, v, causal=causal, window=window)),
+          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+              q, k, v, is_causal=causal, enable_gqa=True))
+          if window is None else None,
+          "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+          "ok": ok5}
+    assert ok6 and ok5, (b6, b5)
+    return [b6, b5]
 
 
 def phase_shard(smi):
@@ -4880,9 +5118,9 @@ def phase_shard(smi):
     this process, then four spawned gloo ranks sharing the card on a
     (data, model) = SHARD_MESH mesh: the probe, the sharded steps held to
     one device, their transport records, elastic restores, a train_loop
-    restart, the pipeline, a sharded decode and the moe's two legs (their
-    one-device runs first, here). Every row names the card and its power
-    limit."""
+    restart, the pipeline, a sharded decode, the SSM prefill by head and
+    the moe's two legs (their one-device runs first, here). Every row
+    names the card and its power limit."""
     import shutil
     import tempfile
 
@@ -4906,6 +5144,9 @@ def phase_shard(smi):
              params_tol=SHARD_PARAM_TOL[0])
         assert SHARD_PARAM_TOL[0] <= \
             one["last_update_max_abs"]["median_over_leaves"] / 5, one
+        ssm_one = shard_ssm_one_device(os.path.join(
+            top, "ssm_prefill_logits.pt"))
+        emit(phase="shard", card=smi, ssm_prefill_one_device=ssm_one)
         moe_one = shard_moe_one_device(top)
         emit(phase="shard", card=smi, moe_one_device=moe_one,
              moe_reduced={"train (a)": "qwen3-moe-235b-a22b: n_layers 94 -> "
@@ -4927,9 +5168,12 @@ def phase_shard(smi):
                    "(Megatron column-parallel wq wk wv w_in w_gate in_proj, "
                    "row-parallel wo w_out out_proj with an all-reduce over "
                    "model forward and one for each column-parallel input's "
-                   "gradient; hymba's 25 heads do not divide model, so q, "
-                   "k, v and in_proj's output are gathered over model, "
-                   "counted), each block's leaves all-gathered over data "
+                   "gradient; hymba's 25 attention heads do not divide "
+                   "model, so q, k and v are gathered over model, counted; "
+                   "its 50 SSM heads do, so mamba runs by head: the conv, "
+                   "the scan and the gated norm on the rank's heads, their "
+                   "in_proj columns gathered, counted), each block's "
+                   "leaves all-gathered over data "
                    "only before it runs (again in remat's recompute), "
                    "gradients reduce-scattered over data, on collectives.py's "
                    "transport (gloo, staged through pinned host memory); the "

@@ -91,19 +91,24 @@ non-DP axes) with an obs event ``shard.redistribute`` naming the op:
    heads do not divide the axis (hymba's 25; ``attention wq output``
    ...), then ``attention wo input`` cut back for the row-parallel
    ``wo`` (:class:`_TPScatter`, whose backward gathers); mamba's
-   ``in_proj`` output for the conv, the scan and the gated norm, and
-   ``out_proj``'s input; ``frontend_proj``'s output; the kv heads' columns
-   where the q heads divide and the kv heads do not (``attention wk
-   columns``: each rank's gradient summed back by a reduce-scatter);
+   ``in_proj`` output and ``out_proj``'s input where its SSM heads do
+   not divide the axis (the production meshes, whose 16 divides neither
+   hymba's 50 nor mamba2-130m's 24: the conv, the scan and the gated
+   norm then run every head); where they divide, mamba runs by head
+   (``models/mamba2.py``) and gathers only its heads' ``in_proj``
+   columns, from ``in_proj`` (``mamba in_proj columns``) or from its
+   output (``mamba in_proj output``: decode's one token, which forms
+   the whole conv tail), whichever moves fewer bytes, each rank's
+   gradient summed back by a reduce-scatter; ``frontend_proj``'s output;
+   the kv heads' columns where the q heads divide and the kv heads do
+   not (``attention wk columns``: the same reduce-scatter back);
    prefill's k and v for its caches, which hold every head, and decode's
    where the cache's sequence is whole;
-3. decode: the SSM ``state`` where :func:`cache_specs` splits its heads
-   over "model" (the debug meshes, not the production ones, whose 16
-   divides neither hymba's 50 nor mamba2-130m's 24), gathered over
-   "model" before the step and cut back after (``decode ssm state``; a
-   k / v leaf split over "model" is split along its sequence and stays
-   this rank's block, so no other cache leaf is gathered), and the
-   logits gathered over the vocabulary (``decode logits``);
+3. decode: the logits gathered over the vocabulary (``decode logits``);
+   no cache leaf is gathered under :func:`cache_specs` (a k / v leaf
+   split over "model" is split along its sequence, the SSM ``state``
+   along its heads, and each stays this rank's block: ``decode caches``
+   counts a leaf placed otherwise);
 4. an 8-bit moment's update, which gathers its parameter, gradient and
    codes (``8-bit moment <path>``).
 
@@ -136,13 +141,16 @@ arange(S_local)`` below ``kv_len``, and the partials are combined over
 rank whose block is wholly past ``kv_len`` adds 0). Each is counted
 under ``collective.bytes`` and ``shard.decode_bytes`` with an obs event
 ``shard.decode``. Where the rank runs its own q heads it keeps their
-rows of the result for the row-parallel ``wo``. The other leaves take
-the spec's own degrade rule, as the reference's: a k / v leaf whose S
-does not divide "model", and every leaf under ``seq_shard=False``,
-stays whole over "model" and decodes as before; the SSM ``state``,
+rows of the result for the row-parallel ``wo``. The SSM ``state``,
 split over "model" by heads where they divide (the debug meshes only),
-is still gathered whole for the step (item 3 below), as is mamba's
-``in_proj`` output (item 2: its columns do not fall on head edges).
+stays this rank's head block too, marked with a :class:`TPSplit`
+(``layers.mark_head_split``): mamba's decode gathers its ``in_proj``
+output of the one token (every rank forms the whole conv tail, which
+the specs leave whole) and runs the conv, the state update, the gated
+norm and ``out_proj`` on its heads, updating the block in place. The
+other leaves take the spec's own degrade rule, as the reference's: a
+k / v leaf whose S does not divide "model", and every k / v leaf under
+``seq_shard=False``, stays whole over "model" and decodes as before.
 
 :func:`make_shard_fn` is the models' ``shard_fn(x, name)`` hook (a
 :class:`ShardFn`). The port's activations are each rank's rows already
@@ -186,6 +194,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import obs as _obs
 from repro_torch.distributed import collectives as coll
+from repro_torch.models.layers import narrow_spans
 from repro_torch.obs import counters as _counters
 from repro_torch._state import _Moment, named_parameters
 
@@ -794,22 +803,25 @@ class _TPScatter(torch.autograd.Function):
 
 
 class _TPPick(torch.autograd.Function):
-    """Entries [start, stop) along ``dim`` of a leaf every rank of the
-    "model" axis holds whole, where each rank reads its own entries; the
-    gradient, zero outside them, summed over "model"."""
+    """Entries ``spans`` ([start, stop) pairs, concatenated) along ``dim``
+    of a leaf every rank of the "model" axis holds whole, where each rank
+    reads its own entries; the gradient, zero outside them, summed over
+    "model" (one all-reduce of the whole leaf)."""
 
     @staticmethod
-    def forward(ctx, w, mesh, dim, start, stop):
-        ctx.mesh, ctx.dim, ctx.start, ctx.shape = mesh, dim, start, w.shape
+    def forward(ctx, w, mesh, dim, spans):
+        ctx.mesh, ctx.dim, ctx.spans, ctx.shape = mesh, dim, spans, w.shape
         ctx.rec = coll.forward_scopes()
-        return w.narrow(dim, start, stop - start)
+        return narrow_spans(w, dim, spans)
 
     @staticmethod
     def backward(ctx, g):
-        full = g.new_zeros(ctx.shape)
-        full.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
+        full, at = g.new_zeros(ctx.shape), 0
+        for a, b in ctx.spans:
+            full.narrow(ctx.dim, a, b - a).copy_(g.narrow(ctx.dim, at, b - a))
+            at += b - a
         with coll.transport_scope(ctx.rec):
-            return _tp_all_reduce(full, ctx.mesh), None, None, None, None
+            return _tp_all_reduce(full, ctx.mesh), None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -854,7 +866,12 @@ class TPSplit:
 
     def pick(self, w, dim: int, start: int, stop: int):
         """Entries [start, stop) of a whole leaf (:class:`_TPPick`)."""
-        return _TPPick.apply(w, self.mesh, dim, start, stop)
+        return self.pick_spans(w, dim, ((start, stop),))
+
+    def pick_spans(self, w, dim: int, spans):
+        """Entries ``spans`` ([start, stop) pairs, concatenated) of a whole
+        leaf (:class:`_TPPick`)."""
+        return _TPPick.apply(w, self.mesh, dim, tuple(spans))
 
 
 def _tp_dim(p: DTensor) -> Optional[int]:
@@ -1422,27 +1439,30 @@ class SeqSplit:
             TP_AXIS).to(q.dtype)
 
 
-def _seq_split_of(t: DTensor) -> Optional[SeqSplit]:
-    """The :class:`SeqSplit` of a k / v cache leaf whose sequence dim
-    (``(..., B, S, Hkv, hd)``) its placements split over "model", or
-    None."""
+def _model_block_of(t: DTensor):
+    """(size, this rank's index) of the "model" axis where ``t``'s
+    placements split its dim ``ndim - 3`` over it (a k / v leaf's
+    sequence, (..., B, S, Hkv, hd); the SSM state's heads, (..., B, H, P,
+    N)), or None."""
     names = t.device_mesh.mesh_dim_names
     for m, pl in enumerate(t.placements):
         if isinstance(pl, Shard) and names[m] == TP_AXIS \
                 and pl.dim == t.ndim - 3 and int(t.device_mesh.shape[m]) > 1:
-            size, idx = _model_axis(t.device_mesh)
-            return SeqSplit(t.device_mesh, size, idx)
+            return _model_axis(t.device_mesh)
     return None
 
 
 def _decode_leaves(tree, axis_bytes: Dict[str, int], blocks: dict,
                    name: str = ""):
     """The caches as the model decodes on them: a k / v leaf whose
-    sequence is split over "model" as a view of this rank's block,
-    marked (``layers.mark_seq_split``; ``blocks`` maps the DTensor's id
-    to it); every other DTensor leaf gathered over its non-DP axes
-    (counted into ``axis_bytes``); plain leaves as they are."""
-    from repro_torch.models.layers import mark_seq_split
+    sequence is split over "model" as a view of this rank's block, marked
+    with a :class:`SeqSplit` (``layers.mark_seq_split``), and the SSM
+    state whose heads are as a view of this rank's head block, marked
+    with a :class:`TPSplit` (``layers.mark_head_split``; ``blocks`` maps
+    each DTensor's id to its view); every other DTensor leaf gathered over
+    its non-DP axes (counted into ``axis_bytes``); plain leaves as they
+    are."""
+    from repro_torch.models.layers import mark_head_split, mark_seq_split
     if isinstance(tree, Mapping):
         return {k: _decode_leaves(v, axis_bytes, blocks, str(k))
                 for k, v in tree.items()}
@@ -1451,12 +1471,18 @@ def _decode_leaves(tree, axis_bytes: Dict[str, int], blocks: dict,
                           for v in tree)
     if not isinstance(tree, DTensor):
         return tree
-    split = _seq_split_of(tree) if name in SEQ_LEAVES else None
+    split = _model_block_of(tree) if name in SEQ_LEAVES + ("state",) \
+        else None
     if split is None:
         return _gather(tree, axis_bytes, keep=DP_AXES)
     with torch.no_grad():
         block = tree.to_local()
-    view = mark_seq_split(block.view(block.shape), split)
+    view = block.view(block.shape)
+    if name == "state":
+        view = mark_head_split(view, TPSplit(tree.device_mesh, tree.ndim - 3,
+                                             *split))
+    else:
+        view = mark_seq_split(view, SeqSplit(tree.device_mesh, *split))
     blocks[id(tree)] = view
     return view
 
@@ -1472,12 +1498,14 @@ def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
     the products TP). A k / v leaf whose sequence :func:`cache_specs`
     split over "model" stays this rank's block: the model writes the
     token into it where the block holds the slot, and attends on it by
-    flash-decoding (:class:`SeqSplit`, module docstring, "Decode"). Every
-    other cache leaf is gathered over its non-DP axes (``decode ssm
-    state``: the SSM state where its heads are split) and its block
-    written back after the step. The logits are gathered
-    over the vocabulary and the rows, so every rank returns all (B, 1, V)
-    of them. ``shard_fn``: the models' hook (default
+    flash-decoding (:class:`SeqSplit`, module docstring, "Decode"). The
+    SSM state whose heads it split stays this rank's head block, which
+    mamba's decode updates on its own heads (a :class:`TPSplit` mark).
+    Every other cache leaf is gathered over its non-DP axes (``decode
+    caches``; none under :func:`cache_specs`, which splits no other leaf
+    over "model") and its block written back after the step. The logits
+    are gathered over the vocabulary and the rows, so every rank returns
+    all (B, 1, V) of them. ``shard_fn``: the models' hook (default
     :func:`make_shard_fn`)."""
     mesh = model_mesh(model) or tree_mesh(caches)
     token = full_tensor(token)
@@ -1490,7 +1518,7 @@ def decode_step(model: nn.Module, token: torch.Tensor, cfg, caches,
     axis_bytes: Dict[str, int] = {}
     blocks: Dict[int, DTensor] = {}
     work = _decode_leaves(caches, axis_bytes, blocks)
-    _count(axis_bytes, "decode ssm state")
+    _count(axis_bytes, "decode caches")
     with _swapped(_owners(model), "model parameters"):
         logits, work = model.decode_step(token[rows], work, cache_index,
                                          shard_fn=hook)

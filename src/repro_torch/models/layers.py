@@ -63,6 +63,15 @@ def row_linear(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
     return tp.reduce(linear(x, w))
 
 
+def narrow_spans(t: torch.Tensor, dim: int, spans) -> torch.Tensor:
+    """Entries ``spans`` ([start, stop) pairs) along ``dim`` of ``t``,
+    concatenated in order (a view where there is one span)."""
+    if len(spans) == 1:
+        (a, b), = spans
+        return t.narrow(dim, a, b - a)
+    return torch.cat([t.narrow(dim, a, b - a) for a, b in spans], dim)
+
+
 def tp_split(module: nn.Module, name: str):
     """The record of ``module``'s parameter ``name`` kept as this rank's
     block over "model" (a ``sharding.TPSplit``: the split dim, the axis's
@@ -99,6 +108,20 @@ def seq_split(cache: torch.Tensor):
     return getattr(cache, "_seq_split", None)
 
 
+def mark_head_split(state: torch.Tensor, tp) -> torch.Tensor:
+    """Mark a decode cache's SSM state ((..., B, H, P, N)) as this rank's
+    block of its heads over "model" (a ``sharding.TPSplit``), for
+    mamba's decode (``sharding.decode_step`` marks it)."""
+    state._head_split = tp
+    return state
+
+
+def head_split(state: torch.Tensor):
+    """The record of an SSM state held as this rank's head block
+    (:func:`mark_head_split`), or None (every head)."""
+    return getattr(state, "_head_split", None)
+
+
 def cache_slots(cache: torch.Tensor, dim: int = 1) -> int:
     """The slots of a decode cache along its sequence ``dim``: the whole
     sequence's, where the leaf holds this rank's block of it."""
@@ -107,11 +130,14 @@ def cache_slots(cache: torch.Tensor, dim: int = 1) -> int:
 
 
 def layer_view(cache: torch.Tensor, i: int) -> torch.Tensor:
-    """Layer ``i`` of a stacked cache leaf, its sequence block's mark
-    kept."""
-    split = seq_split(cache)
+    """Layer ``i`` of a stacked cache leaf, its sequence or head block's
+    mark kept."""
     view = cache[i]
-    return view if split is None else mark_seq_split(view, split)
+    if seq_split(cache) is not None:
+        return mark_seq_split(view, seq_split(cache))
+    if head_split(cache) is not None:
+        return mark_head_split(view, head_split(cache))
+    return view
 
 
 class RMSNorm(nn.Module):

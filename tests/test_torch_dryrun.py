@@ -31,9 +31,10 @@ asserted on its own:
 
 At model 2 the port runs TP over "model" (Megatron column and row
 products, attention on each rank's heads where they divide, the
-vocab-parallel embedding, head and loss), so every cell comes within 10 %
-of the reference's flops a chip net of those differences; in train and
-prefill both sides run hymba's attention core whole. Decode at model 2
+vocab-parallel embedding, head and loss, and hymba's SSM by head: 2 of
+its 4 heads a rank), so every cell comes within 10 % of the reference's
+flops a chip net of those differences; in train and prefill both sides
+run hymba's attention core whole. Decode at model 2
 runs flash-decoding on the rank's sequence block of the caches
 (``sharding.decode_step``), as the reference's partitioner splits its
 decode attention: every q head over S / model slots of each layer, so

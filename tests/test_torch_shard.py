@@ -16,9 +16,13 @@ capacity factor, tokens dropped. The products run tensor-parallel over
 heads): the dense model's n_kv 2 on model 4 gathers the kv heads'
 columns; three more models' steps hold the other TP routes (a vocabulary
 that divides the model axis: vocab-parallel embedding, head and loss; a
-hybrid whose 5 heads do not divide it; an encoder-decoder), and the
-vocab-split model's prefill and decode; the TP ops themselves are held
-to the unsplit products in float64 (gradients within 1e-12).
+hybrid whose 5 attention heads do not divide it and whose 8 SSM heads
+do, mamba by head; an encoder-decoder), and the vocab-split model's
+prefill and decode; the TP ops themselves are held to the unsplit
+products in float64 (gradients within 1e-12). The port alone (no
+reference side) runs a Mamba-2 block by head in each route of its
+in_proj columns against one device, and an ssm model's decode on the
+state's head blocks.
 
 Tolerances (``tests/test_torch_train.py``'s, for the same noise): losses
 and grad norms rtol 1e-5, the learning rate 1e-6, parameters atol 2e-4 at
@@ -91,6 +95,19 @@ SPEC = {
                        encoder_layers=2, encoder_seq=16, frontend="audio",
                        pos="sinusoidal", act="gelu", glu=False,
                        dtype="float32"),
+    # the port-only Mamba-2 case (no reference side): 8 SSM heads, which
+    # divide model 4; in_proj's columns (2 x 128 + 2 x state + 8) divide
+    # it at state 8, not at state 5. Each route of in_proj's columns at
+    # its (state, sequence) for 2 rows a rank: picked from a whole
+    # in_proj; gathered as in_proj's columns (128 tokens a rank over d
+    # 64); gathered as its output (32 tokens)
+    "cfg_mamba": dict(name="t", family="ssm", n_layers=2, d_model=64,
+                      n_heads=4, n_kv=4, d_ff=0, vocab=96, ssm_state=8,
+                      ssm_head_dim=16, ssm_expand=2, ssm_groups=1,
+                      ssm_chunk=16, dtype="float32"),
+    "mamba_routes": {"pick": (5, 32), "columns": (8, 64),
+                     "output": (8, 16)},
+    "mamba_decode_steps": 3,
     "opt": dict(lr=5e-3, warmup_steps=2, decay_steps=20),
     "data": dict(vocab=97, global_batch=8, seq_len=32),
     "data_tp": dict(vocab=96, global_batch=8, seq_len=32),
@@ -607,24 +624,29 @@ def test_decode_on_sequence_blocks(runs):
     its windowed layer's ring of 8 (2 a rank) split over "model", the
     ring wrapping from the last rank's block into the first's; its 5
     heads do not divide model 4, so q of every head is wq's output
-    gathered and the core runs every head over the rank's block; its SSM
-    state (8 heads, split over "model") still gathered (``decode ssm
-    state``: its bytes exactly). Against the reference's sharded decode
-    and one device's, every step."""
+    gathered and the core runs every head over the rank's block; its 8
+    SSM heads do, so each rank keeps its 2-head block of the state and
+    updates it in place (``decode ssm state`` at 0 bytes), and only
+    in_proj's output (one token's) and the logits are redistributed.
+    Against the reference's sharded decode and one device's, every
+    step."""
     cfg = SPEC["cfg_hybrid"]
     steps, b = SPEC["hybrid_decode_steps"], SPEC["decode_batch"]
     assert steps > cfg["window"]
     rows, model = b // 2, 4
     heads = 2 * cfg["d_model"] // cfg["ssm_head_dim"]
-    state = (model - 1) * rows * heads // model * cfg["ssm_head_dim"] \
-        * cfg["ssm_state"] * 4 * cfg["n_layers"]
     want = _decode_op_bytes(rows, cfg["n_heads"], cfg["head_dim"],
                             cfg["n_kv"], model, cfg["n_layers"], False)
-    _decode_agrees(runs, "hdecode", steps, want, state=state)
+    _decode_agrees(runs, "hdecode", steps, want, state=0)
     for meta in runs["meta"]:
         local = meta["hdecode"]["local"]
         assert local["0/attn/k"] == [rows, 16 // model, 1, 16]
         assert local["1/attn/k"] == [rows, 8 // model, 1, 16]
+        for i in range(cfg["n_layers"]):
+            assert local[f"{i}/ssm/state"] == [
+                rows, heads // model, cfg["ssm_head_dim"], cfg["ssm_state"]]
+        assert all(r == ["decode logits", "mamba in_proj output"]
+                   for r in meta["hdecode"]["redistributed"])
 
 
 def test_encdec_decode_on_split_cross_caches(runs):
@@ -641,6 +663,88 @@ def test_encdec_decode_on_split_cross_caches(runs):
         local = meta["edecode"]["local"]
         assert local["cross_k"] == [2, 1, cfg["encoder_seq"] // 2, 4, 16]
         assert local["self/k"] == [2, 1, s // 2, 4, 16]
+
+
+def _mamba_bytes(route):
+    """What one forward and backward of the Mamba-2 case's block moves on
+    2 x 4 in ``route`` (SPEC's ``mamba_routes``): the redistributed bytes
+    by op (in_proj's columns or its output gathered, (n - 1) blocks of
+    the rank's, and reduce-scattered back, as much again; none where
+    in_proj is whole) and TP's all-reduces, 2 (n - 1) / n of each
+    all-reduced tensor: the norm's sum of squares (forward, and its
+    gradient), out_proj's partial output, the input's gradient, and the
+    gradients of the leaves picked whole (conv_w, conv_b, a_log, dt_bias,
+    d_skip, the norm's scale, and in_proj where it is whole)."""
+    cfg = SPEC["cfg_mamba"]
+    state, seq = SPEC["mamba_routes"][route]
+    n, d = 4, cfg["d_model"]
+    di = cfg["ssm_expand"] * d
+    h = di // cfg["ssm_head_dim"]
+    width, conv = 2 * di + 2 * state + h, di + 2 * state
+    tokens = SPEC["decode_batch"] // 2 * seq
+    moved = {"pick": {},
+             "columns": {"mamba in_proj columns": 2 * (n - 1) * d * width
+                         // n * 4},
+             "output": {"mamba in_proj output": 2 * (n - 1) * tokens
+                        * width // n * 4}}[route]
+    reduced = 2 * tokens + 2 * tokens * d + (4 + 1) * conv + 3 * h + di \
+        + (d * width if route == "pick" else 0)
+    return moved, 2 * (n - 1) * reduced * 4 // n
+
+
+@pytest.mark.parametrize("route", ["pick", "columns", "output"])
+def test_mamba_by_head(runs, route):
+    """The port's Mamba-2 block by head on 2 x 4 (8 heads, 2 a rank): one
+    forward and backward of each rank's rows against one device's, the
+    output and every gradient (the input's and each leaf's, gathered)
+    within 1e-5 of its largest value; in_proj's columns picked from a
+    whole leaf (state 5: 274 columns do not divide model 4), gathered as
+    in_proj's columns (more tokens a rank than d_model) or as its output
+    (fewer), chosen from the shapes alone; each route's bytes exactly
+    :func:`_mamba_bytes`'."""
+    moved, reduced = _mamba_bytes(route)
+    cfg = SPEC["cfg_mamba"]
+    state = SPEC["mamba_routes"][route][0]
+    width = 4 * cfg["d_model"] + 2 * state + 8
+    for meta in runs["meta"]:
+        got = meta["mamba"][route]
+        # in_proj's columns split over "model" where they divide it (its
+        # rows over "data"), else over "data" only: whole over "model"
+        assert got["in_proj_local"] == ([cfg["d_model"], width // 2]
+                                        if route == "pick" else
+                                        [cfg["d_model"] // 2, width // 4])
+        assert got["redistributed"] == moved, got
+        assert got["tp_all_reduce_bytes"] == reduced, got
+        for k, e in got["err"].items():
+            assert e <= LOSS_RTOL, (route, k, e)
+
+
+def test_mamba_decode_on_head_blocks(runs):
+    """Three decode steps of the ssm model whose in_proj is whole (its 8
+    heads divide model 4, its 274 columns do not), the port alone: the
+    logits within 2e-3 of one device's, the caches gathered within 1e-6;
+    each layer's state held as the rank's 2-head block of its stacked
+    leaf and updated in place, the conv tail whole; nothing
+    redistributed but the logits."""
+    cfg = SPEC["cfg_mamba"]
+    state = SPEC["mamba_routes"]["pick"][0]
+    rows = SPEC["decode_batch"] // 2
+    for out, meta in zip(runs["port"], runs["meta"]):
+        facts = meta["sdecode"]
+        for i in range(SPEC["mamba_decode_steps"]):
+            np.testing.assert_allclose(out[f"sdecode/logits{i}"],
+                                       out[f"sdecode/one/logits{i}"],
+                                       atol=DECODE_ATOL, rtol=0)
+            assert facts["redistributed"][i] == ["decode logits"]
+            assert facts["decode_state"][i] == facts["decode_caches"][i] \
+                == 0
+        assert facts["local"] == facts["block"]
+        assert facts["local"]["state"] == [
+            cfg["n_layers"], rows, 2, cfg["ssm_head_dim"], state]
+        for k in ("state", "conv"):
+            np.testing.assert_allclose(out[f"sdecode/cache/{k}"],
+                                       out[f"sdecode/one/cache/{k}"],
+                                       atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("tag", ["mdecode", "vdecode"])
@@ -940,14 +1044,16 @@ def test_train_loop_on_a_mesh_with_a_restart(runs):
 TP_TAGS = ("vocab", "hybrid", "encdec")
 # what each TP case gathers over "model" a step: the kv heads' columns
 # where n_kv does not divide the model axis, the hybrid's attention
-# projections (5 heads over 4) and mamba's in_proj columns, and nothing
-# else (no block's or the root's parameters)
+# projections (5 heads over 4) and mamba's in_proj columns (its 8 SSM
+# heads divide the axis: the rank's heads' columns, narrowed from in_proj
+# gathered, as 128 tokens a rank outweigh d_model 64), and nothing else
+# (no block's or the root's parameters)
 TP_REDISTRIBUTED = {
     "f32": ["attention wk columns", "attention wv columns"],
     "vocab": ["attention wk columns", "attention wv columns"],
     "hybrid": ["attention wk output", "attention wo input",
                "attention wq output", "attention wv output",
-               "mamba in_proj output", "mamba out_proj input"],
+               "mamba in_proj columns"],
     "encdec": [],
 }
 
@@ -955,7 +1061,8 @@ TP_REDISTRIBUTED = {
 @pytest.mark.parametrize("tag", TP_TAGS)
 def test_tp_train_step(runs, tag):
     """Two steps on 2 x 4 with TP over "model" (a vocab-parallel dense
-    model, a hybrid whose heads do not divide, an encoder-decoder) against
+    model, a hybrid whose attention heads do not divide and whose SSM
+    heads do, an encoder-decoder) against
     the port's one-device steps and the reference's sharded ones: losses,
     grad norms, lr and the parameters; every rank's state the same."""
     port, ref = runs["port"][0], runs["ref"]

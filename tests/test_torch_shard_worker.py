@@ -157,6 +157,81 @@ def _tp_ops(mesh):
     return out
 
 
+def _mamba_cfg(spec, state):
+    """The port-only Mamba-2 case's config at SSM state ``state``."""
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(**cfg_of({**spec["cfg_mamba"], "ssm_state": state}))
+
+
+def _mamba_model(cfg, seed):
+    """``cfg``'s model with every parameter drawn from a numpy seed (no
+    leaf uniform, so an entry picked wrong shows)."""
+    from repro_torch.models import model_zoo
+    model = model_zoo.build(cfg, "cpu")
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(0.3 * rng.standard_normal(
+                tuple(p.shape)).astype(np.float32)))
+        for blk in model.blocks:          # decays in (0, 1): A < 0, dt > 0
+            blk.ssm.a_log.copy_(blk.ssm.a_log.abs().log1p())
+    return model
+
+
+def _mamba_heads(spec, mesh):
+    """Mamba-2 by head on ``mesh`` (data 2, model 4; the port alone): one
+    block of the ssm config, whose heads divide model 4, forward and
+    backward on this rank's rows against one device's, in each route for
+    in_proj's columns (``spec["mamba_routes"]``: picked from a whole
+    in_proj, gathered as in_proj's columns, gathered as its output); the
+    redistributed bytes by op, the TP all-reduces' bytes, this rank's
+    in_proj block and the largest error of the output and of every
+    gradient over its largest value."""
+    from repro_torch import obs
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.obs import counters
+    meta = {}
+    for route, (state, seq) in spec["mamba_routes"].items():
+        cfg = _mamba_cfg(spec, state)
+        one = _mamba_model(cfg, 9).blocks[0].ssm.requires_grad_(True)
+        mine = sh.shard_model(_mamba_model(cfg, 9).blocks[0].ssm
+                              .requires_grad_(True), mesh)
+        rng = np.random.default_rng(10)
+        b = spec["decode_batch"]
+        xs = torch.from_numpy(rng.standard_normal(
+            (b, seq, cfg.d_model)).astype(np.float32))
+        c = torch.from_numpy(rng.standard_normal(
+            (b, seq, cfg.d_model)).astype(np.float32))
+        rows, ndp = sh.dp_rows(b, mesh), sh.dp_size(mesh)
+        x1, xr = xs.requires_grad_(True), xs[rows].detach().requires_grad_(
+            True)
+        y1 = one(x1)
+        ((y1 * c).sum() / ndp).backward()
+        before = counters.snapshot()
+        with obs.trace() as tr:
+            y = mine(xr)
+            (y * c[rows]).sum().backward()
+        ctr = counters.delta(before)
+        moved = {}
+        for e in tr.spans("shard.redistribute"):
+            moved[e.attrs["op"]] = moved.get(e.attrs["op"], 0) + \
+                e.attrs["bytes"]
+        want = dict(one.named_parameters())
+        err = {"y": ((y - y1[rows]).abs().max() / y1.abs().max()).item(),
+               "x": ((xr.grad - ndp * x1.grad[rows]).abs().max()
+                     / (ndp * x1.grad).abs().max()).item()}
+        for name, p in mine.named_parameters():
+            g1 = want[name].grad
+            err[name] = ((sh.full_tensor(p.grad) - g1).abs().max()
+                         / g1.abs().max()).item()
+        meta[route] = {"redistributed": moved,
+                       "tp_all_reduce_bytes": ctr.get(
+                           "shard.tp_all_reduce_bytes", 0),
+                       "in_proj_local": list(sh.local(mine.in_proj).shape),
+                       "err": err}
+    return meta
+
+
 def _backward_records(cfg, state, batch, mesh, fresh):
     """One sharded step's forward on this thread inside a
     ``record_transport()`` scope and an obs trace, and its backward on
@@ -512,6 +587,7 @@ def run(rank, world, d):
         for k, v in _flat_state(one).items():
             out[f"{tag}/one/state/{k}"] = v
     meta["tp_ops"] = _tp_ops(mesh24)
+    meta["mamba"] = _mamba_heads(spec, mesh24)
     meta["update_chunks_bitwise"] = _update_chunks(mesh24)
 
     # 1c. a sharded step's backward on a fresh thread records what it
@@ -578,7 +654,8 @@ def run(rank, world, d):
                  out, meta)
 
     # 3e. the hybrid (5 heads on model 4: q of every head gathered; its
-    #     windowed layer's ring wrapping across the blocks) on 2 x 4, and
+    #     windowed layer's ring wrapping across the blocks; its 8 SSM
+    #     heads' state each rank's 2-head block) on 2 x 4, and
     #     the encoder-decoder on 4 x 2 (its cross K / V split over model)
     hcfg = ModelConfig(**cfg_of(spec["cfg_hybrid"]))
     hinit = _nested(x, "hybrid_init")
@@ -589,6 +666,16 @@ def run(rank, world, d):
     hs = spec["hybrid_decode_len"]
     _decode_case("hdecode", model, smodel, hcfg, mesh24, htoks,
                  lambda: model_zoo.init_caches(model, hcfg, b, hs,
+                                               dtype=torch.float32),
+                 out, meta)
+    # ... and the ssm model whose in_proj is whole (its heads divide model
+    #     4, its columns do not): the state its layers' head blocks
+    scfg = _mamba_cfg(spec, spec["mamba_routes"]["pick"][0])
+    model = _mamba_model(scfg, 11)
+    smodel = sh.shard_model(_mamba_model(scfg, 11), mesh24)
+    _decode_case("sdecode", model, smodel, scfg, mesh24,
+                 htoks[:, :spec["mamba_decode_steps"]],
+                 lambda: model_zoo.init_caches(model, scfg, b, hs,
                                                dtype=torch.float32),
                  out, meta)
     ecfg = ModelConfig(**cfg_of(spec["cfg_encdec"]))
